@@ -1,0 +1,77 @@
+"""The port's CUDA kernels against their plain PyTorch twins, on the card.
+
+Every test here is marked ``cuda`` and skips without a GPU. The file needs
+neither JAX nor the JAX package, so it also runs on a machine that has
+only torch; there, skip the repository's conftest (which sets up JAX):
+
+    python -m pytest tests/test_torch_cuda.py --noconftest -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from tod_tpu_torch.ops import segmented as tseg
+from tod_tpu_torch.types import TodModel
+
+
+def _cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (a CUDA kernel has no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _edge_case_db(rng, device):
+    """An empty object, objects spanning several row tiles and DB chunks,
+    duplicated rows (the lowest-row tie rule) and a one-row object."""
+    sizes = [300, 0, 4500, 64, 700, 1, 513]
+    descs = [rng.integers(0, 256, (n, 32), dtype=np.uint8) for n in sizes]
+    descs[3][10:20] = descs[3][5]
+    models = [TodModel(f"o{i}", d, np.zeros((len(d), 3), np.float32))
+              for i, d in enumerate(descs)]
+    return descs, tseg.pack_segmented(models, db_chunk=2048, device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_q", [512, 300, 1])
+def test_b1_matches_twin(n_q):
+    dev = _cuda()
+    rng = np.random.default_rng(n_q)
+    descs, db = _edge_case_db(rng, dev)
+    q = rng.integers(0, 256, (n_q, 32), dtype=np.uint8)
+    q[0] = descs[4][123]                   # distance 0
+    if n_q > 2:
+        q[1] = ~descs[5][0]                # distance 256
+        q[2] = descs[3][5]                 # ties over 11 equal rows
+    q = torch.from_numpy(q).to(dev)
+    before = tseg.object_top1.launches
+    d, r = tseg.object_top1(q, db)
+    torch.cuda.synchronize()
+    assert tseg.object_top1.launches == before + 1
+    d_t, r_t = tseg.object_top1_torch(q, db)
+    assert torch.equal(d, d_t) and torch.equal(r, r_t)
+    d, r = d.cpu().numpy(), r.cpu().numpy()
+    assert (d[:, 1] == tseg.DIST_CLAMP).all() and (r[:, 1] == 0).all()
+    assert (d[0, 4], r[0, 4]) == (0, 123)
+    if n_q > 2:
+        assert (d[1, 5], r[1, 5]) == (256, 0)
+        assert (d[2, 3], r[2, 3]) == (0, 5)
+
+
+@pytest.mark.cuda
+def test_b1_refuses_what_it_cannot_take():
+    dev = _cuda()
+    rng = np.random.default_rng(1)
+    _, db = _edge_case_db(rng, dev)
+    q = torch.from_numpy(rng.integers(0, 256, (8, 32), dtype=np.uint8))
+    with pytest.raises(ValueError):
+        tseg.object_top1(q.to(dev).to(torch.int32), db)     # dtype
+    with pytest.raises(ValueError):
+        tseg.object_top1(q.to(dev)[:, :16], db)              # width
+    with pytest.raises(ValueError):
+        tseg.object_top1(q.to(dev).view(-1)[1:161].view(5, 32), db)  # align
+    cpu_db = tseg.pack_segmented([TodModel("a", np.zeros((3, 32), np.uint8),
+                                           np.zeros((3, 3), np.float32))])
+    with pytest.raises(ValueError):
+        tseg.object_top1(q.to(dev), cpu_db)                  # DB elsewhere

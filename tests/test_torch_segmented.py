@@ -1,0 +1,124 @@
+"""Parity of the port's segmented matcher (tod_tpu_torch.ops.segmented) with
+tod_tpu.ops.pallas.segmented.
+
+On the CPU the port's wrapper runs its plain twin; it must equal, bit for
+bit, both the reference's XLA twin and its Pallas kernel run in interpret
+mode (as tests/test_segmented.py runs it). The CUDA kernel itself is
+compared with the twin in test_torch_cuda.py, which needs a card.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from tod_tpu.db.models import TodModel as JaxModel
+from tod_tpu.ops.pallas import segmented as jseg
+from tod_tpu_torch import convert
+from tod_tpu_torch.ops import segmented as tseg
+from tod_tpu_torch.types import TodModel
+
+torch.set_num_threads(1)
+
+
+def _arrays(rng, sizes):
+    return [(rng.integers(0, 256, (n, 32), dtype=np.uint8),
+             rng.uniform(-0.1, 0.1, (n, 3)).astype(np.float32))
+            for n in sizes]
+
+
+def _both(arrays):
+    jm = [JaxModel(f"o{i}", d, p) for i, (d, p) in enumerate(arrays)]
+    tm = [TodModel(f"o{i}", d, p) for i, (d, p) in enumerate(arrays)]
+    return jm, tm
+
+
+def _edge_case_models(rng):
+    """An empty object, one spanning several chunks, duplicated rows (the
+    lowest-row tie rule) and rows at distance 0 and 256 from query 0/1."""
+    arrays = _arrays(rng, [300, 0, 4500, 64, 700, 1])
+    dup = arrays[3][0]
+    dup[10:20] = dup[5]                  # rows 5 and 10..19 equal
+    return arrays
+
+
+def _queries(rng, arrays, n=512):
+    q = rng.integers(0, 256, (n, 32), dtype=np.uint8)
+    q[0] = arrays[4][0][123]             # distance 0 to object 4 row 123
+    q[1] = ~arrays[5][0][0]              # distance 256 to object 5's row
+    q[2] = arrays[3][0][5]               # distance 0 to 11 equal rows of o3
+    return q
+
+
+def test_pack_segmented_layout_matches(rng):
+    arrays = _arrays(rng, [5, 2049, 700, 0])
+    jm, tm = _both(arrays)
+    jdb = jseg.pack_segmented(jm, db_chunk=2048, reserve_rows=100)
+    tdb = tseg.pack_segmented(tm, db_chunk=2048, reserve_rows=100)
+    for name in ("obj_start", "n_rows", "spans", "points"):
+        np.testing.assert_array_equal(getattr(tdb, name).numpy(),
+                                      np.asarray(getattr(jdb, name)))
+    assert tdb.db_chunk == jseg.db_chunk_of(jdb) == 2048
+    assert tdb.starts_host == (0, 2048, 6144, 8192)
+    assert tdb.rows_host == (5, 2049, 700, 0)
+    # rows hold the reference's bits, packed: (N_pad, 8) int32 words
+    bits = np.asarray(jdb.bits_t).T.astype(np.uint8)
+    packed = np.packbits(bits, axis=1, bitorder="little")
+    assert tuple(tdb.words.shape) == (bits.shape[0], 8)
+    np.testing.assert_array_equal(tdb.words.view(torch.uint8).numpy(),
+                                  packed)
+
+
+def test_twin_matches_reference_twin_and_interpret_kernel(rng):
+    arrays = _edge_case_models(rng)
+    jm, tm = _both(arrays)
+    jdb = jseg.pack_segmented(jm, db_chunk=2048)
+    tdb = tseg.pack_segmented(tm, db_chunk=2048)
+    q = _queries(rng, arrays)
+    d_x, r_x = jseg.object_top1_xla(jnp.asarray(q), jdb, db_chunk=2048)
+    d_f, r_f = jseg.object_top1_fused(jnp.asarray(q), jdb, q_tile=512,
+                                      db_chunk=2048)     # interpret mode
+    d_t, r_t = tseg.object_top1_torch(torch.from_numpy(q), tdb)
+    assert d_t.dtype == torch.float32 and r_t.dtype == torch.int32
+    for d_ref, r_ref in ((d_x, r_x), (d_f, r_f)):
+        np.testing.assert_array_equal(d_t.numpy(), np.asarray(d_ref))
+        np.testing.assert_array_equal(r_t.numpy(), np.asarray(r_ref))
+    d, r = d_t.numpy(), r_t.numpy()
+    assert (d[:, 1] == tseg.DIST_CLAMP).all() and (r[:, 1] == 0).all()
+    assert (d[0, 4], r[0, 4]) == (0, 123)
+    assert (d[1, 5], r[1, 5]) == (256, 0)
+    assert (d[2, 3], r[2, 3]) == (0, 5)      # lowest of the equal rows
+
+
+def test_wrapper_runs_twin_for_cpu_tensors(rng):
+    arrays = _arrays(rng, [100, 0, 333])
+    _, tm = _both(arrays)
+    tdb = tseg.pack_segmented(tm, db_chunk=256)
+    q = torch.from_numpy(rng.integers(0, 256, (37, 32), dtype=np.uint8))
+    before = tseg.object_top1.launches
+    d, r = tseg.object_top1(q, tdb)          # Q need not fill a tile
+    d_t, r_t = tseg.object_top1_torch(q, tdb)
+    assert torch.equal(d, d_t) and torch.equal(r, r_t)
+    assert tseg.object_top1.launches == before   # the twin is no launch
+    with pytest.raises(ValueError):
+        tseg.object_top1(q.to("meta"), tdb)
+
+
+def test_segmented_db_from_jax_round_trip(rng):
+    arrays = _edge_case_models(rng)
+    jm, tm = _both(arrays)
+    jdb = jseg.pack_segmented(jm, db_chunk=2048, reserve_rows=64)
+    fields = {k: np.asarray(v) for k, v in jdb._asdict().items()}
+    got = convert.segmented_db_from_jax(fields, "cpu")
+    want = tseg.pack_segmented(tm, db_chunk=2048, reserve_rows=64)
+    for name in ("words", "points", "obj_start", "n_rows", "spans"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    assert (got.db_chunk, got.starts_host, got.rows_host) == \
+        (want.db_chunk, want.starts_host, want.rows_host)
+    models = convert.models_from_numpy(
+        [f"o{i}" for i in range(len(arrays))], [d for d, _ in arrays],
+        [p[None] for _, p in arrays])       # (1, N, 3) as the model DB has
+    for m, j in zip(models, jm):
+        assert m.object_id == j.object_id and m.n_points == j.n_points
+        assert m.span == pytest.approx(j.span, rel=1e-6)

@@ -1,0 +1,228 @@
+"""The segmented ORB serving slice as a whole: tod_tpu_torch against tod_tpu.
+
+Two objects are trained with the reference's TodTrainer (as test_e2e.py
+does) and joined by two seeded filler objects (tod_tpu_torch.utils.
+smoke_catalog), so that the prescreen and the activation cut have work.
+Both FusedDetectors then see the same frame on the CPU: the port's
+compaction and matcher outputs must equal the reference's, and with the
+reference's RANSAC draws handed to the port both must accept the same
+objects at poses within 1 cm and 2 degrees of each other and of the ground
+truth.
+"""
+
+import dataclasses
+import json
+import os
+from collections import Counter
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from tod_tpu.db import InMemoryDb, insert_observation, load_models_for_objects
+from tod_tpu.db.models import TodModel as JaxModel
+from tod_tpu.geometry.detection import ActivationConfig, GuessConfig
+from tod_tpu.geometry.ransac import RansacConfig
+from tod_tpu.models import FusedDetector, FusedDetectorConfig, TodTrainer
+from tod_tpu.models.fused import bucketed_scores as jax_bucketed_scores
+from tod_tpu.utils.synthetic import (DEFAULT_K, SyntheticObject,
+                                     compose_scene, facing_pose,
+                                     turntable_observations)
+from tod_tpu_torch import convert
+from tod_tpu_torch.models import fused as tfused
+from tod_tpu_torch.ops.segmented import object_top1
+from tod_tpu_torch.types import TodModel
+from tod_tpu_torch.utils.smoke_catalog import smoke_catalog
+from torch_parity import JaxReplayNoise, frame_keys, pose_errors
+
+torch.set_num_threads(1)
+
+OBJECT_IDS = ["slice_alpha", "slice_beta"]
+SEED = 3
+
+
+def _config():
+    """A small cut of the bench's operating point (bench.py build_config):
+    segmented ORB, bucketed compaction, prescreen, three instance rounds
+    with lean continuations, the tight final fit and the quality gate."""
+    return FusedDetectorConfig(
+        n_features=1500, pipeline="segmented", q_cap=1024,
+        bucket_grid=(6, 8), radius=50.0, k_matches=8,
+        activation=ActivationConfig(m_cap=128, n_hypotheses=128,
+                                    prescreen=3),
+        guess=GuessConfig(
+            ransac=RansacConfig(n_hypotheses=256, continuation_hypotheses=64,
+                                min_inliers=8, max_instances=3,
+                                tight_final_fit=True),
+            max_matches_per_object=256, max_active_objects=3),
+        min_quality=100.0)
+
+
+@pytest.fixture(scope="module")
+def world():
+    InMemoryDb.reset_shared()
+    db = InMemoryDb.shared("torch_slice")
+    objects = []
+    for i, oid in enumerate(OBJECT_IDS):
+        obj = SyntheticObject.make(oid, seed=10 + i)
+        objects.append(obj)
+        for obs in turntable_observations(obj, n_views=8):
+            insert_observation(db, oid, obs["frame_number"], obs["image"],
+                               obs["depth"], obs["mask"], obs["K"], obs["R"],
+                               obs["T"])
+        TodTrainer("trainer", object_id=oid, json_db=json.dumps(
+            {"type": "mem", "collection": "torch_slice"}),
+            json_feature_params=json.dumps(
+                {"type": "ORB", "n_features": 800, "n_levels": 3,
+                 "scale_factor": 1.2})).process()
+    trained = load_models_for_objects(db, "all")
+    InMemoryDb.reset_shared()
+    ids, arrays = smoke_catalog(
+        [m.object_id for m in trained],
+        [(np.asarray(m.descriptors), np.asarray(m.points, np.float32)
+          .reshape(-1, 3)) for m in trained], n_objects=4)
+    # scene seed 7: the reference's own poses sit within 1.1 degrees of the
+    # ground truth here (at seed 5 its 20-inlier plane pose is 3.8 degrees
+    # off, so no port could meet the 2 degree bound there)
+    rng = np.random.default_rng(7)
+    poses = [facing_pose(rng, z=0.7), facing_pose(rng, z=0.95)]
+    poses[0][1][0] = -0.16
+    poses[1][1][0] = 0.18
+    image, depth = compose_scene(objects, poses)
+    cfg = _config()
+    jdet = FusedDetector([JaxModel(i, d, p) for i, (d, p) in
+                          zip(ids, arrays)], cfg, seed=SEED)
+    tdet = tfused.FusedDetector(
+        convert.models_from_numpy(ids, [d for d, _ in arrays],
+                                  [p for _, p in arrays]),
+        convert.config_from_dict(dataclasses.asdict(cfg)), seed=SEED,
+        device="cpu")
+    return dict(image=image, depth=depth, poses=poses, cfg=cfg, jdet=jdet,
+                tdet=tdet)
+
+
+def _stage1(world):
+    gray, depth, K = world["jdet"].prepare_frame(world["image"],
+                                                 world["depth"], DEFAULT_K)
+    s1, s2, _ = world["jdet"]._stages
+    ref = s1(gray, depth, K)
+    tgray, tdepth, tK = world["tdet"].prepare_frame(world["image"],
+                                                    world["depth"], DEFAULT_K)
+    port = tfused.stage_features_compact(tgray, tdepth, tK,
+                                         world["tdet"].config)
+    return ref, port, s2
+
+
+def test_compaction_matches(world):
+    (xy, qp, dsc, ok), port, _ = _stage1(world)
+    for name, a, b in (("xy", xy, port[0]), ("qp", qp, port[1]),
+                       ("dsc", dsc, port[2]), ("ok", ok, port[3])):
+        # equal keypoints, descriptors and back-projected points (NaN
+        # where invalid, in the same slots)
+        np.testing.assert_array_equal(b.numpy(), np.asarray(a), name)
+    assert int(port[3].sum()) > 500
+
+
+def test_matcher_outputs_match(world):
+    (_, _, dsc, _), port, s2 = _stage1(world)
+    d_j, r_j = s2(dsc, world["jdet"].sdb)
+    d_t, r_t = object_top1(port[2], world["tdet"].sdb)
+    np.testing.assert_array_equal(d_t.numpy(), np.asarray(d_j))
+    np.testing.assert_array_equal(r_t.numpy(), np.asarray(r_j))
+
+
+def test_bucketed_scores_match():
+    rng = np.random.default_rng(9)
+    n = 400
+    xy = rng.integers(0, 160, (n, 2)).astype(np.float32) * 4.0
+    resp = np.round(rng.uniform(0, 1, n), 1).astype(np.float32)  # ties
+    finite = rng.random(n) < 0.9
+    s_j = jax_bucketed_scores(jnp.asarray(xy), jnp.asarray(resp),
+                              jnp.asarray(finite), (480, 640), (6, 8))
+    s_t = tfused.bucketed_scores(torch.from_numpy(xy), torch.from_numpy(resp),
+                                 torch.from_numpy(finite), (480, 640), (6, 8))
+    np.testing.assert_array_equal(s_t.numpy(), np.asarray(s_j))
+
+
+def test_detectors_accept_the_same_poses(world):
+    jdet, tdet = world["jdet"], world["tdet"]
+    # the port replays the reference's draws for the reference's first
+    # frame key (FusedDetector(seed=SEED) splits its key once per frame)
+    tdet.noise = JaxReplayNoise(frame_keys(SEED, 1)[0],
+                                world["cfg"].guess.ransac.max_instances)
+    jdet._key = jax.random.PRNGKey(SEED)
+    ref = jdet.detect(world["image"], world["depth"], DEFAULT_K)
+    port = tdet.detect(world["image"], world["depth"], DEFAULT_K)
+    assert sorted(r.object_id for r in port) == \
+        sorted(r.object_id for r in ref)
+    assert {r.object_id for r in port} == set(OBJECT_IDS)
+    for r_t in port:
+        r_j = next(r for r in ref if r.object_id == r_t.object_id
+                   and r.confidence == r_t.confidence)
+        assert r_t.clique_size == r_j.clique_size
+        dt, ang = pose_errors(r_t.R, r_t.T, r_j.R, r_j.T)
+        assert dt < 0.01 and ang < 2.0, (r_t.object_id, dt, ang)
+        gt_R, gt_T = world["poses"][OBJECT_IDS.index(r_t.object_id)]
+        dt, ang = pose_errors(r_t.R, r_t.T, gt_R, gt_T)
+        assert dt < 0.01 and ang < 2.0, (r_t.object_id, dt, ang)
+
+
+def test_config_round_trip_and_unported_paths(world):
+    cfg = world["cfg"]
+    port_cfg = convert.config_from_dict(dataclasses.asdict(cfg))
+    assert dataclasses.asdict(port_cfg) == dataclasses.asdict(cfg)
+    models = [TodModel("a", np.zeros((4, 32), np.uint8),
+                       np.zeros((4, 3), np.float32))]
+    for change in (dict(pipeline="global"), dict(feature="SIFT"),
+                   dict(coarse_stride=8), dict(track_width=4),
+                   dict(explore_width=4), dict(subpixel=True)):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tfused.FusedDetector(models, dataclasses.replace(port_cfg,
+                                                             **change))
+    det = tfused.FusedDetector(models, port_cfg)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        det.update_models(models)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        det.detect_batch_raw(None, None, None)
+    assert tfused.FusedDetector([], port_cfg).detect(
+        world["image"], world["depth"], DEFAULT_K) == []
+    # catalog capacity pads with empty slots the reference packs alike
+    cap = dataclasses.replace(port_cfg, catalog_capacity=3, reserve_rows=64)
+    padded = tfused.FusedDetector(models, cap)
+    assert padded.object_ids == ["a", "", ""]
+    assert padded.sdb.rows_host == (4, 0, 0)
+    assert padded.sdb.starts_host == (0, 4096, 8192)
+
+
+def _keypoints(xy, qp, dsc, ok):
+    """Multiset of a compaction's valid keypoints, each as its xy, 3D
+    point and descriptor bytes."""
+    return Counter(a.tobytes() + b.tobytes() + c.tobytes()
+                   for a, b, c in zip(xy[ok], qp[ok], dsc[ok]))
+
+
+@pytest.mark.parametrize("frame", [0, 1])
+def test_fixture_compaction_at_bench_operating_point(frame):
+    """The full-size frames of the smoke fixture at the bench's operating
+    point (640x480, 5000 features, q_cap 2048, 6x8 buckets) against the
+    compiled reference's stored compaction outputs."""
+    fx = np.load(os.path.join(os.path.dirname(__file__), "data",
+                              "torch_smoke_fixture.npz"))
+    cfg = convert.config_from_dict(json.loads(str(fx["config_json"])))
+    det = tfused.FusedDetector([], cfg)
+    out = [t.numpy() for t in tfused.stage_features_compact(
+        *det.prepare_frame(fx["images"][frame], fx["depths"][frame],
+                           fx["K"]), cfg)]
+    ref = [fx[k][frame] for k in ("ref_xy", "ref_qp", "ref_dsc", "ref_ok")]
+    assert int(out[3].sum()) == int(ref[3].sum()) == 2048
+    # Every reference keypoint reproduced bit for bit (xy, 3D point,
+    # descriptor), except at most 2 a frame (chip_smoke.py holds the card
+    # to the same bound). Observed: 0 on frame 0, 1 on frame 1, where one
+    # level-1 pixel rounds 1.5e-5 apart (the resize GEMMs sum in another
+    # order), a FAST score ties its neighbour in the reference but not in
+    # the port, and NMS keeps another corner (ROADMAP queue C).
+    missing = sum((_keypoints(*ref) - _keypoints(*out)).values())
+    assert missing <= 2

@@ -1,0 +1,68 @@
+"""Carry the reference's state into the port: its segmented DB arrays, its
+trained models and its detector configuration.
+
+Inputs are plain numpy arrays and dicts (what ``jax.device_get`` and
+``dataclasses.asdict`` give), so this module needs nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Mapping, Sequence
+
+import numpy as np
+import torch
+
+from tod_tpu_torch.geometry.detection import ActivationConfig, GuessConfig
+from tod_tpu_torch.geometry.ransac import RansacConfig
+from tod_tpu_torch.models.fused import FusedDetectorConfig
+from tod_tpu_torch.ops.segmented import SegmentedDb, db_from_arrays
+from tod_tpu_torch.types import TodModel
+
+
+def segmented_db_from_jax(arrays: Mapping[str, np.ndarray],
+                          device: torch.device | str = "cpu") -> SegmentedDb:
+    """The port's DB from the reference ``SegmentedDb`` fields as numpy:
+    ``bits_t`` (256, N_pad) int8 unpacked bits, ``pop``, ``points``,
+    ``obj_start``, ``n_rows``, ``spans``, ``chunk_obj``, ``chunk_base``.
+    Rows are re-packed to bytes; the chunk tables only fix the chunk size
+    (the port's kernel walks each object's real rows instead)."""
+    bits_t = np.asarray(arrays["bits_t"])
+    n_pad = bits_t.shape[1]
+    n_chunks = max(int(np.asarray(arrays["chunk_obj"]).shape[0]), 1)
+    if n_pad % n_chunks:
+        raise ValueError(f"{n_pad} rows do not split into {n_chunks} chunks")
+    desc = np.packbits(bits_t.T.astype(np.uint8), axis=1, bitorder="little")
+    return db_from_arrays(desc, arrays["points"], arrays["obj_start"],
+                          arrays["n_rows"], arrays["spans"],
+                          n_pad // n_chunks, device)
+
+
+def models_from_numpy(object_ids: Sequence[str],
+                      descriptors: Sequence[np.ndarray],
+                      points: Sequence[np.ndarray]) -> list:
+    """Model holders from the model DB's attachments (descriptors (N, 32)
+    u8 and points (N, 3) or (1, N, 3) f32 per object)."""
+    out = []
+    for oid, d, p in zip(object_ids, descriptors, points, strict=True):
+        out.append(TodModel(str(oid), np.ascontiguousarray(d, np.uint8),
+                            np.asarray(p, np.float32).reshape(-1, 3)))
+    return out
+
+
+def config_from_dict(d: Mapping) -> FusedDetectorConfig:
+    """``FusedDetectorConfig`` from ``dataclasses.asdict`` of the
+    reference's config (nested dicts for ``guess``, ``guess.ransac`` and
+    ``activation``)."""
+    d: Dict = dict(d)
+    guess = dict(d.pop("guess", {}))
+    ransac = RansacConfig(**guess.pop("ransac", {}))
+    d["guess"] = GuessConfig(ransac=ransac, **guess)
+    d["activation"] = ActivationConfig(**d.pop("activation", {}))
+    if d.get("bucket_grid") is not None:
+        d["bucket_grid"] = tuple(d["bucket_grid"])
+    names = {f.name for f in dataclasses.fields(FusedDetectorConfig)}
+    unknown = set(d) - names
+    if unknown:
+        raise ValueError(f"unknown config fields: {sorted(unknown)}")
+    return FusedDetectorConfig(**d)

@@ -1,0 +1,67 @@
+"""Build and load the hand-written CUDA kernels of ``csrc/``.
+
+Each ``csrc/<name>.cu`` exposes a plain C entry point and is compiled at
+first use with ``nvcc`` for ``sm_90a`` into ``build/lib<name>-<hash>.so``
+(the hash is of the source, so an edited kernel is rebuilt), then loaded
+with ``ctypes``. Nothing here runs at import time; on a machine without a
+CUDA toolkit only :func:`load` fails, and only when a kernel is asked for.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD = Path(__file__).resolve().parent / "build"
+SOURCES = ("segmented_top1",)     # every kernel of csrc/, by file stem
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_loaded: Dict[str, ctypes.CDLL] = {}
+build_seconds: Dict[str, float] = {}
+
+
+def _nvcc() -> str:
+    found = os.environ.get("NVCC") or shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels of tod_tpu_torch "
+                       "need the CUDA toolkit (set NVCC or add it to PATH)")
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The compiled library of ``csrc/<name>.cu``, building it if needed."""
+    if name in _loaded:
+        return _loaded[name]
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha1(src.read_bytes()).hexdigest()[:12]
+    lib_path = BUILD / f"lib{name}-{digest}.so"
+    if not lib_path.exists():
+        BUILD.mkdir(parents=True, exist_ok=True)
+        tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
+        t0 = time.perf_counter()
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {src.name}:\n{proc.stderr}")
+        os.replace(tmp, lib_path)   # atomic: concurrent builds agree
+        build_seconds[name] = time.perf_counter() - t0
+    lib = ctypes.CDLL(str(lib_path))
+    _loaded[name] = lib
+    return lib
+
+
+def check(status: int, what: str) -> None:
+    """Raise on a non-zero ``cudaError_t`` returned by a C entry point."""
+    if status != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with cudaError {status}")

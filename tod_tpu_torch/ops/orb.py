@@ -1,0 +1,206 @@
+"""ORB: pyramid -> FAST/Harris -> orientation -> steered BRIEF-256.
+
+Port of tod_tpu/ops/orb.py with the reference's private descriptor format
+(seeded Gaussian pattern, 32 angle bins, bf16-rounded blurred intensities).
+The reference evaluates every angle bin's bit tests as one matrix product
+against +1/-1 difference tables; a column holds +1 at p2 and -1 at p1, so
+its product is exactly I(p2) - I(p1) and bit = I(p2) > I(p1). The port reads
+the two intensities of the keypoint's own bin with a gather instead, which
+gives the same bits without the (K, 1369) x (1369, 8192) product.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import List, NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+from tod_tpu_torch.ops.fast import (fast_score, features_per_level,
+                                    harris_response, select_topk_keypoints)
+from tod_tpu_torch.ops.image import build_pyramid, gaussian_blur
+from tod_tpu_torch.ops.matching import pack_bits
+
+HALF_PATCH = 15          # orientation patch radius (cv::ORB half_patch_size)
+PATCH_RADIUS = 13        # rBRIEF sample coordinates live in [-13, 13]
+EDGE_THRESHOLD = 31      # keypoint margin (cv::ORB edgeThreshold default)
+N_BITS = 256
+N_ANGLE_BINS = 32        # steered-BRIEF orientation quantization
+PATCH_R = 18             # rotated pattern radius: 13*sqrt(2) ~ 18.4, clipped
+PATCH_W = 2 * PATCH_R + 1
+
+
+class Keypoints(NamedTuple):
+    """A fixed-capacity batch of keypoints (padded; use ``valid``)."""
+
+    xy: torch.Tensor        # (K,2) float32 — level-0 pixel coords
+    response: torch.Tensor  # (K,) float32 — Harris response
+    angle: torch.Tensor     # (K,) float32 — orientation, radians
+    level: torch.Tensor     # (K,) int32 — pyramid level
+    valid: torch.Tensor     # (K,) bool
+
+
+# Copied from tod_tpu/ops/orb.py:59 (brief_pattern, its default Gaussian
+# construction), numpy only.
+@functools.lru_cache(maxsize=None)
+def brief_pattern(seed: int = 1234, n_bits: int = N_BITS) -> np.ndarray:
+    """(n_bits, 2, 2) int32 point-pair test pattern: seeded i.i.d. Gaussian
+    pairs, sigma = patch/5, clipped to +/-PATCH_RADIUS, degenerate pairs
+    rejected deterministically."""
+    rs = np.random.RandomState(seed)
+    sigma = (2 * PATCH_RADIUS + 1) / 5.0
+    pairs = np.zeros((n_bits, 2, 2), np.int32)
+    n_done = 0
+    while n_done < n_bits:
+        cand = np.clip(np.round(rs.normal(0.0, sigma, size=(4,))),
+                       -PATCH_RADIUS, PATCH_RADIUS).astype(np.int32)
+        p1, p2 = cand[:2], cand[2:]
+        if (p1 == p2).all():
+            continue
+        pairs[n_done, 0] = p1
+        pairs[n_done, 1] = p2
+        n_done += 1
+    return pairs
+
+
+# Copied from tod_tpu/ops/orb.py:178 (_binned_diff_tables): the same rotated
+# and clipped sample positions, kept as indices instead of +1/-1 columns.
+@functools.lru_cache(maxsize=None)
+def _binned_pattern_indices(n_bins: int = N_ANGLE_BINS) -> np.ndarray:
+    """(n_bins, 256, 2) int64 patch-local flat indices of rotated (p1, p2)
+    for each angle bin."""
+    pattern = brief_pattern().astype(np.float64)          # (256, 2, 2)
+    out = np.zeros((n_bins, N_BITS, 2), np.int64)
+    for b in range(n_bins):
+        theta = 2.0 * np.pi * b / n_bins
+        ca, sa = np.cos(theta), np.sin(theta)
+        rx = np.clip(np.round(pattern[..., 0] * ca - pattern[..., 1] * sa),
+                     -PATCH_R, PATCH_R).astype(int)
+        ry = np.clip(np.round(pattern[..., 0] * sa + pattern[..., 1] * ca),
+                     -PATCH_R, PATCH_R).astype(int)
+        out[b] = (ry + PATCH_R) * PATCH_W + (rx + PATCH_R)   # (256, 2)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _circle_half_widths() -> np.ndarray:
+    """Circle half-width per row offset (cv::ORB IC_Angle's u_max table)."""
+    dys = np.arange(-HALF_PATCH, HALF_PATCH + 1)
+    return np.round(np.sqrt(HALF_PATCH**2
+                            - np.minimum(dys**2, HALF_PATCH**2))).astype(int)
+
+
+def orientation_moments(img: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dense (m10, m01) intensity-centroid moment maps of the 31x31 circular
+    patch, from integral images (zero borders)."""
+    widths = _circle_half_widths()
+    h, w = img.shape
+    x = img.to(torch.float32)
+    pad = HALF_PATCH + 1
+    zpad = torch.nn.functional.pad
+    v = zpad(torch.cumsum(zpad(x, (0, 0, 1, 0)), dim=0),
+             (pad, pad, pad, pad))
+    hc = zpad(torch.cumsum(zpad(x, (1, 0, 0, 0)), dim=1),
+              (pad, pad, pad, pad))
+
+    def vslice(arr, dy, dx):
+        return arr[pad + dy:pad + dy + h, pad + dx:pad + dx + w]
+
+    m10 = torch.zeros_like(x)
+    m01 = torch.zeros_like(x)
+    for dy in range(-HALF_PATCH, HALF_PATCH + 1):
+        hw = int(widths[dy + HALF_PATCH])
+        if dy != 0:
+            row_sum = vslice(hc, dy, hw + 1) - vslice(hc, dy, -hw)
+            m01 = m01 + dy * row_sum
+    for dx in range(-HALF_PATCH, HALF_PATCH + 1):
+        hw = int(widths[dx + HALF_PATCH])
+        if dx != 0:
+            col_sum = vslice(v, hw + 1, dx) - vslice(v, -hw, dx)
+            m10 = m10 + dx * col_sum
+    return m10, m01
+
+
+def keypoint_angles(img: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
+    """Orientation at integer keypoint coords: atan2(m01, m10)."""
+    m10, m01 = orientation_moments(img)
+    x, y = xy[:, 0].long(), xy[:, 1].long()
+    return torch.atan2(m01[y, x], m10[y, x])
+
+
+def angle_bins(angle: torch.Tensor) -> torch.Tensor:
+    """Steered-BRIEF bin of each angle: round(angle / (2 pi / 32)) mod 32."""
+    step = torch.tensor(2.0 * np.pi / N_ANGLE_BINS, dtype=torch.float32,
+                        device=angle.device)
+    return torch.remainder(torch.round(angle / step), N_ANGLE_BINS).long()
+
+
+def extract_patches(image: torch.Tensor, xy: torch.Tensor,
+                    radius: int = PATCH_R) -> torch.Tensor:
+    """(K, 2R+1, 2R+1) patches centred on integer ``xy``. Starts are clamped
+    into the image as the reference's ``dynamic_slice`` clamps them (real
+    keypoints sit EDGE_THRESHOLD from the border, where the clamp never
+    binds)."""
+    h, w = image.shape
+    size = 2 * radius + 1
+    offs = torch.arange(size, device=image.device)
+    sy = (xy[:, 1].long() - radius).clamp(0, h - size)
+    sx = (xy[:, 0].long() - radius).clamp(0, w - size)
+    rows = sy[:, None] + offs                             # (K, size)
+    cols = sx[:, None] + offs
+    return image[rows[:, :, None], cols[:, None, :]]
+
+
+def brief_descriptors(blurred: torch.Tensor, xy: torch.Tensor,
+                      angle: torch.Tensor) -> torch.Tensor:
+    """Steered BRIEF-256 for keypoints at integer level coords: bit i is
+    bf16(I(p2_i)) > bf16(I(p1_i)) in the keypoint's angle bin, packed 8 per
+    byte LSB-first. Returns (K, 32) uint8."""
+    k_count = xy.shape[0]
+    table = torch.from_numpy(_binned_pattern_indices()).to(blurred.device)
+    local = table[angle_bins(angle)].reshape(k_count, -1)  # (K, 512)
+    patches = extract_patches(blurred.to(torch.bfloat16), xy)
+    vals = torch.gather(patches.reshape(k_count, -1), 1, local)
+    vals = vals.reshape(k_count, N_BITS, 2)
+    return pack_bits(vals[..., 1] > vals[..., 0])
+
+
+def orb_detect_and_compute(gray: torch.Tensor, n_features: int = 500,
+                           n_levels: int = 3, scale_factor: float = 1.2,
+                           fast_threshold: float = 20.0,
+                           edge_threshold: int = EDGE_THRESHOLD
+                           ) -> Tuple[Keypoints, torch.Tensor]:
+    """ORB keypoints + 256-bit descriptors with exactly ``n_features``
+    padded slots (invalid slots: valid=False, zero descriptors). Keypoint
+    coords are integer level coords scaled to level 0 (no sub-pixel
+    refinement, the serving default)."""
+    levels = build_pyramid(gray, n_levels, scale_factor)
+    counts = features_per_level(n_features, n_levels, scale_factor)
+    kxs: List[torch.Tensor] = []
+    all_desc: List[torch.Tensor] = []
+    all_resp, all_angle, all_level, all_valid = [], [], [], []
+    for lvl, (img, k_lvl) in enumerate(zip(levels, counts)):
+        if k_lvl == 0:
+            continue
+        score, is_corner = fast_score(img, fast_threshold)
+        harris = harris_response(img)
+        xy, resp, valid = select_topk_keypoints(score, harris, is_corner,
+                                                k_lvl, edge_threshold)
+        angle = keypoint_angles(img, xy)
+        desc = brief_descriptors(gaussian_blur(img, 7, 2.0), xy, angle)
+        desc = torch.where(valid[:, None], desc,
+                           torch.zeros((), dtype=torch.uint8,
+                                       device=desc.device))
+        kxs.append(xy.to(torch.float32) * scale_factor**lvl)
+        all_resp.append(resp)
+        all_angle.append(angle)
+        all_level.append(torch.full((k_lvl,), lvl, dtype=torch.int32,
+                                    device=gray.device))
+        all_valid.append(valid)
+        all_desc.append(desc)
+    kps = Keypoints(xy=torch.cat(kxs), response=torch.cat(all_resp),
+                    angle=torch.cat(all_angle), level=torch.cat(all_level),
+                    valid=torch.cat(all_valid))
+    return kps, torch.cat(all_desc)
