@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch twins, on the card.
+"""The port's CUDA kernels (B1, B2) against their plain PyTorch twins, on
+the card.
 
 Every test here is marked ``cuda`` and skips without a GPU. The file needs
 neither JAX nor the JAX package, so it also runs on a machine that has
@@ -75,3 +76,47 @@ def test_b1_refuses_what_it_cannot_take():
                                            np.zeros((3, 3), np.float32))])
     with pytest.raises(ValueError):
         tseg.object_top1(q.to(dev), cpu_db)                  # DB elsewhere
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_q", [512, 300, 1])
+def test_b2_matches_twin_and_b1_columns(n_q):
+    dev = _cuda()
+    rng = np.random.default_rng(100 + n_q)
+    descs, db = _edge_case_db(rng, dev)
+    q = rng.integers(0, 256, (n_q, 32), dtype=np.uint8)
+    q[0] = descs[4][123]
+    q = torch.from_numpy(q).to(dev)
+    # holes, a repeated id, out-of-order ids, an id past the catalog
+    sel = torch.tensor([4, -1, 2, 1, 4, 0, -1, 6, 3, 9], dtype=torch.int32,
+                       device=dev)
+    before = tseg.object_top1_gathered.launches
+    d, r = tseg.object_top1_gathered(q, db, sel)
+    torch.cuda.synchronize()
+    assert tseg.object_top1_gathered.launches == before + 1
+    d_t, r_t = tseg.object_top1_gathered_torch(q, db, sel)
+    assert torch.equal(d, d_t) and torch.equal(r, r_t)
+    d_b1, r_b1 = tseg.object_top1(q, db)
+    real = (sel >= 0) & (sel < db.n_objects)
+    cols = sel[real].long()
+    assert torch.equal(d[:, real], d_b1[:, cols])
+    assert torch.equal(r[:, real], r_b1[:, cols])
+    assert (d[:, ~real] == tseg.HOLE_DIST).all()
+    assert (r[:, ~real] == tseg.HOLE_ROW).all()
+    assert (d[0, 0].item(), r[0, 0].item()) == (0, 123)
+
+
+@pytest.mark.cuda
+def test_b2_refuses_what_it_cannot_take():
+    dev = _cuda()
+    rng = np.random.default_rng(2)
+    _, db = _edge_case_db(rng, dev)
+    q = torch.from_numpy(rng.integers(0, 256, (8, 32), dtype=np.uint8)).to(dev)
+    sel = torch.zeros(3, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        tseg.object_top1_gathered(q, db, sel.long())             # dtype
+    with pytest.raises(ValueError):
+        tseg.object_top1_gathered(q, db, sel.cpu())               # device
+    with pytest.raises(ValueError):
+        tseg.object_top1_gathered(q, db, torch.zeros(
+            70000, dtype=torch.int32, device=dev))                # grid y

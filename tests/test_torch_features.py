@@ -5,6 +5,8 @@ the CPU. Integer and boolean outputs must be equal; float maps are held to
 the tolerance stated at each assert, with its reason.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -80,6 +82,34 @@ def test_resize_is_antialiased_linear(out_hw):
         align_corners=False)[0, 0].numpy()
     if out_hw[0] < H:
         assert np.abs(plain - r_j).max() > 1.0
+
+
+# (in, out) axis sizes of the bench's 3-level 480x640 pyramid (scale 1.2)
+PYRAMID_AXES = [(480, 400), (480, 333), (640, 533), (640, 444)]
+
+
+@pytest.mark.parametrize("in_out", PYRAMID_AXES)
+def test_resize_weights_against_compiled_reference(in_out):
+    """The weights of the bench's 3-level 480x640 pyramid against the
+    compiled reference's own, bit for bit, read off ``jax.image.resize`` of
+    an identity (each output row of the product is one weight column); then
+    the resized level of both fixture frames, bit for bit, against the
+    compiled reference (the products sum in its GEMM order)."""
+    n_in, n_out = in_out
+    eye = jnp.eye(n_in, dtype=jnp.float32)
+    ref = np.asarray(jax.jit(lambda x: jax.image.resize(
+        x, (n_out, n_in), method="linear"))(eye)).T
+    np.testing.assert_array_equal(timage.resize_weights(n_in, n_out), ref)
+    if n_in != 480:
+        return
+    fx = np.load(os.path.join(os.path.dirname(__file__), "data",
+                              "torch_smoke_fixture.npz"))
+    hw = {400: (400, 533), 333: (333, 444)}[n_out]
+    for image in fx["images"]:
+        gray = jax.jit(jimage.rgb_to_gray)(jnp.asarray(image))
+        lv_j = jax.jit(lambda g: jimage.resize_bilinear(g, hw))(gray)
+        np.testing.assert_array_equal(
+            timage.resize_bilinear(_t(gray), hw).numpy(), np.asarray(lv_j))
 
 
 def test_pyramid_shapes_and_budget_match():

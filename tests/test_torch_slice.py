@@ -177,9 +177,21 @@ def test_config_round_trip_and_unported_paths(world):
     models = [TodModel("a", np.zeros((4, 32), np.uint8),
                        np.zeros((4, 3), np.float32))]
     for change in (dict(pipeline="global"), dict(feature="SIFT"),
-                   dict(coarse_stride=8), dict(track_width=4),
-                   dict(explore_width=4), dict(subpixel=True)):
+                   dict(subpixel=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tfused.FusedDetector(models, dataclasses.replace(port_cfg,
+                                                             **change))
+    # coarse->fine is ported; reserved slots without it, or leaving no
+    # coarse slot, are refused as the reference refuses them
+    for change in (dict(coarse_stride=8), dict(coarse_stride=8, track_width=4,
+                                               explore_width=4)):
+        tfused.check_ported(dataclasses.replace(port_cfg, **change))
+        assert tfused.FusedDetector(models, dataclasses.replace(
+            port_cfg, **change)).cdb.rows_host == (1,)
+    for change in (dict(track_width=4), dict(explore_width=4),
+                   dict(coarse_stride=8, fine_width=8, track_width=4,
+                        explore_width=4)):
+        with pytest.raises(ValueError, match="coarse"):
             tfused.FusedDetector(models, dataclasses.replace(port_cfg,
                                                              **change))
     det = tfused.FusedDetector(models, port_cfg)
@@ -219,10 +231,8 @@ def test_fixture_compaction_at_bench_operating_point(frame):
     ref = [fx[k][frame] for k in ("ref_xy", "ref_qp", "ref_dsc", "ref_ok")]
     assert int(out[3].sum()) == int(ref[3].sum()) == 2048
     # Every reference keypoint reproduced bit for bit (xy, 3D point,
-    # descriptor), except at most 2 a frame (chip_smoke.py holds the card
-    # to the same bound). Observed: 0 on frame 0, 1 on frame 1, where one
-    # level-1 pixel rounds 1.5e-5 apart (the resize GEMMs sum in another
-    # order), a FAST score ties its neighbour in the reference but not in
-    # the port, and NMS keeps another corner (ROADMAP queue C).
+    # descriptor); chip_smoke.py holds the card to the same. (Before the
+    # resize summed in the compiled reference's order, one level-1 pixel
+    # of frame 1 rounded 1.5e-5 apart and swapped a keypoint.)
     missing = sum((_keypoints(*ref) - _keypoints(*out)).values())
-    assert missing <= 2
+    assert missing == 0

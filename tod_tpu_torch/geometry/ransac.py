@@ -12,7 +12,7 @@ the reference's own draws).
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, List, NamedTuple, Sequence, Tuple
+from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -80,6 +80,17 @@ class RansacRound(NamedTuple):
     found: torch.Tensor        # (A,) bool
     rms_residual: torch.Tensor  # (A,) f32
     clique_size: torch.Tensor   # (A,) int64
+
+
+class SeedPose(NamedTuple):
+    """Tracked-pose hypotheses, one per object: each object's last ACCEPTED
+    pose (object -> camera, as ObjectDetections stores it). It enters every
+    tier-2 round's pool as one more candidate under the unchanged
+    acceptance contract, so a stale seed is never accepted on trust."""
+
+    R: torch.Tensor    # (A,3,3) object->camera
+    T: torch.Tensor    # (A,3)
+    ok: torch.Tensor   # (A,) bool: False = no seed (results as without)
 
 
 class ObjectDetections(NamedTuple):
@@ -193,11 +204,31 @@ def presence_score(gumbel: torch.Tensor, matches: ObjectMatches,
     return n_in.amax(-1)
 
 
+def _seed_hypothesis(seed: SeedPose, q: torch.Tensor, t: torch.Tensor,
+                     valid: torch.Tensor, sigma: float):
+    """The seed as a hypothesis in the fit convention (camera -> object),
+    polished by one refit on its strict-sigma inliers. Returns ``(R (A,3,3),
+    T (A,3), inliers (A,M))``; an ``ok=False`` seed has no inliers."""
+    r_s, t_s = invert_pose(seed.R, seed.T)
+    in_0 = valid & (_sq_residual(r_s, t_s, q, t) < sigma * sigma) \
+        & seed.ok[:, None]
+    fit_p = kabsch(q, t, in_0.float())
+    r_p = torch.where(fit_p.ok[:, None, None], fit_p.R, r_s)
+    t_p = torch.where(fit_p.ok[:, None], fit_p.T, t_s)
+    in_s = valid & (_sq_residual(r_p, t_p, q, t) < sigma * sigma) \
+        & seed.ok[:, None]
+    return r_p, t_p, in_s
+
+
 def ransac_round(gumbel: torch.Tensor, matches: ObjectMatches,
                  graphs: AdjacencyGraphs, valid: torch.Tensor,
-                 cfg: RansacConfig) -> RansacRound:
+                 cfg: RansacConfig,
+                 seed: Optional[SeedPose] = None) -> RansacRound:
     """One full RANSAC + refinement on the current valid-match mask; the
-    best pose in the output convention (object -> camera)."""
+    best pose in the output convention (object -> camera). ``seed`` puts
+    one tracked-pose hypothesis FIRST in the pool (score ties resolve to
+    it); it consumes no noise, and an ``ok=False`` seed leaves the results
+    identical to no seed."""
     q, t = matches.query_pts, matches.train_pts
     sigma = cfg.sensor_error
     dev = q.device
@@ -205,6 +236,13 @@ def ransac_round(gumbel: torch.Tensor, matches: ObjectMatches,
         gumbel, matches, graphs, valid, sigma,
         use_residual_test=cfg.use_residual_test,
         weighted=cfg.weighted_sampling)
+    if seed is not None:
+        r_p, t_p, in_s = _seed_hypothesis(seed, q, t, valid, sigma)
+        fit = RigidFit(R=torch.cat([r_p[:, None], fit.R], 1),
+                       T=torch.cat([t_p[:, None], fit.T], 1),
+                       ok=torch.cat([seed.ok[:, None], fit.ok], 1))
+        inlier = torch.cat([in_s[:, None], inlier], 1)
+        n_in = torch.cat([in_s.sum(-1, keepdim=True), n_in], 1)
     b = n_in.shape[-1]
 
     # --- clique certification on the top hypotheses -----------------------
@@ -218,6 +256,15 @@ def ransac_round(gumbel: torch.Tensor, matches: ObjectMatches,
     checked = torch.where(top_n <= minimal, top_n,
                           torch.where(certified, top_n, zero))
     score = torch.clamp_max(n_in, minimal).scatter(-1, top_idx, checked)
+    if seed is not None:
+        # an uncertified seed keeps min(n, minimal) instead of 0, as an
+        # uncertified sampled draw does (acceptance is unchanged)
+        seed_cert = _greedy_clique_size(
+            graphs.sample, (in_s & (samp_deg >= minimal))[:, None],
+            minimal + 1)[:, 0] > minimal
+        n_s = n_in[:, 0]
+        score[:, 0] = torch.where((n_s <= minimal) | seed_cert, n_s,
+                                  torch.clamp_max(n_s, minimal))
     best = torch.argmax(score, dim=-1)                          # (A,)
     found = score.gather(-1, best[:, None])[:, 0] > 0
     ar = torch.arange(q.shape[0], device=dev)
@@ -278,16 +325,20 @@ def ransac_round(gumbel: torch.Tensor, matches: ObjectMatches,
 
 def detect_object_instances(gumbels: Sequence[torch.Tensor],
                             matches: ObjectMatches, graphs: AdjacencyGraphs,
-                            cfg: RansacConfig) -> ObjectDetections:
+                            cfg: RansacConfig,
+                            seed: Optional[SeedPose] = None
+                            ) -> ObjectDetections:
     """The repeated-RANSAC multi-instance loop: run a round, accept the pose
     if it has >= ``min_inliers`` unique query keypoints, invalidate those
     keypoints' matches, repeat; one round per entry of ``gumbels``. As in
-    the reference, a failed round masks only itself."""
+    the reference, a failed round masks only itself. ``seed`` enters every
+    round (once its instance is found, its keypoints are invalidated and
+    later entries score ~0)."""
     valid = graphs.valid
     rounds: List[RansacRound] = []
     accepts: List[torch.Tensor] = []
     for g in gumbels:
-        rnd = ransac_round(g, matches, graphs, valid, cfg)
+        rnd = ransac_round(g, matches, graphs, valid, cfg, seed)
         accept = rnd.found & (rnd.n_unique >= cfg.min_inliers)
         valid = torch.where(
             accept[:, None],
@@ -306,7 +357,7 @@ def detect_object_instances(gumbels: Sequence[torch.Tensor],
 
 
 __all__ = ["CLIQUE_STAT_STEPS", "GumbelNoise", "NoiseFn", "ObjectDetections",
-           "RansacConfig", "RansacRound", "RigidFit",
+           "RansacConfig", "RansacRound", "RigidFit", "SeedPose",
            "consistency_log_weights", "detect_object_instances",
            "presence_score", "propose_and_count", "ransac_round",
            "sample_triples"]

@@ -1,9 +1,16 @@
 """FusedDetector on the segmented ORB serving path (tod_tpu/models/fused.py).
 
 One frame runs as three stages on one device and stream: ORB features with
-query compaction, the per-(query, object) matcher (the CUDA kernel of
+query compaction, the per-(query, object) matcher (the CUDA kernels of
 ``ops/segmented.py`` on the card), and the two-tier segmented geometry. The
 host reads the detections back once, as one packed tensor.
+
+With ``coarse_stride > 0`` the matcher runs coarse->fine: kernel B1 sweeps a
+stride-subsampled companion DB, :func:`stage_coarse_select` picks a slab of
+``fine_width`` objects (plus tracked and exploration slots), kernel B2
+matches exactly against the slab's objects only, and the geometry runs on
+the slab. Tracked slots, the exploration cursor and the last accepted poses
+(tier-2 seeds) are state carried from frame to frame.
 
 Configuration values of other serving paths raise ``NotImplementedError``
 naming the ROADMAP item that ports them; none falls back silently.
@@ -17,15 +24,20 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from tod_tpu_torch.geometry.detection import (ActivationConfig, GuessConfig,
-                                              detect_frame_segmented)
+from tod_tpu_torch.geometry.detection import (
+    AGE_NEVER, ActivationConfig, GuessConfig, coarse_select,
+    detect_frame_gathered, detect_frame_segmented, fold_best_pose,
+    merge_tracked, reserved_force_mask, seeds_from_state, tracked_from_age,
+    tracked_needy, update_age)
 from tod_tpu_torch.geometry.ransac import (GumbelNoise, NoiseFn,
                                            ObjectDetections, RansacConfig)
 from tod_tpu_torch.ops.depth import depth_to_3d_sparse, to_metric_depth
 from tod_tpu_torch.ops.fast import stable_topk
 from tod_tpu_torch.ops.image import rgb_to_gray
 from tod_tpu_torch.ops.orb import orb_detect_and_compute
-from tod_tpu_torch.ops.segmented import object_top1, pack_segmented
+from tod_tpu_torch.ops.segmented import (SegmentedDb, object_top1,
+                                         object_top1_gathered, pack_segmented,
+                                         subsample_models)
 from tod_tpu_torch.types import PoseResult, TodModel
 
 
@@ -65,6 +77,13 @@ class FusedDetectorConfig:
     min_confidence: float = 0.0
     min_quality: float = 0.0
 
+    @property
+    def resolved_coarse_slack(self) -> float:
+        """coarse_slack in the feature's distance units (None = default)."""
+        if self.coarse_slack is not None:
+            return self.coarse_slack
+        return 0.15 if self.feature == "SIFT" else 16.0
+
 
 def check_ported(cfg: FusedDetectorConfig) -> None:
     """Raise for configuration values of paths this package has not ported.
@@ -76,9 +95,6 @@ def check_ported(cfg: FusedDetectorConfig) -> None:
         (cfg.feature != "ORB",
          f"feature={cfg.feature!r}: the SIFT/L2 path is ROADMAP A11"),
         (cfg.subpixel, "subpixel keypoints are ROADMAP A16"),
-        (cfg.coarse_stride > 0, "coarse->fine matching is ROADMAP A10"),
-        (cfg.track_width > 0, "tracked slab slots are ROADMAP A10"),
-        (cfg.explore_width > 0, "exploration slots are ROADMAP A10"),
     ]
     for bad, why in missing:
         if bad:
@@ -133,6 +149,37 @@ def bucketed_scores(xy: torch.Tensor, response: torch.Tensor,
     return torch.where(finite, resp01 - rank.to(torch.float32), neg_inf)
 
 
+def stage_coarse_select(dsc: torch.Tensor, ok: torch.Tensor,
+                        cdb: SegmentedDb, cfg: FusedDetectorConfig,
+                        tracked: Optional[torch.Tensor] = None,
+                        explore: Optional[torch.Tensor] = None):
+    """The frame's slab: the coarse screen's top objects (kernel B1 on the
+    coarse DB, every ``coarse_q_stride``-th query), then the tracked and
+    exploration ids with duplicates holed out. Returns ``(sel (C,) int32,
+    force, force_act)``: ``force`` marks slots of reserved objects (they
+    bypass the in-slab prescreen), ``force_act`` those of tracked objects
+    (they also bypass the activation cut); both None without reserved
+    slots."""
+    if cfg.coarse_q_stride > 1:     # ranking only: the fine pass sees all
+        dsc = dsc[::cfg.coarse_q_stride]
+        ok = ok[::cfg.coarse_q_stride]
+    dist_c, _ = object_top1(dsc, cdb)
+    width = cfg.fine_width \
+        - (cfg.track_width if tracked is not None else 0) \
+        - (cfg.explore_width if explore is not None else 0)
+    sel = coarse_select(dist_c, ok, cfg.radius, cfg.resolved_coarse_slack,
+                        width, cfg.activation.prescreen_top)
+    for ids in (tracked, explore):
+        if ids is not None:
+            sel = merge_tracked(sel, ids)
+    force = force_act = None
+    if tracked is not None or explore is not None:
+        force = reserved_force_mask(sel, tracked, explore)
+    if tracked is not None:
+        force_act = reserved_force_mask(sel, tracked)
+    return sel, force, force_act
+
+
 def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
@@ -178,13 +225,23 @@ class FusedDetector:
     def __init__(self, models: Sequence[TodModel],
                  config: Optional[FusedDetectorConfig] = None,
                  seed: int = 0, device: torch.device | str = "cpu"):
-        self.config = config or FusedDetectorConfig()
-        check_ported(self.config)
+        self.config = cfg = config or FusedDetectorConfig()
+        check_ported(cfg)
+        if cfg.track_width or cfg.explore_width:
+            if cfg.coarse_stride <= 0:
+                raise ValueError(
+                    "track_width/explore_width reserve coarse->fine slab "
+                    "slots; they require coarse_stride > 0 (the full exact "
+                    "sweep already scores every object)")
+            reserved = cfg.track_width + cfg.explore_width
+            if reserved >= cfg.fine_width:
+                raise ValueError(
+                    f"track_width + explore_width ({reserved}) must leave "
+                    f"coarse slots: fine_width is {cfg.fine_width}")
         self.device = torch.device(device)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
         self.noise: NoiseFn = GumbelNoise(self.generator)
-        cfg = self.config
         models = list(models)
         if cfg.catalog_capacity > len(models):
             models += [TodModel("", np.zeros((0, 32), np.uint8),
@@ -193,6 +250,43 @@ class FusedDetector:
         self.sdb = pack_segmented(models, reserve_rows=cfg.reserve_rows,
                                   device=self.device)
         self.object_ids = [m.object_id for m in models]
+        # streaming state of coarse->fine serving, per object slot: frames
+        # since last accepted, the last accepted pose, the exploration
+        # cursor and last frame's coarse slots
+        n_slots = max(len(models), 1)
+        self._age = torch.full((n_slots,), AGE_NEVER, dtype=torch.int32,
+                               device=self.device)
+        self._last_R = torch.zeros((n_slots, 3, 3), device=self.device)
+        self._last_T = torch.zeros((n_slots, 3), device=self.device)
+        self._explore_pos = 0
+        self._last_coarse_sel: Optional[torch.Tensor] = None
+        self.slab = None   # the last frame's (sel, force, force_act)
+        self.cdb: Optional[SegmentedDb] = None
+        if cfg.coarse_stride > 0 and models:
+            # the coarse DB is chunked to the SUBSAMPLED segment length, as
+            # the reference packs it (its layout is the reference's)
+            sub = subsample_models(models, cfg.coarse_stride)
+            med_rows = int(np.median([max(m.n_points, 1) for m in sub]))
+            c_chunk = next((c for c in (512, 1024, 2048, 4096)
+                            if c >= med_rows), 4096)
+            self.cdb = pack_segmented(
+                sub, db_chunk=c_chunk,
+                reserve_rows=-(-cfg.reserve_rows // cfg.coarse_stride),
+                device=self.device)
+
+    def _explore_ids(self) -> torch.Tensor:
+        """The next ``explore_width`` catalog indices of the deterministic
+        rotation over REAL slots (not ``catalog_capacity`` padding), -1
+        padded when the catalog is smaller; each call advances one frame."""
+        real = np.asarray([i for i, oid in enumerate(self.object_ids)
+                           if oid], np.int32)
+        n, e = len(real), self.config.explore_width
+        if e >= n:
+            ids = np.concatenate([real, np.full(e - n, -1, np.int32)])
+        else:
+            ids = real[(self._explore_pos + np.arange(e)) % n]
+            self._explore_pos = int((self._explore_pos + e) % n)
+        return torch.from_numpy(ids).to(self.device)
 
     def prepare_frame(self, image: np.ndarray, depth: np.ndarray,
                       K: np.ndarray):
@@ -219,11 +313,51 @@ class FusedDetector:
         xy, qp, dsc, ok = stage_features_compact(gray, depth_t, K_t, cfg)
         if not self.object_ids:
             return None
+        if self.cdb is not None:
+            return self._detect_coarse_fine(xy, qp, dsc, ok)
         dist, rows = object_top1(dsc, self.sdb)
         return detect_frame_segmented(
             self.noise, dist, rows, ok, qp, xy, self.sdb.points,
             self.sdb.obj_start, self.sdb.spans, cfg.guess, cfg.activation,
             cfg.radius)[1]
+
+    def _detect_coarse_fine(self, xy, qp, dsc, ok) -> ObjectDetections:
+        """One coarse->fine frame (B1 on the coarse DB, B2 on the slab),
+        advancing the streaming state."""
+        cfg = self.config
+        track, explore = cfg.track_width > 0, cfg.explore_width > 0
+        tracked = None
+        if track:
+            tracked = (tracked_from_age(self._age, cfg.track_width,
+                                        cfg.track_ttl)
+                       if self._last_coarse_sel is None else
+                       tracked_needy(self._age, self._last_coarse_sel,
+                                     cfg.track_width, cfg.track_ttl))
+        sel, force, force_act = stage_coarse_select(
+            dsc, ok, self.cdb, cfg, tracked,
+            self._explore_ids() if explore else None)
+        self.slab = (sel, force, force_act)
+        seeds = None
+        if track:
+            # the coarse prefix only, clamped as coarse_select clamps it: an
+            # object held by its reserved slot still needs one next frame
+            n_coarse = min(cfg.fine_width - cfg.track_width
+                           - (cfg.explore_width if explore else 0),
+                           len(self.object_ids))
+            self._last_coarse_sel = sel[:n_coarse]
+            seeds = seeds_from_state(self._age, self._last_R, self._last_T,
+                                     cfg.track_ttl)
+        dist, rows = object_top1_gathered(dsc, self.sdb, sel)
+        det = detect_frame_gathered(
+            self.noise, dist, rows, sel, ok, qp, xy, self.sdb.points,
+            self.sdb.obj_start, self.sdb.spans, cfg.guess, cfg.activation,
+            cfg.radius, force, cfg.track_width + cfg.explore_width,
+            force_act, seeds)[1]
+        if track:
+            self._age = update_age(self._age, det, cfg.track_min_confidence)
+            self._last_R, self._last_T = fold_best_pose(self._last_R,
+                                                        self._last_T, det)
+        return det
 
     def detect_batch_raw(self, grays, depths, Ks):
         raise NotImplementedError(
@@ -236,7 +370,11 @@ class FusedDetector:
     def detect(self, image, depth, K) -> List[PoseResult]:
         """Poses of one frame, gated by ``min_confidence`` (inliers) and
         ``min_quality`` (:func:`confidence_v2`)."""
-        det = self.detect_raw(image, depth, K)
+        return self.poses(self.detect_raw(image, depth, K))
+
+    def poses(self, det: Optional[ObjectDetections]) -> List[PoseResult]:
+        """The gated poses of :meth:`detect_raw`'s detections, read back to
+        the host once."""
         if det is None:
             return []
         n_obj, n_inst = det.accepted.shape

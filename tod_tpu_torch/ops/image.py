@@ -55,6 +55,14 @@ def gaussian_blur(image: torch.Tensor, ksize: int = 7,
     return _weighted_taps([xp[i:i + h] for i in range(ksize)], k)
 
 
+def _fma_f32(a: np.ndarray, b, c: np.ndarray) -> np.ndarray:
+    """f32 ``a * b + c`` rounded once, as a fused multiply-add: the f32
+    product is exact in extended precision."""
+    ld = np.longdouble
+    return (np.asarray(a, np.float32).astype(ld) * ld(b)
+            + np.asarray(c, np.float32).astype(ld)).astype(np.float32)
+
+
 @functools.lru_cache(maxsize=None)
 def resize_weights(in_size: int, out_size: int) -> np.ndarray:
     """(in, out) f32 weights of ``jax.image.resize(method="linear")`` along
@@ -63,44 +71,120 @@ def resize_weights(in_size: int, out_size: int) -> np.ndarray:
     column normalised to sum 1 (jax/_src/image/scale.py
     compute_weight_mat).
 
-    Rounded as the reference's compiled program rounds them: XLA fuses
-    ``(i + 0.5) * inv_scale - 0.5`` into one multiply-add (emulated here by
-    an exact f64 product and one rounding) and divides by the constant
-    kernel scale as a multiply by its f32 reciprocal. Plain f32 steps give
-    sample positions up to 2e-5 off at 640 px, and the resized level then
-    differs by up to 4e-3 grey levels."""
+    Rounded as the reference's compiled CPU program rounds them. XLA
+    computes the numerators and the column totals in two loops over the
+    columns, divides by the constant kernel scale as a multiply by its
+    reciprocal ``c``, and LLVM compiles each column one of two ways:
+    - in a vectorised loop body, the sample position ``(i + 0.5) *
+      inv_scale - 0.5`` is one fused multiply-add, and ``1 - |y * c|`` is
+      not fused (an ``fabs`` sits between the product and the difference);
+    - in columns that LLVM unrolled, the sample position is folded to a
+      constant rounded twice, and ``1 - |y| * c`` is one fused multiply-add.
+    The numerators' loop runs 8 columns a step (unrolled from ``out // 8 *
+    8`` on), the totals' loop 32 (unrolled from ``out // 32 * 32`` on, or
+    entirely below 352 columns). Each total is a reduce-window: 32-row
+    blocks summed in order, then the blocks in order. Read off the
+    optimised LLVM IR (``XLA_FLAGS=--xla_dump_to``) and bit-equal to the
+    compiled reference at the 3-level 480x640 pyramid's four sizes."""
+    f32 = np.float32
     scale = out_size / in_size
-    inv_scale = np.float32(1.0 / scale)
-    kernel_scale = np.float32(max(1.0 / scale, 1.0))
-    centers = np.arange(out_size, dtype=np.float32) + np.float32(0.5)
-    sample_f = (centers.astype(np.float64) * np.float64(inv_scale)
-                - 0.5).astype(np.float32)
-    x = (np.abs(sample_f[None, :]
-                - np.arange(in_size, dtype=np.float32)[:, None])
-         * (np.float32(1.0) / kernel_scale))
-    weights = np.maximum(np.float32(0), np.float32(1) - np.abs(x))
-    total = weights.sum(axis=0, keepdims=True, dtype=np.float32)
-    eps = np.float32(1000.0 * np.finfo(np.float32).eps)
+    inv_scale = f32(1.0 / scale)
+    c = f32(1.0) / f32(max(1.0 / scale, 1.0))
+    centers = np.arange(out_size, dtype=f32) + f32(0.5)
+    sample_vec = _fma_f32(centers, inv_scale, np.full(out_size, -0.5, f32))
+    sample_const = centers * inv_scale + f32(-0.5)
+    rows = np.arange(in_size, dtype=f32)[:, None]
+
+    def taps(sample_f, unrolled):
+        y = np.abs(sample_f[None, :] - rows)
+        if unrolled:
+            return np.maximum(f32(0), _fma_f32(-y, c, np.ones_like(y)))
+        return np.maximum(f32(0), f32(1) - np.abs(y * c))
+
+    def loop(unrolled):
+        """(weights, sample positions) of a loop whose columns ``unrolled``
+        (bool (out,)) were unrolled by LLVM."""
+        return (np.where(unrolled[None, :], taps(sample_const, True),
+                         taps(sample_vec, False)),
+                np.where(unrolled, sample_const, sample_vec))
+
+    col = np.arange(out_size)
+    weights, sample_f = loop(col >= out_size // 8 * 8)
+    summed, _ = loop(col >= (0 if out_size < 352 else out_size // 32 * 32))
+    total = np.zeros(out_size, f32)
+    for b in range(0, in_size, 32):
+        part = np.zeros(out_size, f32)
+        for row in summed[b:b + 32]:
+            part = part + row
+        total = total + part
+    eps = f32(1000.0 * np.finfo(f32).eps)
     weights = np.where(np.abs(total) > eps,
-                       weights / np.where(total != 0, total, np.float32(1)),
-                       np.float32(0))
+                       weights / np.where(total != 0, total, f32(1)), f32(0))
     inside = (sample_f >= -0.5) & (sample_f <= in_size - 0.5)
-    return np.where(inside[None, :], weights, np.float32(0)).astype(np.float32)
+    return np.where(inside[None, :], weights, f32(0)).astype(f32)
+
+
+# How XLA's CPU GEMM (Eigen) sums each output of a resize product of shape
+# (rows, depth, cols), read off the compiled reference for the 3-level
+# 480x640 pyramid: "split" restarts the multiply-add chain at that depth and
+# adds the two chains; "parity" keeps one chain for even and one for odd
+# depths and adds them. Other shapes sum in one chain.
+_GEMM_ORDER = {(400, 480, 640): ("split", 240), (333, 480, 640): ("split", 240),
+               (400, 640, 533): ("parity", 2), (333, 640, 444): ("split", 512)}
+
+
+@functools.lru_cache(maxsize=None)
+def _tap_tables(in_size: int, out_size: int, gemm: Tuple[int, int, int],
+                device: torch.device):
+    """(2, out, T) input indices and weights of each output's taps, split
+    into the two chains of the product's summation order, increasing
+    index within a chain, zero weight where a chain has fewer taps."""
+    w = resize_weights(in_size, out_size)
+    how, at = _GEMM_ORDER.get(gemm, ("split", in_size))
+    chains = [[[], []] for _ in range(out_size)]
+    for o in range(out_size):
+        for i in np.nonzero(w[:, o])[0]:
+            g = (i >= at) if how == "split" else i % at
+            chains[o][int(g)].append(i)
+    t = max(1, max(len(c) for ch in chains for c in ch))
+    idx = np.zeros((2, out_size, t), np.int64)
+    wt = np.zeros((2, out_size, t), np.float64)
+    for o, ch in enumerate(chains):
+        for g, taps in enumerate(ch):
+            idx[g, o, :len(taps)] = taps
+            wt[g, o, :len(taps)] = w[taps, o]
+    return (torch.from_numpy(idx).to(device),
+            torch.from_numpy(wt).to(device))
+
+
+def _resize_rows(x: torch.Tensor, out_size: int,
+                 gemm: Tuple[int, int, int]) -> torch.Tensor:
+    """``W^T @ x`` for the (in, out) resize weights of x's first axis, summed
+    as the reference's GEMM of shape ``gemm`` sums: per chain, one rounding
+    per multiply-add (f32 products are exact in f64), then chain 0 +
+    chain 1."""
+    idx, wt = _tap_tables(x.shape[0], out_size, gemm, x.device)
+    x64 = x.to(torch.float64)
+    acc = torch.zeros((2, out_size, x.shape[1]), dtype=torch.float32,
+                      device=x.device)
+    for t in range(idx.shape[2]):
+        acc = (wt[:, :, t, None] * x64[idx[:, :, t]]
+               + acc.to(torch.float64)).to(torch.float32)
+    return acc[0] + acc[1]
 
 
 def resize_bilinear(image: torch.Tensor,
                     out_hw: Tuple[int, int]) -> torch.Tensor:
     """Antialiased linear resize, the ``jax.image.resize(method="linear")``
     op the reference uses (not ``F.interpolate``, which does not low-pass
-    when downsampling)."""
+    when downsampling): rows first, then columns, each a banded product
+    summed as the compiled reference sums it (``_GEMM_ORDER``)."""
     x = image.to(torch.float32)
     (h, w), (oh, ow) = x.shape, out_hw
     if oh != h:
-        wy = torch.from_numpy(resize_weights(h, oh)).to(x.device)
-        x = wy.T @ x
+        x = _resize_rows(x, oh, (oh, h, w))
     if ow != w:
-        wx = torch.from_numpy(resize_weights(w, ow)).to(x.device)
-        x = x @ wx
+        x = _resize_rows(x.T, ow, (x.shape[0], w, ow)).T
     return x
 
 

@@ -1,7 +1,8 @@
 """Per-(query, object) nearest-row matching over an object-segmented DB.
 
 Port of tod_tpu/ops/pallas/segmented.py (``SegmentedDb``, ``pack_segmented``,
-``object_top1``). The DB keeps the reference's object-contiguous layout with
+``object_top1``, ``subsample_models``, ``object_top1_gathered``). The DB
+keeps the reference's object-contiguous layout with
 chunk-aligned segments (so ``obj_start`` and ``points`` are the reference's
 arrays), but each row is stored as its packed 256 bits, (N, 8) int32 words:
 the (256, N) unpacked transpose existed only to feed the TPU's matrix unit.
@@ -12,6 +13,11 @@ tensor. Both return, per (query, object), the key
 ``min(dist, 511) << 18 | row_within_object`` minimised over the object's real
 rows, split into ``(dist f32, row i32)``: ties go to the lowest row and an
 object with no real rows reports (511, 0).
+
+:func:`object_top1_gathered` (kernel B2, a second entry point of the same
+CUDA file; twin :func:`object_top1_gathered_torch`) is the fine pass of
+coarse->fine matching: the same columns, but only for the selected objects
+``sel`` (C,), with ``-1`` slots reported as (``HOLE_DIST``, ``HOLE_ROW``).
 """
 
 from __future__ import annotations
@@ -30,6 +36,10 @@ DB_CHUNK = 4096
 ROW_BITS = 18
 ROW_MASK = (1 << ROW_BITS) - 1
 DIST_CLAMP = 511
+KEY_INVALID = 0x7FFFFFFF
+HOLE_DIST = float(KEY_INVALID >> ROW_BITS)   # 8191.0: an empty sel slot
+HOLE_ROW = KEY_INVALID & ROW_MASK            # 262143
+MAX_GRID_Y = 65535      # objects (B1) or slots (B2): the grid's y extent
 TWIN_ROWS = 8192        # rows per product in the plain twin (bounds memory)
 
 
@@ -118,34 +128,75 @@ def pack_segmented(models: Sequence, db_chunk: int = DB_CHUNK,
                           np.asarray(spans, np.float32), db_chunk, device)
 
 
-def object_top1_torch(query_u8: torch.Tensor, db: SegmentedDb
-                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch twin of the kernel: an exact f32 product of unpacked
-    bits per object (integers below 2^24 are exact), then a min over keys."""
-    q = query_u8.shape[0]
-    dev = query_u8.device
-    qb = unpack_bits(query_u8, torch.float32)                     # (Q, 256)
-    q_pop = qb.sum(dim=1, keepdim=True)
-    db_u8 = db.words.view(torch.uint8)                            # (N, 32)
-    best = torch.full((q, max(db.n_objects, 1)), DIST_CLAMP << ROW_BITS,
-                      dtype=torch.int32, device=dev)
-    for o, (start, n) in enumerate(zip(db.starts_host, db.rows_host)):
-        for base in range(0, n, TWIN_ROWS):
-            cnt = min(TWIN_ROWS, n - base)
-            rb = unpack_bits(db_u8[start + base:start + base + cnt],
-                             torch.float32)                       # (cnt, 256)
-            dot = qb @ rb.T
-            dist = (q_pop + rb.sum(dim=1)[None, :] - 2.0 * dot).to(torch.int32)
-            col = torch.arange(base, base + cnt, dtype=torch.int32,
-                               device=dev)
-            keys = (dist << ROW_BITS) | col
-            best[:, o] = torch.minimum(best[:, o], keys.min(dim=1).values)
-    best = best[:, :db.n_objects]
+def subsample_models(models: Sequence, stride: int) -> list:
+    """Stride-subsampled copies of the models (the coarse companion DB of
+    coarse->fine matching): every ``stride``-th row from the first, so every
+    non-empty object keeps at least one row."""
+    return [type(m)(object_id=m.object_id,
+                    descriptors=np.ascontiguousarray(m.descriptors[::stride]),
+                    points=np.ascontiguousarray(m.points[::stride]))
+            for m in models]
+
+
+def _object_keys(qb: torch.Tensor, q_pop: torch.Tensor, db_u8: torch.Tensor,
+                 start: int, n: int) -> torch.Tensor:
+    """(Q,) min key over one object's ``n`` real rows: an exact f32 product
+    of unpacked bits (integers below 2^24 are exact), then a min over
+    ``dist << 18 | row``; (511, 0) for an object with no rows."""
+    best = torch.full((qb.shape[0],), DIST_CLAMP << ROW_BITS,
+                      dtype=torch.int32, device=qb.device)
+    for base in range(0, n, TWIN_ROWS):
+        cnt = min(TWIN_ROWS, n - base)
+        rb = unpack_bits(db_u8[start + base:start + base + cnt],
+                         torch.float32)                           # (cnt, 256)
+        dot = qb @ rb.T
+        dist = (q_pop + rb.sum(dim=1)[None, :] - 2.0 * dot).to(torch.int32)
+        col = torch.arange(base, base + cnt, dtype=torch.int32,
+                           device=qb.device)
+        best = torch.minimum(best, ((dist << ROW_BITS) | col).min(dim=1).values)
+    return best
+
+
+def _split_keys(best: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return (best >> ROW_BITS).to(torch.float32), best & ROW_MASK
 
 
-def _launch(query_u8: torch.Tensor, db: SegmentedDb
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
+def object_top1_torch(query_u8: torch.Tensor, db: SegmentedDb
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch twin of kernel B1, one object at a time."""
+    qb = unpack_bits(query_u8, torch.float32)                     # (Q, 256)
+    q_pop = qb.sum(dim=1, keepdim=True)
+    db_u8 = db.words.view(torch.uint8)                            # (N, 32)
+    best = torch.full((query_u8.shape[0], db.n_objects),
+                      DIST_CLAMP << ROW_BITS, dtype=torch.int32,
+                      device=query_u8.device)
+    for o, (start, n) in enumerate(zip(db.starts_host, db.rows_host)):
+        best[:, o] = _object_keys(qb, q_pop, db_u8, start, n)
+    return _split_keys(best)
+
+
+def object_top1_gathered_torch(query_u8: torch.Tensor, db: SegmentedDb,
+                               sel: torch.Tensor
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch twin of kernel B2: B1's twin visiting only the objects
+    of ``sel``; a slot outside [0, O) (``-1`` = empty) reports
+    (HOLE_DIST, HOLE_ROW)."""
+    qb = unpack_bits(query_u8, torch.float32)
+    q_pop = qb.sum(dim=1, keepdim=True)
+    db_u8 = db.words.view(torch.uint8)
+    ids = [int(o) for o in sel.tolist()]
+    best = torch.full((query_u8.shape[0], len(ids)), KEY_INVALID,
+                      dtype=torch.int32, device=query_u8.device)
+    for c, o in enumerate(ids):
+        if 0 <= o < db.n_objects:
+            best[:, c] = _object_keys(qb, q_pop, db_u8, db.starts_host[o],
+                                      db.rows_host[o])
+    return _split_keys(best)
+
+
+def _checked_query(query_u8: torch.Tensor, db: SegmentedDb) -> torch.Tensor:
+    """The query as the kernels take it, or raise: (Q, 32) uint8 on the
+    DB's device, contiguous and 16-byte aligned like the DB's rows."""
     if query_u8.dtype != torch.uint8 or query_u8.dim() != 2 \
             or query_u8.shape[1] != 32:
         raise ValueError(f"query must be (Q, 32) uint8, got "
@@ -153,27 +204,60 @@ def _launch(query_u8: torch.Tensor, db: SegmentedDb
     if db.words.device != query_u8.device:
         raise ValueError(f"query on {query_u8.device}, DB on "
                          f"{db.words.device}")
-    if db.n_objects > 65535:
-        raise ValueError(f"{db.n_objects} objects exceed the grid's y limit")
     q = query_u8.contiguous()
     for name, t in (("query", q), ("words", db.words)):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
-    n_q, n_obj = q.shape[0], db.n_objects
-    dist = torch.empty((n_q, n_obj), dtype=torch.float32, device=q.device)
-    row = torch.empty((n_q, n_obj), dtype=torch.int32, device=q.device)
-    lib = kernels.load("segmented_top1")
-    fn = lib.tod_object_top1
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_int,
-                                           ctypes.c_void_p]
+    return q
+
+
+def _call(entry: str, q: torch.Tensor, db: SegmentedDb, n_cols: int,
+          ptrs: tuple = ()) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Allocate the (Q, n_cols) outputs and launch ``entry`` of
+    csrc/segmented_top1.cu on the current stream; raise on a launch error.
+    Every entry takes (query, rows, obj_start, n_rows, *ptrs, dist, row,
+    n_q, n_cols, n_obj, stream)."""
+    dist = torch.empty((q.shape[0], n_cols), dtype=torch.float32,
+                       device=q.device)
+    row = torch.empty((q.shape[0], n_cols), dtype=torch.int32,
+                      device=q.device)
+    fn = getattr(kernels.load("segmented_top1"), entry)
+    fn.argtypes = [ctypes.c_void_p] * (6 + len(ptrs)) + [ctypes.c_int] * 3 \
+        + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(q.device).cuda_stream
     status = fn(q.data_ptr(), db.words.data_ptr(), db.obj_start.data_ptr(),
-                db.n_rows.data_ptr(), dist.data_ptr(), row.data_ptr(),
-                n_q, n_obj, stream)
-    kernels.check(status, "tod_object_top1")
-    object_top1.launches += 1
+                db.n_rows.data_ptr(), *ptrs, dist.data_ptr(), row.data_ptr(),
+                q.shape[0], n_cols, db.n_objects, stream)
+    kernels.check(status, entry)
     return dist, row
+
+
+def _launch(query_u8: torch.Tensor, db: SegmentedDb
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    q = _checked_query(query_u8, db)
+    if db.n_objects > MAX_GRID_Y:
+        raise ValueError(f"{db.n_objects} objects exceed the grid's y limit")
+    out = _call("tod_object_top1", q, db, db.n_objects)
+    object_top1.launches += 1
+    return out
+
+
+def _launch_gathered(query_u8: torch.Tensor, db: SegmentedDb,
+                     sel: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    q = _checked_query(query_u8, db)
+    if sel.dtype != torch.int32 or sel.dim() != 1:
+        raise ValueError(f"sel must be (C,) int32, got {tuple(sel.shape)} "
+                         f"{sel.dtype}")
+    if sel.device != q.device:
+        raise ValueError(f"sel on {sel.device}, query on {q.device}")
+    if sel.shape[0] > MAX_GRID_Y:
+        raise ValueError(f"{sel.shape[0]} slots exceed the grid's y limit")
+    sel = sel.contiguous()
+    out = _call("tod_object_top1_gathered", q, db, sel.shape[0],
+                (sel.data_ptr(),))
+    object_top1_gathered.launches += 1
+    return out
 
 
 def object_top1(query_u8: torch.Tensor, db: SegmentedDb
@@ -189,3 +273,22 @@ def object_top1(query_u8: torch.Tensor, db: SegmentedDb
 
 
 object_top1.launches = 0
+
+
+def object_top1_gathered(query_u8: torch.Tensor, db: SegmentedDb,
+                         sel: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-(query, selected object) nearest row: ``(dist (Q, C) f32, row
+    (Q, C) i32)``, each column bitwise equal to :func:`object_top1`'s
+    column ``sel[c]``; slots outside [0, O) report (HOLE_DIST, HOLE_ROW).
+    CUDA tensors go through kernel B2 (or raise); CPU tensors through
+    :func:`object_top1_gathered_torch`."""
+    if query_u8.is_cuda:
+        return _launch_gathered(query_u8, db, sel)
+    if query_u8.device.type != "cpu":
+        raise ValueError(
+            f"object_top1_gathered has no path for {query_u8.device}")
+    return object_top1_gathered_torch(query_u8, db, sel)
+
+
+object_top1_gathered.launches = 0

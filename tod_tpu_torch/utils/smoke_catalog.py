@@ -39,12 +39,44 @@ def filler_arrays(real: Sequence[Tuple[np.ndarray, np.ndarray]],
     return out
 
 
+def filler_arrays_on(device, real: Sequence[Tuple[np.ndarray, np.ndarray]],
+                     first: int, n_filler: int, seed: int = SEED,
+                     flip_p: float = FLIP_P, cube_m: float = CUBE_M
+                     ) -> List[Tuple[np.ndarray, np.ndarray]]:
+    """Fillers ``first .. first + n_filler - 1`` made as
+    :func:`filler_arrays` makes them, but drawn on ``device`` from a seeded
+    ``torch.Generator``: the same distribution, other draws. A 1000-object
+    catalog needs ~5.4e9 bit draws, too many for the host."""
+    import torch
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed + first)
+    weights = (1 << torch.arange(8, device=device)).to(torch.uint8)
+    out = []
+    for j in range(first, first + n_filler):
+        desc, _ = real[j % len(real)]
+        n = desc.shape[0]
+        flips = torch.rand((n, 32, 8), generator=gen, device=device) < flip_p
+        mask = (flips.to(torch.uint8) * weights).sum(-1, dtype=torch.uint8)
+        pts = (torch.rand((n, 3), generator=gen, device=device) - 0.5) * cube_m
+        out.append((np.bitwise_xor(desc, mask.cpu().numpy()),
+                    pts.cpu().numpy().astype(np.float32)))
+    return out
+
+
 def smoke_catalog(real_ids: Sequence[str],
                   real: Sequence[Tuple[np.ndarray, np.ndarray]],
-                  n_objects: int = 100, seed: int = SEED
+                  n_objects: int = 100, seed: int = SEED, device=None
                   ) -> Tuple[List[str], List[Tuple[np.ndarray, np.ndarray]]]:
     """(object ids, (descriptors, points) per object): the real models
-    first, then fillers named ``filler###`` up to ``n_objects``."""
-    fill = filler_arrays(real, n_objects - len(real), seed)
+    first, then fillers named ``filler###`` up to ``n_objects``. With a
+    ``device``, the fillers past the first 100 objects are drawn there
+    (:func:`filler_arrays_on`), so the first 100 are the 100-object
+    catalog's."""
+    n_host = n_objects if device is None else min(n_objects, 100)
+    fill = filler_arrays(real, n_host - len(real), seed)
+    if n_objects > n_host:
+        fill += filler_arrays_on(device, real, len(fill),
+                                 n_objects - n_host, seed)
     ids = list(real_ids) + [f"filler{j:03d}" for j in range(len(fill))]
     return ids, list(real) + fill

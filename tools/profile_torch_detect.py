@@ -2,14 +2,16 @@
 """Where one frame of the port's serving path spends its time, on the GPU.
 
     python3 tools/profile_torch_detect.py [--frames 4] [--trace PATH]
+                                          [--objects N] [--frontier]
 
-Builds chip_smoke.py's detector (the 100-object smoke catalog at the
-bench's operating point), warms it up on the fixture's frames, then traces
-``--frames`` calls of ``detect`` with torch.profiler. Prints the host
-latency per frame, the device-busy share of the traced window, per-stage
-host times (features+compaction, B1, geometry, read-back) and the top
-operators by device time; writes the chrome trace to ``--trace``.
-Needs a CUDA device; imports no JAX.
+Builds one of chip_smoke.py's detectors (the smoke catalog, 100 objects by
+default, at the bench's operating point; ``--frontier``: the coarse->fine
+frontier recipe with its streaming state), warms it up on the fixture's
+frames, then traces ``--frames`` calls of ``detect`` with torch.profiler.
+Prints the host latency per frame, the device-busy share of the traced
+window, per-stage host times (each stage of ``detect`` ended by a
+synchronize) and the top operators by device time; writes the chrome trace
+to ``--trace``. Needs a CUDA device; imports no JAX.
 """
 
 from __future__ import annotations
@@ -26,58 +28,85 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 
+# the stages of FusedDetector.detect, by the name fused.py calls them
+STAGES = ("stage_features_compact", "object_top1", "stage_coarse_select",
+          "object_top1_gathered", "detect_frame_segmented",
+          "detect_frame_gathered", "update_age", "fold_best_pose", "poses")
+
+
+def stage_timers(det):
+    """Wrap each stage of ``det.detect`` so that it synchronises before
+    and after itself and adds its host milliseconds to a list; returns
+    ``{stage: [ms, ...]}`` and a function that undoes the wrapping."""
+    from tod_tpu_torch.models import fused
+
+    times = {name: [] for name in STAGES}
+    saved = []
+
+    def timed(name, fn):
+        def wrapper(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return wrapper
+
+    for name in STAGES:
+        owner = det if name == "poses" else fused
+        saved.append((owner, name, getattr(owner, name)))
+        setattr(owner, name, timed(name, getattr(owner, name)))
+
+    def undo():
+        for owner, name, fn in saved:
+            if owner is det:
+                delattr(det, name)
+            else:
+                setattr(owner, name, fn)
+    return times, undo
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--frames", type=int, default=4)
     ap.add_argument("--trace", default="",
                     help="write the chrome trace here (tens of MB a frame)")
+    ap.add_argument("--objects", type=int, default=100)
+    ap.add_argument("--frontier", action="store_true",
+                    help="coarse->fine with tracked/exploration slots")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 1
     import chip_smoke as cs
-    from tod_tpu_torch.geometry.detection import detect_frame_segmented
-    from tod_tpu_torch.models.fused import FusedDetector, \
-        stage_features_compact
-    from tod_tpu_torch.ops.segmented import object_top1
+    from tod_tpu_torch.models.fused import FusedDetector
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = cs.card_line()
     fx, ids, models = cs.load_fixture()
-    cfg = cs.bench_config(fx)
-    det = FusedDetector(cs.smoke_models(ids, models), cfg, seed=0,
-                        device="cuda")
+    if args.frontier:
+        cfg = cs.config(np.load(cs.STREAM_FIXTURE), **cs.FRONTIER)
+    else:
+        cfg = cs.config(fx)
+    det = FusedDetector(cs.smoke_models(ids, models, args.objects,
+                                        device="cuda"),
+                        cfg, seed=0, device="cuda")
     frames = [det.prepare_frame(fx["images"][f], fx["depths"][f], fx["K"])
               for f in range(len(fx["images"]))]
     for frame in frames * 2:
         det.detect(*frame)
 
-    # host time per stage, each stage ended by a synchronize
-    stages = {"features": [], "b1": [], "geometry": [], "readback": []}
+    times, undo = stage_timers(det)
     for i in range(8):
-        gray, depth, K = frames[i % len(frames)]
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        xy, qp, dsc, ok = stage_features_compact(gray, depth, K, cfg)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        dist, rows = object_top1(dsc, det.sdb)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        _, d = detect_frame_segmented(
-            det.noise, dist, rows, ok, qp, xy, det.sdb.points,
-            det.sdb.obj_start, det.sdb.spans, cfg.guess, cfg.activation,
-            cfg.radius)
-        torch.cuda.synchronize()
-        t3 = time.perf_counter()
-        d.R.cpu(), d.accepted.cpu()
-        t4 = time.perf_counter()
-        for k, a, b in (("features", t0, t1), ("b1", t1, t2),
-                        ("geometry", t2, t3), ("readback", t3, t4)):
-            stages[k].append((b - a) * 1e3)
-    print("stage host ms (median of 8, synchronised): " + ", ".join(
-        f"{k} {np.median(v):.2f}" for k, v in stages.items()) + f"; {card}")
+        det.detect(*frames[i % len(frames)])
+    undo()
+    path = "coarse->fine" if args.frontier else "full sweep"
+    print(f"{args.objects} objects, {path}; stage host ms (median of 8 "
+          "frames, each synchronised): "
+          + ", ".join(f"{k} {np.median(v):.2f}" for k, v in times.items()
+                      if v) + f"; {card}")
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
