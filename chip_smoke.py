@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the port's segmented ORB serving paths once on one NVIDIA GPU.
+"""Drive the port's segmented serving paths, ORB/Hamming and SIFT/L2, once on
+one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -18,7 +19,8 @@ any failure raises, exits non-zero and prints no ``ok`` line:
             out-of-order ids) and on the 1000-object catalog (64 slots with
             holes); B1 against its twin there too. Timed: B2 at Q = 2048 x
             64 slots and its twin, the coarse B1 at Q = 1024 on the
-            stride-16 DB, the full-sweep B1 at Q = 2048 over 1000 objects.
+            stride-16 DB (held against its twin there first), the
+            full-sweep B1 at Q = 2048 over 1000 objects.
 4. main     FusedDetector at the bench's operating point on the 100-object
             smoke catalog, frames of tests/data/torch_smoke_fixture.npz
             through prepare_frame -> detect; the compaction stage's
@@ -30,21 +32,60 @@ any failure raises, exits non-zero and prints no ``ok`` line:
 4b.         the frontier recipe (coarse->fine, tracked and exploration
             slots) on the same catalog over a stream of 6 frames, against
             the JAX reference's stream (tests/data/torch_stream_fixture.npz):
-            frame 0's slab exactly, then on every frame every placement
-            within 2 cm at the gate and the reference's accepted objects
-            and poses (1 cm, 2 degrees); one B1 and one B2 launch a frame.
+            B1 on both coarse DBs at each frame's coarse queries against
+            its twin, frame 0's slab exactly, then on every frame every
+            placement within 2 cm at the gate and the reference's accepted
+            objects and poses (1 cm, 2 degrees); one B1 and one B2 launch
+            a frame.
 4c.         the frontier recipe at 1000 objects over a stream of 64 frames
             (one exploration cycle is 63): every present object discovered
             within 63 frames and found within 2 cm at the gate on every
             frame after; one B1 and one B2 launch a frame.
-5. time     per-frame detect latency (median, p95) over 200 frames after
+5. time     per-frame detect latency (median, p95) over FRAMES frames after
             warm-up at 100 objects, and the resident catalog bytes.
 5b.         the same for the frontier recipe at 1000 objects, beside the
             full exact sweep at 1000 objects over fewer frames; resident
             bytes of both DBs and peak device memory.
 
-The line before the last is a JSON object of every kernel of the paths; the
-last line is ``{"ok": true, "device": {...}}``.
+Then the SIFT/L2 path (FusedDetector(feature="SIFT"), radius 0.9), whose
+reference outputs are in tests/data/torch_sift_fixture.npz (the frames are
+the smoke fixture's):
+
+3c. kernels B3 (csrc/segmented_l2_top1.cu) against its twin, the int32
+            squared distances, the rows and the float distances bit for
+            bit: on the 100-object SIFT smoke catalog at Q = 2048, on a
+            partial tile (Q = 1000) and on edge cases (an empty object, an
+            object of one row, duplicate rows, reserved rows, a query equal
+            to a row); both timed.
+3d.         B4 (the gathered entry point) against its twin and against
+            B3's columns at ``sel``, bit for bit: edge cases (holes, an
+            empty object, repeated, out-of-order and out-of-catalog ids)
+            and the 1000-object catalog (64 slots with holes); B3 against
+            its twin there too. Timed: B4 at Q = 2048 x 64 slots, the
+            coarse B3 at Q = 1024 on the stride-16 DB (held against its
+            twin there first), the full-sweep B3 at 1000 objects.
+4d. main    the full sweep at 100 objects on both frames: the compaction
+            stage against the reference's (keypoints, 3D points and ok
+            exact; quantised descriptors equal or off by one in at most
+            QUANT_SHARE of the entries); every detection the reference
+            accepts at the gate found within 1 cm and 2 degrees; anything
+            else accepted at the gate must be a ground-truth placement
+            within 2 cm; one B3 launch a frame.
+4e.         the frontier recipe at 100 objects over the reference's stream
+            of 6 frames (B3 on both coarse DBs at each frame's coarse
+            queries against its twin; every frame's slab and masks equal
+            to the reference's; the gated detections as in 4d), then at 1000 objects over a stream of
+            SIFT_STREAM frames: every object the reference's stream
+            accepts is discovered and then found within 2 cm at the gate
+            on every frame after; one B3 and one B4 launch a frame.
+5c. time    detect latency (median, p95) at 100 objects (full sweep) and
+            at 1000 objects (coarse->fine); resident bytes and peak
+            device memory.
+
+The line before the card's is a JSON object of every kernel of the paths
+(launches on the main paths, error against the twin, time, the twin's time
+and the card's bound for the same work); the last line is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -64,10 +105,13 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 DATA = os.path.join(ROOT, "tests", "data")
 FIXTURE = os.path.join(DATA, "torch_smoke_fixture.npz")
 STREAM_FIXTURE = os.path.join(DATA, "torch_stream_fixture.npz")
+SIFT_FIXTURE = os.path.join(DATA, "torch_sift_fixture.npz")
 Q = 2048
 KERNEL_RUNS = 24       # CUDA-event timings of a kernel and its twin
 TWIN_RUNS = 3          # twin timings at 1000 objects (~0.1-2 s each)
-FRAMES = 200           # timed detect calls: p95 has 10 frames above it
+FRAMES = 100           # timed detect calls: p95 has 5 frames above it
+SIFT_FRAMES = 60       # timed SIFT detect calls
+SIFT_STREAM = 12       # SIFT frames at 1000 objects
 SWEEP_FRAMES = 30      # timed full-sweep frames at 1000 objects
 N_OBJECTS = 100
 N_LARGE = 1000
@@ -75,9 +119,21 @@ STREAM = 64            # frames at 1000 objects: > one exploration cycle
 DISCOVERY = 63         # ceil(1000 / explore_width) frames
 B2_SLOTS = 64
 MAX_KEYPOINT_SWAPS = 0  # per frame, of 2048 (see compaction_mismatches)
+# int8 entries of the 2048 x 128 compacted SIFT queries that may differ, by
+# one, from the reference's: the descriptor sums 1,369 pixels in float32 in
+# another order, and round(d * 256) flips where d * 256 is that close to a
+# half (7 and 10 entries of 262,144 differ on a CPU)
+QUANT_SHARE = 2e-4
 SOURCE = "tod_tpu_torch/csrc/segmented_top1.cu"
+SOURCE_L2 = "tod_tpu_torch/csrc/segmented_l2_top1.cu"
 B1_REPLACES = "tod_tpu/ops/pallas/segmented.py:128"
 B2_REPLACES = "tod_tpu/ops/pallas/segmented.py:349"
+B3_REPLACES = "tod_tpu/ops/pallas/segmented_l2.py:119"
+B4_REPLACES = "tod_tpu/ops/pallas/segmented_l2.py:300"
+# The card's published peaks (NVIDIA H100 SXM data sheet): device memory
+# rate and the dense int8 tensor-core rate
+HBM_BYTES_S = 3.35e12
+INT8_OPS_S = 1979e12
 
 # The bench's serving operating point, bench.py:444-524 (build_config with
 # no BENCH_* overrides), gated at min_quality 156 as
@@ -101,6 +157,9 @@ FRONTIER = dict(coarse_stride=16, fine_width=64, coarse_q_stride=2,
                 track_width=16, explore_width=16)
 # The full exact sweep at 1000 objects, prescreen sized as bench.py:501-504
 SWEEP_PRESCREEN = max(32, N_LARGE // 12)
+# The bench's SIFT operating point (bench.py build_config under
+# BENCH_FEATURE=SIFT): the same, with L2 features and radius 0.9
+SIFT_CONFIG = {**BENCH_CONFIG, "feature": "SIFT", "radius": 0.9}
 
 
 def log(msg: str) -> None:
@@ -132,11 +191,30 @@ def cuda_ms(fn, runs: int = KERNEL_RUNS, warmup: int = 2) -> float:
     return float(np.median(times))
 
 
-def load_fixture():
-    fx = np.load(FIXTURE)
+def load_fixture(path: str = FIXTURE):
+    fx = np.load(path)
     models = [(fx[f"desc{i}"], fx[f"points{i}"])
               for i in range(len(fx["model_ids"]))]
     return fx, [str(s) for s in fx["model_ids"]], models
+
+
+def bound(pairs: int, ops_per_pair: int, n_bytes: int):
+    """``(bound_ms, bound_by)``: the least time the card could take for
+    ``pairs`` (query, row) pairs of ``ops_per_pair`` int8 tensor-core
+    operations each over ``n_bytes`` of inputs and outputs moved once."""
+    ops_ms = pairs * ops_per_pair / INT8_OPS_S * 1e3
+    bytes_ms = n_bytes / HBM_BYTES_S * 1e3
+    return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms \
+        else "bytes"
+
+
+def matcher_bytes(n_q: int, row_bytes: int, q_bytes: int, n_rows: int,
+                  n_cols: int, n_obj: int) -> int:
+    """Bytes a matcher call must move: the queries, the visited real rows
+    (with their norms, if any), the per-object tables, the selection and
+    the two 4-byte outputs per cell."""
+    return n_q * q_bytes + n_rows * row_bytes + 8 * n_obj + 4 * n_cols \
+        + 8 * n_q * n_cols
 
 
 def smoke_models(model_ids, models, n_objects: int = N_OBJECTS,
@@ -150,13 +228,13 @@ def smoke_models(model_ids, models, n_objects: int = N_OBJECTS,
                              [p for _, p in arrays])
 
 
-def config(fx, **change):
-    """The bench config with ``change``, held to the config ``fx`` was
-    made with."""
+def config(fx, base=None, key: str = "config_json", **change):
+    """The bench config ``base`` (default the ORB one) with ``change``, held
+    to the config ``fx`` was made with."""
     from tod_tpu_torch.convert import config_from_dict
 
-    cfg = config_from_dict({**BENCH_CONFIG, **change})
-    stored = json.loads(str(fx["config_json"]))
+    cfg = config_from_dict({**(base or BENCH_CONFIG), **change})
+    stored = json.loads(str(fx[key]))
     mine = json.loads(json.dumps(dataclasses.asdict(cfg)))
     if mine != stored:
         diff = {k for k in set(mine) | set(stored)
@@ -231,6 +309,132 @@ def check_b2(q, sdb, sel, what: str) -> float:
     return err
 
 
+def edge_case_db_l2(device):
+    """The L2 edge cases of ``smoke_catalog.edge_case_arrays_l2``, packed
+    with reserved rows, and their queries."""
+    from tod_tpu_torch.ops.segmented_l2 import pack_segmented_l2
+    from tod_tpu_torch.types import TodModel
+    from tod_tpu_torch.utils.smoke_catalog import edge_case_arrays_l2
+
+    descs, q = edge_case_arrays_l2(8)
+    models = [TodModel(f"e{i}", d, np.zeros((len(d), 3), np.float32))
+              for i, d in enumerate(descs)]
+    return pack_segmented_l2(models, reserve_rows=200, device=device), \
+        torch.from_numpy(q).to(device)
+
+
+def check_b3(q, sdb, what: str) -> float:
+    """B3 against its twin on the card, the int32 squared distances, the
+    rows and the float distances: equal bits or raise. Returns the largest
+    absolute gap of the float distances (0.0)."""
+    from tod_tpu_torch.ops import segmented_l2 as l2
+
+    d_k, r_k = l2.object_top1_l2_sq(q, sdb)
+    torch.cuda.synchronize()
+    d_t, r_t = l2.object_top1_l2_sq_torch(q, sdb)
+    f_k, f_t = l2.to_l2(d_k), l2.object_top1_l2_torch(q, sdb)[0]
+    err = float((f_k - f_t).abs().max())
+    equal = bool(torch.equal(d_k, d_t) and torch.equal(r_k, r_t)
+                 and torch.equal(f_k, f_t))
+    log(f"kernels: B3 vs twin on {what}: Q={q.shape[0]} O={sdb.n_objects} "
+        f"rows={sum(sdb.rows_host)} max_abs_err={err} "
+        f"int32_distances_rows_and_floats_equal={equal}")
+    if err != 0.0 or not equal:
+        raise AssertionError(f"B3 disagrees with its twin on {what}")
+    return err
+
+
+def check_b4(q, sdb, sel, what: str) -> float:
+    """B4 against its twin and against B3's columns at ``sel``, and its
+    holes, on the card: equal bits or raise. Returns the largest absolute
+    gap of the float distances to the twin (0.0)."""
+    from tod_tpu_torch.ops import segmented_l2 as l2
+
+    d_k, r_k = l2.object_top1_l2_gathered_sq(q, sdb, sel)
+    torch.cuda.synchronize()
+    d_t, r_t = l2.object_top1_l2_gathered_sq_torch(q, sdb, sel)
+    f_k = l2.to_l2(d_k)
+    f_t = l2.object_top1_l2_gathered_torch(q, sdb, sel)[0]
+    err = float((f_k - f_t).abs().max())
+    d_b3, r_b3 = l2.object_top1_l2_sq(q, sdb)
+    real = (sel >= 0) & (sel < sdb.n_objects)
+    cols = sel[real].long()
+    as_b3 = bool(torch.equal(d_k[:, real], d_b3[:, cols])
+                 and torch.equal(r_k[:, real], r_b3[:, cols]))
+    holes = bool((d_k[:, ~real] == l2.DIST_INVALID).all()
+                 and (r_k[:, ~real] == l2.HOLE_ROW_L2).all()
+                 and (f_k[:, ~real] == l2.HOLE_DIST_L2).all())
+    log(f"kernels: B4 vs twin on {what}: Q={q.shape[0]} C={sel.shape[0]} "
+        f"({int((~real).sum())} holes) max_abs_err={err} "
+        f"equal_to_B3_columns={as_b3} holes_ok={holes}")
+    if err != 0.0 or not (torch.equal(d_k, d_t) and torch.equal(r_k, r_t)
+                          and torch.equal(f_k, f_t) and as_b3 and holes):
+        raise AssertionError(f"B4 disagrees with its twin or B3 on {what}")
+    return err
+
+
+def check_sift_compaction(port, sx, f: int) -> None:
+    """The port's SIFT compaction of frame ``f`` against the reference's:
+    keypoints, 3D points and ok equal; quantised descriptors equal or off
+    by one in at most QUANT_SHARE of the entries."""
+    xy, qp, dsc, ok = (t.cpu().numpy() for t in port)
+    exact = (np.array_equal(xy, sx["ref_xy"][f])
+             and np.array_equal(qp, sx["ref_qp"][f], equal_nan=True)
+             and np.array_equal(ok, sx["ref_ok"][f]))
+    diff = dsc.astype(np.int32) - sx["ref_dsc"][f].astype(np.int32)
+    log(f"sift: frame {f}: keypoints, 3D points and ok equal to the "
+        f"reference's: {exact}; {int((diff != 0).sum())} of {diff.size} "
+        f"quantised entries differ (max {int(np.abs(diff).max())}) in "
+        f"{int((diff != 0).any(1).sum())} of {int(ok.sum())} descriptors")
+    if not exact or np.abs(diff).max() > 1 \
+            or (diff != 0).mean() > QUANT_SHARE:
+        raise AssertionError(f"sift: frame {f}: compaction differs from "
+                             "the reference's")
+
+
+def check_sift_frame(f: int, found, fx, sx, prefix: str, image: int,
+                     what: str) -> None:
+    """Every detection of frame ``f`` that the reference accepted at the
+    gate (``sx[prefix + "_*"]``, quality >= the gate) found within 1 cm and
+    2 degrees; any other object accepted at the gate must be a ground-truth
+    placement within 2 cm (one the reference missed), or raise. The
+    reference's junk accepts, all below the gate, are listed."""
+    gate = json.loads(str(sx["config_json"]))["min_quality"]
+    mine = [i for i in range(len(sx[f"{prefix}_ids"]))
+            if sx[f"{prefix}_frame"][i] == f]
+    ref_gated = [i for i in mine if sx[f"{prefix}_quality"][i] >= gate]
+    for i in ref_gated:
+        oid = str(sx[f"{prefix}_ids"][i])
+        errs = [pose_error(r.R, r.T, sx[f"{prefix}_R"][i],
+                           sx[f"{prefix}_T"][i])
+                for r in found if r.object_id == oid]
+        if not errs or min(errs)[0] >= 0.01 or min(errs)[1] >= 2.0:
+            raise AssertionError(f"{what}: frame {f}: {oid} (reference "
+                                 f"quality {sx[f'{prefix}_quality'][i]:.0f}) "
+                                 f"not found at the reference's pose: {errs}")
+    ref_ids = {str(sx[f"{prefix}_ids"][i]) for i in ref_gated}
+    missed = {m[0] for m in placements_missed(found, fx, image)}
+    extra = [r for r in found if r.object_id not in ref_ids]
+    bad = [(r.object_id, r.quality) for r in extra
+           if r.object_id not in {str(o) for o in fx["gt_ids"][image]}
+           or r.object_id in missed]
+    if bad:
+        raise AssertionError(f"{what}: frame {f}: accepted at the gate, not "
+                             f"by the reference and at no placement: {bad}")
+    junk = sorted((float(sx[f"{prefix}_quality"][i]) for i in mine
+                   if i not in ref_gated), reverse=True)
+    log(f"{what}: frame {f}: " + ", ".join(
+        f"{r.object_id} q={r.quality:.0f} inliers={r.confidence:.0f}"
+        for r in found)
+        + "; reference " + ", ".join(
+            f"{sx[f'{prefix}_ids'][i]} q={sx[f'{prefix}_quality'][i]:.0f}"
+            for i in ref_gated)
+        + f"; reference junk accepts below the gate: {len(junk)}, best "
+        f"q={junk[0] if junk else 0:.0f}"
+        + (f"; true placements the reference missed: "
+           f"{[r.object_id for r in extra]}" if extra else ""))
+
+
 def compaction_mismatches(port, fx, f: int) -> int:
     """Reference keypoints of frame ``f`` (xy, 3D point, descriptor, all
     bit for bit) that the port's compaction outputs lack."""
@@ -290,25 +494,55 @@ def check_frame(f: int, found, fx, ref=None, image=None,
         for r in found))
 
 
-def reset_counts() -> None:
+def wrappers():
+    """The four kernel wrappers, B1..B4."""
     from tod_tpu_torch.ops import segmented as seg
+    from tod_tpu_torch.ops import segmented_l2 as l2
 
-    seg.object_top1.launches = 0
-    seg.object_top1_gathered.launches = 0
+    return (seg.object_top1, seg.object_top1_gathered, l2.object_top1_l2,
+            l2.object_top1_l2_gathered)
+
+
+def reset_counts() -> None:
+    for fn in wrappers():
+        fn.launches = 0
 
 
 def read_counts():
-    from tod_tpu_torch.ops import segmented as seg
+    """Launches of (B1, B2, B3, B4) since :func:`reset_counts`."""
+    return tuple(fn.launches for fn in wrappers())
 
-    return seg.object_top1.launches, seg.object_top1_gathered.launches
+
+def check_launches(what: str, n_frames: int, counts, full: int,
+                   gathered=None) -> None:
+    """One launch a frame of the kernels B<full + 1> and, on a coarse->fine
+    path, B<gathered + 1>, and none of the others."""
+    log(f"{what}: {n_frames} frames, launches "
+        + ", ".join(f"B{i + 1} {n}" for i, n in enumerate(counts)))
+    want = [n_frames if i in (full, gathered) else 0 for i in range(4)]
+    if list(counts) != want:
+        raise AssertionError(f"{what}: launches {list(counts)}, expected "
+                             f"{want} for {n_frames} frames")
 
 
-def check_launches(what: str, n_frames: int, b1: int, b2: int,
-                   want_b2: bool) -> None:
-    log(f"{what}: {n_frames} frames, B1 launches {b1}, B2 launches {b2}")
-    if b1 != n_frames or b2 != (n_frames if want_b2 else 0):
-        raise AssertionError(f"{what}: B1 launched {b1} and B2 {b2} times "
-                             f"for {n_frames} frames")
+def scale_stream(cf, frames, fx, n_frames: int, what: str) -> dict:
+    """Run ``n_frames`` of the stream through the coarse->fine detector
+    ``cf``; raise if a placement once found within 2 cm at the gate is
+    missed on a later frame. Returns each present object's discovery
+    frame."""
+    first = {}
+    for f in range(n_frames):
+        image = f % len(frames)
+        missed = placements_missed(cf.detect(*frames[image]), fx, image)
+        for oid in fx["gt_ids"][image]:
+            oid = str(oid)
+            if oid not in first and all(m[0] != oid for m in missed):
+                first[oid] = f
+        late = [m for m in missed if m[0] in first]
+        if late:
+            raise AssertionError(f"{what}: frame {f}: discovered objects "
+                                 f"lost: {late}")
+    return first
 
 
 def timed_detect(det, frames, n: int):
@@ -321,6 +555,180 @@ def timed_detect(det, frames, n: int):
         det.detect(*frames[i % len(frames)])
         lat.append((time.perf_counter() - t0) * 1e3)
     return np.asarray(lat)
+
+
+def sift_phases(dev, card: str, fx, frames, launches: dict):
+    """Phases 3c, 3d, 4d, 4e and 5c: the SIFT/L2 path. ``frames`` are the
+    prepared fixture frames; the launch counts of each driven path go into
+    ``launches``. Returns the ``kernels`` entries' measured fields of B3 and
+    B4."""
+    from tod_tpu_torch.models.fused import (FusedDetector,
+                                            stage_features_compact)
+    from tod_tpu_torch.ops import segmented_l2 as l2
+
+    sx, model_ids, models = load_fixture(SIFT_FIXTURE)
+    cfg = config(sx, SIFT_CONFIG)
+    cfg_cf = config(sx, SIFT_CONFIG, "stream_config_json", **FRONTIER)
+
+    # ---- 3c. B3 against its twin ------------------------------------------
+    t0 = time.perf_counter()
+    catalog = smoke_models(model_ids, models)
+    det = FusedDetector(catalog, cfg, seed=0, device=dev)
+    sdb = det.sdb
+    log(f"sift: {N_OBJECTS}-object catalog ({sum(sdb.rows_host)} rows, "
+        f"{sdb.nbytes()} bytes resident) built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(0)
+    # queries: rows of the first model, every other one with integer noise
+    pick = rng.choice(len(models[0][0]), Q, replace=False)
+    q_np = models[0][0][pick].astype(np.int16)
+    q_np[1::2] += rng.integers(-24, 25, (Q // 2, 128), dtype=np.int16)
+    q_main = torch.from_numpy(np.clip(q_np, 0, 127).astype(np.int8)).to(dev)
+    err = check_b3(q_main, sdb, "the SIFT smoke catalog")
+    edge_db, edge_q = edge_case_db_l2(dev)
+    err = max(err, check_b3(edge_q, edge_db, "edge cases"))
+    err = max(err, check_b3(q_main[:1000], sdb, "Q=1000 (partial tile)"))
+    ms = cuda_ms(lambda: l2.object_top1_l2_sq(q_main, sdb))
+    plain_ms = cuda_ms(lambda: l2.object_top1_l2_sq_torch(q_main, sdb),
+                       runs=TWIN_RUNS, warmup=1)
+    pairs = Q * sum(sdb.rows_host)
+    b3_bound = bound(pairs, 256, matcher_bytes(
+        Q, 132, 128, pairs // Q, sdb.n_objects, sdb.n_objects))
+    log(f"kernels: B3 {ms:.3f} ms median of {KERNEL_RUNS} "
+        f"({pairs / ms / 1e6:.1f} G pairs/s); twin {plain_ms:.3f} ms median "
+        f"of {TWIN_RUNS}; bound {b3_bound[0]:.3f} ms by {b3_bound[1]}; Q={Q} "
+        f"x {sum(sdb.rows_host)} rows, {sdb.n_objects} objects; {card}")
+
+    # ---- 3d. B4, and both kernels at 1000 objects -------------------------
+    t0 = time.perf_counter()
+    large = smoke_models(model_ids, models, N_LARGE, device=dev)
+    cf = FusedDetector(large, cfg_cf, seed=0, device=dev)
+    del large
+    ldb, cdb = cf.sdb, cf.cdb
+    log(f"sift: {N_LARGE}-object catalog ({sum(ldb.rows_host)} rows, "
+        f"fillers past 100 drawn on the card) and its stride-16 coarse DB "
+        f"({sum(cdb.rows_host)} rows, chunk {cdb.db_chunk}) built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    i32 = dict(dtype=torch.int32, device=dev)
+    b4_err = check_b4(edge_q, edge_db,
+                      torch.tensor([4, -1, 1, 2, 4, 0, -1, 6, 3, 9, 5, 7],
+                                   **i32), "edge cases (object 1 empty)")
+    sel_holes = torch.from_numpy(rng.choice(N_LARGE, B2_SLOTS, replace=False)
+                                 .astype(np.int32)).to(dev)
+    sel_holes[:3] = torch.tensor([2, 0, 1], **i32)
+    sel_holes[[5, 17, 40]] = -1
+    sel_holes[30] = sel_holes[31]                    # a repeated id
+    b4_err = max(b4_err, check_b4(q_main, ldb, sel_holes,
+                                  f"the {N_LARGE}-object SIFT catalog"))
+    err = max(err, check_b3(q_main, ldb,
+                            f"the {N_LARGE}-object SIFT catalog"))
+    sel_t = torch.from_numpy(rng.choice(N_LARGE, B2_SLOTS, replace=False)
+                             .astype(np.int32)).to(dev)
+    b4_ms = cuda_ms(lambda: l2.object_top1_l2_gathered_sq(q_main, ldb, sel_t))
+    b4_plain_ms = cuda_ms(
+        lambda: l2.object_top1_l2_gathered_sq_torch(q_main, ldb, sel_t),
+        runs=TWIN_RUNS, warmup=1)
+    b4_pairs = Q * sum(ldb.rows_host[o] for o in sel_t.tolist())
+    b4_bound = bound(b4_pairs, 256, matcher_bytes(
+        Q, 132, 128, b4_pairs // Q, B2_SLOTS, N_LARGE))
+    q_c = q_main[::2].contiguous()
+    err = max(err, check_b3(q_c, cdb, f"the {N_LARGE}-object coarse DB"))
+    coarse_ms = cuda_ms(lambda: l2.object_top1_l2_sq(q_c, cdb))
+    coarse_pairs = q_c.shape[0] * sum(cdb.rows_host)
+    sweep_ms = cuda_ms(lambda: l2.object_top1_l2_sq(q_main, ldb), runs=8)
+    sweep_pairs = Q * sum(ldb.rows_host)
+    log(f"kernels: B4 {b4_ms:.3f} ms median of {KERNEL_RUNS} "
+        f"({b4_pairs / b4_ms / 1e6:.1f} G pairs/s); twin {b4_plain_ms:.3f} "
+        f"ms median of {TWIN_RUNS}; bound {b4_bound[0]:.3f} ms by "
+        f"{b4_bound[1]}; Q={Q} x {B2_SLOTS} slots ({b4_pairs // Q} rows); "
+        f"{card}")
+    log(f"kernels: coarse B3 {coarse_ms:.3f} ms "
+        f"({coarse_pairs / coarse_ms / 1e6:.1f} G pairs/s) at "
+        f"Q={q_c.shape[0]} x {sum(cdb.rows_host)} rows; full-sweep B3 "
+        f"{sweep_ms:.3f} ms ({sweep_pairs / sweep_ms / 1e6:.1f} G pairs/s) "
+        f"at Q={Q} x {sum(ldb.rows_host)} rows, {N_LARGE} objects; {card}")
+
+    # ---- 4d. the SIFT main path: full sweep, 100 objects ------------------
+    compacted = [stage_features_compact(*frame, cfg) for frame in frames]
+    for f, port in enumerate(compacted):
+        check_sift_compaction(port, sx, f)
+    reset_counts()
+    found = [det.detect(*frame) for frame in frames]
+    launches["4d"] = read_counts()
+    check_launches("sift main", len(frames), launches["4d"], full=2)
+    for f, res in enumerate(found):
+        check_sift_frame(f, res, fx, sx, "ref", f, "sift main")
+    log("sift main: every detection the reference accepts at the gate found "
+        "within 1 cm and 2 degrees")
+
+    # ---- 4e. SIFT coarse->fine: the reference's stream, then 1000 objects -
+    stream = FusedDetector(catalog, cfg_cf, seed=0, device=dev)
+    # B3 at the coarse pass's own shape: every other query of a frame
+    for f, port in enumerate(compacted):
+        q_f = port[2][::cfg_cf.coarse_q_stride].contiguous()
+        for db, n in ((stream.cdb, N_OBJECTS), (cdb, N_LARGE)):
+            err = max(err, check_b3(
+                q_f, db, f"frame {f}'s coarse queries, {n}-object coarse DB"))
+    n_stream = len(sx["frame_image"])
+    reset_counts()
+    for f in range(n_stream):
+        image = int(sx["frame_image"][f])
+        res = stream.detect(*frames[image])
+        sel, force, force_act = (t.cpu().numpy() for t in stream.slab)
+        differ = np.nonzero(sel != sx["sel"][f])[0]
+        state = bool(np.array_equal(force, sx["force"][f])
+                     and np.array_equal(force_act, sx["force_act"][f]))
+        log(f"sift stream: frame {f}: {len(differ)} of {len(sel)} slab slots "
+            f"differ from the reference's; forced {int(force.sum())}, "
+            f"tracked {int(force_act.sum())}, both masks equal: {state}")
+        if len(differ) or not state:
+            raise AssertionError(
+                f"sift stream: frame {f}: slab slots {differ.tolist()} hold "
+                f"{sel[differ].tolist()}, the reference's "
+                f"{sx['sel'][f][differ].tolist()}; masks equal: {state}")
+        check_sift_frame(f, res, fx, sx, "stream", image, "sift stream")
+    launches["4e"] = read_counts()
+    check_launches("sift stream", n_stream, launches["4e"], full=2,
+                   gathered=3)
+    reset_counts()
+    first = scale_stream(cf, frames, fx, SIFT_STREAM, "sift scale")
+    launches["4e-1000"] = read_counts()
+    check_launches("sift scale", SIFT_STREAM, launches["4e-1000"], full=2,
+                   gathered=3)
+    gate = cfg.min_quality
+    held = sorted({str(sx["stream_ids"][i])
+                   for i in range(len(sx["stream_ids"]))
+                   if sx["stream_quality"][i] >= gate})
+    log(f"sift scale: {N_LARGE} objects, discovery frame per object the "
+        "reference's stream accepts: "
+        + ", ".join(f"{o} {first.get(o, 'never')}" for o in held))
+    if any(o not in first for o in held):
+        raise AssertionError(f"sift scale: not all of {held} discovered "
+                             f"within {SIFT_STREAM} frames")
+    log("sift scale: each discovered and found within 2 cm on every frame "
+        "after")
+
+    # ---- 5c. time ---------------------------------------------------------
+    del stream
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    lat = timed_detect(det, frames, SIFT_FRAMES)
+    log(f"time: SIFT full sweep at {N_OBJECTS} objects: detect per frame "
+        f"median {np.median(lat):.2f} ms, p95 {np.percentile(lat, 95):.2f} "
+        f"ms over {SIFT_FRAMES} frames; resident catalog {sdb.nbytes()} "
+        f"bytes ({sum(sdb.rows_host)} rows); resident {N_LARGE}-object DB "
+        f"{ldb.nbytes()} bytes + coarse DB {cdb.nbytes()} bytes; peak device "
+        f"memory {torch.cuda.max_memory_allocated()} bytes; {card}")
+    torch.cuda.reset_peak_memory_stats()
+    lat = timed_detect(cf, frames, SIFT_FRAMES)
+    log(f"time: SIFT coarse->fine at {N_LARGE} objects: detect per frame "
+        f"median {np.median(lat):.2f} ms, p95 {np.percentile(lat, 95):.2f} "
+        f"ms over {SIFT_FRAMES} frames; peak device memory "
+        f"{torch.cuda.max_memory_allocated()} bytes; {card}")
+    return (dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                 bound_ms=b3_bound[0], bound_by=b3_bound[1]),
+            dict(max_abs_err=b4_err, ms=b4_ms, plain_ms=b4_plain_ms,
+                 bound_ms=b4_bound[0], bound_by=b4_bound[1]))
 
 
 def main() -> int:
@@ -343,8 +751,7 @@ def main() -> int:
 
     # ---- 2. build ---------------------------------------------------------
     t0 = time.perf_counter()
-    for name in kernels.SOURCES:
-        kernels.load(name)
+    kernels.build_all()
     log(f"build: {sorted(kernels.SOURCES)} in "
         f"{time.perf_counter() - t0:.2f} s (nvcc {kernels.build_seconds})")
 
@@ -402,6 +809,7 @@ def main() -> int:
         runs=TWIN_RUNS, warmup=1)
     b2_pairs = Q * sum(ldb.rows_host[o] for o in sel_t.tolist())
     q_c = q_main[::2].contiguous()
+    err = max(err, check_b1(q_c, cdb, f"the {N_LARGE}-object coarse DB"))
     coarse_ms = cuda_ms(lambda: seg.object_top1(q_c, cdb))
     coarse_pairs = q_c.shape[0] * sum(cdb.rows_host)
     sweep_ms = cuda_ms(lambda: seg.object_top1(q_main, ldb), runs=8)
@@ -420,9 +828,9 @@ def main() -> int:
     # ---- 4. the main path -------------------------------------------------
     frames = [det.prepare_frame(fx["images"][f], fx["depths"][f], fx["K"])
               for f in range(len(fx["images"]))]
-    for f, frame in enumerate(frames):
-        missing = compaction_mismatches(
-            stage_features_compact(*frame, cfg), fx, f)
+    compacted = [stage_features_compact(*frame, cfg) for frame in frames]
+    for f, port in enumerate(compacted):
+        missing = compaction_mismatches(port, fx, f)
         log(f"main: frame {f}: {missing} of {int(fx['ref_ok'][f].sum())} "
             "reference keypoints not reproduced bit for bit")
         if missing > MAX_KEYPOINT_SWAPS:
@@ -431,15 +839,20 @@ def main() -> int:
     reset_counts()
     found = [det.detect(*frame) for frame in frames]
     launches = {"4": read_counts()}
-    check_launches("main", len(frames), *launches["4"], want_b2=False)
+    check_launches("main", len(frames), launches["4"], full=0)
     for f, res in enumerate(found):
         check_frame(f, res, fx)
     log("main: every placement within 2 cm; accepted objects and poses "
         "agree with the reference")
 
     # ---- 4b. coarse->fine against the reference's stream, 100 objects ----
-    stream = FusedDetector(catalog, config(sfx, **FRONTIER), seed=0,
-                           device=dev)
+    stream = FusedDetector(catalog, cfg_cf, seed=0, device=dev)
+    # B1 at the coarse pass's own shape: every other query of a frame
+    for f, port in enumerate(compacted):
+        q_f = port[2][::cfg_cf.coarse_q_stride].contiguous()
+        for db, n in ((stream.cdb, N_OBJECTS), (cdb, N_LARGE)):
+            err = max(err, check_b1(
+                q_f, db, f"frame {f}'s coarse queries, {n}-object coarse DB"))
     n_stream = len(sfx["frame_image"])
     reset_counts()
     for f in range(n_stream):
@@ -456,29 +869,18 @@ def main() -> int:
                                  "reference's")
         check_frame(f, res, fx, sfx, int(sfx["frame_image"][f]), "stream")
     launches["4b"] = read_counts()
-    check_launches("stream", n_stream, *launches["4b"], want_b2=True)
+    check_launches("stream", n_stream, launches["4b"], full=0, gathered=1)
     log("stream: frame 0's slab exact; every placement within 2 cm; "
         "accepted objects and poses agree with the reference")
 
     # ---- 4c. coarse->fine at catalog scale, 1000 objects -----------------
-    first = {}
     reset_counts()
-    for f in range(STREAM):
-        image = f % len(frames)
-        missed = placements_missed(cf.detect(*frames[image]), fx, image)
-        for oid in fx["gt_ids"][image]:
-            oid = str(oid)
-            if oid not in first and all(m[0] != oid for m in missed):
-                first[oid] = f
-        late = [m for m in missed if m[0] in first]
-        if late:
-            raise AssertionError(f"scale: frame {f}: discovered objects "
-                                 f"lost: {late}")
+    first = scale_stream(cf, frames, fx, STREAM, "scale")
     launches["4c"] = read_counts()
     present = sorted({str(o) for ids in fx["gt_ids"] for o in ids})
     log(f"scale: {N_LARGE} objects, discovery frame per present object: "
         + ", ".join(f"{o} {first.get(o, 'never')}" for o in present))
-    check_launches("scale", STREAM, *launches["4c"], want_b2=True)
+    check_launches("scale", STREAM, launches["4c"], full=0, gathered=1)
     slow = [o for o in present if first.get(o, STREAM) >= DISCOVERY]
     if slow:
         raise AssertionError(f"scale: {slow} not discovered within "
@@ -524,17 +926,40 @@ def main() -> int:
         f"{torch.cuda.max_memory_allocated()} bytes; placements missed on "
         f"the {len(frames)} frames: {missed}; {card}")
 
+    # the card's bounds for B1 and B2 at the timed shapes: 2 x 256 int8
+    # tensor-core operations a pair on unpacked bits (the faster of the two
+    # ways the card has; the popcount rate of the CUDA cores is in PERF.md)
+    b1_bound = bound(pairs, 512, matcher_bytes(
+        Q, 32, 32, pairs // Q, sdb.n_objects, sdb.n_objects))
+    b2_bound = bound(b2_pairs, 512, matcher_bytes(
+        Q, 32, 32, b2_pairs // Q, B2_SLOTS, N_LARGE))
+    del sweep
+    torch.cuda.empty_cache()
+    b3, b4 = sift_phases(dev, card, fx, frames, launches)
+
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
+
+    def total(k: int) -> int:
+        return sum(counts[k] for counts in launches.values())
+
     log(json.dumps({"kernels": [
         {"name": "B1 segmented per-object Hamming top-1", "route": "cuda",
-         "source": SOURCE, "replaces": B1_REPLACES,
-         "launches": sum(b1 for b1, _ in launches.values()),
-         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms},
+         "source": SOURCE, "replaces": B1_REPLACES, "launches": total(0),
+         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+         "bound_ms": b1_bound[0], "bound_by": b1_bound[1],
+         "library_ms": None},
         {"name": "B2 gathered per-object Hamming top-1", "route": "cuda",
-         "source": SOURCE, "replaces": B2_REPLACES,
-         "launches": sum(b2 for _, b2 in launches.values()),
-         "max_abs_err": b2_err, "ms": b2_ms, "plain_ms": b2_plain_ms}]}))
+         "source": SOURCE, "replaces": B2_REPLACES, "launches": total(1),
+         "max_abs_err": b2_err, "ms": b2_ms, "plain_ms": b2_plain_ms,
+         "bound_ms": b2_bound[0], "bound_by": b2_bound[1],
+         "library_ms": None},
+        {"name": "B3 segmented per-object int8 squared-L2 top-1",
+         "route": "cuda", "source": SOURCE_L2, "replaces": B3_REPLACES,
+         "launches": total(2), "library_ms": None, **b3},
+        {"name": "B4 gathered per-object int8 squared-L2 top-1",
+         "route": "cuda", "source": SOURCE_L2, "replaces": B4_REPLACES,
+         "launches": total(3), "library_ms": None, **b4}]}))
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

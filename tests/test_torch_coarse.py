@@ -38,7 +38,7 @@ def test_gathered_twin_matches_reference_twin_and_interpret_kernel(rng):
     arrays = _edge_case_models(rng)       # empty, multi-chunk, duplicates
     jm, tm = _both(arrays)
     jdb = jseg.pack_segmented(jm, db_chunk=2048)
-    tdb = tseg.pack_segmented(tm, db_chunk=2048)
+    tdb = tseg.pack_segmented(tm, db_chunk=2048, device="cpu")
     q = _queries(rng, arrays, n=256)
     # holes, a repeated id, out-of-order ids, the empty and multi-chunk ones
     sel = np.array([4, -1, 2, 1, 4, 0, -1, 5, 3], np.int32)
@@ -71,7 +71,7 @@ def test_gathered_twin_matches_reference_twin_and_interpret_kernel(rng):
 def test_gathered_wrapper_counts_no_launch_on_cpu(rng):
     _, tm = _both([(rng.integers(0, 256, (40, 32), dtype=np.uint8),
                     np.zeros((40, 3), np.float32))])
-    tdb = tseg.pack_segmented(tm, db_chunk=256)
+    tdb = tseg.pack_segmented(tm, db_chunk=256, device="cpu")
     q = torch.from_numpy(rng.integers(0, 256, (5, 32), dtype=np.uint8))
     before = tseg.object_top1_gathered.launches
     d, r = tseg.object_top1_gathered(q, tdb, _t(np.array([0, -1, 1, 7],
@@ -98,8 +98,9 @@ def test_subsampled_coarse_db_matches(rng):
     # the reference's coarse DB converts one to one into the port's
     jdb = jseg.pack_segmented(j_sub, db_chunk=512, reserve_rows=2)
     got = convert.segmented_db_from_jax(
-        {k: np.asarray(v) for k, v in jdb._asdict().items()})
-    want = tseg.pack_segmented(t_sub, db_chunk=512, reserve_rows=2)
+        {k: np.asarray(v) for k, v in jdb._asdict().items()}, "cpu")
+    want = tseg.pack_segmented(t_sub, db_chunk=512, reserve_rows=2,
+                               device="cpu")
     for name in ("words", "points", "obj_start", "n_rows", "spans"):
         assert torch.equal(getattr(got, name), getattr(want, name)), name
 

@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (B1, B2) against their plain PyTorch twins, on
-the card.
+"""The port's CUDA kernels (B1, B2, and B3, B4 of the SIFT/L2 path) against
+their plain PyTorch twins, on the card.
 
 Every test here is marked ``cuda`` and skips without a GPU. The file needs
 neither JAX nor the JAX package, so it also runs on a machine that has
@@ -13,7 +13,9 @@ import pytest
 import torch
 
 from tod_tpu_torch.ops import segmented as tseg
+from tod_tpu_torch.ops import segmented_l2 as tl2
 from tod_tpu_torch.types import TodModel
+from tod_tpu_torch.utils.smoke_catalog import edge_case_arrays_l2
 
 
 def _cuda():
@@ -73,7 +75,8 @@ def test_b1_refuses_what_it_cannot_take():
     with pytest.raises(ValueError):
         tseg.object_top1(q.to(dev).view(-1)[1:161].view(5, 32), db)  # align
     cpu_db = tseg.pack_segmented([TodModel("a", np.zeros((3, 32), np.uint8),
-                                           np.zeros((3, 3), np.float32))])
+                                           np.zeros((3, 3), np.float32))],
+                                 device="cpu")
     with pytest.raises(ValueError):
         tseg.object_top1(q.to(dev), cpu_db)                  # DB elsewhere
 
@@ -119,4 +122,97 @@ def test_b2_refuses_what_it_cannot_take():
         tseg.object_top1_gathered(q, db, sel.cpu())               # device
     with pytest.raises(ValueError):
         tseg.object_top1_gathered(q, db, torch.zeros(
+            70000, dtype=torch.int32, device=dev))                # grid y
+
+
+# ---- B3 and B4: int8 squared L2 --------------------------------------------
+
+def _edge_cases_l2(seed, n_q, device):
+    """The shared L2 edge cases (an empty object, a one-row object, ties
+    within and across row tiles, a query at distance 0, a zero query),
+    packed with reserved rows: ``(db, queries)``. With ``n_q`` = 1 only
+    the distance-0 query is left."""
+    descs, q = edge_case_arrays_l2(seed, long_rows=4500, n_q=n_q)
+    models = [TodModel(f"o{i}", d, np.zeros((len(d), 3), np.float32))
+              for i, d in enumerate(descs)]
+    return tl2.pack_segmented_l2(models, db_chunk=2048, reserve_rows=100,
+                                 device=device), \
+        torch.from_numpy(q).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_q", [512, 300, 1])
+def test_b3_matches_twin(n_q):
+    dev = _cuda()
+    db, q = _edge_cases_l2(200 + n_q, n_q, dev)
+    before = tl2.object_top1_l2.launches
+    d_sq, r = tl2.object_top1_l2_sq(q, db)
+    torch.cuda.synchronize()
+    assert tl2.object_top1_l2.launches == before + 1
+    d_sq_t, r_t = tl2.object_top1_l2_sq_torch(q, db)
+    assert d_sq.dtype == torch.int32
+    assert torch.equal(d_sq, d_sq_t) and torch.equal(r, r_t)
+    d, r2 = tl2.object_top1_l2(q, db)
+    d_t, _ = tl2.object_top1_l2_torch(q, db)
+    assert torch.equal(d, d_t) and torch.equal(r2, r_t)
+    q_norm = (q.to(torch.int64) ** 2).sum(1)
+    assert torch.equal(d_sq[:, 1].long(), q_norm + tl2.PAD_NORM)
+    assert (r[:, 1] == 0).all()
+    assert (d_sq[0, 4].item(), r[0, 4].item()) == (0, 123)
+    if n_q > 3:
+        assert (d_sq[1, 3].item(), r[1, 3].item()) == (0, 5)
+        assert (d_sq[2, 2].item(), r[2, 2].item()) == (0, 7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_q", [512, 300, 1])
+def test_b4_matches_twin_and_b3_columns(n_q):
+    dev = _cuda()
+    db, q = _edge_cases_l2(300 + n_q, n_q, dev)
+    # holes, a repeated id, out-of-order ids, an id past the catalog
+    sel = torch.tensor([4, -1, 2, 1, 4, 0, -1, 6, 3, 9], dtype=torch.int32,
+                       device=dev)
+    before = tl2.object_top1_l2_gathered.launches
+    d_sq, r = tl2.object_top1_l2_gathered_sq(q, db, sel)
+    torch.cuda.synchronize()
+    assert tl2.object_top1_l2_gathered.launches == before + 1
+    d_sq_t, r_t = tl2.object_top1_l2_gathered_sq_torch(q, db, sel)
+    assert torch.equal(d_sq, d_sq_t) and torch.equal(r, r_t)
+    d_b3, r_b3 = tl2.object_top1_l2_sq(q, db)
+    real = (sel >= 0) & (sel < db.n_objects)
+    cols = sel[real].long()
+    assert torch.equal(d_sq[:, real], d_b3[:, cols])
+    assert torch.equal(r[:, real], r_b3[:, cols])
+    assert (d_sq[:, ~real] == tl2.DIST_INVALID).all()
+    assert (r[:, ~real] == tl2.HOLE_ROW_L2).all()
+    d, _ = tl2.object_top1_l2_gathered(q, db, sel)
+    assert (d[:, ~real] == tl2.HOLE_DIST_L2).all()
+    assert (d_sq[0, 0].item(), r[0, 0].item()) == (0, 123)
+
+
+@pytest.mark.cuda
+def test_b3_b4_refuse_what_they_cannot_take():
+    dev = _cuda()
+    rng = np.random.default_rng(3)
+    db, _ = _edge_cases_l2(3, 8, dev)
+    q = torch.from_numpy(rng.integers(0, 128, (8, 128)).astype(np.int8))
+    sel = torch.zeros(3, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        tl2.object_top1_l2(q.to(dev).to(torch.uint8), db)        # dtype
+    with pytest.raises(ValueError):
+        tl2.object_top1_l2(q.to(dev)[:, :64], db)                 # width
+    with pytest.raises(ValueError):
+        tl2.object_top1_l2(
+            q.to(dev).view(-1)[1:641].view(5, 128), db)           # alignment
+    cpu_db = tl2.pack_segmented_l2(
+        [TodModel("a", np.zeros((3, 128), np.int8),
+                  np.zeros((3, 3), np.float32))], device="cpu")
+    with pytest.raises(ValueError):
+        tl2.object_top1_l2(q.to(dev), cpu_db)                     # DB elsewhere
+    with pytest.raises(ValueError):
+        tl2.object_top1_l2_gathered(q.to(dev), db, sel.long())    # dtype
+    with pytest.raises(ValueError):
+        tl2.object_top1_l2_gathered(q.to(dev), db, sel.cpu())     # device
+    with pytest.raises(ValueError):
+        tl2.object_top1_l2_gathered(q.to(dev), db, torch.zeros(
             70000, dtype=torch.int32, device=dev))                # grid y

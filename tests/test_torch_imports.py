@@ -31,6 +31,7 @@ def test_port_imports_no_jax_cv2_yaml_or_reference():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     got = json.loads(out.stdout.strip().splitlines()[-1])
-    assert "tod_tpu_torch.models.fused" in got["modules"]
-    assert len(got["modules"]) >= 15
+    for name in ("models.fused", "ops.sift", "ops.segmented_l2"):
+        assert f"tod_tpu_torch.{name}" in got["modules"]
+    assert len(got["modules"]) >= 17
     assert got["banned"] == [] and got["loaded"] == []

@@ -55,7 +55,8 @@ def test_pack_segmented_layout_matches(rng):
     arrays = _arrays(rng, [5, 2049, 700, 0])
     jm, tm = _both(arrays)
     jdb = jseg.pack_segmented(jm, db_chunk=2048, reserve_rows=100)
-    tdb = tseg.pack_segmented(tm, db_chunk=2048, reserve_rows=100)
+    tdb = tseg.pack_segmented(tm, db_chunk=2048, reserve_rows=100,
+                              device="cpu")
     for name in ("obj_start", "n_rows", "spans", "points"):
         np.testing.assert_array_equal(getattr(tdb, name).numpy(),
                                       np.asarray(getattr(jdb, name)))
@@ -74,7 +75,7 @@ def test_twin_matches_reference_twin_and_interpret_kernel(rng):
     arrays = _edge_case_models(rng)
     jm, tm = _both(arrays)
     jdb = jseg.pack_segmented(jm, db_chunk=2048)
-    tdb = tseg.pack_segmented(tm, db_chunk=2048)
+    tdb = tseg.pack_segmented(tm, db_chunk=2048, device="cpu")
     q = _queries(rng, arrays)
     d_x, r_x = jseg.object_top1_xla(jnp.asarray(q), jdb, db_chunk=2048)
     d_f, r_f = jseg.object_top1_fused(jnp.asarray(q), jdb, q_tile=512,
@@ -94,7 +95,7 @@ def test_twin_matches_reference_twin_and_interpret_kernel(rng):
 def test_wrapper_runs_twin_for_cpu_tensors(rng):
     arrays = _arrays(rng, [100, 0, 333])
     _, tm = _both(arrays)
-    tdb = tseg.pack_segmented(tm, db_chunk=256)
+    tdb = tseg.pack_segmented(tm, db_chunk=256, device="cpu")
     q = torch.from_numpy(rng.integers(0, 256, (37, 32), dtype=np.uint8))
     before = tseg.object_top1.launches
     d, r = tseg.object_top1(q, tdb)          # Q need not fill a tile
@@ -111,7 +112,8 @@ def test_segmented_db_from_jax_round_trip(rng):
     jdb = jseg.pack_segmented(jm, db_chunk=2048, reserve_rows=64)
     fields = {k: np.asarray(v) for k, v in jdb._asdict().items()}
     got = convert.segmented_db_from_jax(fields, "cpu")
-    want = tseg.pack_segmented(tm, db_chunk=2048, reserve_rows=64)
+    want = tseg.pack_segmented(tm, db_chunk=2048, reserve_rows=64,
+                               device="cpu")
     for name in ("words", "points", "obj_start", "n_rows", "spans"):
         assert torch.equal(getattr(got, name), getattr(want, name)), name
     assert (got.db_chunk, got.starts_host, got.rows_host) == \

@@ -1,0 +1,230 @@
+"""Parity of the port's SIFT/L2 segmented matcher
+(tod_tpu_torch.ops.segmented_l2) with tod_tpu.ops.pallas.segmented_l2.
+
+On the CPU the port's wrappers run their plain twins; these must equal, bit
+for bit, both the reference's XLA twins and its Pallas kernels run in
+interpret mode (as tests/test_sift.py runs them): int8 squared distances are
+exact integers on every side, the square root is correctly rounded and 1/256
+is a power of two. The CUDA kernels themselves are compared with the twins
+in test_torch_cuda.py, which needs a card.
+"""
+
+import inspect
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from tod_tpu.db.models import TodModel as JaxModel
+from tod_tpu.ops.pallas import segmented_l2 as jl2
+from tod_tpu_torch import convert
+from tod_tpu_torch.models import fused as tfused
+from tod_tpu_torch.ops import segmented as tseg
+from tod_tpu_torch.ops import segmented_l2 as tl2
+from tod_tpu_torch.types import TodModel
+
+torch.set_num_threads(1)
+
+
+def _unit(rng, n):
+    d = rng.random((n, 128)).astype(np.float32) ** 3    # sparse-ish, like SIFT
+    return d / np.maximum(np.linalg.norm(d, axis=1, keepdims=True), 1e-9)
+
+
+def _arrays(rng, sizes):
+    return [(_unit(rng, n), rng.uniform(-0.1, 0.1, (n, 3)).astype(np.float32))
+            for n in sizes]
+
+
+def _both(arrays):
+    jm = [JaxModel(f"o{i}", d, p) for i, (d, p) in enumerate(arrays)]
+    tm = [TodModel(f"o{i}", d, p) for i, (d, p) in enumerate(arrays)]
+    return jm, tm
+
+
+def _edge_case_models(rng):
+    """An empty object, one spanning several chunks, an object of one row,
+    and duplicated rows (the lowest-row tie rule), some of them in a later
+    chunk than the first copy."""
+    arrays = _arrays(rng, [300, 0, 1100, 64, 700, 1])
+    arrays[3][0][10:20] = arrays[3][0][5]       # rows 5 and 10..19 equal
+    arrays[2][0][[40, 300, 900]] = arrays[2][0][7]   # equal rows, 3 chunks
+    return arrays
+
+
+def _queries(rng, arrays, n=128):
+    q = _unit(rng, n)
+    q[0] = arrays[4][0][123]        # distance 0 to object 4 row 123
+    q[1] = arrays[3][0][5]          # distance 0 to 11 equal rows of object 3
+    q[2] = arrays[2][0][7]          # distance 0 to rows 7, 40, 300, 900
+    q[3] = 0.0                      # |q| = 0
+    return np.array(jl2.quantize_descriptors(jnp.asarray(q)))
+
+
+def _assert_db_equal(got, want):
+    for name in ("rows", "norm_sq", "points", "obj_start", "n_rows", "spans"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    assert (got.db_chunk, got.starts_host, got.rows_host) == \
+        (want.db_chunk, want.starts_host, want.rows_host)
+
+
+def test_quantize_descriptors_matches(rng):
+    d = _unit(rng, 500)
+    d[0, :4] = [0.5 / 256, 1.5 / 256, 2.5 / 256, 0.6]   # ties to even; clip
+    d[1] = -d[1]                                          # clip at 0
+    want = np.asarray(jl2.quantize_descriptors(jnp.asarray(d)))
+    got = tl2.quantize_descriptors(torch.from_numpy(d))
+    assert got.dtype == torch.int8
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(tl2.quantize_numpy(d), want)
+    assert want[0, :4].tolist() == [0, 2, 2, 127] and not want[1].any()
+    # q / 256 is exact and quantises back to q: models travel as int8
+    back = want.astype(np.float32) / 256.0
+    np.testing.assert_array_equal(tl2.quantize_numpy(back), want)
+    assert tl2.quantize_numpy(want) is want
+
+
+@pytest.mark.parametrize("case", ["reserve", "empty_catalog", "int8_models"])
+def test_pack_segmented_l2_matches_through_convert(rng, case):
+    """The port's packed DB equals the reference's arrays carried over by
+    segmented_db_f_from_jax: rows, norms (PAD_NORM on padding and reserved
+    rows), points and the segment layout."""
+    arrays = [] if case == "empty_catalog" else \
+        _arrays(rng, [5, 600, 0, 257])
+    jm, tm = _both(arrays)
+    if case == "int8_models":        # quantised models pack to the same DB
+        tm = [TodModel(m.object_id, tl2.quantize_numpy(m.descriptors),
+                       m.points) for m in tm]
+    jdb = jl2.pack_segmented_l2(jm, db_chunk=256, reserve_rows=300)
+    fields = {k: np.asarray(v) for k, v in jdb._asdict().items()}
+    got = convert.segmented_db_f_from_jax(fields, "cpu")
+    want = tl2.pack_segmented_l2(tm, db_chunk=256, reserve_rows=300,
+                                 device="cpu")
+    _assert_db_equal(got, want)
+    np.testing.assert_array_equal(want.rows.numpy(), fields["vecs_t"].T)
+    np.testing.assert_array_equal(want.norm_sq.numpy(), fields["norm_sq"][0])
+    assert want.db_chunk == jl2.db_chunk_of_f(jdb) == 256
+    if arrays:
+        assert want.rows_host == (5, 600, 0, 257)
+        assert want.starts_host == (0, 512, 1280, 1792)
+        assert (want.norm_sq[5:512] == tl2.PAD_NORM).all()
+    else:
+        assert want.n_objects == 0 and tuple(want.rows.shape) == (256, 128)
+        assert (want.norm_sq == tl2.PAD_NORM).all()
+
+
+def test_b3_twin_matches_reference_twin_and_interpret_kernel(rng):
+    arrays = _edge_case_models(rng)
+    jm, tm = _both(arrays)
+    jdb = jl2.pack_segmented_l2(jm, db_chunk=256)
+    tdb = tl2.pack_segmented_l2(tm, db_chunk=256, device="cpu")
+    q = _queries(rng, arrays)
+    d_x, r_x = jl2.object_top1_l2_xla(jnp.asarray(q), jdb, db_chunk=256)
+    d_f, r_f = jl2.object_top1_l2_fused(jnp.asarray(q), jdb, q_tile=128,
+                                        db_chunk=256)    # interpret mode
+    d_t, r_t = tl2.object_top1_l2_torch(torch.from_numpy(q), tdb)
+    assert d_t.dtype == torch.float32 and r_t.dtype == torch.int32
+    for d_ref, r_ref in ((d_x, r_x), (d_f, r_f)):
+        np.testing.assert_array_equal(d_t.numpy(), np.asarray(d_ref))
+        np.testing.assert_array_equal(r_t.numpy(), np.asarray(r_ref))
+    d, r = d_t.numpy(), r_t.numpy()
+    assert (d[0, 4], r[0, 4]) == (0, 123)
+    assert (d[1, 3], r[1, 3]) == (0, 5)      # lowest of the equal rows
+    assert (d[2, 2], r[2, 2]) == (0, 7)      # ... across chunks
+    # the object with no rows reports its padding rows' distance, exactly
+    # sqrt(f32(|q|^2 + 2^28)) / 256 (~64), and row 0
+    q_norm = (q.astype(np.int64) ** 2).sum(1)
+    d_sq, _ = tl2.object_top1_l2_sq_torch(torch.from_numpy(q), tdb)
+    np.testing.assert_array_equal(d_sq[:, 1].numpy(), q_norm + tl2.PAD_NORM)
+    np.testing.assert_array_equal(
+        d[:, 1], np.sqrt((q_norm + tl2.PAD_NORM).astype(np.float32))
+        * np.float32(1 / 256))
+    assert (r[:, 1] == 0).all() and d_sq[3, 1] == tl2.PAD_NORM
+    assert d[:, [0, 2, 3, 4, 5]].max() < 2.0 < d[:, 1].min()
+
+
+def test_b4_twin_matches_reference_twin_and_interpret_kernel(rng):
+    arrays = _edge_case_models(rng)
+    jm, tm = _both(arrays)
+    jdb = jl2.pack_segmented_l2(jm, db_chunk=256)
+    tdb = tl2.pack_segmented_l2(tm, db_chunk=256, device="cpu")
+    q = _queries(rng, arrays)
+    sel = np.array([3, -1, 0, 1, 5, 2, -1, 4, 3], np.int32)
+    d_x, r_x = jl2.object_top1_l2_gathered_xla(jnp.asarray(q), jdb,
+                                               jnp.asarray(sel), db_chunk=256)
+    d_f, r_f = jl2.object_top1_l2_gathered_fused(
+        jnp.asarray(q), jdb, jnp.asarray(sel),
+        jl2.max_chunks_per_object_f(jdb), q_tile=128)    # interpret mode
+    d_t, r_t = tl2.object_top1_l2_gathered_torch(
+        torch.from_numpy(q), tdb, torch.from_numpy(sel))
+    for d_ref, r_ref in ((d_x, r_x), (d_f, r_f)):
+        np.testing.assert_array_equal(d_t.numpy(), np.asarray(d_ref))
+        np.testing.assert_array_equal(r_t.numpy(), np.asarray(r_ref))
+    # each column is the full sweep's column at sel; holes report
+    # _to_l2(DIST_INVALID) = sqrt(2^31) / 256 and row 0, bit for bit
+    d_full, r_full = tl2.object_top1_l2_torch(torch.from_numpy(q), tdb)
+    for c, o in enumerate(sel):
+        if o >= 0:
+            assert torch.equal(d_t[:, c], d_full[:, o])
+            assert torch.equal(r_t[:, c], r_full[:, o])
+    hole = np.asarray(jl2._to_l2(jnp.int32(jl2.DIST_INVALID)))
+    assert np.float32(tl2.HOLE_DIST_L2) == hole == \
+        np.sqrt(np.float32(2.0 ** 31)) / 256
+    assert (d_t.numpy()[:, [1, 6]] == hole).all()
+    assert (r_t.numpy()[:, [1, 6]] == tl2.HOLE_ROW_L2).all()
+    # an id past the catalog is a hole too (the kernel must not read it)
+    d_p, r_p = tl2.object_top1_l2_gathered_torch(
+        torch.from_numpy(q), tdb, torch.tensor([6, 0], dtype=torch.int32))
+    assert (d_p[:, 0] == tl2.HOLE_DIST_L2).all() and (r_p[:, 0] == 0).all()
+    assert torch.equal(d_p[:, 1], d_full[:, 0])
+
+
+def test_wrappers_run_twins_for_cpu_tensors(rng):
+    arrays = _arrays(rng, [100, 0, 333])
+    _, tm = _both(arrays)
+    tdb = tl2.pack_segmented_l2(tm, db_chunk=256, device="cpu")
+    q = torch.from_numpy(_queries(rng, _edge_case_models(rng), 37))
+    sel = torch.tensor([2, -1, 0], dtype=torch.int32)
+    before = (tl2.object_top1_l2.launches,
+              tl2.object_top1_l2_gathered.launches)
+    d, r = tl2.object_top1_l2(q, tdb)        # Q need not fill a tile
+    d_t, r_t = tl2.object_top1_l2_torch(q, tdb)
+    assert torch.equal(d, d_t) and torch.equal(r, r_t)
+    d, r = tl2.object_top1_l2_gathered(q, tdb, sel)
+    d_t, r_t = tl2.object_top1_l2_gathered_torch(q, tdb, sel)
+    assert torch.equal(d, d_t) and torch.equal(r, r_t)
+    assert before == (tl2.object_top1_l2.launches,
+                      tl2.object_top1_l2_gathered.launches)
+    with pytest.raises(ValueError):
+        tl2.object_top1_l2(q.to("meta"), tdb)
+    with pytest.raises(ValueError):
+        tl2.object_top1_l2_gathered(q.to("meta"), tdb, sel)
+    # the dispatch on the DB's class, as FusedDetector matches
+    assert torch.equal(tfused.match_full(q, tdb)[0],
+                       tl2.object_top1_l2_torch(q, tdb)[0])
+    assert torch.equal(tfused.match_gathered(q, tdb, sel)[1], r_t)
+
+
+@pytest.mark.parametrize("entry", [
+    tfused.FusedDetector.__init__, tseg.pack_segmented,
+    tl2.pack_segmented_l2, convert.segmented_db_from_jax,
+    convert.segmented_db_f_from_jax])
+def test_entry_points_default_to_the_card(entry):
+    """Entry points serve on the card unless the caller names another
+    device (the tests name "cpu"); none falls back when no card is found."""
+    assert inspect.signature(entry).parameters["device"].default == "cuda"
+
+
+def test_to_l2_matches_bit_for_bit():
+    """Every squared distance two int8 rows can have (up to 2 * 127^2 *
+    128), the empty object's range and the invalid distance."""
+    x = np.concatenate([
+        np.arange(0, 2 * 127 * 127 * 128 + 1, dtype=np.int64),
+        tl2.PAD_NORM + np.arange(0, 127 * 127 * 128 + 1, 97, dtype=np.int64),
+        [tl2.DIST_INVALID, -5]]).astype(np.int32)
+    want = np.asarray(jl2._to_l2(jnp.asarray(x)))
+    got = tl2.to_l2(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert got[-1] == 0.0 and got[-2] == np.float32(tl2.HOLE_DIST_L2)

@@ -176,34 +176,41 @@ def test_config_round_trip_and_unported_paths(world):
     assert dataclasses.asdict(port_cfg) == dataclasses.asdict(cfg)
     models = [TodModel("a", np.zeros((4, 32), np.uint8),
                        np.zeros((4, 3), np.float32))]
-    for change in (dict(pipeline="global"), dict(feature="SIFT"),
-                   dict(subpixel=True)):
+    for change in (dict(pipeline="global"), dict(subpixel=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tfused.FusedDetector(models, dataclasses.replace(port_cfg,
-                                                             **change))
+                                                             **change),
+                                 device="cpu")
+    # SIFT is ported (test_torch_sift.py), on the segmented pipeline only,
+    # as in the reference
+    tfused.check_ported(dataclasses.replace(port_cfg, feature="SIFT"))
+    with pytest.raises(ValueError, match="segmented"):
+        tfused.FusedDetector(models, dataclasses.replace(
+            port_cfg, feature="SIFT", pipeline="global"), device="cpu")
     # coarse->fine is ported; reserved slots without it, or leaving no
     # coarse slot, are refused as the reference refuses them
     for change in (dict(coarse_stride=8), dict(coarse_stride=8, track_width=4,
                                                explore_width=4)):
         tfused.check_ported(dataclasses.replace(port_cfg, **change))
         assert tfused.FusedDetector(models, dataclasses.replace(
-            port_cfg, **change)).cdb.rows_host == (1,)
+            port_cfg, **change), device="cpu").cdb.rows_host == (1,)
     for change in (dict(track_width=4), dict(explore_width=4),
                    dict(coarse_stride=8, fine_width=8, track_width=4,
                         explore_width=4)):
         with pytest.raises(ValueError, match="coarse"):
             tfused.FusedDetector(models, dataclasses.replace(port_cfg,
-                                                             **change))
-    det = tfused.FusedDetector(models, port_cfg)
+                                                             **change),
+                                 device="cpu")
+    det = tfused.FusedDetector(models, port_cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         det.update_models(models)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         det.detect_batch_raw(None, None, None)
-    assert tfused.FusedDetector([], port_cfg).detect(
+    assert tfused.FusedDetector([], port_cfg, device="cpu").detect(
         world["image"], world["depth"], DEFAULT_K) == []
     # catalog capacity pads with empty slots the reference packs alike
     cap = dataclasses.replace(port_cfg, catalog_capacity=3, reserve_rows=64)
-    padded = tfused.FusedDetector(models, cap)
+    padded = tfused.FusedDetector(models, cap, device="cpu")
     assert padded.object_ids == ["a", "", ""]
     assert padded.sdb.rows_host == (4, 0, 0)
     assert padded.sdb.starts_host == (0, 4096, 8192)
@@ -224,7 +231,7 @@ def test_fixture_compaction_at_bench_operating_point(frame):
     fx = np.load(os.path.join(os.path.dirname(__file__), "data",
                               "torch_smoke_fixture.npz"))
     cfg = convert.config_from_dict(json.loads(str(fx["config_json"])))
-    det = tfused.FusedDetector([], cfg)
+    det = tfused.FusedDetector([], cfg, device="cpu")
     out = [t.numpy() for t in tfused.stage_features_compact(
         *det.prepare_frame(fx["images"][frame], fx["depths"][frame],
                            fx["K"]), cfg)]

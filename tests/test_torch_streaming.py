@@ -206,7 +206,8 @@ def stream():
     tdet_ = tfused.FusedDetector(
         convert.models_from_numpy(ids, [d for d, _ in arrays],
                                   [p for _, p in arrays]),
-        convert.config_from_dict(dataclasses.asdict(cfg)), seed=SEED)
+        convert.config_from_dict(dataclasses.asdict(cfg)), seed=SEED,
+        device="cpu")
     frames = [(fx["images"][f % 2], fx["depths"][f % 2]) for f in
               range(N_FRAMES)]
     return dict(fx=fx, cfg=cfg, jdet=jdet_, tdet=tdet_, slabs=slabs,
@@ -218,7 +219,7 @@ def test_streaming_detector_matches_reference(stream):
     cfg = stream["cfg"]
     # the reference's coarse DB converts one to one into the port's
     got = convert.segmented_db_from_jax(
-        {k: np.asarray(v) for k, v in jd.cdb._asdict().items()})
+        {k: np.asarray(v) for k, v in jd.cdb._asdict().items()}, "cpu")
     for name in ("words", "obj_start", "n_rows"):
         assert torch.equal(getattr(got, name), getattr(td.cdb, name)), name
     confident = np.zeros(len(jd.object_ids), bool)

@@ -16,11 +16,11 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent / "build"
-SOURCES = ("segmented_top1",)     # every kernel of csrc/, by file stem
+SOURCES = ("segmented_top1", "segmented_l2_top1")   # csrc/, by file stem
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -61,7 +61,24 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-def check(status: int, what: str) -> None:
-    """Raise on a non-zero ``cudaError_t`` returned by a C entry point."""
+def build_all() -> None:
+    """Build every kernel of ``SOURCES`` that is not built yet, one ``nvcc``
+    per source, all started together."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        list(pool.map(load, SOURCES))
+
+
+def call(name: str, entry: str, pointers: Sequence[int],
+         ints: Sequence[int], stream: int) -> None:
+    """Call the C entry point ``entry(pointers..., ints..., stream)`` of
+    ``csrc/<name>.cu``; raise on the ``cudaError_t`` it returns."""
+    fn = getattr(load(name), entry)
+    fn.argtypes = [ctypes.c_void_p] * len(pointers) \
+        + [ctypes.c_int] * len(ints) + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    status = fn(*pointers, *ints, stream)
     if status != 0:
-        raise RuntimeError(f"{what}: CUDA launch failed with cudaError {status}")
+        raise RuntimeError(f"{entry}: CUDA launch failed with cudaError "
+                           f"{status}")

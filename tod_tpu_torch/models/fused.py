@@ -1,15 +1,18 @@
-"""FusedDetector on the segmented ORB serving path (tod_tpu/models/fused.py).
+"""FusedDetector on the segmented serving path (tod_tpu/models/fused.py),
+with ORB/Hamming or SIFT/L2 features.
 
-One frame runs as three stages on one device and stream: ORB features with
-query compaction, the per-(query, object) matcher (the CUDA kernels of
-``ops/segmented.py`` on the card), and the two-tier segmented geometry. The
-host reads the detections back once, as one packed tensor.
+One frame runs as three stages on one device and stream: features with query
+compaction, the per-(query, object) matcher (the CUDA kernels of
+``ops/segmented.py`` for ORB, of ``ops/segmented_l2.py`` for SIFT, on the
+card), and the two-tier segmented geometry. The host reads the detections
+back once, as one packed tensor.
 
-With ``coarse_stride > 0`` the matcher runs coarse->fine: kernel B1 sweeps a
-stride-subsampled companion DB, :func:`stage_coarse_select` picks a slab of
-``fine_width`` objects (plus tracked and exploration slots), kernel B2
-matches exactly against the slab's objects only, and the geometry runs on
-the slab. Tracked slots, the exploration cursor and the last accepted poses
+With ``coarse_stride > 0`` the matcher runs coarse->fine: the full-sweep
+kernel (B1, or B3 for SIFT) sweeps a stride-subsampled companion DB,
+:func:`stage_coarse_select` picks a slab of ``fine_width`` objects (plus
+tracked and exploration slots), the gathered kernel (B2, or B4) matches
+exactly against the slab's objects only, and the geometry runs on the
+slab. Tracked slots, the exploration cursor and the last accepted poses
 (tier-2 seeds) are state carried from frame to frame.
 
 Configuration values of other serving paths raise ``NotImplementedError``
@@ -38,6 +41,11 @@ from tod_tpu_torch.ops.orb import orb_detect_and_compute
 from tod_tpu_torch.ops.segmented import (SegmentedDb, object_top1,
                                          object_top1_gathered, pack_segmented,
                                          subsample_models)
+from tod_tpu_torch.ops.segmented_l2 import (SegmentedDbF, object_top1_l2,
+                                            object_top1_l2_gathered,
+                                            pack_segmented_l2,
+                                            quantize_descriptors)
+from tod_tpu_torch.ops.sift import sift_detect_and_compute
 from tod_tpu_torch.types import PoseResult, TodModel
 
 
@@ -92,8 +100,6 @@ def check_ported(cfg: FusedDetectorConfig) -> None:
     missing = [
         (cfg.pipeline != "segmented",
          f"pipeline={cfg.pipeline!r}: the global-kNN path is ROADMAP A12"),
-        (cfg.feature != "ORB",
-         f"feature={cfg.feature!r}: the SIFT/L2 path is ROADMAP A11"),
         (cfg.subpixel, "subpixel keypoints are ROADMAP A16"),
     ]
     for bad, why in missing:
@@ -149,21 +155,35 @@ def bucketed_scores(xy: torch.Tensor, response: torch.Tensor,
     return torch.where(finite, resp01 - rank.to(torch.float32), neg_inf)
 
 
+def match_full(dsc: torch.Tensor, db):
+    """The full sweep on the DB's own kernel: B1 over a ``SegmentedDb``, B3
+    over a ``SegmentedDbF``."""
+    return (object_top1 if isinstance(db, SegmentedDb)
+            else object_top1_l2)(dsc, db)
+
+
+def match_gathered(dsc: torch.Tensor, db, sel: torch.Tensor):
+    """The fine pass on the DB's own kernel: B2 or B4."""
+    return (object_top1_gathered if isinstance(db, SegmentedDb)
+            else object_top1_l2_gathered)(dsc, db, sel)
+
+
 def stage_coarse_select(dsc: torch.Tensor, ok: torch.Tensor,
-                        cdb: SegmentedDb, cfg: FusedDetectorConfig,
+                        cdb: SegmentedDb | SegmentedDbF,
+                        cfg: FusedDetectorConfig,
                         tracked: Optional[torch.Tensor] = None,
                         explore: Optional[torch.Tensor] = None):
-    """The frame's slab: the coarse screen's top objects (kernel B1 on the
-    coarse DB, every ``coarse_q_stride``-th query), then the tracked and
-    exploration ids with duplicates holed out. Returns ``(sel (C,) int32,
-    force, force_act)``: ``force`` marks slots of reserved objects (they
-    bypass the in-slab prescreen), ``force_act`` those of tracked objects
-    (they also bypass the activation cut); both None without reserved
-    slots."""
+    """The frame's slab: the coarse screen's top objects (kernel B1, or B3
+    for SIFT, on the coarse DB, every ``coarse_q_stride``-th query), then
+    the tracked and exploration ids with duplicates holed out. Returns
+    ``(sel (C,) int32, force, force_act)``: ``force`` marks slots of
+    reserved objects (they bypass the in-slab prescreen), ``force_act``
+    those of tracked objects (they also bypass the activation cut); both
+    None without reserved slots."""
     if cfg.coarse_q_stride > 1:     # ranking only: the fine pass sees all
         dsc = dsc[::cfg.coarse_q_stride]
         ok = ok[::cfg.coarse_q_stride]
-    dist_c, _ = object_top1(dsc, cdb)
+    dist_c, _ = match_full(dsc, cdb)
     width = cfg.fine_width \
         - (cfg.track_width if tracked is not None else 0) \
         - (cfg.explore_width if explore is not None else 0)
@@ -186,11 +206,18 @@ def _round_up(x: int, m: int) -> int:
 
 def stage_features_compact(gray: torch.Tensor, depth: torch.Tensor,
                            K: torch.Tensor, cfg: FusedDetectorConfig):
-    """ORB + 3D + query compaction: keep the ``q_cap`` best keypoints with
-    valid 3D, padded to a multiple of 512. Returns ``(xy, qp, dsc, ok)``."""
-    kps, desc = orb_detect_and_compute(
-        gray, n_features=cfg.n_features, n_levels=cfg.n_levels,
-        scale_factor=cfg.scale_factor, fast_threshold=cfg.fast_threshold)
+    """Features + 3D + query compaction: keep the ``q_cap`` best keypoints
+    with valid 3D, padded to a multiple of 512. Returns ``(xy, qp, dsc,
+    ok)``; ``dsc`` is (Q, 32) uint8 for ORB, (Q, 128) int8 (quantised) for
+    SIFT."""
+    extract = dict(n_features=cfg.n_features, n_levels=cfg.n_levels,
+                   scale_factor=cfg.scale_factor,
+                   fast_threshold=cfg.fast_threshold)
+    if cfg.feature == "SIFT":
+        kps, desc = sift_detect_and_compute(gray, **extract)
+        desc = quantize_descriptors(desc)
+    else:
+        kps, desc = orb_detect_and_compute(gray, **extract)
     query_pts = depth_to_3d_sparse(to_metric_depth(depth), K, kps.xy)
     finite = torch.isfinite(query_pts).all(-1) & kps.valid
     k = min(cfg.q_cap, cfg.n_features)
@@ -214,18 +241,23 @@ def stage_features_compact(gray: torch.Tensor, depth: torch.Tensor,
     xy = padded(kps.xy[sel], 0)
     qp = padded(torch.where(ok[:, None], query_pts[sel], nan), torch.nan)
     dsc = padded(torch.where(ok[:, None], desc[sel],
-                             torch.zeros((), dtype=torch.uint8,
+                             torch.zeros((), dtype=desc.dtype,
                                          device=desc.device)), 0)
     return xy, qp, dsc, padded(ok, False)
 
 
 class FusedDetector:
-    """Load models once, detect many frames, on one explicit device."""
+    """Load models once, detect many frames, on one device: the card,
+    unless the caller names another."""
 
     def __init__(self, models: Sequence[TodModel],
                  config: Optional[FusedDetectorConfig] = None,
-                 seed: int = 0, device: torch.device | str = "cpu"):
+                 seed: int = 0, device: torch.device | str = "cuda"):
         self.config = cfg = config or FusedDetectorConfig()
+        if cfg.feature == "SIFT" and cfg.pipeline != "segmented":
+            raise ValueError(
+                "FusedDetector serves SIFT/L2 through the segmented "
+                "pipeline only (pipeline='segmented')")
         check_ported(cfg)
         if cfg.track_width or cfg.explore_width:
             if cfg.coarse_stride <= 0:
@@ -243,12 +275,15 @@ class FusedDetector:
         self.generator.manual_seed(seed)
         self.noise: NoiseFn = GumbelNoise(self.generator)
         models = list(models)
+        sift = cfg.feature == "SIFT"
+        pack = pack_segmented_l2 if sift else pack_segmented
         if cfg.catalog_capacity > len(models):
-            models += [TodModel("", np.zeros((0, 32), np.uint8),
-                                np.zeros((0, 3), np.float32))
+            empty = (np.zeros((0, 128), np.float32) if sift
+                     else np.zeros((0, 32), np.uint8))
+            models += [TodModel("", empty, np.zeros((0, 3), np.float32))
                        for _ in range(cfg.catalog_capacity - len(models))]
-        self.sdb = pack_segmented(models, reserve_rows=cfg.reserve_rows,
-                                  device=self.device)
+        self.sdb = pack(models, reserve_rows=cfg.reserve_rows,
+                        device=self.device)
         self.object_ids = [m.object_id for m in models]
         # streaming state of coarse->fine serving, per object slot: frames
         # since last accepted, the last accepted pose, the exploration
@@ -261,7 +296,7 @@ class FusedDetector:
         self._explore_pos = 0
         self._last_coarse_sel: Optional[torch.Tensor] = None
         self.slab = None   # the last frame's (sel, force, force_act)
-        self.cdb: Optional[SegmentedDb] = None
+        self.cdb: Optional[SegmentedDb | SegmentedDbF] = None
         if cfg.coarse_stride > 0 and models:
             # the coarse DB is chunked to the SUBSAMPLED segment length, as
             # the reference packs it (its layout is the reference's)
@@ -269,7 +304,7 @@ class FusedDetector:
             med_rows = int(np.median([max(m.n_points, 1) for m in sub]))
             c_chunk = next((c for c in (512, 1024, 2048, 4096)
                             if c >= med_rows), 4096)
-            self.cdb = pack_segmented(
+            self.cdb = pack(
                 sub, db_chunk=c_chunk,
                 reserve_rows=-(-cfg.reserve_rows // cfg.coarse_stride),
                 device=self.device)
@@ -315,15 +350,15 @@ class FusedDetector:
             return None
         if self.cdb is not None:
             return self._detect_coarse_fine(xy, qp, dsc, ok)
-        dist, rows = object_top1(dsc, self.sdb)
+        dist, rows = match_full(dsc, self.sdb)
         return detect_frame_segmented(
             self.noise, dist, rows, ok, qp, xy, self.sdb.points,
             self.sdb.obj_start, self.sdb.spans, cfg.guess, cfg.activation,
             cfg.radius)[1]
 
     def _detect_coarse_fine(self, xy, qp, dsc, ok) -> ObjectDetections:
-        """One coarse->fine frame (B1 on the coarse DB, B2 on the slab),
-        advancing the streaming state."""
+        """One coarse->fine frame (B1 or B3 on the coarse DB, B2 or B4 on
+        the slab), advancing the streaming state."""
         cfg = self.config
         track, explore = cfg.track_width > 0, cfg.explore_width > 0
         tracked = None
@@ -347,7 +382,7 @@ class FusedDetector:
             self._last_coarse_sel = sel[:n_coarse]
             seeds = seeds_from_state(self._age, self._last_R, self._last_T,
                                      cfg.track_ttl)
-        dist, rows = object_top1_gathered(dsc, self.sdb, sel)
+        dist, rows = match_gathered(dsc, self.sdb, sel)
         det = detect_frame_gathered(
             self.noise, dist, rows, sel, ok, qp, xy, self.sdb.points,
             self.sdb.obj_start, self.sdb.spans, cfg.guess, cfg.activation,

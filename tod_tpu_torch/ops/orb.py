@@ -12,7 +12,7 @@ gives the same bits without the (K, 1369) x (1369, 8192) product.
 from __future__ import annotations
 
 import functools
-from typing import List, NamedTuple, Tuple
+from typing import Callable, List, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -167,15 +167,15 @@ def brief_descriptors(blurred: torch.Tensor, xy: torch.Tensor,
     return pack_bits(vals[..., 1] > vals[..., 0])
 
 
-def orb_detect_and_compute(gray: torch.Tensor, n_features: int = 500,
-                           n_levels: int = 3, scale_factor: float = 1.2,
-                           fast_threshold: float = 20.0,
-                           edge_threshold: int = EDGE_THRESHOLD
-                           ) -> Tuple[Keypoints, torch.Tensor]:
-    """ORB keypoints + 256-bit descriptors with exactly ``n_features``
-    padded slots (invalid slots: valid=False, zero descriptors). Keypoint
-    coords are integer level coords scaled to level 0 (no sub-pixel
-    refinement, the serving default)."""
+def detect_and_describe(gray: torch.Tensor, describe: Callable,
+                        n_features: int, n_levels: int, scale_factor: float,
+                        fast_threshold: float, edge_threshold: int
+                        ) -> Tuple[Keypoints, torch.Tensor]:
+    """FAST/Harris keypoints over the pyramid with exactly ``n_features``
+    padded slots, each level's descriptors from ``describe(level image, xy,
+    angle)`` (zero on invalid slots). Keypoint coords are integer level
+    coords scaled to level 0 (no sub-pixel refinement, the serving
+    default)."""
     levels = build_pyramid(gray, n_levels, scale_factor)
     counts = features_per_level(n_features, n_levels, scale_factor)
     kxs: List[torch.Tensor] = []
@@ -189,9 +189,9 @@ def orb_detect_and_compute(gray: torch.Tensor, n_features: int = 500,
         xy, resp, valid = select_topk_keypoints(score, harris, is_corner,
                                                 k_lvl, edge_threshold)
         angle = keypoint_angles(img, xy)
-        desc = brief_descriptors(gaussian_blur(img, 7, 2.0), xy, angle)
+        desc = describe(img, xy, angle)
         desc = torch.where(valid[:, None], desc,
-                           torch.zeros((), dtype=torch.uint8,
+                           torch.zeros((), dtype=desc.dtype,
                                        device=desc.device))
         kxs.append(xy.to(torch.float32) * scale_factor**lvl)
         all_resp.append(resp)
@@ -204,3 +204,17 @@ def orb_detect_and_compute(gray: torch.Tensor, n_features: int = 500,
                     angle=torch.cat(all_angle), level=torch.cat(all_level),
                     valid=torch.cat(all_valid))
     return kps, torch.cat(all_desc)
+
+
+def orb_detect_and_compute(gray: torch.Tensor, n_features: int = 500,
+                           n_levels: int = 3, scale_factor: float = 1.2,
+                           fast_threshold: float = 20.0,
+                           edge_threshold: int = EDGE_THRESHOLD
+                           ) -> Tuple[Keypoints, torch.Tensor]:
+    """ORB keypoints + 256-bit descriptors, (n_features, 32) uint8
+    (:func:`detect_and_describe` with steered BRIEF on the level blurred at
+    sigma 2)."""
+    return detect_and_describe(
+        gray, lambda img, xy, angle: brief_descriptors(
+            gaussian_blur(img, 7, 2.0), xy, angle),
+        n_features, n_levels, scale_factor, fast_threshold, edge_threshold)

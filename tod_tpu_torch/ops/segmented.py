@@ -22,7 +22,6 @@ coarse->fine matching: the same columns, but only for the selected objects
 
 from __future__ import annotations
 
-import ctypes
 from dataclasses import dataclass
 from typing import Sequence, Tuple
 
@@ -95,7 +94,7 @@ def db_from_arrays(desc_u8: np.ndarray, points: np.ndarray,
 
 def pack_segmented(models: Sequence, db_chunk: int = DB_CHUNK,
                    reserve_rows: int = 0,
-                   device: torch.device | str = "cpu") -> SegmentedDb:
+                   device: torch.device | str = "cuda") -> SegmentedDb:
     """Pack models into the segmented layout (host-side, at load time).
 
     Same segment layout as the reference: every object's segment is padded
@@ -194,21 +193,33 @@ def object_top1_gathered_torch(query_u8: torch.Tensor, db: SegmentedDb,
     return _split_keys(best)
 
 
-def _checked_query(query_u8: torch.Tensor, db: SegmentedDb) -> torch.Tensor:
-    """The query as the kernels take it, or raise: (Q, 32) uint8 on the
-    DB's device, contiguous and 16-byte aligned like the DB's rows."""
-    if query_u8.dtype != torch.uint8 or query_u8.dim() != 2 \
-            or query_u8.shape[1] != 32:
-        raise ValueError(f"query must be (Q, 32) uint8, got "
-                         f"{tuple(query_u8.shape)} {query_u8.dtype}")
-    if db.words.device != query_u8.device:
-        raise ValueError(f"query on {query_u8.device}, DB on "
-                         f"{db.words.device}")
-    q = query_u8.contiguous()
-    for name, t in (("query", q), ("words", db.words)):
+def checked_query(query: torch.Tensor, rows: torch.Tensor,
+                  dtype: torch.dtype, width: int) -> torch.Tensor:
+    """The query as the kernels take it, or raise: (Q, ``width``) of
+    ``dtype`` on the device of the DB's ``rows``, contiguous and 16-byte
+    aligned like them."""
+    if query.dtype != dtype or query.dim() != 2 or query.shape[1] != width:
+        raise ValueError(f"query must be (Q, {width}) {dtype}, got "
+                         f"{tuple(query.shape)} {query.dtype}")
+    if rows.device != query.device:
+        raise ValueError(f"query on {query.device}, DB on {rows.device}")
+    q = query.contiguous()
+    for name, t in (("query", q), ("DB rows", rows)):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
     return q
+
+
+def checked_sel(sel: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """The selection as the gathered kernels take it, or raise."""
+    if sel.dtype != torch.int32 or sel.dim() != 1:
+        raise ValueError(f"sel must be (C,) int32, got {tuple(sel.shape)} "
+                         f"{sel.dtype}")
+    if sel.device != q.device:
+        raise ValueError(f"sel on {sel.device}, query on {q.device}")
+    if sel.shape[0] > MAX_GRID_Y:
+        raise ValueError(f"{sel.shape[0]} slots exceed the grid's y limit")
+    return sel.contiguous()
 
 
 def _call(entry: str, q: torch.Tensor, db: SegmentedDb, n_cols: int,
@@ -221,21 +232,18 @@ def _call(entry: str, q: torch.Tensor, db: SegmentedDb, n_cols: int,
                        device=q.device)
     row = torch.empty((q.shape[0], n_cols), dtype=torch.int32,
                       device=q.device)
-    fn = getattr(kernels.load("segmented_top1"), entry)
-    fn.argtypes = [ctypes.c_void_p] * (6 + len(ptrs)) + [ctypes.c_int] * 3 \
-        + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    status = fn(q.data_ptr(), db.words.data_ptr(), db.obj_start.data_ptr(),
-                db.n_rows.data_ptr(), *ptrs, dist.data_ptr(), row.data_ptr(),
-                q.shape[0], n_cols, db.n_objects, stream)
-    kernels.check(status, entry)
+    kernels.call("segmented_top1", entry,
+                 (q.data_ptr(), db.words.data_ptr(), db.obj_start.data_ptr(),
+                  db.n_rows.data_ptr(), *ptrs, dist.data_ptr(),
+                  row.data_ptr()),
+                 (q.shape[0], n_cols, db.n_objects),
+                 torch.cuda.current_stream(q.device).cuda_stream)
     return dist, row
 
 
 def _launch(query_u8: torch.Tensor, db: SegmentedDb
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    q = _checked_query(query_u8, db)
+    q = checked_query(query_u8, db.words, torch.uint8, 32)
     if db.n_objects > MAX_GRID_Y:
         raise ValueError(f"{db.n_objects} objects exceed the grid's y limit")
     out = _call("tod_object_top1", q, db, db.n_objects)
@@ -245,15 +253,8 @@ def _launch(query_u8: torch.Tensor, db: SegmentedDb
 
 def _launch_gathered(query_u8: torch.Tensor, db: SegmentedDb,
                      sel: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    q = _checked_query(query_u8, db)
-    if sel.dtype != torch.int32 or sel.dim() != 1:
-        raise ValueError(f"sel must be (C,) int32, got {tuple(sel.shape)} "
-                         f"{sel.dtype}")
-    if sel.device != q.device:
-        raise ValueError(f"sel on {sel.device}, query on {q.device}")
-    if sel.shape[0] > MAX_GRID_Y:
-        raise ValueError(f"{sel.shape[0]} slots exceed the grid's y limit")
-    sel = sel.contiguous()
+    q = checked_query(query_u8, db.words, torch.uint8, 32)
+    sel = checked_sel(sel, q)
     out = _call("tod_object_top1_gathered", q, db, sel.shape[0],
                 (sel.data_ptr(),))
     object_top1_gathered.launches += 1

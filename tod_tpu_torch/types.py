@@ -18,7 +18,10 @@ class TodModel:
     """One trained object model: stacked descriptors + 3D points + span."""
 
     object_id: str
-    descriptors: np.ndarray  # (N, 32) uint8 — 256-bit packed, byte layout
+    # ORB: (N, 32) uint8, 256-bit packed, byte layout. SIFT: (N, 128) float32
+    # unit-norm, or (N, 128) int8 already quantised (round(d * 256) in
+    # [0, 127], see ops/segmented_l2.py), a quarter of the bytes.
+    descriptors: np.ndarray
     points: np.ndarray       # (N, 3) float32 — object/world frame
 
     @property

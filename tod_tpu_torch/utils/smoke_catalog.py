@@ -8,6 +8,17 @@ a cube of ``cube_m``. The matcher then meets real in-radius junk, but the
 fillers carry no geometric consistency. Numpy only, so the fixture generator
 (with the reference) and the smoke run (with the port) build the same
 catalog from the same seed.
+
+SIFT models travel quantised, as (N, 128) int8 (``round(d * 256)`` clipped
+to [0, 127]; ``q / 256`` is exact in float32 and quantises back to ``q``).
+Their fillers add seeded integer noise, uniform in [-``L2_NOISE``,
+``L2_NOISE``], to every entry and clip back to [0, 127]. At 16 a filler row
+lies 0.36 +- 0.02 L2 units from its source row (measured on the three
+trained models by tools/make_torch_sift_fixture.py; entries that clip at 0
+move less), inside the serving radius of 0.9 and about as far, relative to
+the radius, as an ORB filler's 25 bits of 50: a query that matches a
+trained row at distance d meets its fillers' copies near
+sqrt(d^2 + 0.36^2), in radius but ranked below the source.
 """
 
 from __future__ import annotations
@@ -19,6 +30,7 @@ import numpy as np
 SEED = 20260
 FLIP_P = 0.1
 CUBE_M = 0.25
+L2_NOISE = 16
 
 
 def filler_arrays(real: Sequence[Tuple[np.ndarray, np.ndarray]],
@@ -64,6 +76,71 @@ def filler_arrays_on(device, real: Sequence[Tuple[np.ndarray, np.ndarray]],
     return out
 
 
+def filler_arrays_l2(real: Sequence[Tuple[np.ndarray, np.ndarray]],
+                     n_filler: int, seed: int = SEED, noise: int = L2_NOISE,
+                     cube_m: float = CUBE_M
+                     ) -> List[Tuple[np.ndarray, np.ndarray]]:
+    """``n_filler`` (descriptors int8, points f32) pairs made from the
+    quantised ``real`` (descriptors, points) pairs."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for j in range(n_filler):
+        desc, _ = real[j % len(real)]
+        n = desc.shape[0]
+        step = rng.integers(-noise, noise + 1, (n, desc.shape[1]),
+                            dtype=np.int16)
+        pts = rng.uniform(-cube_m / 2, cube_m / 2, (n, 3)).astype(np.float32)
+        out.append((np.clip(desc + step, 0, 127).astype(np.int8), pts))
+    return out
+
+
+def filler_arrays_l2_on(device, real: Sequence[Tuple[np.ndarray, np.ndarray]],
+                        first: int, n_filler: int, seed: int = SEED,
+                        noise: int = L2_NOISE, cube_m: float = CUBE_M
+                        ) -> List[Tuple[np.ndarray, np.ndarray]]:
+    """Fillers ``first .. first + n_filler - 1`` made as
+    :func:`filler_arrays_l2` makes them, but drawn on ``device`` from a
+    seeded ``torch.Generator``: the same distribution, other draws."""
+    import torch
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed + first)
+    sources = [torch.from_numpy(d).to(device=device, dtype=torch.int16)
+               for d, _ in real]
+    out = []
+    for j in range(first, first + n_filler):
+        desc = sources[j % len(real)]
+        step = torch.randint(-noise, noise + 1, desc.shape, generator=gen,
+                             device=device, dtype=torch.int16)
+        pts = (torch.rand((desc.shape[0], 3), generator=gen, device=device)
+               - 0.5) * cube_m
+        out.append(((desc + step).clamp_(0, 127).to(torch.int8).cpu().numpy(),
+                    pts.cpu().numpy().astype(np.float32)))
+    return out
+
+
+def edge_case_arrays_l2(seed: int, long_rows: int = 9000, n_q: int = 300
+                        ) -> Tuple[List[np.ndarray], np.ndarray]:
+    """(int8 descriptors per object, int8 queries) that hit the L2 matcher
+    kernels' edges: an empty object (1), an object of one row (5), objects
+    spanning several row tiles and DB chunks, duplicate rows within (object
+    3, rows 5 and 10-19) and across row tiles (object 2, rows 7, 40, 300
+    and ``long_rows`` - 100: the lowest-row tie rule), and queries equal to
+    a row (0: object 4's row 123; 1: object 3's row 5; 2: object 2's row 7)
+    and all zero (3)."""
+    rng = np.random.default_rng(seed)
+    sizes = [300, 0, long_rows, 64, 700, 1, 4096, 129]
+    descs = [rng.integers(0, 128, (n, 128)).astype(np.int8) for n in sizes]
+    descs[3][10:20] = descs[3][5]
+    descs[2][[40, 300, long_rows - 100]] = descs[2][7]
+    q = rng.integers(0, 128, (max(n_q, 4), 128)).astype(np.int8)
+    q[0] = descs[4][123]
+    q[1] = descs[3][5]
+    q[2] = descs[2][7]
+    q[3] = 0
+    return descs, q[:n_q]
+
+
 def smoke_catalog(real_ids: Sequence[str],
                   real: Sequence[Tuple[np.ndarray, np.ndarray]],
                   n_objects: int = 100, seed: int = SEED, device=None
@@ -72,11 +149,14 @@ def smoke_catalog(real_ids: Sequence[str],
     first, then fillers named ``filler###`` up to ``n_objects``. With a
     ``device``, the fillers past the first 100 objects are drawn there
     (:func:`filler_arrays_on`), so the first 100 are the 100-object
-    catalog's."""
+    catalog's. Quantised SIFT models (int8 descriptors) get the integer-noise
+    fillers, ORB models (uint8) the bit-flip ones."""
+    on_host, on_device = (
+        (filler_arrays_l2, filler_arrays_l2_on)
+        if real[0][0].dtype == np.int8 else (filler_arrays, filler_arrays_on))
     n_host = n_objects if device is None else min(n_objects, 100)
-    fill = filler_arrays(real, n_host - len(real), seed)
+    fill = on_host(real, n_host - len(real), seed)
     if n_objects > n_host:
-        fill += filler_arrays_on(device, real, len(fill),
-                                 n_objects - n_host, seed)
+        fill += on_device(device, real, len(fill), n_objects - n_host, seed)
     ids = list(real_ids) + [f"filler{j:03d}" for j in range(len(fill))]
     return ids, list(real) + fill

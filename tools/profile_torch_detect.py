@@ -2,11 +2,12 @@
 """Where one frame of the port's serving path spends its time, on the GPU.
 
     python3 tools/profile_torch_detect.py [--frames 4] [--trace PATH]
-                                          [--objects N] [--frontier]
+                                          [--objects N] [--frontier] [--sift]
 
 Builds one of chip_smoke.py's detectors (the smoke catalog, 100 objects by
 default, at the bench's operating point; ``--frontier``: the coarse->fine
-frontier recipe with its streaming state), warms it up on the fixture's
+frontier recipe with its streaming state; ``--sift``: the SIFT/L2 path on
+the SIFT smoke catalog, radius 0.9), warms it up on the fixture's
 frames, then traces ``--frames`` calls of ``detect`` with torch.profiler.
 Prints the host latency per frame, the device-busy share of the traced
 window, per-stage host times (each stage of ``detect`` ended by a
@@ -29,8 +30,9 @@ sys.path.insert(0, ROOT)
 
 
 # the stages of FusedDetector.detect, by the name fused.py calls them
-STAGES = ("stage_features_compact", "object_top1", "stage_coarse_select",
-          "object_top1_gathered", "detect_frame_segmented",
+STAGES = ("stage_features_compact", "object_top1", "object_top1_l2",
+          "stage_coarse_select", "object_top1_gathered",
+          "object_top1_l2_gathered", "detect_frame_segmented",
           "detect_frame_gathered", "update_age", "fold_best_pose", "poses")
 
 
@@ -75,6 +77,8 @@ def main() -> int:
     ap.add_argument("--objects", type=int, default=100)
     ap.add_argument("--frontier", action="store_true",
                     help="coarse->fine with tracked/exploration slots")
+    ap.add_argument("--sift", action="store_true",
+                    help="SIFT/L2 features and kernels B3/B4")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
@@ -86,7 +90,12 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     card = cs.card_line()
     fx, ids, models = cs.load_fixture()
-    if args.frontier:
+    if args.sift:      # the smoke fixture's frames, the SIFT fixture's models
+        sx, ids, models = cs.load_fixture(cs.SIFT_FIXTURE)
+        cfg = (cs.config(sx, cs.SIFT_CONFIG, "stream_config_json",
+                         **cs.FRONTIER) if args.frontier
+               else cs.config(sx, cs.SIFT_CONFIG))
+    elif args.frontier:
         cfg = cs.config(np.load(cs.STREAM_FIXTURE), **cs.FRONTIER)
     else:
         cfg = cs.config(fx)
@@ -102,7 +111,8 @@ def main() -> int:
     for i in range(8):
         det.detect(*frames[i % len(frames)])
     undo()
-    path = "coarse->fine" if args.frontier else "full sweep"
+    path = ("SIFT " if args.sift else "ORB ") \
+        + ("coarse->fine" if args.frontier else "full sweep")
     print(f"{args.objects} objects, {path}; stage host ms (median of 8 "
           "frames, each synchronised): "
           + ", ".join(f"{k} {np.median(v):.2f}" for k, v in times.items()
