@@ -1,5 +1,6 @@
-"""The port's CUDA kernels (B1, B2, and B3, B4 of the SIFT/L2 path) against
-their plain PyTorch twins, on the card.
+"""The port's CUDA kernels (B1, B2, B3, B4 of the SIFT/L2 path, and B5 and
+its isolation modes T1 of the global-kNN path) against their plain PyTorch
+twins, on the card.
 
 Every test here is marked ``cuda`` and skips without a GPU. The file needs
 neither JAX nor the JAX package, so it also runs on a machine that has
@@ -12,10 +13,12 @@ import numpy as np
 import pytest
 import torch
 
+from tod_tpu_torch.ops import hamming as tham
 from tod_tpu_torch.ops import segmented as tseg
 from tod_tpu_torch.ops import segmented_l2 as tl2
 from tod_tpu_torch.types import TodModel
-from tod_tpu_torch.utils.smoke_catalog import edge_case_arrays_l2
+from tod_tpu_torch.utils.smoke_catalog import (edge_case_arrays_hamming,
+                                               edge_case_arrays_l2)
 
 
 def _cuda():
@@ -216,3 +219,74 @@ def test_b3_b4_refuse_what_they_cannot_take():
     with pytest.raises(ValueError):
         tl2.object_top1_l2_gathered(q.to(dev), db, torch.zeros(
             70000, dtype=torch.int32, device=dev))                # grid y
+
+
+# ---- B5 and T1: radius k-NN over the whole DB ------------------------------
+
+def _edge_cases_hamming(seed, n_q, device, n_rows=20000):
+    """Rows with row 10 copied across the kernel's own split boundaries
+    (for this Q) and inside one split, and the queries of
+    ``edge_case_arrays_hamming``."""
+    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
+    n_split, per = tham.split_plan(n_q, n_rows, n_sm)
+    assert n_split > 2
+    db, q = edge_case_arrays_hamming(seed, n_rows, max(n_q, 70),
+                                     [per * s for s in range(1, n_split)])
+    return (tham.pack_db_bits(torch.from_numpy(db).to(device)),
+            torch.from_numpy(q[:n_q]).to(device), per)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_q", [512, 300, 1])
+@pytest.mark.parametrize("k, radius", [(5, 35), (8, 50), (5, None), (1, 0)])
+def test_b5_matches_twin(n_q, k, radius):
+    dev = _cuda()
+    words, q, per = _edge_cases_hamming(500 + n_q, n_q, dev)
+    for n_valid in (words.shape[0], words.shape[0] - 77, 3, 0):
+        before = tham.hamming_topk_fused.launches
+        d, i = tham.hamming_topk_fused(q, words, n_valid, k=k, radius=radius)
+        torch.cuda.synchronize()
+        assert tham.hamming_topk_fused.launches == before + 1
+        d_t, i_t = tham.hamming_topk_fused_torch(q, words, n_valid, k, radius)
+        assert torch.equal(d, d_t) and torch.equal(i, i_t), n_valid
+    d, i = tham.hamming_topk_fused(q, words, words.shape[0], k=k,
+                                   radius=radius)
+    # query 0 equals row 10 and its copies across the split boundaries
+    assert i[0, 0].item() == 10 and d[0, 0].item() == 0
+    if k > 4:
+        assert i[0, 1:5].tolist() == [1000, 1001, 1002, 1003]
+
+
+@pytest.mark.cuda
+def test_t1_modes_match_plain_versions():
+    dev = _cuda()
+    words, q, _ = _edge_cases_hamming(9, 300, dev)
+    for n_valid in (words.shape[0], 5000):
+        for mode in tham.PROBE_MODES:
+            before = tham.hamming_probe.launches
+            got = tham.hamming_probe(q, words, n_valid, mode)
+            torch.cuda.synchronize()
+            assert tham.hamming_probe.launches == before + 1
+            want = tham.hamming_probe_torch(q, words, n_valid, mode)
+            assert torch.equal(got, want), (mode, n_valid)
+
+
+@pytest.mark.cuda
+def test_b5_refuses_what_it_cannot_take():
+    dev = _cuda()
+    words, q, _ = _edge_cases_hamming(10, 128, dev)
+    n = words.shape[0]
+    with pytest.raises(ValueError):
+        tham.hamming_topk_fused(q.to(torch.int32), words, n)         # dtype
+    with pytest.raises(ValueError):
+        tham.hamming_topk_fused(q[:, :16], words, n)                  # width
+    with pytest.raises(ValueError):
+        tham.hamming_topk_fused(q.view(-1)[1:161].view(5, 32), words, n)
+    with pytest.raises(ValueError):
+        tham.hamming_topk_fused(q, words.cpu(), n)                    # device
+    with pytest.raises(ValueError):
+        tham.hamming_topk_fused(q, words, n + 1)                      # n_valid
+    with pytest.raises(ValueError):
+        tham.hamming_topk_fused(q, words, n, k=9)                     # k
+    with pytest.raises(ValueError):
+        tham.hamming_probe(q, words, n, "dot_only")                   # mode

@@ -31,7 +31,8 @@ def test_port_imports_no_jax_cv2_yaml_or_reference():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     got = json.loads(out.stdout.strip().splitlines()[-1])
-    for name in ("models.fused", "ops.sift", "ops.segmented_l2"):
+    for name in ("models.fused", "ops.sift", "ops.segmented_l2",
+                 "ops.hamming", "ops.matching", "geometry.detection"):
         assert f"tod_tpu_torch.{name}" in got["modules"]
-    assert len(got["modules"]) >= 17
+    assert len(got["modules"]) >= 22
     assert got["banned"] == [] and got["loaded"] == []

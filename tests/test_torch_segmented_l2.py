@@ -210,7 +210,8 @@ def test_wrappers_run_twins_for_cpu_tensors(rng):
 @pytest.mark.parametrize("entry", [
     tfused.FusedDetector.__init__, tseg.pack_segmented,
     tl2.pack_segmented_l2, convert.segmented_db_from_jax,
-    convert.segmented_db_f_from_jax])
+    convert.segmented_db_f_from_jax, tfused.pack_models,
+    convert.model_db_from_jax])
 def test_entry_points_default_to_the_card(entry):
     """Entry points serve on the card unless the caller names another
     device (the tests name "cpu"); none falls back when no card is found."""

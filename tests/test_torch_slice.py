@@ -22,25 +22,21 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from tod_tpu.db import InMemoryDb, insert_observation, load_models_for_objects
 from tod_tpu.db.models import TodModel as JaxModel
 from tod_tpu.geometry.detection import ActivationConfig, GuessConfig
 from tod_tpu.geometry.ransac import RansacConfig
-from tod_tpu.models import FusedDetector, FusedDetectorConfig, TodTrainer
+from tod_tpu.models import FusedDetector, FusedDetectorConfig
 from tod_tpu.models.fused import bucketed_scores as jax_bucketed_scores
-from tod_tpu.utils.synthetic import (DEFAULT_K, SyntheticObject,
-                                     compose_scene, facing_pose,
-                                     turntable_observations)
+from tod_tpu.utils.synthetic import DEFAULT_K
 from tod_tpu_torch import convert
 from tod_tpu_torch.models import fused as tfused
 from tod_tpu_torch.ops.segmented import object_top1
 from tod_tpu_torch.types import TodModel
-from tod_tpu_torch.utils.smoke_catalog import smoke_catalog
-from torch_parity import JaxReplayNoise, frame_keys, pose_errors
+from torch_parity import (WORLD_IDS as OBJECT_IDS, JaxReplayNoise,
+                          build_world, frame_keys, pose_errors)
 
 torch.set_num_threads(1)
 
-OBJECT_IDS = ["slice_alpha", "slice_beta"]
 SEED = 3
 
 
@@ -63,35 +59,8 @@ def _config():
 
 @pytest.fixture(scope="module")
 def world():
-    InMemoryDb.reset_shared()
-    db = InMemoryDb.shared("torch_slice")
-    objects = []
-    for i, oid in enumerate(OBJECT_IDS):
-        obj = SyntheticObject.make(oid, seed=10 + i)
-        objects.append(obj)
-        for obs in turntable_observations(obj, n_views=8):
-            insert_observation(db, oid, obs["frame_number"], obs["image"],
-                               obs["depth"], obs["mask"], obs["K"], obs["R"],
-                               obs["T"])
-        TodTrainer("trainer", object_id=oid, json_db=json.dumps(
-            {"type": "mem", "collection": "torch_slice"}),
-            json_feature_params=json.dumps(
-                {"type": "ORB", "n_features": 800, "n_levels": 3,
-                 "scale_factor": 1.2})).process()
-    trained = load_models_for_objects(db, "all")
-    InMemoryDb.reset_shared()
-    ids, arrays = smoke_catalog(
-        [m.object_id for m in trained],
-        [(np.asarray(m.descriptors), np.asarray(m.points, np.float32)
-          .reshape(-1, 3)) for m in trained], n_objects=4)
-    # scene seed 7: the reference's own poses sit within 1.1 degrees of the
-    # ground truth here (at seed 5 its 20-inlier plane pose is 3.8 degrees
-    # off, so no port could meet the 2 degree bound there)
-    rng = np.random.default_rng(7)
-    poses = [facing_pose(rng, z=0.7), facing_pose(rng, z=0.95)]
-    poses[0][1][0] = -0.16
-    poses[1][1][0] = 0.18
-    image, depth = compose_scene(objects, poses)
+    w = build_world("torch_slice")
+    ids, arrays = w["ids"], w["arrays"]
     cfg = _config()
     jdet = FusedDetector([JaxModel(i, d, p) for i, (d, p) in
                           zip(ids, arrays)], cfg, seed=SEED)
@@ -100,8 +69,7 @@ def world():
                                   [p for _, p in arrays]),
         convert.config_from_dict(dataclasses.asdict(cfg)), seed=SEED,
         device="cpu")
-    return dict(image=image, depth=depth, poses=poses, cfg=cfg, jdet=jdet,
-                tdet=tdet)
+    return dict(w, cfg=cfg, jdet=jdet, tdet=tdet)
 
 
 def _stage1(world):
@@ -176,11 +144,16 @@ def test_config_round_trip_and_unported_paths(world):
     assert dataclasses.asdict(port_cfg) == dataclasses.asdict(cfg)
     models = [TodModel("a", np.zeros((4, 32), np.uint8),
                        np.zeros((4, 3), np.float32))]
-    for change in (dict(pipeline="global"), dict(subpixel=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tfused.FusedDetector(models, dataclasses.replace(port_cfg,
-                                                             **change),
-                                 device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tfused.FusedDetector(models, dataclasses.replace(port_cfg,
+                                                         subpixel=True),
+                             device="cpu")
+    # the global-kNN path is ported (test_torch_global.py): it runs
+    glob = tfused.FusedDetector(models, dataclasses.replace(
+        port_cfg, pipeline="global"), device="cpu")
+    kps, det = glob.detect_raw(world["image"], world["depth"], DEFAULT_K)
+    assert kps.xy.shape == (cfg.n_features, 2)
+    assert det.accepted.shape == (1, cfg.guess.ransac.max_instances)
     # SIFT is ported (test_torch_sift.py), on the segmented pipeline only,
     # as in the reference
     tfused.check_ported(dataclasses.replace(port_cfg, feature="SIFT"))

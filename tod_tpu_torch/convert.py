@@ -1,5 +1,5 @@
-"""Carry the reference's state into the port: its segmented DB arrays, its
-trained models and its detector configuration.
+"""Carry the reference's state into the port: its segmented and flat
+(global-kNN) DB arrays, its trained models and its detector configuration.
 
 Inputs are plain numpy arrays and dicts (what ``jax.device_get`` and
 ``dataclasses.asdict`` give), so this module needs nothing of JAX.
@@ -15,7 +15,8 @@ import torch
 
 from tod_tpu_torch.geometry.detection import ActivationConfig, GuessConfig
 from tod_tpu_torch.geometry.ransac import RansacConfig
-from tod_tpu_torch.models.fused import FusedDetectorConfig
+from tod_tpu_torch.models.fused import (FusedDetectorConfig, ModelDb,
+                                        model_db_from_arrays)
 from tod_tpu_torch.ops.segmented import SegmentedDb, db_from_arrays
 from tod_tpu_torch.ops.segmented_l2 import SegmentedDbF, db_f_from_arrays
 from tod_tpu_torch.types import TodModel
@@ -55,6 +56,17 @@ def segmented_db_f_from_jax(arrays: Mapping[str, np.ndarray],
     return db_f_from_arrays(vecs_t.T, arrays["points"], arrays["obj_start"],
                             arrays["n_rows"], arrays["spans"],
                             _chunk_size(arrays, vecs_t.shape[1]), device)
+
+
+def model_db_from_jax(arrays: Mapping[str, np.ndarray],
+                      device: torch.device | str = "cuda") -> ModelDb:
+    """The port's flat DB from the reference ``ModelDb`` fields as numpy:
+    ``descriptors`` (N_pad, 32) uint8, ``points``, ``obj_of_row``,
+    ``n_valid`` and ``spans`` (``bits_t`` and ``popcounts``, the TPU
+    kernel's operands, are not needed: the port keeps the packed rows)."""
+    return model_db_from_arrays(arrays["descriptors"], arrays["points"],
+                                arrays["obj_of_row"], int(arrays["n_valid"]),
+                                arrays["spans"], device)
 
 
 def models_from_numpy(object_ids: Sequence[str],

@@ -1,5 +1,11 @@
-"""Segmented two-tier frame detection (tod_tpu/geometry/detection.py, the
-serving subset), and the coarse->fine selection and streaming state.
+"""Frame-level detection (tod_tpu/geometry/detection.py, the serving
+subset): the global-kNN path's clustering, the segmented two-tier path, and
+the coarse->fine selection and streaming state.
+
+The global-kNN path groups the matcher's flat (Q, k) matches into
+per-object stores for the objects with the most matches
+(:func:`detect_frame_from_matches`) and runs the multi-instance RANSAC on
+them.
 
 Per-(query, object) matches go into margin-ordered per-object stores; a
 cheap margin-mass statistic pre-screens objects, a lean RANSAC (tier 1)
@@ -187,6 +193,99 @@ def scatter_detections(det: ObjectDetections, active: torch.Tensor,
         accepted=put(acc),
         rms_residual=put(torch.where(acc, det.rms_residual, zero)),
         clique_size=put(torch.where(acc, det.clique_size, 0)))
+
+
+# ---- the global-kNN path: flat (Q, k) matches ------------------------------
+
+
+def cluster_matches(obj_idx: torch.Tensor, dist: torch.Tensor,
+                    valid: torch.Tensor, train_pts: torch.Tensor,
+                    query_pts: torch.Tensor, query_xy: torch.Tensor,
+                    object_ids: torch.Tensor,
+                    max_matches: int) -> ObjectMatches:
+    """Group flat (Q, k) matches into per-object stores of ``max_matches``
+    for the objects ``object_ids`` (A,) (-1 = empty slot): per object the
+    valid matches of finite query points, best priority first, where the
+    priority is (rank within its query, then distance) as ``rank * stride +
+    dist`` with the stride one above the largest valid distance, ties to the
+    lower flat index. The reference vmaps one object's top-k; here the
+    objects are a batch dimension."""
+    q, k = obj_idx.shape
+    qk = q * k
+    dev = dist.device
+    obj_flat = obj_idx.reshape(qk)
+    dist_flat = dist.reshape(qk)
+    rank_flat = torch.arange(k, dtype=torch.float32, device=dev).repeat(q)
+    q_finite = torch.isfinite(query_pts).all(-1)
+    valid_flat = valid.reshape(qk) & q_finite.repeat_interleave(k)
+    t_flat = train_pts.reshape(qk, 3)
+    kp_of_flat = torch.arange(q, device=dev).repeat_interleave(k)
+    zero = torch.zeros((), device=dev)
+    stride = torch.where(valid_flat, dist_flat, zero).max() + 1.0
+    priority = rank_flat * stride + dist_flat
+    cap = min(max_matches, qk)
+    pad = max_matches - cap
+    ids = object_ids.to(obj_flat.dtype)
+    mask = valid_flat[None, :] & (obj_flat[None, :] == ids[:, None]) \
+        & (ids >= 0)[:, None]                                     # (A, QK)
+    neg_inf = torch.full((), -torch.inf, device=dev)
+    top, sel = stable_topk(torch.where(mask, -priority[None, :], neg_inf), cap)
+    ok = torch.isfinite(top)
+    kp = kp_of_flat[sel]
+    out = ObjectMatches(
+        query_pts=torch.where(ok[..., None], query_pts[kp], zero),
+        train_pts=torch.where(ok[..., None], t_flat[sel], zero),
+        query_idx=torch.where(ok, kp, -1),
+        query_xy=torch.where(ok[..., None], query_xy[kp], zero),
+        valid=ok)
+    if pad:   # fewer flat matches than the capacity: pad the stores up to it
+        def grow(x, fill):
+            tail = torch.full((x.shape[0], pad) + x.shape[2:], fill,
+                              dtype=x.dtype, device=x.device)
+            return torch.cat([x, tail], 1)
+
+        out = ObjectMatches(grow(out.query_pts, 0), grow(out.train_pts, 0),
+                            grow(out.query_idx, -1), grow(out.query_xy, 0),
+                            grow(out.valid, False))
+    return out
+
+
+def active_objects(obj_idx: torch.Tensor, valid: torch.Tensor,
+                   query_pts: torch.Tensor, n_objects: int,
+                   n_active: int) -> torch.Tensor:
+    """The ``n_active`` objects (int32) with the most valid matches of
+    finite query points, ties to the lower index; -1 where an object has
+    none. Every object, in order, when ``n_active`` covers the catalog."""
+    dev = obj_idx.device
+    if n_active >= n_objects:
+        return torch.arange(n_objects, dtype=torch.int32, device=dev)
+    v = valid & torch.isfinite(query_pts).all(-1)[:, None]
+    counts = torch.zeros(n_objects, dtype=torch.int32, device=dev)
+    counts.index_add_(0, obj_idx.clamp_min(0).reshape(-1).long(),
+                      v.reshape(-1).to(torch.int32))
+    top, active = stable_topk(counts, n_active)
+    return torch.where(top > 0, active, -1).to(torch.int32)
+
+
+def detect_frame_from_matches(
+        noise: NoiseFn, obj_idx: torch.Tensor, dist: torch.Tensor,
+        valid: torch.Tensor, train_pts: torch.Tensor, query_pts: torch.Tensor,
+        query_xy: torch.Tensor, spans: torch.Tensor,
+        cfg: GuessConfig) -> Tuple[ObjectMatches, ObjectDetections]:
+    """Cluster + detect (GuessGenerator::process): the active set
+    (:func:`active_objects`), its stores (:func:`cluster_matches`) and the
+    multi-instance RANSAC on them. Detections have leading dim O; objects
+    outside the active set carry accepted=False rows."""
+    n_objects = spans.shape[0]
+    n_active = min(cfg.max_active_objects, n_objects)
+    active = active_objects(obj_idx, valid, query_pts, n_objects, n_active)
+    clustered = cluster_matches(obj_idx, dist, valid, train_pts, query_pts,
+                                query_xy, active, cfg.max_matches_per_object)
+    det = detect_objects(noise, clustered, spans[active.clamp_min(0).long()],
+                         cfg)
+    if n_active == n_objects:
+        return clustered, det
+    return clustered, scatter_detections(det, active, n_objects)
 
 
 def detect_frame_segmented(

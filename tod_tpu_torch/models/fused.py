@@ -1,11 +1,12 @@
-"""FusedDetector on the segmented serving path (tod_tpu/models/fused.py),
-with ORB/Hamming or SIFT/L2 features.
+"""FusedDetector (tod_tpu/models/fused.py) on its two serving paths, the
+segmented one with ORB/Hamming or SIFT/L2 features and the global-kNN one
+with ORB.
 
-One frame runs as three stages on one device and stream: features with query
-compaction, the per-(query, object) matcher (the CUDA kernels of
-``ops/segmented.py`` for ORB, of ``ops/segmented_l2.py`` for SIFT, on the
-card), and the two-tier segmented geometry. The host reads the detections
-back once, as one packed tensor.
+``pipeline="segmented"``: one frame runs as three stages on one device and
+stream: features with query compaction, the per-(query, object) matcher
+(the CUDA kernels of ``ops/segmented.py`` for ORB, of
+``ops/segmented_l2.py`` for SIFT, on the card), and the two-tier segmented
+geometry. The host reads the detections back once, as one packed tensor.
 
 With ``coarse_stride > 0`` the matcher runs coarse->fine: the full-sweep
 kernel (B1, or B3 for SIFT) sweeps a stride-subsampled companion DB,
@@ -14,6 +15,12 @@ tracked and exploration slots), the gathered kernel (B2, or B4) matches
 exactly against the slab's objects only, and the geometry runs on the
 slab. Tracked slots, the exploration cursor and the last accepted poses
 (tier-2 seeds) are state carried from frame to frame.
+
+``pipeline="global"`` (the default, the reference's matching contract):
+every keypoint's descriptor is matched by an exact radius k-NN over the
+whole catalog (kernel B5 of ``ops/hamming.py`` on the card), the objects
+with the most matches form the active set, their matches are clustered per
+object and the multi-instance RANSAC runs on them.
 
 Configuration values of other serving paths raise ``NotImplementedError``
 naming the ROADMAP item that ports them; none falls back silently.
@@ -29,15 +36,17 @@ import torch
 
 from tod_tpu_torch.geometry.detection import (
     AGE_NEVER, ActivationConfig, GuessConfig, coarse_select,
-    detect_frame_gathered, detect_frame_segmented, fold_best_pose,
-    merge_tracked, reserved_force_mask, seeds_from_state, tracked_from_age,
-    tracked_needy, update_age)
+    detect_frame_from_matches, detect_frame_gathered, detect_frame_segmented,
+    fold_best_pose, merge_tracked, reserved_force_mask, seeds_from_state,
+    tracked_from_age, tracked_needy, update_age)
 from tod_tpu_torch.geometry.ransac import (GumbelNoise, NoiseFn,
                                            ObjectDetections, RansacConfig)
 from tod_tpu_torch.ops.depth import depth_to_3d_sparse, to_metric_depth
 from tod_tpu_torch.ops.fast import stable_topk
+from tod_tpu_torch.ops.hamming import hamming_topk_fused, pack_db_bits
 from tod_tpu_torch.ops.image import rgb_to_gray
-from tod_tpu_torch.ops.orb import orb_detect_and_compute
+from tod_tpu_torch.ops.matching import BIG_DIST, pad_db
+from tod_tpu_torch.ops.orb import Keypoints, orb_detect_and_compute
 from tod_tpu_torch.ops.segmented import (SegmentedDb, object_top1,
                                          object_top1_gathered, pack_segmented,
                                          subsample_models)
@@ -95,11 +104,11 @@ class FusedDetectorConfig:
 
 def check_ported(cfg: FusedDetectorConfig) -> None:
     """Raise for configuration values of paths this package has not ported.
-    (``k_matches``, ``db_chunk`` and ``matcher`` belong to the global path
-    and are carried for config round trips only.)"""
+    ``k_matches`` and ``db_chunk`` serve the global path (the DB is padded
+    to ``db_chunk`` rows, as the reference pads it). ``matcher`` selects
+    nothing here: whatever its value, a CUDA tensor runs kernel B5 and a
+    CPU tensor its plain twin."""
     missing = [
-        (cfg.pipeline != "segmented",
-         f"pipeline={cfg.pipeline!r}: the global-kNN path is ROADMAP A12"),
         (cfg.subpixel, "subpixel keypoints are ROADMAP A16"),
     ]
     for bad, why in missing:
@@ -246,6 +255,154 @@ def stage_features_compact(gray: torch.Tensor, depth: torch.Tensor,
     return xy, qp, dsc, padded(ok, False)
 
 
+# ---- the global-kNN path (pipeline="global") -------------------------------
+
+
+@dataclasses.dataclass
+class ModelDb:
+    """The whole catalog as one flat DB, padded to a multiple of the
+    config's ``db_chunk`` as the reference pads it; rows from ``n_valid``
+    on are padding that no matcher returns."""
+
+    words: torch.Tensor       # (N_pad, 8) int32 packed descriptor bits
+    points: torch.Tensor      # (N_pad, 3) f32 model points (0 on padding)
+    obj_of_row: torch.Tensor  # (N_pad,) int32 object of each row, -1 padding
+    n_valid: int              # real rows, a host integer (a kernel argument)
+    spans: torch.Tensor       # (O,) f32 model AABB diagonals
+
+    @property
+    def descriptors(self) -> torch.Tensor:
+        """(N_pad, 32) uint8: the reference's ``descriptors`` field."""
+        return self.words.view(torch.uint8)
+
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in
+                   (self.words, self.points, self.obj_of_row, self.spans))
+
+
+def model_db_from_arrays(desc_u8: np.ndarray, points: np.ndarray,
+                         obj_of_row: np.ndarray, n_valid: int,
+                         spans: np.ndarray,
+                         device: torch.device | str) -> ModelDb:
+    """Upload host arrays in the flat layout (desc (N_pad, 32) u8)."""
+    desc = torch.from_numpy(np.array(desc_u8, np.uint8, order="C"))
+    return ModelDb(
+        words=pack_db_bits(desc).to(device),
+        points=torch.from_numpy(np.array(points, np.float32)).to(device),
+        obj_of_row=torch.from_numpy(np.array(obj_of_row, np.int32)).to(device),
+        n_valid=int(n_valid),
+        spans=torch.from_numpy(np.array(spans, np.float32)).to(device))
+
+
+def pack_models(models: Sequence[TodModel], chunk: int,
+                device: torch.device | str = "cuda"
+                ) -> Tuple[ModelDb, List[str]]:
+    """Concatenate the models' rows into one DB padded to ``chunk`` rows
+    (host-side, at load time); an empty catalog gives an empty DB."""
+    if models:
+        desc = np.concatenate([m.descriptors for m in models])
+        pts = np.concatenate([m.points for m in models]).astype(np.float32)
+        obj = np.concatenate([np.full(m.n_points, i, np.int32)
+                              for i, m in enumerate(models)])
+        spans = np.asarray([m.span for m in models], np.float32)
+    else:
+        desc = np.zeros((0, 32), np.uint8)
+        pts = np.zeros((0, 3), np.float32)
+        obj = np.zeros(0, np.int32)
+        spans = np.zeros(0, np.float32)
+    padded, n = pad_db(desc, chunk)
+    n_pad = len(padded) - n
+    db = model_db_from_arrays(
+        padded, np.concatenate([pts, np.zeros((n_pad, 3), np.float32)]),
+        np.concatenate([obj, np.full(n_pad, -1, np.int32)]), n, spans,
+        device)
+    return db, [m.object_id for m in models]
+
+
+def match_against_db(desc: torch.Tensor, db: ModelDb,
+                     cfg: FusedDetectorConfig
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The exact radius k-NN of every query over the catalog: kernel B5 on
+    the card, its twin on the CPU. An empty DB gives all holes
+    ``(1e9, -1)``, as the reference's matcher does."""
+    if db.words.shape[0] == 0:
+        q = desc.shape[0]
+        return (torch.full((q, cfg.k_matches), BIG_DIST, dtype=torch.float32,
+                           device=desc.device),
+                torch.full((q, cfg.k_matches), -1, dtype=torch.int32,
+                           device=desc.device))
+    return hamming_topk_fused(desc, db.words, db.n_valid, k=cfg.k_matches,
+                              radius=cfg.radius)
+
+
+def stage_features(gray: torch.Tensor, depth: torch.Tensor, K: torch.Tensor,
+                   cfg: FusedDetectorConfig
+                   ) -> Tuple[Keypoints, torch.Tensor, torch.Tensor]:
+    """Features without compaction: all ``n_features`` keypoints, their
+    (n_features, 32) uint8 descriptors and 3D query points (NaN where a
+    keypoint is invalid or has no depth)."""
+    kps, desc = orb_detect_and_compute(
+        gray, n_features=cfg.n_features, n_levels=cfg.n_levels,
+        scale_factor=cfg.scale_factor, fast_threshold=cfg.fast_threshold)
+    query_pts = depth_to_3d_sparse(to_metric_depth(depth), K, kps.xy)
+    query_pts = torch.where(kps.valid[:, None], query_pts,
+                            _full(torch.nan, query_pts))
+    return kps, desc, query_pts
+
+
+@dataclasses.dataclass
+class GeomDb:
+    """The geometry stage's slice of the model DB."""
+
+    points: torch.Tensor      # (N_pad, 3)
+    obj_of_row: torch.Tensor  # (N_pad,)
+    spans: torch.Tensor       # (O,)
+
+
+def geom_db(db: ModelDb) -> GeomDb:
+    return GeomDb(points=db.points, obj_of_row=db.obj_of_row, spans=db.spans)
+
+
+def flat_matches(kps_valid: torch.Tensor, dist: torch.Tensor,
+                 rows: torch.Tensor, geom: GeomDb, radius: float):
+    """``(obj_idx, valid, train_pts)`` of the matcher's (Q, k) output:
+    valid where the row is real, within ``radius`` and the keypoint valid;
+    ``obj_idx`` -1 elsewhere."""
+    valid = (rows >= 0) & (dist <= radius) & kps_valid[:, None]
+    safe = rows.clamp_min(0).long()
+    obj_idx = torch.where(valid, geom.obj_of_row[safe], -1)
+    return obj_idx, valid, geom.points[safe]
+
+
+def stage_geometry(noise: NoiseFn, kps_xy: torch.Tensor,
+                   kps_valid: torch.Tensor, dist: torch.Tensor,
+                   rows: torch.Tensor, query_pts: torch.Tensor,
+                   geom: GeomDb, cfg: FusedDetectorConfig
+                   ) -> ObjectDetections:
+    """The active set, per-object clustering and multi-instance RANSAC of
+    one frame's flat matches."""
+    obj_idx, valid, train_pts = flat_matches(kps_valid, dist, rows, geom,
+                                             cfg.radius)
+    return detect_frame_from_matches(noise, obj_idx, dist, valid, train_pts,
+                                     query_pts, kps_xy, geom.spans,
+                                     cfg.guess)[1]
+
+
+def empty_detections(n_objects: int, cfg: FusedDetectorConfig,
+                     device: torch.device | str) -> ObjectDetections:
+    """All-empty detections, for an empty catalog."""
+    n_inst = cfg.guess.ransac.max_instances
+
+    def zeros(*shape, dtype=torch.float32):
+        return torch.zeros((n_objects, n_inst) + shape, dtype=dtype,
+                           device=device)
+
+    return ObjectDetections(
+        R=zeros(3, 3), T=zeros(3), n_inliers=zeros(dtype=torch.int64),
+        accepted=zeros(dtype=torch.bool), rms_residual=zeros(),
+        clique_size=zeros(dtype=torch.int64))
+
+
 class FusedDetector:
     """Load models once, detect many frames, on one device: the card,
     unless the caller names another."""
@@ -275,6 +432,11 @@ class FusedDetector:
         self.generator.manual_seed(seed)
         self.noise: NoiseFn = GumbelNoise(self.generator)
         models = list(models)
+        self.segmented = cfg.pipeline == "segmented"
+        if not self.segmented:
+            self.db, self.object_ids = pack_models(models, cfg.db_chunk,
+                                                   device=self.device)
+            return
         sift = cfg.feature == "SIFT"
         pack = pack_segmented_l2 if sift else pack_segmented
         if cfg.catalog_capacity > len(models):
@@ -336,15 +498,24 @@ class FusedDetector:
                     self.device),
                 torch.from_numpy(np.asarray(K, np.float32)).to(self.device))
 
-    def detect_raw(self, image, depth, K) -> Optional[ObjectDetections]:
-        """Device-level API: detections (O, I, ...) as device tensors, or
-        None for an empty catalog. Accepts numpy frames or the tensors of
-        :meth:`prepare_frame`."""
+    def detect_raw(self, image, depth, K):
+        """Device-level API; accepts numpy frames or the tensors of
+        :meth:`prepare_frame`. Segmented: detections (O, I, ...) as device
+        tensors, or None for an empty catalog. Global: ``(keypoints,
+        detections)`` as the reference returns them (empty detections for
+        an empty catalog)."""
         if isinstance(image, torch.Tensor) and image.dim() == 2:
             gray, depth_t, K_t = image, depth, K
         else:
             gray, depth_t, K_t = self.prepare_frame(image, depth, K)
         cfg = self.config
+        if not self.segmented:
+            kps, desc, query_pts = stage_features(gray, depth_t, K_t, cfg)
+            if not self.object_ids:
+                return kps, empty_detections(0, cfg, self.device)
+            dist, rows = match_against_db(desc, self.db, cfg)
+            return kps, stage_geometry(self.noise, kps.xy, kps.valid, dist,
+                                       rows, query_pts, geom_db(self.db), cfg)
         xy, qp, dsc, ok = stage_features_compact(gray, depth_t, K_t, cfg)
         if not self.object_ids:
             return None
@@ -399,13 +570,18 @@ class FusedDetector:
             "tod_tpu_torch: batched detection is ROADMAP A16")
 
     def update_models(self, models: Sequence[TodModel]) -> None:
+        if not self.segmented:
+            raise ValueError("update_models is a segmented-pipeline API; "
+                             "rebuild the FusedDetector for the global-kNN "
+                             "path")
         raise NotImplementedError(
             "tod_tpu_torch: hot catalog updates are ROADMAP A16")
 
     def detect(self, image, depth, K) -> List[PoseResult]:
         """Poses of one frame, gated by ``min_confidence`` (inliers) and
         ``min_quality`` (:func:`confidence_v2`)."""
-        return self.poses(self.detect_raw(image, depth, K))
+        raw = self.detect_raw(image, depth, K)
+        return self.poses(raw if self.segmented else raw[1])
 
     def poses(self, det: Optional[ObjectDetections]) -> List[PoseResult]:
         """The gated poses of :meth:`detect_raw`'s detections, read back to

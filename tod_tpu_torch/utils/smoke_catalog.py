@@ -141,6 +141,37 @@ def edge_case_arrays_l2(seed: int, long_rows: int = 9000, n_q: int = 300
     return descs, q[:n_q]
 
 
+def edge_case_arrays_hamming(seed: int, n_rows: int, n_q: int,
+                             boundaries: Sequence[int]
+                             ) -> Tuple[np.ndarray, np.ndarray]:
+    """(DB rows (n_rows, 32) u8, queries (n_q >= 70, 32) u8) that hit the
+    radius k-NN matcher's edges: row 10 copied to the six rows around each
+    of ``boundaries`` (chunk or split boundaries: the earlier block must win
+    the tie) and to rows 1000-1003 (ties inside one block); queries 2-65
+    rows in [2000, n_rows - 128) with ~5 % of their bits flipped (a few hits within a radius of
+    35), query 66 a row with 20 bits flipped (one hit: fewer than
+    k), the rest random (no hit within 35). Query 0 is at distance 0, and
+    query 1 at distance 1, from row 10 and every copy."""
+    rng = np.random.default_rng(seed)
+    db = rng.integers(0, 256, (n_rows, 32), dtype=np.uint8)
+    q = rng.integers(0, 256, (n_q, 32), dtype=np.uint8)
+    dup = db[10].copy()
+    for b in boundaries:
+        db[b - 3:b + 3] = dup
+    db[1000:1004] = dup
+    q[0] = dup
+    q[1] = dup
+    q[1, 0] ^= 1
+    src = rng.choice(np.arange(2000, n_rows - 128), 64, replace=False)
+    flips = np.packbits(rng.random((64, 256)) < 0.05, axis=1,
+                        bitorder="little")
+    q[2:66] = db[src] ^ flips
+    mask = np.zeros(256, bool)
+    mask[rng.choice(256, 20, replace=False)] = True
+    q[66] = db[1500] ^ np.packbits(mask, bitorder="little")
+    return db, q
+
+
 def smoke_catalog(real_ids: Sequence[str],
                   real: Sequence[Tuple[np.ndarray, np.ndarray]],
                   n_objects: int = 100, seed: int = SEED, device=None

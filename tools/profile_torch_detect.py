@@ -3,11 +3,13 @@
 
     python3 tools/profile_torch_detect.py [--frames 4] [--trace PATH]
                                           [--objects N] [--frontier] [--sift]
+                                          [--global]
 
 Builds one of chip_smoke.py's detectors (the smoke catalog, 100 objects by
 default, at the bench's operating point; ``--frontier``: the coarse->fine
 frontier recipe with its streaming state; ``--sift``: the SIFT/L2 path on
-the SIFT smoke catalog, radius 0.9), warms it up on the fixture's
+the SIFT smoke catalog, radius 0.9; ``--global``: the global-kNN path at
+FusedDetectorConfig()'s own operating point), warms it up on the fixture's
 frames, then traces ``--frames`` calls of ``detect`` with torch.profiler.
 Prints the host latency per frame, the device-busy share of the traced
 window, per-stage host times (each stage of ``detect`` ended by a
@@ -30,10 +32,11 @@ sys.path.insert(0, ROOT)
 
 
 # the stages of FusedDetector.detect, by the name fused.py calls them
-STAGES = ("stage_features_compact", "object_top1", "object_top1_l2",
-          "stage_coarse_select", "object_top1_gathered",
-          "object_top1_l2_gathered", "detect_frame_segmented",
-          "detect_frame_gathered", "update_age", "fold_best_pose", "poses")
+STAGES = ("stage_features_compact", "stage_features", "object_top1",
+          "object_top1_l2", "match_against_db", "stage_coarse_select",
+          "object_top1_gathered", "object_top1_l2_gathered",
+          "detect_frame_segmented", "detect_frame_gathered", "stage_geometry",
+          "update_age", "fold_best_pose", "poses")
 
 
 def stage_timers(det):
@@ -79,6 +82,8 @@ def main() -> int:
                     help="coarse->fine with tracked/exploration slots")
     ap.add_argument("--sift", action="store_true",
                     help="SIFT/L2 features and kernels B3/B4")
+    ap.add_argument("--global", dest="global_path", action="store_true",
+                    help="the global-kNN path and kernel B5")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
@@ -95,6 +100,8 @@ def main() -> int:
         cfg = (cs.config(sx, cs.SIFT_CONFIG, "stream_config_json",
                          **cs.FRONTIER) if args.frontier
                else cs.config(sx, cs.SIFT_CONFIG))
+    elif args.global_path:
+        cfg = cs.config(np.load(cs.GLOBAL_FIXTURE), cs.GLOBAL_CONFIG)
     elif args.frontier:
         cfg = cs.config(np.load(cs.STREAM_FIXTURE), **cs.FRONTIER)
     else:
@@ -112,7 +119,8 @@ def main() -> int:
         det.detect(*frames[i % len(frames)])
     undo()
     path = ("SIFT " if args.sift else "ORB ") \
-        + ("coarse->fine" if args.frontier else "full sweep")
+        + ("global kNN" if args.global_path else
+           "coarse->fine" if args.frontier else "full sweep")
     print(f"{args.objects} objects, {path}; stage host ms (median of 8 "
           "frames, each synchronised): "
           + ", ".join(f"{k} {np.median(v):.2f}" for k, v in times.items()
