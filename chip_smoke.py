@@ -9,7 +9,11 @@ any failure raises, exits non-zero and prints no ``ok`` line:
 
 1. device   the card's name and power limit (nvidia-smi), torch and CUDA
             versions; TF32 off for matrix products and convolutions.
-2. build    every CUDA kernel of the paths, from csrc/, with nvcc.
+2. build    every CUDA kernel of the paths, from csrc/, with nvcc; each
+            kernel's registers, shared memory and spills (ptxas -v) of
+            B3/B4 and B5/T1; the card's __popc, __dp4a, mma s8, mma b1,
+            wgmma s8 and wgmma b1 rates (tools/bench_int_rate.py), for
+            the bounds (the Hamming bounds at the highest 1-bit rate).
 3. kernels  kernel B1 (csrc/segmented_top1.cu) against its plain PyTorch
             twin, bit for bit, on the smoke catalog at Q = 2048 and on edge
             cases; both timed with CUDA events.
@@ -53,16 +57,20 @@ Then the global-kNN path (FusedDetector(pipeline="global") at
 FusedDetectorConfig()'s own operating point: k 5, radius 35), whose
 reference outputs are in tests/data/torch_global_fixture.npz:
 
-3e. kernels B5 (csrc/hamming_topk.cu) against its twin, bit for bit, at
-            Q = 5000 queries (model rows, half with ~5 % of their bits
-            flipped) over the 100-object catalog at (k, radius) 5/35, 8/50
-            and 5/None; on edge cases (n_valid full, cut, 3 and 0; ties
-            across the kernel's split boundaries; Q = 300 and 1000); at
-            1000 objects on the first 512 queries. Timed: each shape, the
-            twin, and B5 at 1000 objects on all 5000 queries. T1 (the
-            same file's probe modes: distance sum, row minimum, block
-            minimum) against their plain versions, exactly, and timed at
-            T1's shape (Q = 5120 x 262,144 rows) and at B5's.
+3e. kernels B5 (csrc/hamming_topk.cu, the tensor-core sweep) against its
+            twin, bit for bit, at Q = 5000 queries (model rows, half with
+            ~5 % of their bits flipped) over the 100-object catalog at
+            (k, radius) 5/35, 8/50 and 5/None; on edge cases (n_valid
+            full, cut, just past a split, ragged 128-row tiles, 9, 3 and
+            0; ties across the sweep's fragments, lanes, tiles and split
+            boundaries; Q = 1, 17, 65, 300 and 1000); at 1000 objects on
+            the first 512 queries. Timed: each shape, the twin, and B5 at
+            1000 objects on all 5000 queries. T1 (the same file's probe
+            modes: distance sum, row minimum, block minimum, each on the
+            routes popc, s8 mma and b1 mma) against their plain versions,
+            exactly, and timed at T1's shape (Q = 5120 x 262,144 rows) and
+            at B5's; the route B5 is compiled with, beside both
+            tensor-core routes' sweeps.
 4f. main    both frames: all 5000 keypoints, descriptors and 3D points, B5's
             (dist, rows) and the active set equal to the reference's; every
             detection the reference accepts at the gate found within 1 cm
@@ -79,9 +87,13 @@ the smoke fixture's):
 3c. kernels B3 (csrc/segmented_l2_top1.cu) against its twin, the int32
             squared distances, the rows and the float distances bit for
             bit: on the 100-object SIFT smoke catalog at Q = 2048, on a
-            partial tile (Q = 1000) and on edge cases (an empty object, an
+            partial tile (Q = 1000), on edge cases (an empty object, an
             object of one row, duplicate rows, reserved rows, a query equal
-            to a row); both timed.
+            to a row) and on the full int8 range (-128..127; objects of
+            0-300 rows beside reserved padding, ties across the
+            tensor-core tile's fragments and tiles; Q = 1 to 2048); both
+            timed, and torch._int_mm on the same int8 product as a
+            yardstick.
 3d.         B4 (the gathered entry point) against its twin and against
             B3's columns at ``sel``, bit for bit: edge cases (holes, an
             empty object, repeated, out-of-order and out-of-catalog ids)
@@ -118,6 +130,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -163,9 +176,11 @@ T1_REPLACES = "tools/bench_dot_iso.py:29"
 # rate and the dense int8 tensor-core rate
 HBM_BYTES_S = 3.35e12
 INT8_OPS_S = 1979e12
-# __popc results a second on the H100 (tools/bench_int_rate.py, PERF.md):
-# the CUDA-core bound of the popcount designs, logged beside the bound
-POPC_S = 4.051e12
+# Operation rates measured on this card in phase 2 (tools/bench_int_rate.py):
+# __popc and __dp4a (the CUDA-core designs' bounds, logged beside the
+# bound), and the 1-bit products (mma.sync and wgmma), whose peak no data
+# sheet gives
+RATES: dict = {}
 
 # The bench's serving operating point, bench.py:444-524 (build_config with
 # no BENCH_* overrides), gated at min_quality 156 as
@@ -200,7 +215,9 @@ GLOBAL_CONFIG = dict(pipeline="global", min_quality=156.0)
 Q_GLOBAL = 5000        # every keypoint of a frame is a query
 B5_SHAPES = ((5, 35.0), (8, 50.0), (5, None))   # (k, radius) held and timed
 EDGE_ROWS = 20000      # B5's edge-case DB: five splits of 4096 rows
+B5_EDGE_Q = (1, 17, 65, 300, 1000)   # ragged against 16-query m-tiles
 T1_Q, T1_N = 5120, 262144   # tools/bench_dot_iso.py's shape
+INT_MM_ROWS = 1 << 17  # rows a torch._int_mm chunk: a 1 GiB int32 product
 GLOBAL_FRAMES = 60     # timed global detect calls
 
 
@@ -214,6 +231,28 @@ def card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()
     return out[0].strip()
+
+
+KERNEL_NAMES = re.compile(
+    r"(tc_sweep_kernel|popc_probe_kernel|merge_kernel|"
+    r"object_top1_l2_tc_kernel|object_top1_l2_gathered_kernel)"
+    r"(I((?:Li\d+E)+)E)?")
+
+
+def log_ptxas(name: str, report: str) -> None:
+    """One line per kernel of ``nvcc -Xptxas -v``'s report: its registers,
+    shared memory and spills, the kernel named with its template
+    arguments (B5/T1: route, mode, k)."""
+    entry = None
+    for line in report.splitlines():
+        found = re.search(r"Compiling entry function '([^']+)'", line)
+        if found:
+            kernel = KERNEL_NAMES.search(found.group(1))
+            entry = found.group(1)[:40] if kernel is None else (
+                kernel.group(1) + "<" + ",".join(
+                    re.findall(r"Li(\d+)E", kernel.group(3) or "")) + ">")
+        elif entry and ("registers" in line or "spill" in line):
+            log(f"ptxas: {name}: {entry}: {line.split(':', 1)[-1].strip()}")
 
 
 def cuda_ms(fn, runs: int = KERNEL_RUNS, warmup: int = 2) -> float:
@@ -248,6 +287,21 @@ def bound(pairs: int, ops_per_pair: int, n_bytes: int):
     bytes_ms = n_bytes / HBM_BYTES_S * 1e3
     return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms \
         else "bytes"
+
+
+def hamming_bound(pairs: int, n_bytes: int):
+    """``(bound_ms, bound_by)`` of ``pairs`` Hamming pairs: the lesser of
+    the int8 tensor-core product on unpacked bits (512 operations a pair at
+    the published int8 rate) and the 1-bit product on the packed words
+    (512 bit operations a pair at the highest 1-bit rate measured in phase
+    2, ``b1_rate``), each against the bytes moved once."""
+    from tools.bench_int_rate import b1_rate
+    int8 = bound(pairs, 512, n_bytes)
+    b1_ms = pairs * 512 / b1_rate(RATES) * 1e3
+    bytes_ms = n_bytes / HBM_BYTES_S * 1e3
+    b1 = (max(b1_ms, bytes_ms), "operations" if b1_ms >= bytes_ms
+          else "bytes")
+    return min(int8, b1)
 
 
 def matcher_bytes(n_q: int, row_bytes: int, q_bytes: int, n_rows: int,
@@ -363,6 +417,39 @@ def edge_case_db_l2(device):
               for i, d in enumerate(descs)]
     return pack_segmented_l2(models, reserve_rows=200, device=device), \
         torch.from_numpy(q).to(device)
+
+
+def full_range_case_l2(n_q: int, device):
+    """``smoke_catalog.edge_case_arrays_l2_int8`` (int8 values -128..127)
+    packed with 200 reserved rows a segment: ``(db, queries)``."""
+    from tod_tpu_torch.ops.segmented_l2 import pack_segmented_l2
+    from tod_tpu_torch.types import TodModel
+    from tod_tpu_torch.utils.smoke_catalog import edge_case_arrays_l2_int8
+
+    descs, q = edge_case_arrays_l2_int8(n_q, n_q)
+    models = [TodModel(f"e{i}", d, np.zeros((len(d), 3), np.float32))
+              for i, d in enumerate(descs)]
+    return pack_segmented_l2(models, db_chunk=256, reserve_rows=200,
+                             device=device), torch.from_numpy(q).to(device)
+
+
+def int_mm_ms(q, sdb) -> float:
+    """Milliseconds of ``torch._int_mm`` over the (Q, 128) x (128, rows)
+    int8 product of ``q`` against ``sdb``'s real rows, in row chunks of
+    INT_MM_ROWS (the int32 product of all rows would not fit): a yardstick
+    for B3's product alone, not a library call of the same function."""
+    real = torch.cat([sdb.rows[s:s + n] for s, n in
+                      zip(sdb.starts_host, sdb.rows_host) if n])
+    real = torch.cat([real, real.new_zeros(((-real.shape[0]) % 8, 128))])
+    chunks = [real[s:s + INT_MM_ROWS] for s in range(0, real.shape[0],
+                                                      INT_MM_ROWS)]
+    q = q.contiguous()
+
+    def product() -> None:
+        for c in chunks:       # each chunk's product is dropped at once
+            torch._int_mm(q, c.t())
+
+    return cuda_ms(product, runs=8)
 
 
 def check_b3(q, sdb, what: str) -> float:
@@ -664,16 +751,26 @@ def sift_phases(dev, card: str, fx, frames, launches: dict):
     edge_db, edge_q = edge_case_db_l2(dev)
     err = max(err, check_b3(edge_q, edge_db, "edge cases"))
     err = max(err, check_b3(q_main[:1000], sdb, "Q=1000 (partial tile)"))
+    for n_q in (1, 17, 65, 257, 2048):
+        err = max(err, check_b3(*full_range_case_l2(n_q, dev)[::-1],
+                                "the full int8 range (objects of 0-300 rows "
+                                "beside reserved padding, ties across "
+                                "fragments and tiles)"))
     ms = cuda_ms(lambda: l2.object_top1_l2_sq(q_main, sdb))
     plain_ms = cuda_ms(lambda: l2.object_top1_l2_sq_torch(q_main, sdb),
                        runs=TWIN_RUNS, warmup=1)
     pairs = Q * sum(sdb.rows_host)
     b3_bound = bound(pairs, 256, matcher_bytes(
         Q, 132, 128, pairs // Q, sdb.n_objects, sdb.n_objects))
+    mm_ms = int_mm_ms(q_main, sdb)
     log(f"kernels: B3 {ms:.3f} ms median of {KERNEL_RUNS} "
         f"({pairs / ms / 1e6:.1f} G pairs/s); twin {plain_ms:.3f} ms median "
         f"of {TWIN_RUNS}; bound {b3_bound[0]:.3f} ms by {b3_bound[1]}; Q={Q} "
-        f"x {sum(sdb.rows_host)} rows, {sdb.n_objects} objects; {card}")
+        f"x {sum(sdb.rows_host)} rows, {sdb.n_objects} objects; yardstick "
+        f"torch._int_mm on the same int8 product alone (row chunks of "
+        f"{INT_MM_ROWS}; the port never calls it): {mm_ms:.3f} ms; __dp4a "
+        f"bound of the CUDA-core design "
+        f"{pairs * 32 / RATES['dp4a']['rate'] * 1e3:.3f} ms; {card}")
 
     # ---- 3d. B4, and both kernels at 1000 objects -------------------------
     t0 = time.perf_counter()
@@ -802,15 +899,17 @@ def sift_phases(dev, card: str, fx, frames, launches: dict):
         f"ms over {SIFT_FRAMES} frames; peak device memory "
         f"{torch.cuda.max_memory_allocated()} bytes; {card}")
     return (dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                 bound_ms=b3_bound[0], bound_by=b3_bound[1]),
+                 bound_ms=b3_bound[0], bound_by=b3_bound[1],
+                 int_mm_ms=mm_ms),
             dict(max_abs_err=b4_err, ms=b4_ms, plain_ms=b4_plain_ms,
                  bound_ms=b4_bound[0], bound_by=b4_bound[1]))
 
 
-def check_b5(q, words, n_valid: int, k: int, radius, what: str) -> float:
+def check_b5(q, words, n_valid: int, k: int, radius, what: str,
+             quiet: bool = False) -> float:
     """B5 against its twin on the card: equal bits or raise; the holes come
     after every real match. Returns the largest absolute distance gap
-    (0.0)."""
+    (0.0). ``quiet`` logs nothing when they agree."""
     from tod_tpu_torch.ops import hamming as ham
 
     d_k, i_k = ham.hamming_topk_fused(q, words, n_valid, k=k, radius=radius)
@@ -820,27 +919,33 @@ def check_b5(q, words, n_valid: int, k: int, radius, what: str) -> float:
     equal = bool(torch.equal(d_k, d_t) and torch.equal(i_k, i_t))
     real = i_k >= 0
     ordered = bool((real[:, :-1] | ~real[:, 1:]).all())
-    log(f"kernels: B5 vs twin on {what}: Q={q.shape[0]} n_valid={n_valid} "
-        f"k={k} radius={radius} matches={int(real.sum())} "
-        f"max_abs_err={err} equal={equal} holes_last={ordered}")
-    if err != 0.0 or not equal or not ordered:
+    ok = err == 0.0 and equal and ordered
+    if not quiet or not ok:
+        log(f"kernels: B5 vs twin on {what}: Q={q.shape[0]} "
+            f"n_valid={n_valid} k={k} radius={radius} "
+            f"matches={int(real.sum())} max_abs_err={err} equal={equal} "
+            f"holes_last={ordered}")
+    if not ok:
         raise AssertionError(f"B5 disagrees with its twin on {what}")
     return err
 
 
 def check_t1(q, words, n_valid: int, what: str) -> None:
-    """Every T1 mode against its plain version on the card, exactly."""
+    """Every T1 mode on every route against its plain version on the card,
+    exactly."""
     from tod_tpu_torch.ops import hamming as ham
 
     for mode in ham.PROBE_MODES:
-        got = ham.hamming_probe(q, words, n_valid, mode)
-        torch.cuda.synchronize()
         want = ham.hamming_probe_torch(q, words, n_valid, mode)
-        if not torch.equal(got, want):
-            raise AssertionError(f"T1 {mode} differs from its plain version "
-                                 f"on {what}")
-    log(f"kernels: T1 modes {sorted(ham.PROBE_MODES)} equal to their plain "
-        f"versions on {what} (Q={q.shape[0]}, n_valid={n_valid})")
+        for route in ham.PROBE_ROUTES:
+            got = ham.hamming_probe(q, words, n_valid, mode, route)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"T1 {mode} on route {route} differs "
+                                     f"from its plain version on {what}")
+    log(f"kernels: T1 modes {sorted(ham.PROBE_MODES)} on routes "
+        f"{sorted(ham.PROBE_ROUTES)} equal to their plain versions on "
+        f"{what} (Q={q.shape[0]}, n_valid={n_valid})")
 
 
 def global_phases(dev, card: str, fx, frames, large, launches: dict):
@@ -881,18 +986,27 @@ def global_phases(dev, card: str, fx, frames, large, launches: dict):
         err = max(err, check_b5(q_main, db.words, n_main, k, radius,
                                 "the smoke catalog"))
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    for n_q in (300, 1000):
+    n_edge = 0
+    for n_q in B5_EDGE_Q:
         n_split, per = ham.split_plan(n_q, EDGE_ROWS, n_sm)
         e_db, e_q = edge_case_arrays_hamming(
-            n_q, EDGE_ROWS, n_q, [per * s for s in range(1, n_split)])
+            n_q, EDGE_ROWS, max(n_q, 70),
+            [per * s for s in range(1, n_split)])
         e_words = ham.pack_db_bits(torch.from_numpy(e_db).to(dev))
-        e_q = torch.from_numpy(e_q).to(dev)
-        for n_valid in (EDGE_ROWS, EDGE_ROWS - 77, 3, 0):
+        e_q = torch.from_numpy(e_q[:n_q]).to(dev)
+        for n_valid in (EDGE_ROWS, EDGE_ROWS - 77, per + 1, 257, 129, 9,
+                        3, 0):
             for k, radius in B5_SHAPES:
                 err = max(err, check_b5(
                     e_q, e_words, n_valid, k, radius,
-                    f"edge cases ({n_split} splits of {per} rows, ties "
-                    "across their boundaries)"))
+                    f"edge cases ({n_split} splits of {per} rows)",
+                    quiet=True))
+                n_edge += 1
+    log(f"kernels: B5 equal to its twin on {n_edge} edge cases: Q "
+        f"{list(B5_EDGE_Q)}, n_valid {EDGE_ROWS} down to 0 (ragged tiles "
+        "and splits), ties across the sweep's fragments, lanes, 128-row "
+        "tiles and split boundaries, (k, radius) "
+        f"{[(k, r) for k, r in B5_SHAPES]}")
     t0 = time.perf_counter()
     ldb = pack_models(large, cfg.db_chunk, device=dev)[0]
     log(f"global: {N_LARGE}-object DB ({ldb.n_valid} rows, {ldb.nbytes()} "
@@ -910,9 +1024,9 @@ def global_phases(dev, card: str, fx, frames, large, launches: dict):
     large_ms = cuda_ms(lambda: ham.hamming_topk_fused(
         q_main, ldb.words, ldb.n_valid, k=5, radius=35.0), runs=8)
     pairs = Q_GLOBAL * n_main
-    b5_bound = bound(pairs, 512, Q_GLOBAL * 32 + n_main * 32
-                     + Q_GLOBAL * 5 * 8)
-    popc_ms = pairs * 8 / POPC_S * 1e3
+    b5_bound = hamming_bound(pairs, Q_GLOBAL * 32 + n_main * 32
+                             + Q_GLOBAL * 5 * 8)
+    popc_ms = pairs * 8 / RATES["popc"]["rate"] * 1e3
     log(f"kernels: B5 {ms:.3f} ms median of {KERNEL_RUNS} "
         f"({pairs / ms / 1e6:.1f} G pairs/s) at Q={Q_GLOBAL} x {n_main} "
         f"rows, k 5, radius 35; twin {plain_ms:.3f} ms median of "
@@ -932,22 +1046,33 @@ def global_phases(dev, card: str, fx, frames, large, launches: dict):
         rng.integers(0, 256, (T1_N, 32), dtype=np.uint8)).to(dev))
     check_t1(q_t1, w_t1, T1_N, "T1's shape")
     check_t1(q_main, db.words, n_main, "B5's main shape")
-    t1 = {}
-    for mode in ham.PROBE_MODES:
-        t1[mode] = (cuda_ms(lambda: ham.hamming_probe(q_t1, w_t1, T1_N, mode)),
-                    cuda_ms(lambda: ham.hamming_probe(q_main, db.words, n_main,
-                                                      mode)))
+    t1 = {route: {mode: {
+        "t1_shape": cuda_ms(lambda: ham.hamming_probe(q_t1, w_t1, T1_N, mode,
+                                                      route)),
+        "b5_shape": cuda_ms(lambda: ham.hamming_probe(
+            q_main, db.words, n_main, mode, route))}
+        for mode in ham.PROBE_MODES} for route in ham.PROBE_ROUTES}
     t1_plain_ms = cuda_ms(lambda: ham.hamming_probe_torch(
         q_t1, w_t1, T1_N, "dist_sum"), runs=TWIN_RUNS, warmup=1)
     t1_pairs = T1_Q * T1_N
-    t1_bound = bound(t1_pairs, 512, T1_Q * 32 + T1_N * 32 + T1_Q * 8)
-    log(f"kernels: T1 at Q={T1_Q} x {T1_N} rows / at B5's shape, ms: "
-        + "; ".join(f"{m} {a:.3f} / {b:.3f}" for m, (a, b) in t1.items())
-        + f"; B5 (k 5, radius 35) at B5's shape {ms:.3f}: extraction "
-        f"{ms - t1['row_min'][1]:.3f} ms over the row-min sweep; dist_sum "
-        f"plain version {t1_plain_ms:.3f} ms; bound at T1's shape "
+    t1_bound = hamming_bound(t1_pairs, T1_Q * 32 + T1_N * 32 + T1_Q * 8)
+    for route, modes in t1.items():
+        log(f"kernels: T1 route {route} at Q={T1_Q} x {T1_N} rows / at B5's "
+            "shape, ms: " + "; ".join(
+                f"{m} {v['t1_shape']:.3f} / {v['b5_shape']:.3f}"
+                for m, v in modes.items()) + f"; {card}")
+    sweep = {r: t1[r]["row_min"]["b5_shape"] for r in ham.PROBE_ROUTES}
+    faster = min(("s8", "b1"), key=sweep.get)
+    b5_route = ham.b5_route()
+    log(f"kernels: B5 is compiled with route {b5_route} "
+        f"(csrc/hamming_topk.cu kB5Route); T1's row-min sweep at B5's shape "
+        f"takes s8 {sweep['s8']:.3f} ms, b1 {sweep['b1']:.3f} ms, popc "
+        f"{sweep['popc']:.3f} ms, so the faster tensor-core route in this "
+        f"run is {faster}; B5 (k 5, radius 35) {ms:.3f} ms: extraction "
+        f"{ms - sweep[b5_route]:.3f} ms over its route's row-min sweep; "
+        f"dist_sum plain version {t1_plain_ms:.3f} ms; bound at T1's shape "
         f"{t1_bound[0]:.3f} ms by {t1_bound[1]} (popcount bound "
-        f"{t1_pairs * 8 / POPC_S * 1e3:.3f} ms); {card}")
+        f"{t1_pairs * 8 / RATES['popc']['rate'] * 1e3:.3f} ms); {card}")
     del q_t1, w_t1
 
     # ---- 4f. the global path on both frames --------------------------------
@@ -997,10 +1122,10 @@ def global_phases(dev, card: str, fx, frames, large, launches: dict):
         f"{torch.cuda.max_memory_allocated()} bytes; {card}")
     return (dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                  bound_ms=b5_bound[0], bound_by=b5_bound[1]),
-            dict(max_abs_err=0.0, ms=t1["dist_sum"][0], plain_ms=t1_plain_ms,
-                 bound_ms=t1_bound[0], bound_by=t1_bound[1],
-                 modes_ms={m: {"t1_shape": a, "b5_shape": b}
-                           for m, (a, b) in t1.items()}))
+            dict(max_abs_err=0.0, ms=t1["popc"]["dist_sum"]["t1_shape"],
+                 plain_ms=t1_plain_ms, bound_ms=t1_bound[0],
+                 bound_by=t1_bound[1], timed_route="popc",
+                 modes_ms=t1["popc"], b5_route=b5_route, routes_ms=t1))
 
 
 def main() -> int:
@@ -1026,6 +1151,19 @@ def main() -> int:
     kernels.build_all()
     log(f"build: {sorted(kernels.SOURCES)} in "
         f"{time.perf_counter() - t0:.2f} s (nvcc {kernels.build_seconds})")
+    for name in ("hamming_topk", "segmented_l2_top1"):
+        log_ptxas(name, kernels.build_log.get(name, ""))
+    from tools.bench_int_rate import UNITS, b1_rate, measure_rates
+    RATES.update(measure_rates())
+    for name, r in RATES.items():
+        log(f"rates: {UNITS[name]}: {r['rate']:.4g} /s, "
+            f"{r['per_clock_sm']:.2f} per clock and SM at the maximum "
+            f"{r['max_mhz']:.0f} MHz x {r['n_sm']} SMs "
+            f"(tools/bench_int_rate.py); {card}")
+    log(f"rates: the Hamming bounds take {b1_rate(RATES):.4g} bit "
+        f"operations /s; wgmma s8 at "
+        f"{RATES['wgmma_s8']['rate'] / INT8_OPS_S * 100:.1f} % of the "
+        f"published int8 peak; {card}")
 
     # ---- 3. kernels against their twins -----------------------------------
     fx, model_ids, models = load_fixture()
@@ -1192,12 +1330,11 @@ def main() -> int:
         f"{torch.cuda.max_memory_allocated()} bytes; placements missed on "
         f"the {len(frames)} frames: {missed}; {card}")
 
-    # the card's bounds for B1 and B2 at the timed shapes: 2 x 256 int8
-    # tensor-core operations a pair on unpacked bits (the faster of the two
-    # ways the card has; the popcount rate of the CUDA cores is in PERF.md)
-    b1_bound = bound(pairs, 512, matcher_bytes(
+    # the card's bounds for B1 and B2 at the timed shapes: the int8 or the
+    # 1-bit tensor-core product, whichever is less (hamming_bound)
+    b1_bound = hamming_bound(pairs, matcher_bytes(
         Q, 32, 32, pairs // Q, sdb.n_objects, sdb.n_objects))
-    b2_bound = bound(b2_pairs, 512, matcher_bytes(
+    b2_bound = hamming_bound(b2_pairs, matcher_bytes(
         Q, 32, 32, b2_pairs // Q, B2_SLOTS, N_LARGE))
     del sweep
     torch.cuda.empty_cache()

@@ -1,6 +1,8 @@
 """The port's CUDA kernels (B1, B2, B3, B4 of the SIFT/L2 path, and B5 and
-its isolation modes T1 of the global-kNN path) against their plain PyTorch
-twins, on the card.
+its isolation modes T1 of the global-kNN path, on every route) against
+their plain PyTorch twins, on the card, with the edges of the tensor-core
+tiles (ragged Q and n_valid, short objects beside padding, the full int8
+range, ties across fragments, tiles and splits).
 
 Every test here is marked ``cuda`` and skips without a GPU. The file needs
 neither JAX nor the JAX package, so it also runs on a machine that has
@@ -17,8 +19,10 @@ from tod_tpu_torch.ops import hamming as tham
 from tod_tpu_torch.ops import segmented as tseg
 from tod_tpu_torch.ops import segmented_l2 as tl2
 from tod_tpu_torch.types import TodModel
-from tod_tpu_torch.utils.smoke_catalog import (edge_case_arrays_hamming,
-                                               edge_case_arrays_l2)
+from tod_tpu_torch.utils.smoke_catalog import (HAMMING_TILE_TIES,
+                                               edge_case_arrays_hamming,
+                                               edge_case_arrays_l2,
+                                               edge_case_arrays_l2_int8)
 
 
 def _cuda():
@@ -167,6 +171,37 @@ def test_b3_matches_twin(n_q):
         assert (d_sq[2, 2].item(), r[2, 2].item()) == (0, 7)
 
 
+def _full_range_case_l2(seed, n_q, device):
+    """``edge_case_arrays_l2_int8`` (the full int8 range, short objects,
+    ties across the kernel's fragments and tiles) in segments padded to
+    reserved rows, so that padding sits in the same 128-row tile as real
+    rows: ``(db, queries)``."""
+    descs, q = edge_case_arrays_l2_int8(seed, n_q)
+    models = [TodModel(f"o{i}", d, np.zeros((len(d), 3), np.float32))
+              for i, d in enumerate(descs)]
+    return tl2.pack_segmented_l2(models, db_chunk=256, reserve_rows=200,
+                                 device=device), \
+        torch.from_numpy(q).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_q", [1, 15, 16, 17, 63, 65, 255, 257, 2048])
+def test_b3_matches_twin_over_the_full_int8_range(n_q):
+    dev = _cuda()
+    db, q = _full_range_case_l2(600 + n_q, n_q, dev)
+    d_sq, r = tl2.object_top1_l2_sq(q, db)
+    torch.cuda.synchronize()
+    d_sq_t, r_t = tl2.object_top1_l2_sq_torch(q, db)
+    assert torch.equal(d_sq, d_sq_t) and torch.equal(r, r_t)
+    assert (d_sq[0, 8].item(), r[0, 8].item()) == (0, 7)
+    q_norm = (q.to(torch.int64) ** 2).sum(1)
+    assert torch.equal(d_sq[:, 1].long(), q_norm + tl2.PAD_NORM)
+    if n_q > 3:
+        assert (d_sq[1, 8].item(), r[1, 8].item()) == (0, 200)
+        assert (d_sq[2, 8].item(), r[2, 8].item()) == (0, 201)
+        assert (d_sq[3, 7].item(), r[3, 7].item()) == (0, 128)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n_q", [512, 300, 1])
 def test_b4_matches_twin_and_b3_columns(n_q):
@@ -226,7 +261,8 @@ def test_b3_b4_refuse_what_they_cannot_take():
 def _edge_cases_hamming(seed, n_q, device, n_rows=20000):
     """Rows with row 10 copied across the kernel's own split boundaries
     (for this Q) and inside one split, and the queries of
-    ``edge_case_arrays_hamming``."""
+    ``edge_case_arrays_hamming`` (with ties across the sweep's fragments
+    and tiles)."""
     n_sm = torch.cuda.get_device_properties(device).multi_processor_count
     n_split, per = tham.split_plan(n_q, n_rows, n_sm)
     assert n_split > 2
@@ -237,12 +273,14 @@ def _edge_cases_hamming(seed, n_q, device, n_rows=20000):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n_q", [512, 300, 1])
+@pytest.mark.parametrize("n_q", [512, 300, 1, 15, 16, 17, 63, 65, 5000])
 @pytest.mark.parametrize("k, radius", [(5, 35), (8, 50), (5, None), (1, 0)])
 def test_b5_matches_twin(n_q, k, radius):
     dev = _cuda()
     words, q, per = _edge_cases_hamming(500 + n_q, n_q, dev)
-    for n_valid in (words.shape[0], words.shape[0] - 77, 3, 0):
+    n = words.shape[0]
+    for n_valid in (n, n - 77, 3, 0, 1, 7, 8, 9, 127, 128, 129, 255, 257,
+                    per - 1, per, per + 1, 2 * per + 1):
         before = tham.hamming_topk_fused.launches
         d, i = tham.hamming_topk_fused(q, words, n_valid, k=k, radius=radius)
         torch.cuda.synchronize()
@@ -255,20 +293,31 @@ def test_b5_matches_twin(n_q, k, radius):
     assert i[0, 0].item() == 10 and d[0, 0].item() == 0
     if k > 4:
         assert i[0, 1:5].tolist() == [1000, 1001, 1002, 1003]
+    if n_q > 67:
+        assert i[67].tolist() == HAMMING_TILE_TIES[:k]
+        assert (d[67] == 0).all()
 
 
 @pytest.mark.cuda
-def test_t1_modes_match_plain_versions():
+@pytest.mark.parametrize("route", sorted(tham.PROBE_ROUTES))
+@pytest.mark.parametrize("n_q", [300, 17, 5000])
+def test_t1_modes_match_plain_versions(route, n_q):
     dev = _cuda()
-    words, q, _ = _edge_cases_hamming(9, 300, dev)
-    for n_valid in (words.shape[0], 5000):
+    words, q, _ = _edge_cases_hamming(9, n_q, dev)
+    for n_valid in (words.shape[0], 5000, 129, 1):
         for mode in tham.PROBE_MODES:
             before = tham.hamming_probe.launches
-            got = tham.hamming_probe(q, words, n_valid, mode)
+            got = tham.hamming_probe(q, words, n_valid, mode, route)
             torch.cuda.synchronize()
             assert tham.hamming_probe.launches == before + 1
             want = tham.hamming_probe_torch(q, words, n_valid, mode)
             assert torch.equal(got, want), (mode, n_valid)
+
+
+@pytest.mark.cuda
+def test_b5_route_is_a_tensor_core_route():
+    _cuda()
+    assert tham.b5_route() in ("s8", "b1")
 
 
 @pytest.mark.cuda
@@ -290,3 +339,5 @@ def test_b5_refuses_what_it_cannot_take():
         tham.hamming_topk_fused(q, words, n, k=9)                     # k
     with pytest.raises(ValueError):
         tham.hamming_probe(q, words, n, "dot_only")                   # mode
+    with pytest.raises(ValueError):
+        tham.hamming_probe(q, words, n, "row_min", "bf16")            # route

@@ -18,7 +18,9 @@ from tod_tpu.ops import matching as jmatch
 from tod_tpu.ops.pallas import hamming as jham
 from tod_tpu_torch.ops import hamming as tham
 from tod_tpu_torch.ops import matching as tmatch
-from tod_tpu_torch.utils.smoke_catalog import edge_case_arrays_hamming
+from tod_tpu_torch.ops.segmented import TWIN_ROWS
+from tod_tpu_torch.utils.smoke_catalog import (HAMMING_TILE_TIES,
+                                               edge_case_arrays_hamming)
 
 torch.set_num_threads(1)
 
@@ -80,6 +82,8 @@ def test_twin_matches_interpret_kernel_and_xla_matcher(k, radius):
             CHUNK, CHUNK + 1, CHUNK + 2, 2 * CHUNK - 3]
     assert i_t[0].tolist() == dups[:k] and (d_t[0] == 0).all()
     assert i_t[1].tolist() == dups[:k] and (d_t[1] == 1).all()
+    # ties across the tensor-core sweep's fragments, lanes and tiles
+    assert i_t[67].tolist() == HAMMING_TILE_TIES[:k] and (d_t[67] == 0).all()
     real = i_t >= 0
     assert (real[:, :-1] | ~real[:, 1:]).all()
     assert (d_t[~real] == 1e9).all()
@@ -166,6 +170,8 @@ def test_probe_twin_and_split_plan():
     assert got["block_min"].tolist() == [0]
     with pytest.raises(ValueError):
         tham.hamming_probe(torch.from_numpy(q), words, 0, "row_min")
+    with pytest.raises(ValueError):
+        tham.hamming_probe(torch.from_numpy(q), words, 10, "row_min", "bf16")
     for n_q, n_valid in ((5000, 2117214), (5000, 21193614), (300, 6144),
                          (1, 1), (128, 0), (512, 4097)):
         n_split, per = tham.split_plan(n_q, n_valid, 132)
@@ -173,6 +179,54 @@ def test_probe_twin_and_split_plan():
         assert per % tham.ROW_TILE == 0 or n_valid == 0
         assert (n_split - 1) * per < max(n_valid, 1) <= n_split * per \
             or n_valid == 0
+
+
+@pytest.mark.parametrize("route", sorted(tham.PROBE_ROUTES))
+def test_probe_routes_share_the_plain_version(route):
+    """On a CPU tensor every T1 route runs the one plain version: each
+    route's kernel is held against it on the card."""
+    q, db = _case(11, n_q=70)
+    qt, words = torch.from_numpy(q), tham.pack_db_bits(torch.from_numpy(db))
+    before = tham.hamming_probe.launches
+    for mode in tham.PROBE_MODES:
+        got = tham.hamming_probe(qt, words, 4321, mode, route)
+        assert torch.equal(got, tham.hamming_probe_torch(qt, words, 4321,
+                                                         mode))
+    assert tham.hamming_probe.launches == before
+
+
+@pytest.mark.parametrize("n_q, n_valid", [
+    (5000, 2117214), (5000, 21193614), (512, 2117214), (1024, 1739636),
+    (300, 20000), (1, 1), (17, 8), (65, 129), (5000, 1 << 26),
+    (100000, 1 << 26), (256, 4097)])
+def test_split_plan_covers_every_row_once(n_q, n_valid):
+    """Every valid row lies in exactly one split, no split is empty, a split
+    is a multiple of ROW_TILE rows and below the kernel's 2^23-row keys,
+    the grid stays inside its y limit, and where the rows allow the blocks
+    fill 132 SMs several times over."""
+    for q_block in (tham.BLOCK_QUERIES, tham.POPC_BLOCK_QUERIES):
+        n_split, per = tham.split_plan(n_q, n_valid, 132, q_block)
+        assert 1 <= n_split <= tham.MAX_SPLITS
+        assert per % tham.ROW_TILE == 0 and 0 < per <= tham.MAX_SPLIT_ROWS
+        assert (n_split - 1) * per < n_valid <= n_split * per
+        tiles = -(-n_q // q_block)
+        if n_valid >= 4 * 132 * tham.MIN_SPLIT_ROWS:
+            assert tiles * n_split >= 4 * 132, (tiles, n_split)
+
+
+@pytest.mark.parametrize("n_q, n_valid", [(5000, 2117214), (300, 20000),
+                                          (64, 5), (1, 0)])
+def test_twin_schedule_follows_the_plan(n_q, n_valid):
+    """The twin's row blocks tile [0, n_valid) in ascending order and never
+    straddle a split of the kernel's plan."""
+    n_split, per = tham.split_plan(n_q, n_valid, tham.TWIN_SMS)
+    blocks = list(tham.twin_schedule(n_q, n_valid))
+    assert [b for b, _ in blocks[1:]] == [e for _, e in blocks[:-1]]
+    assert (blocks[0][0] if blocks else 0) == 0
+    assert (blocks[-1][1] if blocks else 0) == n_valid
+    for base, end in blocks:
+        assert base < end and (end - 1) // per == base // per
+        assert end - base <= TWIN_ROWS
 
 
 def test_wrapper_refuses_what_it_cannot_take():

@@ -229,3 +229,108 @@ def test_to_l2_matches_bit_for_bit():
     got = tl2.to_l2(torch.from_numpy(x)).numpy()
     np.testing.assert_array_equal(got, want)
     assert got[-1] == 0.0 and got[-2] == np.float32(tl2.HOLE_DIST_L2)
+
+
+# ---- kernel B3's tile key (csrc/segmented_l2_top1.cu) ----------------------
+
+# B3's tile: 128 rows a step (kTcRows), the row's column in the low 7 bits
+# of its key (kColBits), and the key's bias (kKeyBias:
+# |r|^2 - 2 q.r = d - |q|^2 >= -|q|^2 >= -128 * 128^2 = -2^21)
+L2_ROW_TILE = 128
+L2_COL_BITS = 7
+L2_KEY_BIAS = 1 << 21
+
+
+def l2_tile_key(v, col):
+    """Kernel B3's key of a pair: ``(v + 2^21) << 7 | col`` for ``v = |r|^2
+    - 2 q.r`` (int64 in, int64 out) and the row's column in its 128-row
+    tile. For int8 operands it lies in [0, 2^31), and a smaller key has the
+    smaller distance ``|q|^2 + v`` (same query), then the lower column."""
+    return ((v + L2_KEY_BIAS) << L2_COL_BITS) | col
+
+
+def l2_tile_key_split(key):
+    """``(v, col)`` of :func:`l2_tile_key`."""
+    return (key >> L2_COL_BITS) - L2_KEY_BIAS, key & (L2_ROW_TILE - 1)
+
+
+def test_l2_tile_key_bound_at_int8_extremes():
+    """The key ``(|r|^2 - 2 q.r + 2^21) << 7 | col`` at the int8 extremes:
+    d = 0 at q = r = -128 (the smallest v, -2^21) and d = 128 x 255^2 at
+    q = -128, r = 127 (the largest); inside [0, 2^31) and round-tripped."""
+    q = torch.full((1, 128), -128, dtype=torch.int64)
+    cases = {"min": torch.full((1, 128), -128, dtype=torch.int64),
+             "max": torch.full((1, 128), 127, dtype=torch.int64),
+             "zero": torch.zeros((1, 128), dtype=torch.int64)}
+    q_norm = int((q ** 2).sum())
+    assert q_norm == L2_KEY_BIAS
+    got = {}
+    for name, r in cases.items():
+        v = (r ** 2).sum(1) - 2 * (q * r).sum(1)
+        for col in (0, L2_ROW_TILE - 1):
+            key = l2_tile_key(v, torch.tensor([col]))
+            assert 0 <= int(key) < 2 ** 31, (name, int(key))
+            v2, c2 = l2_tile_key_split(key)
+            assert int(v2) == int(v) and int(c2) == col
+        got[name] = int(v) + q_norm
+    assert got == {"min": 0, "max": 128 * 255 ** 2, "zero": q_norm}
+    # q = 127, r = -128 is as far, with a smaller |q|^2
+    v = (128 * 128 ** 2) - 2 * 128 * (127 * -128)
+    assert 0 <= int(l2_tile_key(torch.tensor([v]), torch.tensor([127]))) \
+        < 2 ** 31
+
+
+def _tiled_keys_torch(q_i8, db):
+    """Kernel B3's arithmetic as plain PyTorch: per object, 128-row tiles
+    of real rows, the per-tile min of :func:`l2_tile_key`, tiles folded in
+    ascending order on the distance alone (strict <)."""
+    q = q_i8.to(torch.int64)
+    q_norm = (q ** 2).sum(1)
+    d_out = torch.empty((q.shape[0], db.n_objects), dtype=torch.int64)
+    r_out = torch.zeros((q.shape[0], db.n_objects), dtype=torch.int64)
+    for o, (start, n) in enumerate(zip(db.starts_host, db.rows_host)):
+        best_v = torch.full((q.shape[0],), 1 << 62, dtype=torch.int64)
+        best_r = torch.zeros(q.shape[0], dtype=torch.int64)
+        for base in range(0, n, L2_ROW_TILE):
+            rows = db.rows[start + base:start + min(base + L2_ROW_TILE,
+                                                    n)].to(torch.int64)
+            v = (rows ** 2).sum(1)[None, :] - 2 * q @ rows.T
+            key = l2_tile_key(v, torch.arange(rows.shape[0])[None, :])
+            assert int(key.min()) >= 0 and int(key.max()) < 2 ** 31
+            t_v, t_c = l2_tile_key_split(key.min(1).values)
+            take = t_v < best_v
+            best_v = torch.where(take, t_v, best_v)
+            best_r = torch.where(take, base + t_c, best_r)
+        d_out[:, o] = best_v + q_norm if n else q_norm + tl2.PAD_NORM
+        r_out[:, o] = best_r
+    return d_out.to(torch.int32), r_out.to(torch.int32)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_tiled_key_fold_matches_twin_over_the_full_int8_range(seed):
+    """The key fold equals B3's twin, distances and lowest-row ties, on
+    int8 rows and queries over -128..127 (not only the quantiser's 0..127),
+    objects of 0, 1, 15, 16, 17, 127, 128 and 129 rows padded with reserved
+    rows, and rows tied across the 128-row tiles."""
+    rng = np.random.default_rng(seed)
+    sizes = [17, 0, 1, 15, 16, 300, 127, 128, 129]
+    descs = [rng.integers(-128, 128, (n, 128)).astype(np.int8) for n in sizes]
+    descs[5][[3, 127, 128, 255, 299]] = descs[5][40]
+    descs[5][200] = -128
+    descs[5][201] = 127
+    q = rng.integers(-128, 128, (40, 128)).astype(np.int8)
+    q[0] = descs[5][40]
+    q[1] = -128
+    q[2] = 127
+    q[3] = descs[5][40] // 2
+    models = [TodModel(f"o{i}", d, np.zeros((len(d), 3), np.float32))
+              for i, d in enumerate(descs)]
+    db = tl2.pack_segmented_l2(models, db_chunk=256, reserve_rows=64,
+                               device="cpu")
+    qt = torch.from_numpy(q)
+    d_k, r_k = _tiled_keys_torch(qt, db)
+    d_t, r_t = tl2.object_top1_l2_sq_torch(qt, db)
+    assert torch.equal(d_k, d_t) and torch.equal(r_k, r_t)
+    assert (d_t[0, 5].item(), r_t[0, 5].item()) == (0, 3)
+    assert (d_t[1, 5].item(), r_t[1, 5].item()) == (0, 200)
+    assert (d_t[2, 5].item(), r_t[2, 5].item()) == (0, 201)

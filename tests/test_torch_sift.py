@@ -284,7 +284,7 @@ def test_full_sweep_detector_matches_reference(world, monkeypatch):
         np.testing.assert_array_equal(d_t.numpy(), np.asarray(d_j))
         np.testing.assert_array_equal(r_t.numpy(), np.asarray(r_j))
         _, det_j = jd.detect_raw(image, depth, world["fx"]["K"])
-        det_t = td.detect_raw(image, depth, world["fx"]["K"])
+        _, det_t = td.detect_raw(image, depth, world["fx"]["K"])
         found += _assert_same_detections(td, det_t, det_j, f"frame {f}")
     print("gated:", [(r.object_id, r.quality) for r in found])
     assert len({r.object_id for r in found}) >= 2
@@ -308,7 +308,7 @@ def test_streaming_detector_matches_reference(world, monkeypatch):
         td.noise = JaxReplayNoise(world["keys"][f],
                                   cfg.guess.ransac.max_instances)
         _, det_j = jd.detect_raw(image, depth, world["fx"]["K"])
-        det_t = td.detect_raw(image, depth, world["fx"]["K"])
+        _, det_t = td.detect_raw(image, depth, world["fx"]["K"])
         for name, a, b in zip(("sel", "force", "force_act"), slabs[f],
                               td.slab):
             np.testing.assert_array_equal(b.numpy(), np.asarray(a),

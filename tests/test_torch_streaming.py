@@ -228,7 +228,7 @@ def test_streaming_detector_matches_reference(stream):
         td.noise = JaxReplayNoise(stream["keys"][f],
                                   cfg.guess.ransac.max_instances)
         _, det_j = jd.detect_raw(image, depth, fx["K"])
-        det_t = td.detect_raw(image, depth, fx["K"])
+        _, det_t = td.detect_raw(image, depth, fx["K"])
         for name, a, b in zip(("sel", "force", "force_act"),
                               stream["slabs"][f], td.slab):
             np.testing.assert_array_equal(b.numpy(), np.asarray(a),

@@ -3,8 +3,10 @@
 Each ``csrc/<name>.cu`` exposes a plain C entry point and is compiled at
 first use with ``nvcc`` for ``sm_90a`` into ``build/lib<name>-<hash>.so``
 (the hash is of the source, so an edited kernel is rebuilt), then loaded
-with ``ctypes``. Nothing here runs at import time; on a machine without a
-CUDA toolkit only :func:`load` fails, and only when a kernel is asked for.
+with ``ctypes``. ``ptxas``'s report of each kernel's registers, shared
+memory and spills is kept in :data:`build_log`. Nothing here runs at
+import time; on a machine without a CUDA toolkit only :func:`load` fails,
+and only when a kernel is asked for.
 """
 
 from __future__ import annotations
@@ -23,10 +25,11 @@ BUILD = Path(__file__).resolve().parent / "build"
 SOURCES = ("segmented_top1", "segmented_l2_top1",   # csrc/, by file stem
            "hamming_topk")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 build_seconds: Dict[str, float] = {}
+build_log: Dict[str, str] = {}     # nvcc's (ptxas -v) report of each build
 
 
 def _nvcc() -> str:
@@ -57,6 +60,7 @@ def load(name: str) -> ctypes.CDLL:
             raise RuntimeError(f"nvcc failed for {src.name}:\n{proc.stderr}")
         os.replace(tmp, lib_path)   # atomic: concurrent builds agree
         build_seconds[name] = time.perf_counter() - t0
+        build_log[name] = proc.stderr
     lib = ctypes.CDLL(str(lib_path))
     _loaded[name] = lib
     return lib

@@ -119,10 +119,12 @@ def check_ported(cfg: FusedDetectorConfig) -> None:
 CLIQUE_WEIGHT = 16.0
 
 
-def confidence_v2(n_inliers: float, clique_size: int) -> float:
+def confidence_v2(n_inliers: float, rms_residual: float, clique_size: int,
+                  sensor_error: float) -> float:
     """Fused serving confidence: inlier count + weighted inlier-clique
-    depth (the reference's confidence_v2; its residual argument is reported
-    on PoseResult, not fused)."""
+    depth (the reference's confidence_v2, with its arguments). The RMS
+    residual and the sensor error are reported on PoseResult, not fused."""
+    del rms_residual, sensor_error
     return float(n_inliers) + CLIQUE_WEIGHT * float(clique_size)
 
 
@@ -500,10 +502,9 @@ class FusedDetector:
 
     def detect_raw(self, image, depth, K):
         """Device-level API; accepts numpy frames or the tensors of
-        :meth:`prepare_frame`. Segmented: detections (O, I, ...) as device
-        tensors, or None for an empty catalog. Global: ``(keypoints,
-        detections)`` as the reference returns them (empty detections for
-        an empty catalog)."""
+        :meth:`prepare_frame`. Returns ``(keypoints, detections)`` as the
+        reference does: the keypoints are None on the segmented paths, and
+        an empty catalog gives empty detections."""
         if isinstance(image, torch.Tensor) and image.dim() == 2:
             gray, depth_t, K_t = image, depth, K
         else:
@@ -518,11 +519,11 @@ class FusedDetector:
                                        rows, query_pts, geom_db(self.db), cfg)
         xy, qp, dsc, ok = stage_features_compact(gray, depth_t, K_t, cfg)
         if not self.object_ids:
-            return None
+            return None, empty_detections(0, cfg, self.device)
         if self.cdb is not None:
-            return self._detect_coarse_fine(xy, qp, dsc, ok)
+            return None, self._detect_coarse_fine(xy, qp, dsc, ok)
         dist, rows = match_full(dsc, self.sdb)
-        return detect_frame_segmented(
+        return None, detect_frame_segmented(
             self.noise, dist, rows, ok, qp, xy, self.sdb.points,
             self.sdb.obj_start, self.sdb.spans, cfg.guess, cfg.activation,
             cfg.radius)[1]
@@ -580,14 +581,11 @@ class FusedDetector:
     def detect(self, image, depth, K) -> List[PoseResult]:
         """Poses of one frame, gated by ``min_confidence`` (inliers) and
         ``min_quality`` (:func:`confidence_v2`)."""
-        raw = self.detect_raw(image, depth, K)
-        return self.poses(raw if self.segmented else raw[1])
+        return self.poses(self.detect_raw(image, depth, K)[1])
 
-    def poses(self, det: Optional[ObjectDetections]) -> List[PoseResult]:
+    def poses(self, det: ObjectDetections) -> List[PoseResult]:
         """The gated poses of :meth:`detect_raw`'s detections, read back to
         the host once."""
-        if det is None:
-            return []
         n_obj, n_inst = det.accepted.shape
         packed = torch.cat([
             det.R.reshape(n_obj, n_inst, 9), det.T,
@@ -602,7 +600,8 @@ class FusedDetector:
                 if not accepted or n_in < self.config.min_confidence:
                     continue
                 clique = int(row[15])
-                quality = confidence_v2(n_in, clique)
+                quality = confidence_v2(n_in, float(row[14]), clique,
+                                        self.config.guess.sensor_error)
                 if quality < self.config.min_quality:
                     continue
                 results.append(PoseResult(

@@ -15,9 +15,13 @@ tensor. Both return, per query, the <= k nearest rows among rows <
 (dist, row); a missing slot is (1e9, -1), after every real match.
 
 :func:`hamming_probe` (T1, a second entry point of the same file; twin
-:func:`hamming_probe_torch`) runs B5's sweep with the extraction replaced by
+:func:`hamming_probe_torch`) runs the sweep with the extraction replaced by
 a per-query distance sum, a per-query minimum or one minimum over all
-pairs: what the card spends on distances alone.
+pairs: what the card spends on distances alone. It runs on three routes
+(``PROBE_ROUTES``): the CUDA-core popcount sweep (B5's earlier design) and
+the two tensor-core products, int8 ``mma`` on unpacked bits and 1-bit
+``mma`` on packed words. B5 is compiled with one of them, fixed in the
+source; :func:`b5_route` reads which from the built library.
 """
 
 from __future__ import annotations
@@ -33,12 +37,16 @@ from tod_tpu_torch.ops.segmented import TWIN_ROWS, checked_query
 
 KEY_INVALID = 2 ** 30      # the reference's invalid sort key (never output)
 MAX_K = 8
-BLOCK_QUERIES = 128        # queries a block of the kernel (one a thread)
-ROW_TILE = 512             # rows a split is rounded to (the kernel's tile)
+BLOCK_QUERIES = 256        # queries a block of the tensor-core sweep
+POPC_BLOCK_QUERIES = 128   # queries a block of the popcount sweep (T1)
+ROW_TILE = 128             # rows a split is rounded to (the staged tile)
 MIN_SPLIT_ROWS = 4096      # fewer rows a block would be mostly overhead
-BLOCKS_PER_SM = 32         # blocks the splits aim at: several waves
+MAX_SPLIT_ROWS = 1 << 23   # a split's rows fit the kernel's 23-bit keys
+BLOCKS_PER_SM = 16         # blocks the splits aim at: several waves
 MAX_SPLITS = 65535         # the grid's y extent
+TWIN_SMS = 132             # the H100's SMs: the twin's split plan
 PROBE_MODES = {"dist_sum": 1, "row_min": 2, "block_min": 3}
+PROBE_ROUTES = {"popc": 0, "s8": 1, "b1": 2}
 _NO_ROW = (1 << 63) - 1    # the twin's empty key
 
 
@@ -72,16 +80,18 @@ def radius_int(radius: Optional[float]) -> int:
     return 256 if radius is None else max(-1, min(256, int(radius)))
 
 
-def split_plan(n_q: int, n_valid: int, n_sm: int) -> Tuple[int, int]:
+def split_plan(n_q: int, n_valid: int, n_sm: int,
+               q_block: int = BLOCK_QUERIES) -> Tuple[int, int]:
     """``(n_split, rows_per_split)``: how the kernel's grid splits the rows
-    so that ``ceil(n_q / 128) x n_split`` blocks fill ``n_sm`` SMs several
-    times over, each split a multiple of 512 rows and at least
-    MIN_SPLIT_ROWS; every split holds rows."""
+    so that ``ceil(n_q / q_block) x n_split`` blocks fill ``n_sm`` SMs
+    several times over, each split a multiple of ROW_TILE rows, at least
+    MIN_SPLIT_ROWS and at most MAX_SPLIT_ROWS; every split holds rows."""
     if n_valid <= 0:
         return 1, 0
-    tiles = -(-n_q // BLOCK_QUERIES)
+    tiles = -(-n_q // q_block)
     want = min(-(-n_valid // MIN_SPLIT_ROWS),
                -(-BLOCKS_PER_SM * n_sm // tiles), MAX_SPLITS)
+    want = max(want, -(-n_valid // MAX_SPLIT_ROWS))
     per = -(-n_valid // max(want, 1))
     per = -(-per // ROW_TILE) * ROW_TILE
     return -(-n_valid // per), per
@@ -98,20 +108,32 @@ def _checked(query_u8: torch.Tensor, words: torch.Tensor, n_valid: int
     return q
 
 
-def _plan(q: torch.Tensor, n_valid: int) -> Tuple[int, int]:
+def _plan(q: torch.Tensor, n_valid: int,
+          q_block: int = BLOCK_QUERIES) -> Tuple[int, int]:
     n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
-    return split_plan(q.shape[0], n_valid, n_sm)
+    return split_plan(q.shape[0], n_valid, n_sm, q_block)
+
+
+def twin_schedule(n_q: int, n_valid: int):
+    """The twin's ``(first, end)`` row blocks: the kernel's splits on the
+    H100 (:func:`split_plan` at TWIN_SMS), each cut into blocks of at most
+    TWIN_ROWS rows, in ascending order."""
+    n_split, per = split_plan(n_q, n_valid, TWIN_SMS)
+    for s in range(n_split):
+        split_end = min((s + 1) * per, n_valid)
+        for base in range(s * per, split_end, TWIN_ROWS):
+            yield base, min(base + TWIN_ROWS, split_end)
 
 
 def _twin_blocks(query_u8: torch.Tensor, words: torch.Tensor, n_valid: int):
-    """``(base, dist (Q, cnt) int64)`` per block of TWIN_ROWS valid rows:
-    an exact f32 product of unpacked bits (integers below 2^24 are exact)."""
+    """``(base, dist (Q, cnt) int64)`` per block of :func:`twin_schedule`:
+    an exact f32 product of unpacked bits (integers below 2^24 are exact),
+    ``|q| + |r| - 2 popc(q & r)`` as the kernel forms it."""
     qb = unpack_bits(query_u8, torch.float32)                     # (Q, 256)
     q_pop = qb.sum(dim=1, keepdim=True)
     db_u8 = words.view(torch.uint8)
-    for base in range(0, n_valid, TWIN_ROWS):
-        rb = unpack_bits(db_u8[base:min(base + TWIN_ROWS, n_valid)],
-                         torch.float32)
+    for base, end in twin_schedule(query_u8.shape[0], n_valid):
+        rb = unpack_bits(db_u8[base:end], torch.float32)
         yield base, (q_pop + rb.sum(dim=1)[None, :]
                      - 2.0 * (qb @ rb.T)).to(torch.int64)
 
@@ -121,8 +143,8 @@ def hamming_topk_fused_torch(query_u8: torch.Tensor, words: torch.Tensor,
                              radius: Optional[float] = None
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch twin of kernel B5: the radius-cut streaming top-k over
-    row blocks, merged on the key ``dist << 32 | row`` (unique per row, so
-    the order is exactly (dist, row))."""
+    the kernel's row splits, merged on the key ``dist << 32 | row`` (unique
+    per row, so the order is exactly (dist, row), whatever the schedule)."""
     r = radius_int(radius)
     dev = query_u8.device
     best = torch.full((query_u8.shape[0], k), _NO_ROW, dtype=torch.int64,
@@ -203,12 +225,15 @@ def hamming_probe_torch(query_u8: torch.Tensor, words: torch.Tensor,
 
 
 def hamming_probe(query_u8: torch.Tensor, db: torch.Tensor, n_valid: int,
-                  mode: str) -> torch.Tensor:
-    """T1: B5's sweep with the extraction replaced by ``mode`` (see
-    :func:`hamming_probe_torch`). CUDA tensors go through the kernel (or
-    raise); CPU tensors through the twin. Needs ``n_valid > 0``."""
+                  mode: str, route: str = "popc") -> torch.Tensor:
+    """T1: the sweep on ``route`` (``PROBE_ROUTES``) with the extraction
+    replaced by ``mode`` (see :func:`hamming_probe_torch`, the plain
+    version of every route). CUDA tensors go through the kernel (or raise);
+    CPU tensors through the twin. Needs ``n_valid > 0``."""
     if mode not in PROBE_MODES:
         raise ValueError(f"mode must be one of {sorted(PROBE_MODES)}")
+    if route not in PROBE_ROUTES:
+        raise ValueError(f"route must be one of {sorted(PROBE_ROUTES)}")
     n_valid = int(n_valid)
     if n_valid <= 0:
         raise ValueError("hamming_probe needs at least one valid row")
@@ -227,14 +252,23 @@ def hamming_probe(query_u8: torch.Tensor, db: torch.Tensor, n_valid: int,
         ptrs = (0, out.data_ptr())
     if n_q == 0:
         return out
-    n_split, per = _plan(q, n_valid)
+    n_split, per = _plan(q, n_valid, POPC_BLOCK_QUERIES if route == "popc"
+                         else BLOCK_QUERIES)
     kernels.call("hamming_topk", "tod_hamming_probe",
                  (q.data_ptr(), db.data_ptr(), *ptrs),
-                 (n_q, n_valid, PROBE_MODES[mode], n_split, per),
+                 (n_q, n_valid, PROBE_MODES[mode], PROBE_ROUTES[route],
+                  n_split, per),
                  torch.cuda.current_stream(q.device).cuda_stream)
     hamming_probe.launches += 1
     return out
 
 
 hamming_probe.launches = 0
+
+
+def b5_route() -> str:
+    """The route (a key of ``PROBE_ROUTES``) that B5 is compiled with, as
+    the built library reports it (``tod_hamming_b5_route``)."""
+    code = kernels.load("hamming_topk").tod_hamming_b5_route()
+    return next(r for r, c in PROBE_ROUTES.items() if c == code)
 

@@ -151,7 +151,10 @@ def edge_case_arrays_hamming(seed: int, n_rows: int, n_q: int,
     rows in [2000, n_rows - 128) with ~5 % of their bits flipped (a few hits within a radius of
     35), query 66 a row with 20 bits flipped (one hit: fewer than
     k), the rest random (no hit within 35). Query 0 is at distance 0, and
-    query 1 at distance 1, from row 10 and every copy."""
+    query 1 at distance 1, from row 10 and every copy. With more than 3000
+    rows, row 3000 is copied across the tensor-core sweep's 8-row
+    fragments and the lanes of a quad (rows 3-9) and across its 128-row
+    tiles (rows 127-129, 255, 256), and query 67 equals it."""
     rng = np.random.default_rng(seed)
     db = rng.integers(0, 256, (n_rows, 32), dtype=np.uint8)
     q = rng.integers(0, 256, (n_q, 32), dtype=np.uint8)
@@ -169,7 +172,37 @@ def edge_case_arrays_hamming(seed: int, n_rows: int, n_q: int,
     mask = np.zeros(256, bool)
     mask[rng.choice(256, 20, replace=False)] = True
     q[66] = db[1500] ^ np.packbits(mask, bitorder="little")
+    if n_rows > 3000:
+        db[[3, 4, 5, 6, 7, 8, 9, 127, 128, 129, 255, 256]] = db[3000]
+        q[67] = db[3000]
     return db, q
+
+
+HAMMING_TILE_TIES = [3, 4, 5, 6, 7, 8, 9, 127, 128, 129, 255, 256]
+
+
+def edge_case_arrays_l2_int8(seed: int, n_q: int
+                             ) -> Tuple[List[np.ndarray], np.ndarray]:
+    """(int8 descriptors per object, int8 queries) over the full int8 range
+    -128..127 that hit kernel B3's tile edges: objects of 17, 0, 1, 15, 16,
+    127, 128, 129 and 300 rows; object 8's row 40 copied to rows 7-9, 127,
+    128, 255, 256 and 299 (ties across 8-row fragments and 128-row tiles),
+    its rows 200 / 201 all -128 / all 127. Query 0 equals object 8's row
+    40, query 1 is all -128, query 2 all 127 (the extremes of the squared
+    distance), query 3 equals object 7's row 128."""
+    rng = np.random.default_rng(seed)
+    sizes = [17, 0, 1, 15, 16, 127, 128, 129, 300]
+    descs = [rng.integers(-128, 128, (n, 128)).astype(np.int8)
+             for n in sizes]
+    descs[8][[7, 8, 9, 127, 128, 255, 256, 299]] = descs[8][40]
+    descs[8][200] = -128
+    descs[8][201] = 127
+    q = rng.integers(-128, 128, (max(n_q, 4), 128)).astype(np.int8)
+    q[0] = descs[8][40]
+    q[1] = -128
+    q[2] = 127
+    q[3] = descs[7][128]
+    return descs, q[:n_q]
 
 
 def smoke_catalog(real_ids: Sequence[str],
