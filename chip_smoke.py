@@ -10,17 +10,22 @@ any failure raises, exits non-zero and prints no ``ok`` line:
 1. device   the card's name and power limit (nvidia-smi), torch and CUDA
             versions; TF32 off for matrix products and convolutions.
 2. build    every CUDA kernel of the paths, from csrc/, with nvcc; each
-            kernel's registers, shared memory and spills (ptxas -v) of
-            B3/B4 and B5/T1; the card's __popc, __dp4a, mma s8, mma b1,
-            wgmma s8 and wgmma b1 rates (tools/bench_int_rate.py), for
-            the bounds (the Hamming bounds at the highest 1-bit rate).
-3. kernels  kernel B1 (csrc/segmented_top1.cu) against its plain PyTorch
-            twin, bit for bit, on the smoke catalog at Q = 2048 and on edge
-            cases; both timed with CUDA events.
-3b.         kernel B2 (the gathered entry point of the same file) against
-            its twin and against B1's columns at ``sel``, bit for bit, on
-            the edge cases (holes, an empty object, repeated and
-            out-of-order ids) and on the 1000-object catalog (64 slots with
+            kernel's registers, shared memory and spills (ptxas -v); the
+            card's __popc, __dp4a, mma s8, mma b1, wgmma s8 and wgmma b1
+            rates (tools/bench_int_rate.py), for the bounds (the Hamming
+            bounds at the highest 1-bit rate).
+3. kernels  kernel B1 (csrc/segmented_top1.cu: the 1-bit mma.sync
+            m16n8k256 .and.popc tile, one key a pair) against its plain
+            PyTorch twin, bit for bit, on the smoke catalog at Q = 2048, on
+            edge cases and on the tile edges (objects of 0-300 rows beside
+            reserved padding, ties across fragments, lanes and tiles,
+            all-zero and all-one descriptors; Q = 1 to 2048); both timed
+            with CUDA events.
+3b.         kernel B2 (the gathered entry point of the same file, the
+            CUDA-core popc design) against its twin and against B1's
+            columns at ``sel``, bit for bit, on the edge cases (holes, an
+            empty object, repeated and out-of-order ids), the tile edges
+            and the 1000-object catalog (64 slots with
             holes); B1 against its twin there too. Timed: B2 at Q = 2048 x
             64 slots and its twin, the coarse B1 at Q = 1024 on the
             stride-16 DB (held against its twin there first), the
@@ -32,17 +37,17 @@ any failure raises, exits non-zero and prints no ``ok`` line:
             reference's, bit for bit; every ground-truth placement found
             within 2 cm at the quality gate, the accepted objects and poses
             agreeing with the JAX reference's stored detections (1 cm, 2
-            degrees), one B1 launch per frame.
+            degrees), one B1 launch per frame. The RANSAC noise is the
+            reference's threefry draws (utils/prng.py); one frame's draws
+            are counted (device operations, launches) and timed.
 4b.         the frontier recipe (coarse->fine, tracked and exploration
             slots) on the same catalog over a stream of 6 frames, against
             the JAX reference's stream (tests/data/torch_stream_fixture.npz):
             B1 on both coarse DBs at each frame's coarse queries against
             its twin; every frame's slab and masks equal to the
-            reference's but at slots of objects that one side tracks and
-            the other does not, none present (junk accepts follow the
-            RANSAC draws); every placement within 2 cm at the gate and the
-            reference's accepted objects and poses (1 cm, 2 degrees); one
-            B1 and one B2 launch a frame.
+            reference's, every slot; every placement within 2 cm at the
+            gate and the reference's accepted objects and poses (1 cm, 2
+            degrees); one B1 and one B2 launch a frame.
 4c.         the frontier recipe at 1000 objects over a stream of 64 frames
             (one exploration cycle is 63): every present object discovered
             within 63 frames and found within 2 cm at the gate on every
@@ -84,7 +89,8 @@ Then the SIFT/L2 path (FusedDetector(feature="SIFT"), radius 0.9), whose
 reference outputs are in tests/data/torch_sift_fixture.npz (the frames are
 the smoke fixture's):
 
-3c. kernels B3 (csrc/segmented_l2_top1.cu) against its twin, the int32
+3c. kernels B3 (csrc/segmented_l2_top1.cu: the int8 mma.sync m16n8k32
+            tile that B4 shares) against its twin, the int32
             squared distances, the rows and the float distances bit for
             bit: on the 100-object SIFT smoke catalog at Q = 2048, on a
             partial tile (Q = 1000), on edge cases (an empty object, an
@@ -96,9 +102,9 @@ the smoke fixture's):
             yardstick.
 3d.         B4 (the gathered entry point) against its twin and against
             B3's columns at ``sel``, bit for bit: edge cases (holes, an
-            empty object, repeated, out-of-order and out-of-catalog ids)
-            and the 1000-object catalog (64 slots with holes); B3 against
-            its twin there too. Timed: B4 at Q = 2048 x 64 slots, the
+            empty object, repeated, out-of-order and out-of-catalog ids),
+            the full int8 range at Q = 1 to 2048 and the 1000-object
+            catalog (64 slots with holes); B3 against its twin there too. Timed: B4 at Q = 2048 x 64 slots, the
             coarse B3 at Q = 1024 on the stride-16 DB (held against its
             twin there first), the full-sweep B3 at 1000 objects.
 4d. main    the full sweep at 100 objects on both frames: the compaction
@@ -111,8 +117,8 @@ the smoke fixture's):
 4e.         the frontier recipe at 100 objects over the reference's stream
             of 6 frames (B3 on both coarse DBs at each frame's coarse
             queries against its twin; every frame's slab and masks equal
-            to the reference's; the gated detections as in 4d), then at 1000 objects over a stream of
-            SIFT_STREAM frames: every object the reference's stream
+            to the reference's; the gated detections as in 4d), then at
+            1000 objects over a stream of SIFT_STREAM frames: every object the reference's stream
             accepts is discovered and then found within 2 cm at the gate
             on every frame after; one B3 and one B4 launch a frame.
 5c. time    detect latency (median, p95) at 100 objects (full sweep) and
@@ -120,8 +126,9 @@ the smoke fixture's):
             device memory.
 
 The line before the card's is a JSON object of every kernel of the paths
-(launches on the main paths, error against the twin, time, the twin's time
-and the card's bound for the same work); the last line is
+(launches on the main paths, error against the twin, time, the twin's time,
+the card's bound for the same work and the PR of the kernel's design); the
+last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -219,6 +226,12 @@ B5_EDGE_Q = (1, 17, 65, 300, 1000)   # ragged against 16-query m-tiles
 T1_Q, T1_N = 5120, 262144   # tools/bench_dot_iso.py's shape
 INT_MM_ROWS = 1 << 17  # rows a torch._int_mm chunk: a 1 GiB int32 product
 GLOBAL_FRAMES = 60     # timed global detect calls
+NOISE_RUNS = 10        # timed replays of one frame's noise draws
+# ragged against the tensor-core tiles' 16-query m-tiles and 256-query
+# blocks, and a selection with holes, a repeated id, out-of-order ids and
+# an id past the 9-object tile-edge catalogs
+TILE_Q = (1, 15, 16, 17, 63, 65, 255, 257, 2048)
+EDGE_SEL = (8, -1, 2, 1, 8, 0, -1, 7, 3, 12, 5, 6, 4)
 
 
 def log(msg: str) -> None:
@@ -235,7 +248,8 @@ def card_line() -> str:
 
 KERNEL_NAMES = re.compile(
     r"(tc_sweep_kernel|popc_probe_kernel|merge_kernel|"
-    r"object_top1_l2_tc_kernel|object_top1_l2_gathered_kernel)"
+    r"object_top1_l2_gathered_tc_kernel|object_top1_l2_tc_kernel|"
+    r"object_top1_gathered_kernel|object_top1_tc_kernel)"
     r"(I((?:Li\d+E)+)E)?")
 
 
@@ -359,6 +373,23 @@ def edge_case_db(device):
     q[2] = descs[3][5]
     return pack_segmented(models, device=device), \
         torch.from_numpy(q).to(device)
+
+
+def tile_case_hamming(n_q: int, device):
+    """``smoke_catalog.edge_case_arrays_hamming_tiles`` (objects of 0-300
+    rows, ties across B1's fragments, lanes and tiles, all-zero and
+    all-one rows and queries) packed with 200 reserved rows a segment:
+    ``(db, queries)``."""
+    from tod_tpu_torch.ops.segmented import pack_segmented
+    from tod_tpu_torch.types import TodModel
+    from tod_tpu_torch.utils.smoke_catalog import \
+        edge_case_arrays_hamming_tiles
+
+    descs, q = edge_case_arrays_hamming_tiles(n_q, n_q)
+    models = [TodModel(f"e{i}", d, np.zeros((len(d), 3), np.float32))
+              for i, d in enumerate(descs)]
+    return pack_segmented(models, db_chunk=256, reserve_rows=200,
+                          device=device), torch.from_numpy(q).to(device)
 
 
 def check_b1(q, sdb, what: str) -> float:
@@ -658,34 +689,25 @@ def check_launches(what: str, n_frames: int, counts, full: int,
                              f"{want} for {n_frames} frames")
 
 
-def check_stream_slab(f: int, slab, sfx, present) -> None:
-    """Frame ``f``'s slab (sel, force, force_act) against the reference's
-    stream, or raise. The tracked ids follow each side's accepts with at
-    least ``track_min_confidence`` inliers, junk ones included, and those
-    follow the RANSAC draws, which on the card are not the reference's. So
-    a slot may differ only where it holds (on either side) an object that
-    one side tracks and the other does not, none of them a ``present``
-    (ground-truth) object; every other slot, both masks included, must be
-    equal."""
+def check_stream_slab(f: int, slab, sfx, what: str) -> None:
+    """Frame ``f``'s slab (sel, force, force_act) equal to the reference's
+    stream ``sfx``, every slot and both masks, or raise. The port draws the
+    reference's threefry noise, so the tracked slots, which follow each
+    side's accepts, junk ones included, agree too."""
     sel, force, force_act = (t.cpu().numpy() for t in slab)
     r_sel, r_force, r_act = sfx["sel"][f], sfx["force"][f], sfx["force_act"][f]
-    mine, theirs = set(sel[force_act].tolist()), set(r_sel[r_act].tolist())
-    junk = (mine ^ theirs) - {-1}
     differ = np.nonzero((sel != r_sel) | (force != r_force)
                         | (force_act != r_act))[0]
-    unexplained = [int(i) for i in differ
-                   if not ({int(sel[i]), int(r_sel[i])} - {-1}) <= junk]
-    log(f"stream: frame {f}: {len(differ)} of {len(sel)} slab slots differ "
+    log(f"{what}: frame {f}: {len(differ)} of {len(sel)} slab slots differ "
         f"from the reference's (sel or masks); forced {int(force.sum())}, "
-        f"tracked {int(force_act.sum())}; tracked on one side only: "
-        f"{sorted(junk)} (port {sorted(mine - theirs)}, reference "
-        f"{sorted(theirs - mine)}) at slots {differ.tolist()}")
-    if unexplained or junk & set(present):
+        f"tracked {int(force_act.sum())}")
+    if len(differ):
         raise AssertionError(
-            f"stream: frame {f}: slab slots {differ.tolist()} hold "
-            f"{sel[differ].tolist()}, the reference's "
-            f"{r_sel[differ].tolist()}; unexplained {unexplained}, tracked "
-            f"on one side only {sorted(junk)} (present: {present})")
+            f"{what}: frame {f}: slab slots {differ.tolist()} hold "
+            f"{sel[differ].tolist()} (forced {force[differ].tolist()}, "
+            f"tracked {force_act[differ].tolist()}), the reference's "
+            f"{r_sel[differ].tolist()} ({r_force[differ].tolist()}, "
+            f"{r_act[differ].tolist()})")
 
 
 def scale_stream(cf, frames, fx, n_frames: int, what: str) -> dict:
@@ -718,6 +740,73 @@ def timed_detect(det, frames, n: int):
         det.detect(*frames[i % len(frames)])
         lat.append((time.perf_counter() - t0) * 1e3)
     return np.asarray(lat)
+
+
+def noise_cost(det, frame, what: str, card: str) -> dict:
+    """One frame's threefry noise on the card: the (stage, shape) draws
+    ``det.detect(*frame)`` makes, replayed from that frame's key, once with
+    no synchronising call allowed, then counted (device operations,
+    kernels and copies, by torch.profiler; runtime launch calls) and timed
+    (host clock around the synchronised draws; CUDA events), each the
+    median of NOISE_RUNS. Logs one line; returns its numbers."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tod_tpu_torch.geometry.ransac import ThreefryNoise
+    from tod_tpu_torch.utils import prng
+
+    noise = ThreefryNoise(prng.split(det._key)[1],
+                          det.config.guess.ransac.max_instances,
+                          det.segmented, det.device)
+    calls = []
+
+    def record(stage, shape):
+        calls.append((stage, shape))
+        return noise(stage, shape)
+
+    det.noise = record
+    try:
+        det.detect(*frame)
+    finally:
+        det.noise = None
+
+    def draw() -> None:
+        for stage, shape in calls:
+            noise(stage, shape)
+
+    # the draws must not wait for the device: PyTorch raises on any
+    # synchronising call in this mode
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        draw()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
+                 ) as prof:
+        draw()
+        torch.cuda.synchronize()
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    copies = sum(e.name.startswith("Memcpy") for e in device)
+    launch_calls = sum(e.name == "cudaLaunchKernel" for e in prof.events())
+    host = []
+    for _ in range(NOISE_RUNS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        draw()
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+    out = dict(draws=len(calls), device_ops=len(device), copies=copies,
+               launch_calls=launch_calls, host_ms=float(np.median(host)),
+               device_ms=cuda_ms(draw, runs=NOISE_RUNS))
+    log(f"noise: {what}: a frame draws {len(calls)} Gumbel batches "
+        f"({', '.join(f'{s} {tuple(sh)}' for s, sh in calls)}), with no "
+        f"synchronising call: "
+        f"{len(device)} device operations ({copies} copies), "
+        f"{launch_calls} kernel launch calls; {out['host_ms']:.3f} ms on the "
+        f"host clock, {out['device_ms']:.3f} ms between CUDA events (median "
+        f"of {NOISE_RUNS}); {card}")
+    return out
 
 
 def sift_phases(dev, card: str, fx, frames, launches: dict):
@@ -793,6 +882,11 @@ def sift_phases(dev, card: str, fx, frames, launches: dict):
     sel_holes[30] = sel_holes[31]                    # a repeated id
     b4_err = max(b4_err, check_b4(q_main, ldb, sel_holes,
                                   f"the {N_LARGE}-object SIFT catalog"))
+    for n_q in TILE_Q:
+        b4_err = max(b4_err, check_b4(
+            *full_range_case_l2(n_q, dev)[::-1], torch.tensor(EDGE_SEL, **i32),
+            "the full int8 range (objects of 0-300 rows beside reserved "
+            "padding, ties across fragments and tiles)"))
     err = max(err, check_b3(q_main, ldb,
                             f"the {N_LARGE}-object SIFT catalog"))
     sel_t = torch.from_numpy(rng.choice(N_LARGE, B2_SLOTS, replace=False)
@@ -833,6 +927,7 @@ def sift_phases(dev, card: str, fx, frames, launches: dict):
         check_gated_frame(f, res, fx, sx, "ref", f, "sift main")
     log("sift main: every detection the reference accepts at the gate found "
         "within 1 cm and 2 degrees")
+    noise_cost(det, frames[0], f"SIFT full sweep, {N_OBJECTS} objects", card)
 
     # ---- 4e. SIFT coarse->fine: the reference's stream, then 1000 objects -
     stream = FusedDetector(catalog, cfg_cf, seed=0, device=dev)
@@ -847,18 +942,7 @@ def sift_phases(dev, card: str, fx, frames, launches: dict):
     for f in range(n_stream):
         image = int(sx["frame_image"][f])
         res = stream.detect(*frames[image])
-        sel, force, force_act = (t.cpu().numpy() for t in stream.slab)
-        differ = np.nonzero(sel != sx["sel"][f])[0]
-        state = bool(np.array_equal(force, sx["force"][f])
-                     and np.array_equal(force_act, sx["force_act"][f]))
-        log(f"sift stream: frame {f}: {len(differ)} of {len(sel)} slab slots "
-            f"differ from the reference's; forced {int(force.sum())}, "
-            f"tracked {int(force_act.sum())}, both masks equal: {state}")
-        if len(differ) or not state:
-            raise AssertionError(
-                f"sift stream: frame {f}: slab slots {differ.tolist()} hold "
-                f"{sel[differ].tolist()}, the reference's "
-                f"{sx['sel'][f][differ].tolist()}; masks equal: {state}")
+        check_stream_slab(f, stream.slab, sx, "sift stream")
         check_gated_frame(f, res, fx, sx, "stream", image, "sift stream")
     launches["4e"] = read_counts()
     check_launches("sift stream", n_stream, launches["4e"], full=2,
@@ -1108,6 +1192,7 @@ def global_phases(dev, card: str, fx, frames, large, launches: dict):
         check_gated_frame(f, res, fx, gx, "ref", f, "global")
     log("global: every detection the reference accepts at the gate found "
         "within 1 cm and 2 degrees")
+    noise_cost(gdet, frames[0], f"ORB global kNN, {N_OBJECTS} objects", card)
 
     # ---- 5d. time ---------------------------------------------------------
     torch.cuda.empty_cache()
@@ -1151,7 +1236,7 @@ def main() -> int:
     kernels.build_all()
     log(f"build: {sorted(kernels.SOURCES)} in "
         f"{time.perf_counter() - t0:.2f} s (nvcc {kernels.build_seconds})")
-    for name in ("hamming_topk", "segmented_l2_top1"):
+    for name in kernels.SOURCES:
         log_ptxas(name, kernels.build_log.get(name, ""))
     from tools.bench_int_rate import UNITS, b1_rate, measure_rates
     RATES.update(measure_rates())
@@ -1181,6 +1266,12 @@ def main() -> int:
     edge_db, edge_q = edge_case_db(dev)
     err = max(err, check_b1(edge_q, edge_db, "edge cases"))
     err = max(err, check_b1(q_main[:1000], sdb, "Q=1000 (partial tile)"))
+    tile_cases = [tile_case_hamming(n_q, dev) for n_q in TILE_Q]
+    for t_db, t_q in tile_cases:
+        err = max(err, check_b1(t_q, t_db, "the tile edges (objects of "
+                                "0-300 rows beside reserved padding, ties "
+                                "across fragments, lanes and tiles, all-zero "
+                                "and all-one descriptors)"))
     ms = cuda_ms(lambda: seg.object_top1(q_main, sdb))
     plain_ms = cuda_ms(lambda: seg.object_top1_torch(q_main, sdb))
     pairs = Q * sum(sdb.rows_host)
@@ -1210,6 +1301,9 @@ def main() -> int:
     sel_holes[30] = sel_holes[31]                    # a repeated id
     b2_err = max(b2_err, check_b2(q_main, ldb, sel_holes,
                                   f"the {N_LARGE}-object catalog"))
+    for t_db, t_q in tile_cases:
+        b2_err = max(b2_err, check_b2(
+            t_q, t_db, torch.tensor(EDGE_SEL, **i32), "the tile edges"))
     err = max(err, check_b1(q_main, ldb, f"the {N_LARGE}-object catalog"))
     sel_t = torch.from_numpy(rng.choice(N_LARGE, B2_SLOTS, replace=False)
                              .astype(np.int32)).to(dev)
@@ -1254,6 +1348,7 @@ def main() -> int:
         check_frame(f, res, fx)
     log("main: every placement within 2 cm; accepted objects and poses "
         "agree with the reference")
+    noise_cost(det, frames[0], f"ORB full sweep, {N_OBJECTS} objects", card)
 
     # ---- 4b. coarse->fine against the reference's stream, 100 objects ----
     stream = FusedDetector(catalog, cfg_cf, seed=0, device=dev)
@@ -1266,16 +1361,16 @@ def main() -> int:
     n_stream = len(sfx["frame_image"])
     reset_counts()
     for f in range(n_stream):
-        res = stream.detect(*frames[int(sfx["frame_image"][f])])
         image = int(sfx["frame_image"][f])
-        check_stream_slab(f, stream.slab, sfx, [
-            stream.object_ids.index(str(o)) for o in fx["gt_ids"][image]])
+        res = stream.detect(*frames[image])
+        check_stream_slab(f, stream.slab, sfx, "stream")
         check_frame(f, res, fx, sfx, image, "stream")
     launches["4b"] = read_counts()
     check_launches("stream", n_stream, launches["4b"], full=0, gathered=1)
-    log("stream: every frame's slab and masks exact but for junk-tracked "
-        "slots; every placement within 2 cm; accepted objects and poses "
-        "agree with the reference")
+    log("stream: every frame's slab and masks equal to the reference's; "
+        "every placement within 2 cm; accepted objects and poses agree with "
+        "the reference")
+    noise_cost(stream, frames[0], f"ORB frontier, {N_OBJECTS} objects", card)
 
     # ---- 4c. coarse->fine at catalog scale, 1000 objects -----------------
     reset_counts()
@@ -1354,25 +1449,25 @@ def main() -> int:
          "source": SOURCE, "replaces": B1_REPLACES, "launches": total(0),
          "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
          "bound_ms": b1_bound[0], "bound_by": b1_bound[1],
-         "library_ms": None},
+         "library_ms": None, "design_pr": 7},
         {"name": "B2 gathered per-object Hamming top-1", "route": "cuda",
          "source": SOURCE, "replaces": B2_REPLACES, "launches": total(1),
          "max_abs_err": b2_err, "ms": b2_ms, "plain_ms": b2_plain_ms,
          "bound_ms": b2_bound[0], "bound_by": b2_bound[1],
-         "library_ms": None},
+         "library_ms": None, "design_pr": 2},
         {"name": "B3 segmented per-object int8 squared-L2 top-1",
          "route": "cuda", "source": SOURCE_L2, "replaces": B3_REPLACES,
-         "launches": total(2), "library_ms": None, **b3},
+         "launches": total(2), "library_ms": None, "design_pr": 6, **b3},
         {"name": "B4 gathered per-object int8 squared-L2 top-1",
          "route": "cuda", "source": SOURCE_L2, "replaces": B4_REPLACES,
-         "launches": total(3), "library_ms": None, **b4},
+         "launches": total(3), "library_ms": None, "design_pr": 7, **b4},
         {"name": "B5 radius k-NN Hamming over the whole DB", "route": "cuda",
          "source": SOURCE_B5, "replaces": B5_REPLACES, "launches": total(4),
-         "library_ms": None, **b5},
+         "library_ms": None, "design_pr": 6, **b5},
         {"name": "T1 isolation bench: B5's sweep without extraction "
          "(dist_sum timed; every mode in modes_ms)", "route": "cuda",
          "source": SOURCE_B5, "replaces": T1_REPLACES, "launches": total(5),
-         "library_ms": None, **t1}]}))
+         "library_ms": None, "design_pr": 5, **t1}]}))
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

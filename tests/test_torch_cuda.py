@@ -2,7 +2,9 @@
 its isolation modes T1 of the global-kNN path, on every route) against
 their plain PyTorch twins, on the card, with the edges of the tensor-core
 tiles (ragged Q and n_valid, short objects beside padding, the full int8
-range, ties across fragments, tiles and splits).
+range, all-zero and all-one descriptors, ties across fragments, lanes,
+tiles and splits); and the threefry noise drawn on the card against the
+same draws on the CPU.
 
 Every test here is marked ``cuda`` and skips without a GPU. The file needs
 neither JAX nor the JAX package, so it also runs on a machine that has
@@ -15,14 +17,21 @@ import numpy as np
 import pytest
 import torch
 
+from tod_tpu_torch.geometry.ransac import ThreefryNoise
 from tod_tpu_torch.ops import hamming as tham
 from tod_tpu_torch.ops import segmented as tseg
 from tod_tpu_torch.ops import segmented_l2 as tl2
 from tod_tpu_torch.types import TodModel
-from tod_tpu_torch.utils.smoke_catalog import (HAMMING_TILE_TIES,
-                                               edge_case_arrays_hamming,
-                                               edge_case_arrays_l2,
-                                               edge_case_arrays_l2_int8)
+from tod_tpu_torch.utils import prng
+from tod_tpu_torch.utils.smoke_catalog import (
+    HAMMING_TILE_TIES, edge_case_arrays_hamming,
+    edge_case_arrays_hamming_tiles, edge_case_arrays_l2,
+    edge_case_arrays_l2_int8)
+
+# ragged against the tiles' 16-query m-tiles and 256-query blocks
+TILE_Q = [1, 15, 16, 17, 63, 65, 255, 257, 2048]
+# holes, a repeated id, out-of-order ids, an id past the catalog
+EDGE_SEL = [8, -1, 2, 1, 8, 0, -1, 7, 3, 12, 5, 6, 4]
 
 
 def _cuda():
@@ -114,6 +123,51 @@ def test_b2_matches_twin_and_b1_columns(n_q):
     assert (d[:, ~real] == tseg.HOLE_DIST).all()
     assert (r[:, ~real] == tseg.HOLE_ROW).all()
     assert (d[0, 0].item(), r[0, 0].item()) == (0, 123)
+
+
+def _tile_case_hamming(seed, n_q, device):
+    """``edge_case_arrays_hamming_tiles`` (objects of 0-300 rows, ties
+    across B1's fragments, lanes and tiles, all-zero and all-one rows and
+    queries) in segments padded to reserved rows: ``(db, queries)``."""
+    descs, q = edge_case_arrays_hamming_tiles(seed, n_q)
+    models = [TodModel(f"o{i}", d, np.zeros((len(d), 3), np.float32))
+              for i, d in enumerate(descs)]
+    return tseg.pack_segmented(models, db_chunk=256, reserve_rows=200,
+                               device=device), \
+        torch.from_numpy(q).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_q", TILE_Q)
+def test_b1_b2_match_twins_at_the_tile_edges(n_q):
+    dev = _cuda()
+    db, q = _tile_case_hamming(700 + n_q, n_q, dev)
+    before = tseg.object_top1.launches
+    d, r = tseg.object_top1(q, db)
+    torch.cuda.synchronize()
+    assert tseg.object_top1.launches == before + 1
+    d_t, r_t = tseg.object_top1_torch(q, db)
+    assert torch.equal(d, d_t) and torch.equal(r, r_t)
+    assert (d[:, 1] == tseg.DIST_CLAMP).all() and (r[:, 1] == 0).all()
+    assert (d[0, 8].item(), r[0, 8].item()) == (0, 7)
+    if n_q > 3:
+        assert (d[1, 8].item(), r[1, 8].item()) == (0, 200)
+        assert (d[2, 8].item(), r[2, 8].item()) == (0, 201)
+        assert (d[3, 7].item(), r[3, 7].item()) == (0, 128)
+        # |q| = 0 and 256 against every object with rows: dist |r| and
+        # 256 - |r|, within [0, 256]
+        full = torch.tensor(db.rows_host, device=dev) > 0
+        assert (d[1:3, full] >= 0).all() and (d[1:3, full] <= 256).all()
+    sel = torch.tensor(EDGE_SEL, dtype=torch.int32, device=dev)
+    d2, r2 = tseg.object_top1_gathered(q, db, sel)
+    torch.cuda.synchronize()
+    d2_t, r2_t = tseg.object_top1_gathered_torch(q, db, sel)
+    assert torch.equal(d2, d2_t) and torch.equal(r2, r2_t)
+    real = (sel >= 0) & (sel < db.n_objects)
+    cols = sel[real].long()
+    assert torch.equal(d2[:, real], d[:, cols])
+    assert torch.equal(r2[:, real], r[:, cols])
+    assert (d2[:, ~real] == tseg.HOLE_DIST).all()
 
 
 @pytest.mark.cuda
@@ -229,6 +283,32 @@ def test_b4_matches_twin_and_b3_columns(n_q):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n_q", TILE_Q)
+def test_b4_matches_twin_and_b3_columns_over_the_full_int8_range(n_q):
+    dev = _cuda()
+    db, q = _full_range_case_l2(800 + n_q, n_q, dev)
+    sel = torch.tensor(EDGE_SEL, dtype=torch.int32, device=dev)
+    before = tl2.object_top1_l2_gathered.launches
+    d_sq, r = tl2.object_top1_l2_gathered_sq(q, db, sel)
+    torch.cuda.synchronize()
+    assert tl2.object_top1_l2_gathered.launches == before + 1
+    d_sq_t, r_t = tl2.object_top1_l2_gathered_sq_torch(q, db, sel)
+    assert torch.equal(d_sq, d_sq_t) and torch.equal(r, r_t)
+    d_b3, r_b3 = tl2.object_top1_l2_sq(q, db)
+    real = (sel >= 0) & (sel < db.n_objects)
+    cols = sel[real].long()
+    assert torch.equal(d_sq[:, real], d_b3[:, cols])
+    assert torch.equal(r[:, real], r_b3[:, cols])
+    assert (d_sq[:, ~real] == tl2.DIST_INVALID).all()
+    assert (r[:, ~real] == tl2.HOLE_ROW_L2).all()
+    assert (d_sq[0, 0].item(), r[0, 0].item()) == (0, 7)       # slot 0: o8
+    if n_q > 3:
+        assert (d_sq[1, 0].item(), r[1, 0].item()) == (0, 200)
+        assert (d_sq[2, 0].item(), r[2, 0].item()) == (0, 201)
+        assert (d_sq[3, 7].item(), r[3, 7].item()) == (0, 128)  # slot 7: o7
+
+
+@pytest.mark.cuda
 def test_b3_b4_refuse_what_they_cannot_take():
     dev = _cuda()
     rng = np.random.default_rng(3)
@@ -341,3 +421,30 @@ def test_b5_refuses_what_it_cannot_take():
         tham.hamming_probe(q, words, n, "dot_only")                   # mode
     with pytest.raises(ValueError):
         tham.hamming_probe(q, words, n, "row_min", "bf16")            # route
+
+
+# ---- the reference's threefry noise on the card ----------------------------
+
+@pytest.mark.cuda
+def test_noise_on_the_card_equals_the_cpus():
+    """Bits and uniforms bit for bit; Gumbel values within the bound of
+    tests/test_torch_prng.py (each log within an ulp on either device)."""
+    dev = _cuda()
+    keys = prng.split(prng.split(prng.prng_key(2**31 - 1), 16), 3)
+    for shape in [(128, 192), (512, 384), (7,)]:
+        bits = prng.random_bits(keys, shape, dev)
+        assert torch.equal(bits.cpu(), prng.random_bits(keys, shape))
+        u = prng.uniform(keys, shape, prng.F32_TINY, 1.0, dev)
+        assert torch.equal(u.cpu(), prng.uniform(keys, shape, prng.F32_TINY))
+    noise = {d: ThreefryNoise(prng.split(prng.prng_key(5))[1], 3, True, d)
+             for d in (dev, torch.device("cpu"))}
+    for stage, shape in [("tier1", (32, 3, 128, 192)),
+                         ("round0", (16, 3, 512, 384)),
+                         ("round2", (16, 3, 128, 384))]:
+        got = noise[dev](stage, shape)
+        assert got.is_cuda and got.shape == shape
+        ref = noise[torch.device("cpu")](stage, shape).double()
+        gap = (got.cpu().double() - ref).abs()
+        bound = 2.0 ** -22 + 2.0 * torch.from_numpy(
+            np.spacing(np.abs(ref.float().numpy())).astype(np.float64))
+        assert (gap <= bound).all(), float(gap.max())

@@ -169,6 +169,28 @@ def test_detectors_accept_the_same_poses(world):
         assert dt < 0.01 and ang < 2.0, (r_t.object_id, dt, ang)
 
 
+def test_detectors_accept_the_same_poses_with_own_noise(world):
+    """As above with nothing injected: the port's detector draws its own
+    threefry noise from the reference's key path (utils/prng.py)."""
+    from tod_tpu_torch.utils import prng
+
+    jdet_, tdet_ = world["jdet"], world["tdet"]
+    tdet_.noise = None
+    tdet_._key = prng.prng_key(SEED)
+    jdet_._key = jax.random.PRNGKey(SEED)
+    ref = jdet_.detect(world["image"], world["depth"], DEFAULT_K)
+    port = tdet_.detect(world["image"], world["depth"], DEFAULT_K)
+    np.testing.assert_array_equal(tdet_._key, np.asarray(jdet_._key))
+    assert sorted((r.object_id, r.confidence, r.clique_size) for r in port) \
+        == sorted((r.object_id, r.confidence, r.clique_size) for r in ref)
+    assert {r.object_id for r in port} == set(WORLD_IDS)
+    for r_t in port:
+        r_j = next(r for r in ref if r.object_id == r_t.object_id
+                   and r.confidence == r_t.confidence)
+        np.testing.assert_allclose(r_t.R, r_j.R, atol=1e-5)
+        np.testing.assert_allclose(r_t.T, r_j.T, atol=1e-5)
+
+
 def test_pack_models_and_conversion(world):
     models = convert.models_from_numpy(world["ids"],
                                        [d for d, _ in world["arrays"]],

@@ -124,3 +124,92 @@ def test_segmented_db_from_jax_round_trip(rng):
     for m, j in zip(models, jm):
         assert m.object_id == j.object_id and m.n_points == j.n_points
         assert m.span == pytest.approx(j.span, rel=1e-6)
+
+
+# ---- kernel B1's key (csrc/segmented_top1.cu) -------------------------------
+
+# B1's key: the row within its object in the low 18 bits (objects have at
+# most 2^18 rows), and the bias that keeps |r| + 256 - 2 popc(q & r) >= 0
+B1_ROW_BITS = 18
+B1_POP_BIAS = 256
+
+
+def b1_key(r_pop, row, and_pop):
+    """Kernel B1's key of a pair, ``((|r| + 256) << 18 | row) -
+    (popc(q & r) << 19)`` (int64 in, int64 out): ``(dist - |q| + 256) <<
+    18 | row``. A smaller key has the smaller distance (same query), then
+    the lower row."""
+    return (((r_pop + B1_POP_BIAS) << B1_ROW_BITS) | row) \
+        - (and_pop << (B1_ROW_BITS + 1))
+
+
+def b1_key_split(key, q_pop):
+    """``(dist, row)`` of :func:`b1_key` for a query of popcount ``q_pop``."""
+    return (key >> B1_ROW_BITS) - B1_POP_BIAS + q_pop, \
+        key & ((1 << B1_ROW_BITS) - 1)
+
+
+def test_b1_key_bounds():
+    """The key at the extremes of the descriptors (all-zero and all-ones
+    query and row) and of the rows (0 and 2^18 - 1): in [0, 2^28), and
+    split back into the distance and the row."""
+    for q_pop in (0, 256):
+        for r_pop in (0, 256):
+            and_pop = min(q_pop, r_pop)       # all zero or all ones
+            dist = q_pop + r_pop - 2 * and_pop
+            for row in (0, (1 << B1_ROW_BITS) - 1):
+                key = b1_key(torch.tensor([r_pop]), torch.tensor([row]),
+                             torch.tensor([and_pop]))
+                assert 0 <= int(key) < 2 ** 28, (q_pop, r_pop, row)
+                d, r = b1_key_split(key, q_pop)
+                assert (int(d), int(r)) == (dist, row)
+    # the smallest and largest keys: a row equal to an all-ones query, and
+    # an all-ones row against an all-zero query at the last row
+    assert int(b1_key(torch.tensor([256]), torch.tensor([0]),
+                      torch.tensor([256]))) == 0
+    assert int(b1_key(torch.tensor([256]), torch.tensor([2**18 - 1]),
+                      torch.tensor([0]))) == (512 << 18) + 2**18 - 1
+
+
+def _b1_keys_torch(q_u8, db):
+    """Kernel B1's arithmetic as plain PyTorch: per object, the min of
+    :func:`b1_key` over its real rows, with |q|, |r| and popc(q & r) from
+    the unpacked bits; (511, 0) for an object without rows."""
+    qb = tseg.unpack_bits(q_u8, torch.float32).to(torch.int64)
+    q_pop = qb.sum(1)
+    db_u8 = db.words.view(torch.uint8)
+    d_out = torch.full((q_u8.shape[0], db.n_objects), tseg.DIST_CLAMP,
+                       dtype=torch.int64)
+    r_out = torch.zeros((q_u8.shape[0], db.n_objects), dtype=torch.int64)
+    for o, (start, n) in enumerate(zip(db.starts_host, db.rows_host)):
+        if not n:
+            continue
+        rb = tseg.unpack_bits(db_u8[start:start + n],
+                              torch.float32).to(torch.int64)
+        key = b1_key(rb.sum(1)[None, :], torch.arange(n)[None, :], qb @ rb.T)
+        assert int(key.min()) >= 0 and int(key.max()) < 2 ** 28
+        d_out[:, o], r_out[:, o] = b1_key_split(key.min(1).values, q_pop)
+    return d_out.to(torch.float32), r_out.to(torch.int32)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_b1_key_matches_twin(seed):
+    """The one-key arg-min equals B1's twin, distances and lowest-row ties,
+    on objects of 0-300 rows with ties across the tile's fragments, lanes
+    and tiles, all-zero and all-one rows and queries (the tile edge cases
+    of the card's tests), and on the edge-case models above."""
+    from tod_tpu_torch.utils.smoke_catalog import \
+        edge_case_arrays_hamming_tiles
+
+    rng = np.random.default_rng(seed)
+    descs, q = edge_case_arrays_hamming_tiles(seed, 40)
+    arrays = [(d, np.zeros((len(d), 3), np.float32)) for d in descs]
+    cases = [(arrays, q), (_edge_case_models(rng), None)]
+    for arrays, q in cases:
+        _, tm = _both(arrays)
+        db = tseg.pack_segmented(tm, db_chunk=256, reserve_rows=200,
+                                 device="cpu")
+        q = torch.from_numpy(_queries(rng, arrays, 64) if q is None else q)
+        d, r = _b1_keys_torch(q, db)
+        d_t, r_t = tseg.object_top1_torch(q, db)
+        assert torch.equal(d, d_t) and torch.equal(r, r_t)

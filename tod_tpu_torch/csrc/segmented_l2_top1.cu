@@ -21,14 +21,16 @@
 // A slot outside [0, O) (-1 = empty) reports (0x7FFFFFFF, row 0), what a
 // never-written lane of the TPU kernel holds. The TPU kernel walked
 // per-step scalar-prefetch tables over a static grid with a trash lane;
-// here a block reads sel[c] itself and loops over that object's real rows.
+// here a block reads sel[c] itself and sweeps that object's real rows.
 //
 // Both write int32 squared distances and rows; the conversion to L2 units,
 // sqrt(d) / 256, is applied by the caller, as it is outside the TPU kernel.
 //
-// B3's design: the int8 product on the tensor cores. A block is one
-// (256-query tile, object) pair, the query tile fastest in the grid, so the
-// tiles that read one object's rows run together and find them in L2. Its
+// Design, one tile and two grids: the int8 product on the tensor cores. A
+// block is one (256-query tile, object) pair, B3's object o = blockIdx.y,
+// B4's object sel[blockIdx.y]; the query tile is fastest in the grid, so
+// the tiles that read one object's rows run together and find them in L2.
+// Both run the same device function, object_tile_top1. Its
 // 8 warps each hold two 16-query m-tiles of the queries as mma.sync
 // m16n8k32 s8 A fragments in registers (K = 128: four k-steps); the
 // object's rows, row-major int8 (128 contiguous bytes, the .col B
@@ -54,94 +56,17 @@
 //
 // Bound on the H100: the int8 tensor-core rate (2 x 128 operations a
 // pair); the rows' 132 bytes are read once per query tile, mostly from L2.
-//
-// B4 keeps the CUDA-core design: one thread per query, its
-// 128 values as 32 packed words in registers, __dp4a against rows
-// broadcast from shared memory, a strict < over ascending rows.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kQTile = 128;     // queries per block, one per thread
-constexpr int kRowTile = 128;   // DB rows staged in shared memory per step
 constexpr int kVecs = 8;        // 16-byte vectors per 128-byte row
 constexpr int kPadNorm = 1 << 28;           // the TPU DB's padding-row norm
 constexpr int kDistInvalid = 0x7FFFFFFF;    // a hole's squared distance
 
-struct Best {
-  int dist;
-  int row;
-};
-
-// The nearest row to this thread's query among rows [start, start + n) of
-// the DB. Every thread of the block must call it (it synchronises the
-// block).
-__device__ __forceinline__ Best object_best(
-    const int (&w)[4 * kVecs], int q_norm, const uint4* __restrict__ db,
-    const int* __restrict__ norm_sq, int start, int n, uint4* tile,
-    int* tile_norm) {
-  Best best{q_norm + kPadNorm, 0};
-  for (int base = 0; base < n; base += kRowTile) {
-    const int count = min(kRowTile, n - base);
-    const size_t first = static_cast<size_t>(start) + base;
-    __syncthreads();   // the previous tile is no longer read
-    const uint4* src = db + kVecs * first;
-    for (int i = threadIdx.x; i < kVecs * count; i += kQTile) tile[i] = src[i];
-    for (int i = threadIdx.x; i < count; i += kQTile)
-      tile_norm[i] = norm_sq[first + i];
-    __syncthreads();
-    for (int r = 0; r < count; ++r) {
-      int a0 = 0, a1 = 0, a2 = 0, a3 = 0;
-#pragma unroll
-      for (int k = 0; k < kVecs; ++k) {
-        const uint4 v = tile[kVecs * r + k];
-        a0 = __dp4a(static_cast<int>(v.x), w[4 * k + 0], a0);
-        a1 = __dp4a(static_cast<int>(v.y), w[4 * k + 1], a1);
-        a2 = __dp4a(static_cast<int>(v.z), w[4 * k + 2], a2);
-        a3 = __dp4a(static_cast<int>(v.w), w[4 * k + 3], a3);
-      }
-      const int d = q_norm + tile_norm[r] - 2 * ((a0 + a1) + (a2 + a3));
-      if (d < best.dist) {
-        best.dist = d;
-        best.row = base + r;
-      }
-    }
-  }
-  return best;
-}
-
-// This thread's query as 32 packed words (zeros past n_q) and its |q|^2.
-__device__ __forceinline__ int load_query(const uint4* __restrict__ query,
-                                          int qi, int n_q,
-                                          int (&w)[4 * kVecs]) {
-  int q_norm = 0;
-#pragma unroll
-  for (int k = 0; k < kVecs; ++k) {
-    const uint4 v = qi < n_q ? query[kVecs * static_cast<size_t>(qi) + k]
-                             : make_uint4(0u, 0u, 0u, 0u);
-    w[4 * k + 0] = static_cast<int>(v.x);
-    w[4 * k + 1] = static_cast<int>(v.y);
-    w[4 * k + 2] = static_cast<int>(v.z);
-    w[4 * k + 3] = static_cast<int>(v.w);
-  }
-#pragma unroll
-  for (int i = 0; i < 4 * kVecs; ++i) q_norm = __dp4a(w[i], w[i], q_norm);
-  return q_norm;
-}
-
-__device__ __forceinline__ void store_best(int* out_dist, int* out_row,
-                                           int qi, int n_q, int n_cols, int c,
-                                           Best best) {
-  if (qi < n_q) {
-    const size_t cell = static_cast<size_t>(qi) * n_cols + c;
-    out_dist[cell] = best.dist;
-    out_row[cell] = best.row;
-  }
-}
-
-// ---- B3: the tensor-core tile -------------------------------------------
+// ---- the tensor-core tile ------------------------------------------------
 
 constexpr int kTcWarps = 8;
 constexpr int kTcThreads = 32 * kTcWarps;
@@ -176,23 +101,21 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], uint32_t a0, uint32_t a1,
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
-// B3: grid (query tiles of 256, objects).
-__global__ void __launch_bounds__(kTcThreads)
-object_top1_l2_tc_kernel(const uint4* __restrict__ query,   // (n_q, 8) x 16 B
-                         const uint4* __restrict__ db,      // (n_db, 8) x 16 B
-                         const int* __restrict__ norm_sq,   // (n_db,)
-                         const int* __restrict__ obj_start, // (n_obj,)
-                         const int* __restrict__ n_rows,    // (n_obj,)
-                         int* __restrict__ out_dist,        // (n_q, n_obj)
-                         int* __restrict__ out_row,         // (n_q, n_obj)
-                         int n_q, int n_obj) {
+// The cells (q, col) of the block's 256 queries q against rows
+// [start, start + n) of the DB, written at column col of (n_q, n_cols)
+// outputs. Every thread of the block must call it (it synchronises the
+// block).
+__device__ __forceinline__ void object_tile_top1(
+    const uint4* __restrict__ query,   // (n_q, 8) x 16 B
+    const uint4* __restrict__ db,      // (n_db, 8) x 16 B
+    const int* __restrict__ norm_sq,   // (n_db,)
+    int start, int n, int* __restrict__ out_dist, int* __restrict__ out_row,
+    int n_q, int n_cols, int col) {
   __shared__ uint4 tile[2][kTcRows * kVecs];
-  __shared__ int col_key[2][kTcRows];
-  const int o = blockIdx.y;
+  __shared__ __align__(16) int col_key[2][kTcRows];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t4 = lane & 3;
   const int q_block = blockIdx.x * kTcQTile;
-  const int start = obj_start[o], n = n_rows[o];
 
   // A fragments: m-tile mt, query half h (row g or g + 8 of the tile);
   // chunks t4 and 4 + t4 of the query hold its four k-steps.
@@ -320,7 +243,7 @@ object_top1_l2_tc_kernel(const uint4* __restrict__ query,   // (n_q, 8) x 16 B
       }
       const int qi = q_block + warp * 16 * kTcM + mt * 16 + g + 8 * h;
       if (t4 == 0 && qi < n_q) {
-        const size_t cell = static_cast<size_t>(qi) * n_obj + o;
+        const size_t cell = static_cast<size_t>(qi) * n_cols + col;
         out_dist[cell] = n > 0 ? v - kKeyBias + q_norm[mt][h]
                                : q_norm[mt][h] + kPadNorm;
         out_row[cell] = n > 0 ? row : 0;
@@ -329,30 +252,45 @@ object_top1_l2_tc_kernel(const uint4* __restrict__ query,   // (n_q, 8) x 16 B
   }
 }
 
-// B4: grid (query tiles, slots); the object of slot c is sel[c].
-__global__ void __launch_bounds__(kQTile)
-object_top1_l2_gathered_kernel(const uint4* __restrict__ query,
-                               const uint4* __restrict__ db,
-                               const int* __restrict__ norm_sq,
-                               const int* __restrict__ obj_start,
-                               const int* __restrict__ n_rows,
-                               const int* __restrict__ sel,     // (n_sel,)
-                               int* __restrict__ out_dist,      // (n_q, n_sel)
-                               int* __restrict__ out_row,       // (n_q, n_sel)
-                               int n_q, int n_sel, int n_obj) {
-  __shared__ uint4 tile[kRowTile * kVecs];
-  __shared__ int tile_norm[kRowTile];
+// B3: grid (query tiles of 256, objects).
+__global__ void __launch_bounds__(kTcThreads)
+object_top1_l2_tc_kernel(const uint4* __restrict__ query,
+                         const uint4* __restrict__ db,
+                         const int* __restrict__ norm_sq,
+                         const int* __restrict__ obj_start, // (n_obj,)
+                         const int* __restrict__ n_rows,    // (n_obj,)
+                         int* __restrict__ out_dist,        // (n_q, n_obj)
+                         int* __restrict__ out_row,         // (n_q, n_obj)
+                         int n_q, int n_obj) {
+  const int o = blockIdx.y;
+  object_tile_top1(query, db, norm_sq, obj_start[o], n_rows[o], out_dist,
+                   out_row, n_q, n_obj, o);
+}
+
+// B4: grid (query tiles of 256, slots); the object of slot c is sel[c].
+__global__ void __launch_bounds__(kTcThreads)
+object_top1_l2_gathered_tc_kernel(const uint4* __restrict__ query,
+                                  const uint4* __restrict__ db,
+                                  const int* __restrict__ norm_sq,
+                                  const int* __restrict__ obj_start,
+                                  const int* __restrict__ n_rows,
+                                  const int* __restrict__ sel,   // (n_sel,)
+                                  int* __restrict__ out_dist,    // (n_q, n_sel)
+                                  int* __restrict__ out_row,     // (n_q, n_sel)
+                                  int n_q, int n_sel, int n_obj) {
   const int c = blockIdx.y;
   const int o = sel[c];            // the same for the whole block
-  const int qi = blockIdx.x * kQTile + threadIdx.x;
-  Best best{kDistInvalid, 0};
   if (o >= 0 && o < n_obj) {
-    int w[4 * kVecs];
-    const int q_norm = load_query(query, qi, n_q, w);
-    best = object_best(w, q_norm, db, norm_sq, obj_start[o], n_rows[o], tile,
-                       tile_norm);
+    object_tile_top1(query, db, norm_sq, obj_start[o], n_rows[o], out_dist,
+                     out_row, n_q, n_sel, c);
+    return;
   }
-  store_best(out_dist, out_row, qi, n_q, n_sel, c, best);
+  const int qi = blockIdx.x * kTcQTile + threadIdx.x;   // a hole
+  if (qi < n_q) {
+    const size_t cell = static_cast<size_t>(qi) * n_sel + c;
+    out_dist[cell] = kDistInvalid;
+    out_row[cell] = 0;
+  }
 }
 
 }  // namespace
@@ -383,9 +321,9 @@ extern "C" int tod_object_top1_l2_gathered(
     void* out_dist, void* out_row, int n_q, int n_sel, int n_obj,
     void* stream) {
   if (n_q > 0 && n_sel > 0) {
-    const dim3 grid((n_q + kQTile - 1) / kQTile, n_sel);
-    object_top1_l2_gathered_kernel<<<grid, kQTile, 0,
-                                     static_cast<cudaStream_t>(stream)>>>(
+    const dim3 grid((n_q + kTcQTile - 1) / kTcQTile, n_sel);
+    object_top1_l2_gathered_tc_kernel<<<grid, kTcThreads, 0,
+                                        static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint4*>(query), static_cast<const uint4*>(db),
         static_cast<const int*>(norm_sq), static_cast<const int*>(obj_start),
         static_cast<const int*>(n_rows), static_cast<const int*>(sel),

@@ -4,9 +4,9 @@ Port of tod_tpu/geometry/ransac.py. Every function takes a leading object
 axis A (one frame's objects run as one batch). The reference draws its
 Gumbel noise from ``jax.random`` inside the sampler; here the noise is an
 argument, (A, 3, n, M) for one round of ``n`` hypotheses over ``M`` matches,
-so a caller can hand in any noise (the main path draws it from a
-``torch.Generator`` through :class:`GumbelNoise`; the parity tests hand in
-the reference's own draws).
+drawn by a callback. The main path's callback, :class:`ThreefryNoise`,
+follows the reference's key path and draws its very threefry bits
+(``utils/prng.py``); a test may hand in any other.
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from tod_tpu_torch.geometry.adjacency import (AdjacencyGraphs, ObjectMatches,
@@ -22,6 +23,7 @@ from tod_tpu_torch.geometry.adjacency import (AdjacencyGraphs, ObjectMatches,
 from tod_tpu_torch.geometry.transforms import (RigidFit, apply_rt,
                                                invert_pose, kabsch)
 from tod_tpu_torch.ops.fast import stable_topk
+from tod_tpu_torch.utils import prng
 
 CLIQUE_STAT_STEPS = 16   # growth budget of the per-pose clique statistic
 
@@ -58,18 +60,44 @@ class RansacConfig:
 NoiseFn = Callable[[str, Tuple[int, ...]], torch.Tensor]
 
 
-class GumbelNoise:
-    """Standard Gumbel noise from an explicit generator; called with a stage
-    name ("tier1", "round0", "round1", ...) and a shape."""
+class ThreefryNoise:
+    """The reference's Gumbel draws for one frame, from the frame's key
+    (the ``sub`` of ``self._key, sub = split(self._key)``); called with a
+    stage name ("tier1", "round0", "round1", ...) and a shape (A, 3, n, M).
 
-    def __init__(self, generator: torch.Generator):
-        self.generator = generator
+    Segmented paths (``detect_frame_segmented`` and ``_gathered``):
+    ``key_act, key_det = split(key)``; tier 1 draws object ``a``'s triple
+    from ``split(key_act, A)[a]``, instance round ``i`` from
+    ``split(split(key_det, A)[a], max_instances)[i]``. The global path hands
+    the key straight to ``detect_objects``: ``key_det = key``, no tier 1.
+    A triple key ``k`` gives one ``gumbel(split(k, 3)[v], (n, M))`` per
+    vertex ``v``. The keys are split on the host; each call draws all
+    (A, 3) Gumbel arrays as one vectorised threefry on ``device``."""
+
+    def __init__(self, key: np.ndarray, max_instances: int, segmented: bool,
+                 device: torch.device | str):
+        if segmented:
+            self.key_act, self.key_det = prng.split(key)
+        else:
+            self.key_act, self.key_det = None, key
+        self.max_instances = max_instances
+        self.device = torch.device(device)
+
+    def keys(self, stage: str, n_obj: int) -> np.ndarray:
+        """(A, 3, 2): each object's three vertex keys at ``stage``."""
+        if stage == "tier1":
+            if self.key_act is None:
+                raise ValueError("the global-kNN path has no tier 1")
+            per_object = prng.split(self.key_act, n_obj)
+        else:
+            i = int(stage[len("round"):])
+            per_object = prng.split(prng.split(self.key_det, n_obj),
+                                    self.max_instances)[:, i]
+        return prng.split(per_object, 3)
 
     def __call__(self, stage: str, shape: Tuple[int, ...]) -> torch.Tensor:
-        u = torch.rand(shape, generator=self.generator,
-                       device=self.generator.device, dtype=torch.float32)
-        u = torch.clamp_min(u, torch.finfo(torch.float32).tiny)
-        return -torch.log(-torch.log(u))
+        n_obj, _, n, m = shape
+        return prng.gumbel(self.keys(stage, n_obj), (n, m), self.device)
 
 
 class RansacRound(NamedTuple):
@@ -356,8 +384,9 @@ def detect_object_instances(gumbels: Sequence[torch.Tensor],
         clique_size=torch.stack([r.clique_size for r in rounds], 1))
 
 
-__all__ = ["CLIQUE_STAT_STEPS", "GumbelNoise", "NoiseFn", "ObjectDetections",
+__all__ = ["CLIQUE_STAT_STEPS", "NoiseFn", "ObjectDetections",
            "RansacConfig", "RansacRound", "RigidFit", "SeedPose",
+           "ThreefryNoise",
            "consistency_log_weights", "detect_object_instances",
            "presence_score", "propose_and_count", "ransac_round",
            "sample_triples"]

@@ -39,8 +39,8 @@ from tod_tpu_torch.geometry.detection import (
     detect_frame_from_matches, detect_frame_gathered, detect_frame_segmented,
     fold_best_pose, merge_tracked, reserved_force_mask, seeds_from_state,
     tracked_from_age, tracked_needy, update_age)
-from tod_tpu_torch.geometry.ransac import (GumbelNoise, NoiseFn,
-                                           ObjectDetections, RansacConfig)
+from tod_tpu_torch.geometry.ransac import (NoiseFn, ObjectDetections,
+                                           RansacConfig, ThreefryNoise)
 from tod_tpu_torch.ops.depth import depth_to_3d_sparse, to_metric_depth
 from tod_tpu_torch.ops.fast import stable_topk
 from tod_tpu_torch.ops.hamming import hamming_topk_fused, pack_db_bits
@@ -56,6 +56,7 @@ from tod_tpu_torch.ops.segmented_l2 import (SegmentedDbF, object_top1_l2,
                                             quantize_descriptors)
 from tod_tpu_torch.ops.sift import sift_detect_and_compute
 from tod_tpu_torch.types import PoseResult, TodModel
+from tod_tpu_torch.utils import prng
 
 
 @dataclasses.dataclass(frozen=True)
@@ -430,9 +431,10 @@ class FusedDetector:
                     f"track_width + explore_width ({reserved}) must leave "
                     f"coarse slots: fine_width is {cfg.fine_width}")
         self.device = torch.device(device)
-        self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(seed)
-        self.noise: NoiseFn = GumbelNoise(self.generator)
+        # the reference's key; each frame splits off its own (detect_raw)
+        self._key = prng.prng_key(seed)
+        # a test's noise in place of the frame key's draws (None: the key's)
+        self.noise: Optional[NoiseFn] = None
         models = list(models)
         self.segmented = cfg.pipeline == "segmented"
         if not self.segmented:
@@ -510,25 +512,31 @@ class FusedDetector:
         else:
             gray, depth_t, K_t = self.prepare_frame(image, depth, K)
         cfg = self.config
+        # every frame splits the key, an empty catalog's too, as the
+        # reference does
+        self._key, sub = prng.split(self._key)
+        noise = self.noise if self.noise is not None else ThreefryNoise(
+            sub, cfg.guess.ransac.max_instances, self.segmented, self.device)
         if not self.segmented:
             kps, desc, query_pts = stage_features(gray, depth_t, K_t, cfg)
             if not self.object_ids:
                 return kps, empty_detections(0, cfg, self.device)
             dist, rows = match_against_db(desc, self.db, cfg)
-            return kps, stage_geometry(self.noise, kps.xy, kps.valid, dist,
+            return kps, stage_geometry(noise, kps.xy, kps.valid, dist,
                                        rows, query_pts, geom_db(self.db), cfg)
         xy, qp, dsc, ok = stage_features_compact(gray, depth_t, K_t, cfg)
         if not self.object_ids:
             return None, empty_detections(0, cfg, self.device)
         if self.cdb is not None:
-            return None, self._detect_coarse_fine(xy, qp, dsc, ok)
+            return None, self._detect_coarse_fine(noise, xy, qp, dsc, ok)
         dist, rows = match_full(dsc, self.sdb)
         return None, detect_frame_segmented(
-            self.noise, dist, rows, ok, qp, xy, self.sdb.points,
+            noise, dist, rows, ok, qp, xy, self.sdb.points,
             self.sdb.obj_start, self.sdb.spans, cfg.guess, cfg.activation,
             cfg.radius)[1]
 
-    def _detect_coarse_fine(self, xy, qp, dsc, ok) -> ObjectDetections:
+    def _detect_coarse_fine(self, noise: NoiseFn, xy, qp, dsc, ok
+                            ) -> ObjectDetections:
         """One coarse->fine frame (B1 or B3 on the coarse DB, B2 or B4 on
         the slab), advancing the streaming state."""
         cfg = self.config
@@ -556,7 +564,7 @@ class FusedDetector:
                                      cfg.track_ttl)
         dist, rows = match_gathered(dsc, self.sdb, sel)
         det = detect_frame_gathered(
-            self.noise, dist, rows, sel, ok, qp, xy, self.sdb.points,
+            noise, dist, rows, sel, ok, qp, xy, self.sdb.points,
             self.sdb.obj_start, self.sdb.spans, cfg.guess, cfg.activation,
             cfg.radius, force, cfg.track_width + cfg.explore_width,
             force_act, seeds)[1]

@@ -205,6 +205,29 @@ def edge_case_arrays_l2_int8(seed: int, n_q: int
     return descs, q[:n_q]
 
 
+def edge_case_arrays_hamming_tiles(seed: int, n_q: int
+                                   ) -> Tuple[List[np.ndarray], np.ndarray]:
+    """(u8 descriptors per object, u8 queries) that hit kernel B1's
+    tensor-core tile edges: objects of 17, 0, 1, 15, 16, 127, 128, 129 and
+    300 rows; object 8's row 40 copied to rows 7-9, 127, 128, 255, 256 and
+    299 (ties across 8-row fragments, the lanes of a quad and 128-row
+    tiles), its rows 200 / 201 all zero / all ones. Query 0 equals object
+    8's row 40, query 1 is all zero, query 2 all ones (the extremes of
+    ``|q|``), query 3 equals object 7's row 128."""
+    rng = np.random.default_rng(seed)
+    sizes = [17, 0, 1, 15, 16, 127, 128, 129, 300]
+    descs = [rng.integers(0, 256, (n, 32), dtype=np.uint8) for n in sizes]
+    descs[8][[7, 8, 9, 127, 128, 255, 256, 299]] = descs[8][40]
+    descs[8][200] = 0
+    descs[8][201] = 255
+    q = rng.integers(0, 256, (max(n_q, 4), 32), dtype=np.uint8)
+    q[0] = descs[8][40]
+    q[1] = 0
+    q[2] = 255
+    q[3] = descs[7][128]
+    return descs, q[:n_q]
+
+
 def smoke_catalog(real_ids: Sequence[str],
                   real: Sequence[Tuple[np.ndarray, np.ndarray]],
                   n_objects: int = 100, seed: int = SEED, device=None

@@ -3,7 +3,7 @@
 
     python3 tools/profile_torch_detect.py [--frames 4] [--trace PATH]
                                           [--objects N] [--frontier] [--sift]
-                                          [--global]
+                                          [--global] [--compare-noise]
 
 Builds one of chip_smoke.py's detectors (the smoke catalog, 100 objects by
 default, at the bench's operating point; ``--frontier``: the coarse->fine
@@ -13,8 +13,15 @@ FusedDetectorConfig()'s own operating point), warms it up on the fixture's
 frames, then traces ``--frames`` calls of ``detect`` with torch.profiler.
 Prints the host latency per frame, the device-busy share of the traced
 window, per-stage host times (each stage of ``detect`` ended by a
-synchronize) and the top operators by device time; writes the chrome trace
-to ``--trace``. Needs a CUDA device; imports no JAX.
+synchronize; ``noise``, the RANSAC's threefry draws, is timed inside the
+geometry stage and summed a frame), one frame's noise draws counted and
+timed alone (chip_smoke.noise_cost), and the top operators by device time;
+writes the chrome trace to ``--trace``. ``--compare-noise`` also times
+``detect`` (closed loop, in turns: threefry, generator, generator,
+threefry) with the detector's own threefry noise and with Gumbel noise from
+a ``torch.Generator`` (one ``torch.rand`` a draw, the noise before the port
+replayed the reference's), so that the noise's share of a frame shows end
+to end. Needs a CUDA device; imports no JAX.
 """
 
 from __future__ import annotations
@@ -31,6 +38,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 
+N_TIMED = 8     # frames of the stage split
+COMPARE_FRAMES = 20   # closed-loop frames a turn of --compare-noise
 # the stages of FusedDetector.detect, by the name fused.py calls them
 STAGES = ("stage_features_compact", "stage_features", "object_top1",
           "object_top1_l2", "match_against_db", "stage_coarse_select",
@@ -40,12 +49,14 @@ STAGES = ("stage_features_compact", "stage_features", "object_top1",
 
 
 def stage_timers(det):
-    """Wrap each stage of ``det.detect`` so that it synchronises before
-    and after itself and adds its host milliseconds to a list; returns
-    ``{stage: [ms, ...]}`` and a function that undoes the wrapping."""
+    """Wrap each stage of ``det.detect``, and each noise draw, so that it
+    synchronises before and after itself and adds its host milliseconds to
+    a list; returns ``{stage: [ms, ...]}`` and a function that undoes the
+    wrapping."""
+    from tod_tpu_torch.geometry.ransac import ThreefryNoise
     from tod_tpu_torch.models import fused
 
-    times = {name: [] for name in STAGES}
+    times = {name: [] for name in STAGES + ("noise",)}
     saved = []
 
     def timed(name, fn):
@@ -62,6 +73,8 @@ def stage_timers(det):
         owner = det if name == "poses" else fused
         saved.append((owner, name, getattr(owner, name)))
         setattr(owner, name, timed(name, getattr(owner, name)))
+    saved.append((ThreefryNoise, "__call__", ThreefryNoise.__call__))
+    ThreefryNoise.__call__ = timed("noise", ThreefryNoise.__call__)
 
     def undo():
         for owner, name, fn in saved:
@@ -70,6 +83,34 @@ def stage_timers(det):
             else:
                 setattr(owner, name, fn)
     return times, undo
+
+
+def generator_noise(device):
+    """Standard Gumbel noise from a seeded ``torch.Generator``: a
+    yardstick for the threefry draws' cost, not the reference's noise."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    tiny = torch.finfo(torch.float32).tiny
+
+    def draw(stage, shape):
+        u = torch.rand(shape, generator=gen, device=device).clamp_min_(tiny)
+        return -torch.log(-torch.log(u))
+    return draw
+
+
+def compare_noise(cs, det, frames, path: str, card: str) -> None:
+    """Closed-loop ``detect`` medians with the detector's threefry noise
+    and with :func:`generator_noise`, in turns."""
+    lat = {"threefry": [], "generator": []}
+    for turn in ("threefry", "generator", "generator", "threefry"):
+        det.noise = None if turn == "threefry" else generator_noise(
+            det.device)
+        lat[turn] += list(cs.timed_detect(det, frames, COMPARE_FRAMES))
+    det.noise = None
+    print(f"{path}: detect median / p95 ms over {2 * COMPARE_FRAMES} frames "
+          "a noise, in turns: " + "; ".join(
+              f"{k} {np.median(v):.2f} / {np.percentile(v, 95):.2f}"
+              for k, v in lat.items()) + f"; {card}")
 
 
 def main() -> int:
@@ -84,6 +125,8 @@ def main() -> int:
                     help="SIFT/L2 features and kernels B3/B4")
     ap.add_argument("--global", dest="global_path", action="store_true",
                     help="the global-kNN path and kernel B5")
+    ap.add_argument("--compare-noise", action="store_true",
+                    help="detect with threefry vs torch.Generator noise")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
@@ -115,16 +158,22 @@ def main() -> int:
         det.detect(*frame)
 
     times, undo = stage_timers(det)
-    for i in range(8):
+    for i in range(N_TIMED):
         det.detect(*frames[i % len(frames)])
     undo()
     path = ("SIFT " if args.sift else "ORB ") \
         + ("global kNN" if args.global_path else
            "coarse->fine" if args.frontier else "full sweep")
-    print(f"{args.objects} objects, {path}; stage host ms (median of 8 "
-          "frames, each synchronised): "
+    noise_ms = sum(times.pop("noise")) / N_TIMED
+    print(f"{args.objects} objects, {path}; stage host ms (median of "
+          f"{N_TIMED} frames, each synchronised): "
           + ", ".join(f"{k} {np.median(v):.2f}" for k, v in times.items()
-                      if v) + f"; {card}")
+                      if v) + f"; noise (inside the geometry) {noise_ms:.2f} "
+          f"a frame; {card}")
+    cs.noise_cost(det, frames[0], f"{args.objects} objects, {path}", card)
+    if args.compare_noise:
+        compare_noise(cs, det, frames, f"{args.objects} objects, {path}",
+                      card)
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
