@@ -21,15 +21,29 @@ any failure raises, exits non-zero and prints no ``ok`` line:
             reserved padding, ties across fragments, lanes and tiles,
             all-zero and all-one descriptors; Q = 1 to 2048); both timed
             with CUDA events.
-3b.         kernel B2 (the gathered entry point of the same file, the
-            CUDA-core popc design) against its twin and against B1's
-            columns at ``sel``, bit for bit, on the edge cases (holes, an
-            empty object, repeated and out-of-order ids), the tile edges
-            and the 1000-object catalog (64 slots with
+3b.         kernel B2 (the gathered entry point of the same file: B1's
+            tile run over the slab, one device function for both grids, a
+            hole's block writing (8191, 262143)) against its twin and
+            against B1's columns at ``sel``, bit for bit, on the edge cases
+            (holes, an empty object, repeated and out-of-order ids), the
+            tile edges and the 1000-object catalog (64 slots with
             holes); B1 against its twin there too. Timed: B2 at Q = 2048 x
             64 slots and its twin, the coarse B1 at Q = 1024 on the
             stride-16 DB (held against its twin there first), the
             full-sweep B1 at Q = 2048 over 1000 objects.
+3f.         kernel N1 (csrc/threefry_gumbel.cu: threefry-2x32, uniform and
+            Gumbel fused, a thread drawing 4 counts in registers, one
+            launch a batch of keys) against its plain twins on the card:
+            its bits mode equal to prng.random_bits bit for bit, its
+            Gumbel values equal to prng.gumbel_torch bit for bit (or, where
+            some differ, counted and held to 2^-22 + 2 ulp), at no keys,
+            odd n * M, more keys than the grid's y extent and the tier-1
+            and global round shapes. Timed at the global path's round shape
+            (16 x 3 x 1024 x 512), each run queued behind a device sleep so
+            that the keys' upload on the host is not timed, beside its twin
+            and torch.rand (a yardstick: Philox, not the function); its
+            bound from the instructions of its compiled code by pipe
+            (cuobjdump -sass).
 4. main     FusedDetector at the bench's operating point on the 100-object
             smoke catalog, frames of tests/data/torch_smoke_fixture.npz
             through prepare_frame -> detect; the compaction stage's
@@ -38,8 +52,11 @@ any failure raises, exits non-zero and prints no ``ok`` line:
             within 2 cm at the quality gate, the accepted objects and poses
             agreeing with the JAX reference's stored detections (1 cm, 2
             degrees), one B1 launch per frame. The RANSAC noise is the
-            reference's threefry draws (utils/prng.py); one frame's draws
-            are counted (device operations, launches) and timed.
+            reference's threefry draws, drawn by N1 (at least one launch a
+            frame on every path below); one frame's draws are replayed
+            alone, with no synchronising call, held against the twin's,
+            counted (device operations, launches) and timed beside the
+            twin's.
 4b.         the frontier recipe (coarse->fine, tracked and exploration
             slots) on the same catalog over a stream of 6 frames, against
             the JAX reference's stream (tests/data/torch_stream_fixture.npz):
@@ -127,7 +144,8 @@ the smoke fixture's):
 
 The line before the card's is a JSON object of every kernel of the paths
 (launches on the main paths, error against the twin, time, the twin's time,
-the card's bound for the same work and the PR of the kernel's design); the
+the card's bound for the same work and the PR of the kernel's design; N1,
+which replaces no Pallas kernel, also with its torch.rand yardstick); the
 last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -142,6 +160,7 @@ import subprocess
 import sys
 import time
 from collections import Counter
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -173,12 +192,27 @@ QUANT_SHARE = 2e-4
 SOURCE = "tod_tpu_torch/csrc/segmented_top1.cu"
 SOURCE_L2 = "tod_tpu_torch/csrc/segmented_l2_top1.cu"
 SOURCE_B5 = "tod_tpu_torch/csrc/hamming_topk.cu"
+SOURCE_N1 = "tod_tpu_torch/csrc/threefry_gumbel.cu"
 B1_REPLACES = "tod_tpu/ops/pallas/segmented.py:128"
 B2_REPLACES = "tod_tpu/ops/pallas/segmented.py:349"
 B3_REPLACES = "tod_tpu/ops/pallas/segmented_l2.py:119"
 B4_REPLACES = "tod_tpu/ops/pallas/segmented_l2.py:300"
 B5_REPLACES = "tod_tpu/ops/pallas/hamming.py:69"
 T1_REPLACES = "tools/bench_dot_iso.py:29"
+# jax.random.gumbel in _masked_gumbel_argmax and _masked_weighted_argmax:
+# XLA's fused threefry, not a Pallas kernel
+N1_REPLACES = "tod_tpu/geometry/ransac.py:127,136"
+N1_SHAPE = (16, 3, 1024, 512)    # a round of the global path
+N1_PER_THREAD = 4                # draws a thread of N1 (kPerThread)
+# N1's bound counts the instructions of its compiled Gumbel mode
+# (n1_sass_counts): those that only the integer ALU pipe runs, at its 64
+# lanes a clock and SM, and all of them at the SM's issue rate, 4 warp
+# instructions (128 lanes) a clock; the adds the compiler gives the FMA
+# pipe (IMAD, VIADD) and the conversions count at the issue rate only
+N1_ALU_OPS = frozenset({"SHF", "LOP3", "IADD3", "ISETP", "FSETP", "FMNMX",
+                        "IMNMX", "SEL", "FSEL", "LEA", "PRMT"})
+ALU_LANES = 64
+DISPATCH_LANES = 128
 # The card's published peaks (NVIDIA H100 SXM data sheet): device memory
 # rate and the dense int8 tensor-core rate
 HBM_BYTES_S = 3.35e12
@@ -188,6 +222,9 @@ INT8_OPS_S = 1979e12
 # bound), and the 1-bit products (mma.sync and wgmma), whose peak no data
 # sheet gives
 RATES: dict = {}
+# kernel N1 against its twin on each replayed frame (noise_cost): the
+# largest absolute gap of a Gumbel value
+NOISE_ERR: list = []
 
 # The bench's serving operating point, bench.py:444-524 (build_config with
 # no BENCH_* overrides), gated at min_quality 156 as
@@ -249,8 +286,8 @@ def card_line() -> str:
 KERNEL_NAMES = re.compile(
     r"(tc_sweep_kernel|popc_probe_kernel|merge_kernel|"
     r"object_top1_l2_gathered_tc_kernel|object_top1_l2_tc_kernel|"
-    r"object_top1_gathered_kernel|object_top1_tc_kernel)"
-    r"(I((?:Li\d+E)+)E)?")
+    r"object_top1_gathered_tc_kernel|object_top1_tc_kernel|threefry_kernel)"
+    r"(I((?:L[ib]\d+E)+)E)?")
 
 
 def log_ptxas(name: str, report: str) -> None:
@@ -264,20 +301,25 @@ def log_ptxas(name: str, report: str) -> None:
             kernel = KERNEL_NAMES.search(found.group(1))
             entry = found.group(1)[:40] if kernel is None else (
                 kernel.group(1) + "<" + ",".join(
-                    re.findall(r"Li(\d+)E", kernel.group(3) or "")) + ">")
+                    re.findall(r"L[ib](\d+)E", kernel.group(3) or "")) + ">")
         elif entry and ("registers" in line or "spill" in line):
             log(f"ptxas: {name}: {entry}: {line.split(':', 1)[-1].strip()}")
 
 
-def cuda_ms(fn, runs: int = KERNEL_RUNS, warmup: int = 2) -> float:
+def cuda_ms(fn, runs: int = KERNEL_RUNS, warmup: int = 2,
+            queued: bool = False) -> float:
     """Median milliseconds of ``fn()`` over ``runs`` runs, each bracketed
-    by CUDA events."""
+    by CUDA events. ``queued`` puts each run behind a ~1 ms device sleep,
+    so that the host's work in ``fn`` (N1's key upload) overlaps it and
+    the events time the device's work alone."""
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(runs):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if queued:
+            torch.cuda._sleep(2_000_000)     # clocks: ~1 ms at 1.98 GHz
         start.record()
         fn()
         end.record()
@@ -655,14 +697,15 @@ def check_frame(f: int, found, fx, ref=None, image=None,
 
 
 def wrappers():
-    """The kernel wrappers, B1..B5 and T1."""
+    """The kernel wrappers, B1..B5, T1 and N1."""
     from tod_tpu_torch.ops import hamming as ham
     from tod_tpu_torch.ops import segmented as seg
     from tod_tpu_torch.ops import segmented_l2 as l2
+    from tod_tpu_torch.utils import prng
 
     return (seg.object_top1, seg.object_top1_gathered, l2.object_top1_l2,
             l2.object_top1_l2_gathered, ham.hamming_topk_fused,
-            ham.hamming_probe)
+            ham.hamming_probe, prng.gumbel)
 
 
 def reset_counts() -> None:
@@ -671,22 +714,25 @@ def reset_counts() -> None:
 
 
 def read_counts():
-    """Launches of (B1, B2, B3, B4, B5, T1) since :func:`reset_counts`."""
+    """Launches of (B1, B2, B3, B4, B5, T1, N1) since :func:`reset_counts`."""
     return tuple(fn.launches for fn in wrappers())
 
 
 def check_launches(what: str, n_frames: int, counts, full: int,
                    gathered=None) -> None:
     """One launch a frame of the kernels B<full + 1> and, on a coarse->fine
-    path, B<gathered + 1>, and none of the others (T1 on no path)."""
-    names = [f"B{i + 1}" for i in range(5)] + ["T1"]
+    path, B<gathered + 1>, and none of the others (T1 on no path); N1 the
+    same number of times on every frame, at least once."""
+    names = [f"B{i + 1}" for i in range(5)] + ["T1", "N1"]
     log(f"{what}: {n_frames} frames, launches "
         + ", ".join(f"{name} {n}" for name, n in zip(names, counts)))
+    *matchers, noise = counts
     want = [n_frames if i in (full, gathered) else 0
-            for i in range(len(counts))]
-    if list(counts) != want:
+            for i in range(len(matchers))]
+    if matchers != want or noise < n_frames or noise % n_frames:
         raise AssertionError(f"{what}: launches {list(counts)}, expected "
-                             f"{want} for {n_frames} frames")
+                             f"{want} and N1 a positive multiple of "
+                             f"{n_frames} for {n_frames} frames")
 
 
 def check_stream_slab(f: int, slab, sfx, what: str) -> None:
@@ -744,14 +790,14 @@ def timed_detect(det, frames, n: int):
 
 def noise_cost(det, frame, what: str, card: str) -> dict:
     """One frame's threefry noise on the card: the (stage, shape) draws
-    ``det.detect(*frame)`` makes, replayed from that frame's key, once with
-    no synchronising call allowed, then counted (device operations,
-    kernels and copies, by torch.profiler; runtime launch calls) and timed
-    (host clock around the synchronised draws; CUDA events), each the
-    median of NOISE_RUNS. Logs one line; returns its numbers."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    ``det.detect(*frame)`` makes, replayed from that frame's key through
+    kernel N1, once with no synchronising call allowed, then held against
+    the twin's draws on the card (equal, or within 2^-22 + 2 ulp with the
+    differing values counted), counted (device operations, kernels and
+    copies, by torch.profiler; runtime launch calls) and timed (host clock
+    around the synchronised draws; CUDA events), each the median of
+    NOISE_RUNS; the twin's draws counted and timed the same way. Logs one
+    line; returns its numbers."""
     from tod_tpu_torch.geometry.ransac import ThreefryNoise
     from tod_tpu_torch.utils import prng
 
@@ -769,26 +815,64 @@ def noise_cost(det, frame, what: str, card: str) -> dict:
         det.detect(*frame)
     finally:
         det.noise = None
+    keys = [noise.keys(stage, shape[0]) for stage, shape in calls]
 
     def draw() -> None:
         for stage, shape in calls:
             noise(stage, shape)
 
+    def draw_twin() -> None:
+        for k, (_, shape) in zip(keys, calls):
+            prng.gumbel_torch(k, shape[2:], det.device)
+
     # the draws must not wait for the device: PyTorch raises on any
     # synchronising call in this mode
+    before = prng.gumbel.launches
     torch.cuda.set_sync_debug_mode("error")
     try:
         draw()
     finally:
         torch.cuda.set_sync_debug_mode("default")
+    launches = prng.gumbel.launches - before
+    if launches != len(calls):
+        raise AssertionError(f"{what}: {len(calls)} draws launched N1 "
+                             f"{launches} times")
+    differ, total, err = 0, 0, 0.0
+    for k, (stage, shape) in zip(keys, calls):
+        got = noise(stage, shape)
+        ref = prng.gumbel_torch(k, shape[2:], det.device)
+        differ += int((got != ref).sum())
+        total += got.numel()
+        err = max(err, gumbel_gap(got, ref, f"{what}: {stage}"))
+    NOISE_ERR.append(err)
+    kernel, twin = draw_cost(draw), draw_cost(draw_twin)
+    log(f"noise: {what}: a frame draws {len(calls)} Gumbel batches "
+        f"({', '.join(f'{s} {tuple(sh)}' for s, sh in calls)}; {total} "
+        f"values) through N1 ({launches} launches) with no synchronising "
+        f"call; {differ} values differ from the twin's on the card "
+        f"(max_abs_err {err}); N1 {kernel['device_ops']} device operations "
+        f"({kernel['copies']} copies), {kernel['launch_calls']} kernel "
+        f"launch calls, {kernel['host_ms']:.3f} ms on the host clock, "
+        f"{kernel['device_ms']:.3f} ms between CUDA events; twin "
+        f"{twin['device_ops']} device operations, {twin['host_ms']:.3f} / "
+        f"{twin['device_ms']:.3f} ms (medians of {NOISE_RUNS}); {card}")
+    return dict(draws=len(calls), launches=launches, values=total,
+                differ=differ, max_abs_err=err, kernel=kernel, twin=twin)
+
+
+def draw_cost(draw) -> dict:
+    """Device operations (kernels and copies, torch.profiler), runtime
+    launch calls, and the median host-clock and CUDA-event milliseconds of
+    ``draw()``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
                  ) as prof:
         draw()
         torch.cuda.synchronize()
     device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    copies = sum(e.name.startswith("Memcpy") for e in device)
-    launch_calls = sum(e.name == "cudaLaunchKernel" for e in prof.events())
     host = []
     for _ in range(NOISE_RUNS):
         torch.cuda.synchronize()
@@ -796,17 +880,111 @@ def noise_cost(det, frame, what: str, card: str) -> dict:
         draw()
         torch.cuda.synchronize()
         host.append((time.perf_counter() - t0) * 1e3)
-    out = dict(draws=len(calls), device_ops=len(device), copies=copies,
-               launch_calls=launch_calls, host_ms=float(np.median(host)),
-               device_ms=cuda_ms(draw, runs=NOISE_RUNS))
-    log(f"noise: {what}: a frame draws {len(calls)} Gumbel batches "
-        f"({', '.join(f'{s} {tuple(sh)}' for s, sh in calls)}), with no "
-        f"synchronising call: "
-        f"{len(device)} device operations ({copies} copies), "
-        f"{launch_calls} kernel launch calls; {out['host_ms']:.3f} ms on the "
-        f"host clock, {out['device_ms']:.3f} ms between CUDA events (median "
-        f"of {NOISE_RUNS}); {card}")
-    return out
+    return dict(device_ops=len(device),
+                copies=sum(e.name.startswith("Memcpy") for e in device),
+                launch_calls=sum(e.name == "cudaLaunchKernel"
+                                 for e in prof.events()),
+                host_ms=float(np.median(host)),
+                device_ms=cuda_ms(draw, runs=NOISE_RUNS))
+
+
+def gumbel_gap(got, ref, what: str) -> float:
+    """The largest |got - ref| of two Gumbel arrays on the card; raise if
+    any exceeds 2^-22 + 2 ulp of ``ref`` (tests/test_torch_prng.py)."""
+    gap = (got.double() - ref.double()).abs()
+    ulp = torch.from_numpy(np.spacing(np.abs(ref.cpu().numpy())).astype(
+        np.float64)).to(gap.device)
+    if bool((gap > 2.0 ** -22 + 2.0 * ulp).any()):
+        raise AssertionError(f"{what}: N1's Gumbel values beyond 2^-22 + "
+                             f"2 ulp of the twin's: {float(gap.max())}")
+    return float(gap.max()) if gap.numel() else 0.0
+
+
+def n1_sass_counts() -> tuple:
+    """``(instructions, ALU-pipe instructions)`` that a thread of kernel
+    N1's Gumbel mode issues where a row is whole 16-byte vectors (the timed
+    shape, one key a block), from ``cuobjdump -sass`` of the built library.
+    Left out: the padding NOPs, the closing self-branch, and the
+    element-wise store path, which the branch to the vector store skips."""
+    from tod_tpu_torch import kernels
+
+    tool = Path(kernels._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass",
+                           kernels.load("threefry_gumbel")._name],
+                          capture_output=True, text=True, check=True).stdout
+    body = next(f for f in sass.split("Function : ")[1:]
+                if "threefry_kernelILb0E" in f.split("\n", 1)[0])
+    code = [(int(a, 16), t.strip()) for a, t in
+            re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body)]
+    vector = next(a for a, t in code if "STG.E.128" in t)
+    skip = [a for a, t in code if re.search(rf"\bBRA {vector:#x}$", t)]
+    if len(skip) != 1:
+        raise AssertionError(f"N1's SASS: {len(skip)} branches to the "
+                             "vector store, expected 1")
+    ops = [re.match(r"(?:@!?U?P[T0-9]\s+)?([A-Z][A-Z0-9_]*)", t).group(1)
+           for a, t in code
+           if not skip[0] < a < vector and t != f"BRA {a:#x}"]
+    ops = [op for op in ops if op != "NOP"]
+    counts = Counter(ops)
+    log(f"kernels: N1's compiled Gumbel mode issues {len(ops)} instructions "
+        f"a thread of {N1_PER_THREAD} draws: {dict(counts.most_common())}")
+    return len(ops), sum(counts[op] for op in N1_ALU_OPS)
+
+
+def check_n1(dev, card: str) -> dict:
+    """Phase 3f: kernel N1 against its twins on the card, then timed at
+    the global path's round shape beside its twin and torch.rand. Returns
+    its ``kernels`` entry's measured fields."""
+    from tod_tpu_torch.utils import prng
+
+    err = 0.0
+    for i, shape in enumerate([(0, 3, 128, 192), (3, 3, 7, 9),
+                               (5, 3, 13, 1), (20, 3, 128, 192),
+                               (20, 3, 512, 384), (21846, 3, 1, 5),
+                               N1_SHAPE]):
+        n_obj, _, n, m = shape
+        keys = prng.split(prng.split(prng.prng_key(2**31 - 1 - i), n_obj), 3)
+        bits = prng.threefry_bits(keys, (n, m), dev)
+        torch.cuda.synchronize()
+        bits_ok = bool(torch.equal(bits.to(torch.int64) & prng.MASK,
+                                   prng.random_bits(keys, (n, m), dev)))
+        g = prng.gumbel(keys, (n, m), dev)
+        ref = prng.gumbel_torch(keys, (n, m), dev)
+        differ = int((g != ref).sum())
+        gap = gumbel_gap(g, ref, f"N1 at {shape}")
+        err = max(err, gap)
+        log(f"kernels: N1 vs twins at {shape}: bits equal to random_bits "
+            f"{bits_ok}; {differ} of {g.numel()} Gumbel values differ from "
+            f"gumbel_torch on the card, max_abs_err {gap}")
+        if not bits_ok or g.shape != shape or g.dtype != torch.float32:
+            raise AssertionError(f"N1 disagrees with its twins at {shape}")
+    keys = prng.split(prng.split(prng.prng_key(5), N1_SHAPE[0]), 3)
+    draw_shape = N1_SHAPE[2:]
+    ms = cuda_ms(lambda: prng.gumbel(keys, draw_shape, dev), queued=True)
+    plain_ms = cuda_ms(lambda: prng.gumbel_torch(keys, draw_shape, dev),
+                       runs=TWIN_RUNS, warmup=1, queued=True)
+    yard_ms = cuda_ms(lambda: torch.rand(N1_SHAPE, device=dev), queued=True)
+    draws = int(np.prod(N1_SHAPE))
+    issued, alu = n1_sass_counts()
+    clocks = RATES["dp4a"]["n_sm"] * RATES["dp4a"]["max_mhz"] * 1e6
+    threads = draws / N1_PER_THREAD
+    issue_ms = threads * issued / (DISPATCH_LANES * clocks) * 1e3
+    alu_ms = threads * alu / (ALU_LANES * clocks) * 1e3
+    ops_ms = max(issue_ms, alu_ms)
+    bytes_ms = (4 * draws + 8 * keys.size // 2) / HBM_BYTES_S * 1e3
+    bound_ms = max(ops_ms, bytes_ms)
+    log(f"kernels: N1 {ms:.3f} ms median of {KERNEL_RUNS} "
+        f"({draws / ms / 1e6:.1f} G draws/s); twin {plain_ms:.3f} ms; "
+        f"torch.rand (yardstick) {yard_ms:.3f} ms; bound {bound_ms:.4f} ms "
+        f"({issued} instructions a thread at {DISPATCH_LANES} lanes a clock "
+        f"and SM {issue_ms:.4f} ms, {alu} of them on the ALU pipe at "
+        f"{ALU_LANES} {alu_ms:.4f} ms, {RATES['dp4a']['n_sm']} SMs at "
+        f"{RATES['dp4a']['max_mhz']:.0f} MHz; 4 bytes a draw "
+        f"{bytes_ms:.4f} ms) at {N1_SHAPE}; {card}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms,
+                bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+                yardstick_ms=yard_ms)
 
 
 def sift_phases(dev, card: str, fx, frames, launches: dict):
@@ -1329,6 +1507,9 @@ def main() -> int:
         f"{sweep_ms:.3f} ms ({sweep_pairs / sweep_ms / 1e6:.1f} G pairs/s) "
         f"at Q={Q} x {sum(ldb.rows_host)} rows, {N_LARGE} objects; {card}")
 
+    # ---- 3f. N1, the threefry + Gumbel noise, against its twins ----------
+    n1 = check_n1(dev, card)
+
     # ---- 4. the main path -------------------------------------------------
     frames = [det.prepare_frame(fx["images"][f], fx["depths"][f], fx["K"])
               for f in range(len(fx["images"]))]
@@ -1454,7 +1635,7 @@ def main() -> int:
          "source": SOURCE, "replaces": B2_REPLACES, "launches": total(1),
          "max_abs_err": b2_err, "ms": b2_ms, "plain_ms": b2_plain_ms,
          "bound_ms": b2_bound[0], "bound_by": b2_bound[1],
-         "library_ms": None, "design_pr": 2},
+         "library_ms": None, "design_pr": 8},
         {"name": "B3 segmented per-object int8 squared-L2 top-1",
          "route": "cuda", "source": SOURCE_L2, "replaces": B3_REPLACES,
          "launches": total(2), "library_ms": None, "design_pr": 6, **b3},
@@ -1467,7 +1648,14 @@ def main() -> int:
         {"name": "T1 isolation bench: B5's sweep without extraction "
          "(dist_sum timed; every mode in modes_ms)", "route": "cuda",
          "source": SOURCE_B5, "replaces": T1_REPLACES, "launches": total(5),
-         "library_ms": None, "design_pr": 5, **t1}]}))
+         "library_ms": None, "design_pr": 5, **t1},
+        {"name": "N1 threefry-2x32 + Gumbel RANSAC noise (replaces "
+         "jax.random.gumbel, fused by XLA: not a Pallas kernel)",
+         "route": "cuda", "source": SOURCE_N1, "replaces": N1_REPLACES,
+         "launches": total(6), "library_ms": None,
+         "yardstick": "torch.rand at the same shape (Philox: not the same "
+         "function)", "design_pr": 8,
+         **{**n1, "max_abs_err": max([n1["max_abs_err"], *NOISE_ERR])}}]}))
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

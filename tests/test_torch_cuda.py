@@ -3,8 +3,8 @@ its isolation modes T1 of the global-kNN path, on every route) against
 their plain PyTorch twins, on the card, with the edges of the tensor-core
 tiles (ragged Q and n_valid, short objects beside padding, the full int8
 range, all-zero and all-one descriptors, ties across fragments, lanes,
-tiles and splits); and the threefry noise drawn on the card against the
-same draws on the CPU.
+tiles and splits); and the threefry noise kernel N1 against its twins on
+the card and the same draws on the CPU.
 
 Every test here is marked ``cuda`` and skips without a GPU. The file needs
 neither JAX nor the JAX package, so it also runs on a machine that has
@@ -98,31 +98,36 @@ def test_b1_refuses_what_it_cannot_take():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n_q", [512, 300, 1])
+@pytest.mark.parametrize("n_q", sorted({512, 300, *TILE_Q}))
 def test_b2_matches_twin_and_b1_columns(n_q):
+    """B2 on objects of 0-4500 rows (ties over equal rows, distances 0 and
+    256), with holes at -1 and past the catalog, repeated and out-of-order
+    ids and a selection of holes only."""
     dev = _cuda()
     rng = np.random.default_rng(100 + n_q)
     descs, db = _edge_case_db(rng, dev)
-    q = rng.integers(0, 256, (n_q, 32), dtype=np.uint8)
+    q = rng.integers(0, 256, (max(n_q, 3), 32), dtype=np.uint8)
     q[0] = descs[4][123]
-    q = torch.from_numpy(q).to(dev)
-    # holes, a repeated id, out-of-order ids, an id past the catalog
-    sel = torch.tensor([4, -1, 2, 1, 4, 0, -1, 6, 3, 9], dtype=torch.int32,
-                       device=dev)
-    before = tseg.object_top1_gathered.launches
-    d, r = tseg.object_top1_gathered(q, db, sel)
-    torch.cuda.synchronize()
-    assert tseg.object_top1_gathered.launches == before + 1
-    d_t, r_t = tseg.object_top1_gathered_torch(q, db, sel)
-    assert torch.equal(d, d_t) and torch.equal(r, r_t)
+    q[1] = ~descs[5][0]
+    q[2] = descs[3][5]
+    q = torch.from_numpy(q[:n_q]).to(dev)
     d_b1, r_b1 = tseg.object_top1(q, db)
-    real = (sel >= 0) & (sel < db.n_objects)
-    cols = sel[real].long()
-    assert torch.equal(d[:, real], d_b1[:, cols])
-    assert torch.equal(r[:, real], r_b1[:, cols])
-    assert (d[:, ~real] == tseg.HOLE_DIST).all()
-    assert (r[:, ~real] == tseg.HOLE_ROW).all()
-    assert (d[0, 0].item(), r[0, 0].item()) == (0, 123)
+    # holes, a repeated id, out-of-order ids, an id past the catalog
+    for sel in ([4, -1, 2, 1, 4, 0, -1, 6, 3, 9, 5], [-1, 9]):
+        sel = torch.tensor(sel, dtype=torch.int32, device=dev)
+        before = tseg.object_top1_gathered.launches
+        d, r = tseg.object_top1_gathered(q, db, sel)
+        torch.cuda.synchronize()
+        assert tseg.object_top1_gathered.launches == before + 1
+        d_t, r_t = tseg.object_top1_gathered_torch(q, db, sel)
+        assert torch.equal(d, d_t) and torch.equal(r, r_t)
+        real = (sel >= 0) & (sel < db.n_objects)
+        cols = sel[real].long()
+        assert torch.equal(d[:, real], d_b1[:, cols])
+        assert torch.equal(r[:, real], r_b1[:, cols])
+        assert (d[:, ~real] == tseg.HOLE_DIST).all()
+        assert (r[:, ~real] == tseg.HOLE_ROW).all()
+    assert (d_b1[0, 4].item(), r_b1[0, 4].item()) == (0, 123)
 
 
 def _tile_case_hamming(seed, n_q, device):
@@ -158,16 +163,17 @@ def test_b1_b2_match_twins_at_the_tile_edges(n_q):
         # 256 - |r|, within [0, 256]
         full = torch.tensor(db.rows_host, device=dev) > 0
         assert (d[1:3, full] >= 0).all() and (d[1:3, full] <= 256).all()
-    sel = torch.tensor(EDGE_SEL, dtype=torch.int32, device=dev)
-    d2, r2 = tseg.object_top1_gathered(q, db, sel)
-    torch.cuda.synchronize()
-    d2_t, r2_t = tseg.object_top1_gathered_torch(q, db, sel)
-    assert torch.equal(d2, d2_t) and torch.equal(r2, r2_t)
-    real = (sel >= 0) & (sel < db.n_objects)
-    cols = sel[real].long()
-    assert torch.equal(d2[:, real], d[:, cols])
-    assert torch.equal(r2[:, real], r[:, cols])
-    assert (d2[:, ~real] == tseg.HOLE_DIST).all()
+    for sel in (EDGE_SEL, [8, 8, 1, 0]):
+        sel = torch.tensor(sel, dtype=torch.int32, device=dev)
+        d2, r2 = tseg.object_top1_gathered(q, db, sel)
+        torch.cuda.synchronize()
+        d2_t, r2_t = tseg.object_top1_gathered_torch(q, db, sel)
+        assert torch.equal(d2, d2_t) and torch.equal(r2, r2_t)
+        real = (sel >= 0) & (sel < db.n_objects)
+        cols = sel[real].long()
+        assert torch.equal(d2[:, real], d[:, cols])
+        assert torch.equal(r2[:, real], r[:, cols])
+        assert (d2[:, ~real] == tseg.HOLE_DIST).all()
 
 
 @pytest.mark.cuda
@@ -448,3 +454,54 @@ def test_noise_on_the_card_equals_the_cpus():
         bound = 2.0 ** -22 + 2.0 * torch.from_numpy(
             np.spacing(np.abs(ref.float().numpy())).astype(np.float64))
         assert (gap <= bound).all(), float(gap.max())
+
+
+# ---- kernel N1: threefry + Gumbel ------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(0, 3, 128, 192), (3, 3, 7, 9),
+                                   (5, 3, 13, 1), (32, 3, 128, 192),
+                                   (16, 3, 1024, 512), (21846, 3, 1, 5)],
+                         ids=["A0", "odd", "odd1", "tier1", "global",
+                              "keys_past_grid_y"])
+def test_n1_matches_twins_on_the_card(shape):
+    """Bits equal random_bits on the card bit for bit; Gumbel values equal
+    gumbel_torch on the card bit for bit (both call logf), or, if some
+    differ, within the bound of tests/test_torch_prng.py; one launch a
+    call (none for A = 0)."""
+    dev = _cuda()
+    n_obj, _, n, m = shape
+    keys = prng.split(prng.split(prng.prng_key(2**31 - 1 - n), n_obj), 3)
+    launched = int(n_obj > 0)
+    before = prng.threefry_bits.launches
+    bits = prng.threefry_bits(keys, (n, m), dev)
+    torch.cuda.synchronize()
+    assert prng.threefry_bits.launches == before + launched
+    assert bits.is_cuda and bits.dtype == torch.int32 and bits.shape == shape
+    assert torch.equal(bits.to(torch.int64) & prng.MASK,
+                       prng.random_bits(keys, (n, m), dev))
+    assert torch.equal(bits, prng.threefry_bits_torch(keys, (n, m), dev))
+    before = prng.gumbel.launches
+    g = prng.gumbel(keys, (n, m), dev)
+    torch.cuda.synchronize()
+    assert prng.gumbel.launches == before + launched
+    assert g.is_cuda and g.dtype == torch.float32 and g.shape == shape
+    ref = prng.gumbel_torch(keys, (n, m), dev)
+    differ = int((g != ref).sum())
+    if differ:
+        gap = (g.double() - ref.double()).abs()
+        bound = 2.0 ** -22 + 2.0 * torch.from_numpy(np.spacing(
+            np.abs(ref.cpu().numpy())).astype(np.float64)).to(dev)
+        assert (gap <= bound).all(), (differ, float(gap.max()))
+    print(f"N1 {shape}: {differ} of {g.numel()} Gumbel values differ from "
+          "the twin's on the card")
+
+
+@pytest.mark.cuda
+def test_n1_refuses_what_it_cannot_take():
+    dev = _cuda()
+    key = prng.prng_key(0)
+    with pytest.raises(ValueError):
+        prng.gumbel(key, (1 << 16, 1 << 15), dev)            # 2^31 draws
+    with pytest.raises(ValueError):
+        prng.threefry_bits(np.zeros((4, 3), np.uint32), (4,), dev)

@@ -27,6 +27,8 @@ SEEDS = [0, 1, 7, 2**31 - 1]
 # continuation budget x max_matches_per_object) of the bench's operating
 # point and of the streaming test's
 SHAPES = [(128, 192), (512, 384), (128, 384), (256, 256), (64, 128)]
+# a round of the global path (n_hypotheses x max_matches_per_object)
+GLOBAL_SHAPE = (1024, 512)
 
 
 def gumbel_bound(ref: np.ndarray) -> np.ndarray:
@@ -204,3 +206,108 @@ def test_stream_with_the_detectors_own_noise():
             _pose_close(r_t.R, r_t.T, r_j.R, r_j.T)
         n_acc += len(port)
     assert n_acc > 0
+
+
+# ---- kernel N1 (csrc/threefry_gumbel.cu), emulated draw by draw -----------
+
+def _funnel_shift_l(hi, lo, r):
+    """``__funnelshift_l(lo, hi, r)``: the high word of ``(hi:lo) << r``,
+    in uint32 (a rotation when ``hi`` is ``lo``)."""
+    return (hi << np.uint32(r)) | (lo >> np.uint32(32 - r))
+
+
+def n1_draws(key, index):
+    """Kernel N1's per-draw code path in numpy ``uint32`` (wrapping adds)
+    and float32, in the kernel's order, for the flat ``index`` (uint64)
+    under ``key`` (2,): ``(bits, u, g)``."""
+    k0, k1 = (np.full(index.shape, w, np.uint32) for w in key)
+    ks = (k0, k1, k0 ^ k1 ^ np.uint32(prng.KS_PARITY))
+    x0 = (index >> np.uint64(32)).astype(np.uint32) + ks[0]
+    x1 = (index & np.uint64(prng.MASK)).astype(np.uint32) + ks[1]
+    for i in range(5):
+        for r in prng.ROTATIONS[i % 2]:
+            x0 = x0 + x1
+            x1 = _funnel_shift_l(x1, x1, r) ^ x0
+        x0 = x0 + ks[(i + 1) % 3]
+        x1 = x1 + (ks[(i + 2) % 3] + np.uint32(i + 1))
+    bits = x0 ^ x1
+    f = ((bits >> np.uint32(9)) | np.uint32(prng.F32_ONE_BITS)).view(
+        np.float32) - np.float32(1.0)
+    tiny = np.float32(prng.F32_TINY)
+    span = np.float32(1.0) - tiny
+    u = np.maximum(f * span + tiny, tiny)
+    with np.errstate(divide="raise", invalid="raise"):
+        g = -np.log(-np.log(u))
+    return bits, u, g
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_n1_emulation_equals_the_plain_draws(seed):
+    """Bits and uniforms bit for bit, Gumbel values within the bound, at
+    the tier-1, round and global shapes (three vertex keys each)."""
+    keys = prng.split(prng.split(prng.prng_key(seed), 2)[1], 3)
+    for shape in [(128, 192), (512, 384), GLOBAL_SHAPE]:
+        index = np.arange(np.prod(shape), dtype=np.uint64)
+        bits_t = prng.random_bits(keys, shape).numpy()
+        u_t = prng.uniform(keys, shape, prng.F32_TINY, 1.0).numpy()
+        g_t = prng.gumbel_torch(keys, shape).numpy()
+        for v, key in enumerate(keys):
+            bits, u, g = n1_draws(key, index)
+            np.testing.assert_array_equal(bits, bits_t[v].reshape(-1))
+            np.testing.assert_array_equal(u.view(np.uint32),
+                                          u_t[v].reshape(-1).view(np.uint32))
+            assert_gumbel_close(g, g_t[v].reshape(-1))
+            assert g.dtype == np.float32
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_n1_emulation_at_high_flat_indices(seed):
+    """Around 2^16 against a draw of that length; around 2^24 (and at
+    2^32 - 1, the last index the low word holds) against the plain
+    threefry of the same (0, index) counts, as random_bits counts them."""
+    key = prng.split(prng.prng_key(seed), 3)[2]
+    around = np.arange(-16, 16, dtype=np.int64)
+    index = (1 << 16) + around
+    bits, _, _ = n1_draws(key, index.astype(np.uint64))
+    np.testing.assert_array_equal(
+        bits, prng.random_bits(key, ((1 << 16) + 16,)).numpy()[index])
+    index = np.concatenate([(1 << 24) + around, [2**32 - 1]])
+    bits, u, g = n1_draws(key, index.astype(np.uint64))
+    k = key.astype(np.int64)
+    b1, b2 = prng.threefry2x32(k[0], k[1], 0, index)
+    np.testing.assert_array_equal(bits, (b1 ^ b2).astype(np.uint32))
+    assert (u >= prng.F32_TINY).all() and (u < 1.0).all()
+    assert np.isfinite(g).all()
+
+
+def test_wrappers_on_the_cpu_run_the_twins():
+    """gumbel and threefry_bits on the CPU equal their plain twins bit for
+    bit (no launch counted); threefry_bits is random_bits reinterpreted as
+    int32; no keys (A = 0) and an odd n * M give the plain shapes."""
+    keys = prng.split(prng.split(prng.prng_key(4), 5), 3)      # (5, 3, 2)
+    launches = prng.gumbel.launches, prng.threefry_bits.launches
+    for shape in [(7, 9), (128, 192), (13,)]:
+        g = prng.gumbel(keys, shape)
+        assert g.dtype == torch.float32 and g.shape == (5, 3) + shape
+        assert torch.equal(g, prng.gumbel_torch(keys, shape))
+        b = prng.threefry_bits(keys, shape, "cpu")
+        assert b.dtype == torch.int32
+        assert torch.equal(b, prng.threefry_bits_torch(keys, shape))
+        assert torch.equal(b.to(torch.int64) & prng.MASK,
+                           prng.random_bits(keys, shape))
+    empty = keys[:0]                                            # (0, 3, 2)
+    assert prng.gumbel(empty, (7, 9)).shape == (0, 3, 7, 9)
+    assert prng.threefry_bits(empty, (7, 9)).shape == (0, 3, 7, 9)
+    assert (prng.gumbel.launches, prng.threefry_bits.launches) == launches
+
+
+@pytest.mark.parametrize("fn", [prng.gumbel, prng.threefry_bits],
+                         ids=["gumbel", "bits"])
+def test_wrappers_refuse_what_the_kernel_cannot_take(fn):
+    key = prng.prng_key(0)
+    with pytest.raises(ValueError, match="keys"):
+        fn(np.zeros((3,), np.uint32), (4,))                  # not (..., 2)
+    with pytest.raises(ValueError, match="draws a key"):
+        fn(key, (1 << 16, 1 << 15))                          # n * M >= 2^31
+    with pytest.raises(ValueError, match="no threefry path"):
+        fn(key, (4,), "meta")

@@ -171,24 +171,48 @@ def test_b1_key_bounds():
                       torch.tensor([0]))) == (512 << 18) + 2**18 - 1
 
 
-def _b1_keys_torch(q_u8, db):
-    """Kernel B1's arithmetic as plain PyTorch: per object, the min of
-    :func:`b1_key` over its real rows, with |q|, |r| and popc(q & r) from
-    the unpacked bits; (511, 0) for an object without rows."""
+def _b1_object_keys(qb, q_pop, db_u8, start, n):
+    """Kernel B1's arithmetic for one object as plain PyTorch: the min of
+    :func:`b1_key` over its ``n`` real rows, with |q|, |r| and popc(q & r)
+    from the unpacked bits ``qb``; (511, 0) for an object without rows."""
+    if not n:
+        return torch.full_like(q_pop, tseg.DIST_CLAMP), torch.zeros_like(q_pop)
+    rb = tseg.unpack_bits(db_u8[start:start + n],
+                          torch.float32).to(torch.int64)
+    key = b1_key(rb.sum(1)[None, :], torch.arange(n)[None, :], qb @ rb.T)
+    assert int(key.min()) >= 0 and int(key.max()) < 2 ** 28
+    return b1_key_split(key.min(1).values, q_pop)
+
+
+def _unpacked(q_u8, db):
     qb = tseg.unpack_bits(q_u8, torch.float32).to(torch.int64)
-    q_pop = qb.sum(1)
-    db_u8 = db.words.view(torch.uint8)
-    d_out = torch.full((q_u8.shape[0], db.n_objects), tseg.DIST_CLAMP,
-                       dtype=torch.int64)
-    r_out = torch.zeros((q_u8.shape[0], db.n_objects), dtype=torch.int64)
+    return qb, qb.sum(1), db.words.view(torch.uint8)
+
+
+def _b1_keys_torch(q_u8, db):
+    """Kernel B1's grid as plain PyTorch: object o in column o."""
+    qb, q_pop, db_u8 = _unpacked(q_u8, db)
+    d_out = torch.zeros((q_u8.shape[0], db.n_objects), dtype=torch.int64)
+    r_out = torch.zeros_like(d_out)
     for o, (start, n) in enumerate(zip(db.starts_host, db.rows_host)):
-        if not n:
-            continue
-        rb = tseg.unpack_bits(db_u8[start:start + n],
-                              torch.float32).to(torch.int64)
-        key = b1_key(rb.sum(1)[None, :], torch.arange(n)[None, :], qb @ rb.T)
-        assert int(key.min()) >= 0 and int(key.max()) < 2 ** 28
-        d_out[:, o], r_out[:, o] = b1_key_split(key.min(1).values, q_pop)
+        d_out[:, o], r_out[:, o] = _b1_object_keys(qb, q_pop, db_u8, start, n)
+    return d_out.to(torch.float32), r_out.to(torch.int32)
+
+
+def _b2_keys_torch(q_u8, db, sel):
+    """Kernel B2's grid as plain PyTorch: slot c runs B1's object function
+    on object sel[c], or, for a slot outside [0, O), writes the hole key
+    0x7FFFFFFF split as (key >> 18, key & (2^18 - 1))."""
+    qb, q_pop, db_u8 = _unpacked(q_u8, db)
+    d_out = torch.zeros((q_u8.shape[0], len(sel)), dtype=torch.int64)
+    r_out = torch.zeros_like(d_out)
+    for c, o in enumerate(sel):
+        if 0 <= o < db.n_objects:
+            d_out[:, c], r_out[:, c] = _b1_object_keys(
+                qb, q_pop, db_u8, db.starts_host[o], db.rows_host[o])
+        else:
+            d_out[:, c] = tseg.KEY_INVALID >> B1_ROW_BITS
+            r_out[:, c] = tseg.KEY_INVALID & ((1 << B1_ROW_BITS) - 1)
     return d_out.to(torch.float32), r_out.to(torch.int32)
 
 
@@ -213,3 +237,37 @@ def test_b1_key_matches_twin(seed):
         d, r = _b1_keys_torch(q, db)
         d_t, r_t = tseg.object_top1_torch(q, db)
         assert torch.equal(d, d_t) and torch.equal(r, r_t)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_b2_columns_through_b1_key_match_twin(seed):
+    """B2's two-grid design emulated through B1's key (holes at -1 and past
+    the catalog, an empty object, repeated and out-of-order ids) equals
+    B2's twin, and each real column equals B1's column sel[c]."""
+    from tod_tpu_torch.utils.smoke_catalog import \
+        edge_case_arrays_hamming_tiles
+
+    rng = np.random.default_rng(seed)
+    descs, q = edge_case_arrays_hamming_tiles(seed, 40)
+    arrays = [(d, np.zeros((len(d), 3), np.float32)) for d in descs]
+    sels = [[8, -1, 2, 1, 8, 0, -1, 7, 3, 12, 5, 6, 4], [-1], [1, 1, 8]]
+    cases = [(arrays, q, sels),
+             (_edge_case_models(rng), None, [[4, -1, 1, 2, 4, 0, 6, 3, 5]])]
+    for arrays, q, case_sels in cases:
+        _, tm = _both(arrays)
+        db = tseg.pack_segmented(tm, db_chunk=256, reserve_rows=200,
+                                 device="cpu")
+        q = torch.from_numpy(_queries(rng, arrays, 64) if q is None else q)
+        d1, r1 = _b1_keys_torch(q, db)
+        for sel in case_sels:
+            d, r = _b2_keys_torch(q, db, sel)
+            d_t, r_t = tseg.object_top1_gathered_torch(
+                q, db, torch.tensor(sel, dtype=torch.int32))
+            assert torch.equal(d, d_t) and torch.equal(r, r_t), sel
+            real = [c for c, o in enumerate(sel) if 0 <= o < db.n_objects]
+            cols = [sel[c] for c in real]
+            assert torch.equal(d[:, real], d1[:, cols])
+            assert torch.equal(r[:, real], r1[:, cols])
+            holes = [c for c in range(len(sel)) if c not in real]
+            assert (d[:, holes] == tseg.HOLE_DIST).all()
+            assert (r[:, holes] == tseg.HOLE_ROW).all()

@@ -12,28 +12,30 @@
 // B2 tod_object_top1_gathered replaces _gathered_top1_kernel (called through
 // object_top1_gathered_fused), the fine pass of coarse->fine matching: the
 // same key, but only for the objects of a selection sel (C,), one output
-// column per slot, so each column is bitwise B1's column sel[c]. A slot
-// outside [0, O) (-1 = empty) reports the invalid key 0x7FFFFFFF, i.e.
-// (8191, 262143). The TPU kernel walked per-step scalar-prefetch tables
-// (chunk, output slot, row base) over a static grid with a trash lane for
-// padding steps; here a block reads sel[c] itself and loops over that
-// object's real rows only, so there are no tables and no padding reads.
+// column per slot. A slot outside [0, O) (-1 = empty) reports the invalid
+// key 0x7FFFFFFF, i.e. (8191, 262143). The TPU kernel walked per-step
+// scalar-prefetch tables (chunk, output slot, row base) over a static grid
+// with a trash lane for padding steps; here a block reads sel[c] itself
+// and sweeps that object's real rows only, so there are no tables and no
+// padding reads.
 //
-// B1's design: the 1-bit product on the tensor cores. With the
-// popcounts |q|, |r| taken once,
+// Design, one tile and two grids: the 1-bit product on the tensor cores.
+// A block is one (256-query tile, object) pair, B1's object o = blockIdx.y
+// written at column o, B2's object sel[blockIdx.y] written at column
+// blockIdx.y; both run the same device function, object_tile_top1, so a
+// column of B2 is B1's column sel[c] by construction. The query tile is
+// fastest in the grid, so the tiles that read one object's rows run
+// together and find them in L2. With the popcounts |q|, |r| taken once,
 //     dist = |q| + |r| - 2 popc(q & r),
 // and popc(q & r) of a 16-query x 8-row tile is one mma.sync m16n8k256
-// .b1 .and.popc on the packed words (no unpacking). A block is one
-// (256-query tile, object) pair, the query tile fastest in the grid, so
-// the tiles that read one object's rows run together and find them in L2.
-// Its 8 warps each hold two 16-query m-tiles as A fragments in registers
-// (lane (g, t) feeds words 2t, 2t + 1 of its query and row: the k order
-// is free as long as both operands share it); the object's rows are staged
-// 128 at a time (each thread fetches 16 bytes of the next tile into
-// registers while the block computes the current one) with each row's
-// per-column constant (|r| + 256) << 18 | row_in_object. Objects have at
-// most 2^18 rows (pack_segmented refuses more), so the whole arg-min is
-// one key a pair,
+// .b1 .and.popc on the packed words (no unpacking). The block's 8 warps
+// each hold two 16-query m-tiles as A fragments in registers (lane (g, t)
+// feeds words 2t, 2t + 1 of its query and row: the k order is free as long
+// as both operands share it); the object's rows are staged 128 at a time
+// (each thread fetches 16 bytes of the next tile into registers while the
+// block computes the current one) with each row's per-column constant
+// (|r| + 256) << 18 | row_in_object. Objects have at most 2^18 rows
+// (pack_segmented refuses more), so the whole arg-min is one key a pair,
 //     key = ((|r| + 256) << 18 | row) - (popc(q & r) << 19)
 //         = (dist - |q| + 256) << 18 | row,
 // one IMAD on the column constant, then one IMNMX. |r| + 256 - 2 popc
@@ -42,79 +44,22 @@
 // tile, so no fold is needed: the four lanes of a quad take the min. A
 // staged row past the end has the constant 0x7FFFFFFF, above every real
 // key. Out: dist = (key >> 18) - 256 + |q|, row = key & (2^18 - 1); an
-// object with no rows reports (511, 0).
+// object with no rows reports (511, 0). A B2 block whose slot is a hole
+// decides so once, before any barrier, and writes the hole's cells.
 //
 // Bound on the H100: the 1-bit tensor-core product (512 bit operations a
 // pair), and at about two integer operations a pair the epilogue on the
 // CUDA cores; the DB's 32 bytes a row are read once per query tile,
 // mostly from L2.
-//
-// B2 keeps the CUDA-core design: each thread holds one query's 8 words in
-// registers, the block stages tiles of the object's rows in shared memory
-// (every thread reads the same row, a broadcast), and each thread keeps
-// its running min key dist << 18 | row over popc(q ^ r) summed over the
-// words. The block writes its cells directly: no atomics and no
-// cross-block fold.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kQTile = 128;     // queries per block, one per thread
-constexpr int kRowTile = 512;   // DB rows staged in shared memory per step
 constexpr int kRowBits = 18;
-constexpr uint32_t kRowMask = (1u << kRowBits) - 1u;
-constexpr uint32_t kEmptyKey = 511u << kRowBits;   // (511, row 0)
-constexpr uint32_t kHoleKey = 0x7FFFFFFFu;         // (8191, 262143)
-
-// The min key of this thread's query over rows [start, start + n) of the
-// DB. Every thread of the block must call it (it synchronises the block).
-__device__ __forceinline__ uint32_t object_min_key(
-    const uint32_t (&w)[8], const uint4* __restrict__ db, int start, int n,
-    uint4* tile) {
-  uint32_t best = kEmptyKey;
-  for (int base = 0; base < n; base += kRowTile) {
-    const int count = min(kRowTile, n - base);
-    __syncthreads();   // the previous tile is no longer read
-    const uint4* src = db + 2 * (static_cast<size_t>(start) + base);
-    for (int i = threadIdx.x; i < 2 * count; i += kQTile) tile[i] = src[i];
-    __syncthreads();
-    for (int r = 0; r < count; ++r) {
-      const uint4 a = tile[2 * r];
-      const uint4 b = tile[2 * r + 1];
-      const uint32_t d = __popc(w[0] ^ a.x) + __popc(w[1] ^ a.y)
-                       + __popc(w[2] ^ a.z) + __popc(w[3] ^ a.w)
-                       + __popc(w[4] ^ b.x) + __popc(w[5] ^ b.y)
-                       + __popc(w[6] ^ b.z) + __popc(w[7] ^ b.w);
-      // d <= 256 < 511, so the clamp of the TPU key never binds here
-      best = min(best, (d << kRowBits) | static_cast<uint32_t>(base + r));
-    }
-  }
-  return best;
-}
-
-__device__ __forceinline__ void load_query(const uint4* __restrict__ query,
-                                           int qi, int n_q, uint32_t (&w)[8]) {
-  if (qi < n_q) {
-    const uint4 a = query[2 * qi];
-    const uint4 b = query[2 * qi + 1];
-    w[0] = a.x; w[1] = a.y; w[2] = a.z; w[3] = a.w;
-    w[4] = b.x; w[5] = b.y; w[6] = b.z; w[7] = b.w;
-  }
-}
-
-__device__ __forceinline__ void store_key(float* out_dist, int* out_row,
-                                          int qi, int n_q, int n_cols, int c,
-                                          uint32_t key) {
-  if (qi < n_q) {
-    const size_t cell = static_cast<size_t>(qi) * n_cols + c;
-    out_dist[cell] = static_cast<float>(key >> kRowBits);
-    out_row[cell] = static_cast<int>(key & kRowMask);
-  }
-}
-
-// ---- B1: the 1-bit tensor-core tile --------------------------------------
+constexpr int kRowMask = (1 << kRowBits) - 1;
+constexpr int kHoleKey = 0x7FFFFFFF;   // an empty slot: (8191, 262143)
 
 constexpr int kTcWarps = 8;
 constexpr int kTcThreads = 32 * kTcWarps;
@@ -125,6 +70,7 @@ constexpr int kTcNTiles = kTcRows / 8;
 constexpr int kPopBias = 256;       // |r| + 256 - 2 popc(q & r) >= 0
 constexpr int kPastKey = 0x7FFFFFFF;   // the constant of a row past the end
 constexpr int kEmptyDist = 511;        // an object with no rows: (511, 0)
+static_assert(kTcQTile == kTcThreads, "a hole's block writes a query a thread");
 
 __device__ __forceinline__ void mma_b1(int (&c)[4], uint32_t a0, uint32_t a1,
                                        uint32_t a2, uint32_t a3, uint32_t b0,
@@ -135,22 +81,20 @@ __device__ __forceinline__ void mma_b1(int (&c)[4], uint32_t a0, uint32_t a1,
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
-// B1: grid (query tiles of 256, objects).
-__global__ void __launch_bounds__(kTcThreads)
-object_top1_tc_kernel(const uint2* __restrict__ query,   // (n_q, 4) x 8 B
-                      const uint4* __restrict__ db,      // (n_db, 2) x 16 B
-                      const int* __restrict__ obj_start, // (n_obj,)
-                      const int* __restrict__ n_rows,    // (n_obj,)
-                      float* __restrict__ out_dist,      // (n_q, n_obj)
-                      int* __restrict__ out_row,         // (n_q, n_obj)
-                      int n_q, int n_obj) {
+// The cells (q, col) of the block's 256 queries q against rows
+// [start, start + n) of the DB, written at column col of (n_q, n_cols)
+// outputs. Every thread of the block must call it (it synchronises the
+// block).
+__device__ __forceinline__ void object_tile_top1(
+    const uint2* __restrict__ query,   // (n_q, 4) x 8 B
+    const uint4* __restrict__ db,      // (n_db, 2) x 16 B
+    int start, int n, float* __restrict__ out_dist,
+    int* __restrict__ out_row, int n_q, int n_cols, int col) {
   __shared__ uint4 tile[kTcRows * 2];
   __shared__ __align__(16) int col_key[kTcRows];
-  const int o = blockIdx.y;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t4 = lane & 3;
   const int q_block = blockIdx.x * kTcQTile;
-  const int start = obj_start[o], n = n_rows[o];
 
   // A fragments and |q| of this lane's queries: m-tile mt, half h (query
   // row g or g + 8 of the tile)
@@ -233,36 +177,52 @@ object_top1_tc_kernel(const uint2* __restrict__ query,   // (n_q, 4) x 8 B
       key = min(key, __shfl_xor_sync(0xFFFFFFFFu, key, 2));
       const int qi = q_block + warp * 16 * kTcM + mt * 16 + g + 8 * h;
       if (t4 == 0 && qi < n_q) {
-        const size_t cell = static_cast<size_t>(qi) * n_obj + o;
+        const size_t cell = static_cast<size_t>(qi) * n_cols + col;
         out_dist[cell] = static_cast<float>(
             n > 0 ? (key >> kRowBits) - kPopBias + qpop[mt][h] : kEmptyDist);
-        out_row[cell] = n > 0 ? key & static_cast<int>(kRowMask) : 0;
+        out_row[cell] = n > 0 ? key & kRowMask : 0;
       }
     }
   }
 }
 
-// B2: grid (query tiles, slots); the object of slot c is sel[c].
-__global__ void __launch_bounds__(kQTile)
-object_top1_gathered_kernel(const uint4* __restrict__ query,
-                            const uint4* __restrict__ db,
-                            const int* __restrict__ obj_start,
-                            const int* __restrict__ n_rows,
-                            const int* __restrict__ sel,      // (n_sel,)
-                            float* __restrict__ out_dist,     // (n_q, n_sel)
-                            int* __restrict__ out_row,        // (n_q, n_sel)
-                            int n_q, int n_sel, int n_obj) {
-  __shared__ uint4 tile[kRowTile * 2];
+// B1: grid (query tiles of 256, objects).
+__global__ void __launch_bounds__(kTcThreads)
+object_top1_tc_kernel(const uint2* __restrict__ query,
+                      const uint4* __restrict__ db,
+                      const int* __restrict__ obj_start, // (n_obj,)
+                      const int* __restrict__ n_rows,    // (n_obj,)
+                      float* __restrict__ out_dist,      // (n_q, n_obj)
+                      int* __restrict__ out_row,         // (n_q, n_obj)
+                      int n_q, int n_obj) {
+  const int o = blockIdx.y;
+  object_tile_top1(query, db, obj_start[o], n_rows[o], out_dist, out_row,
+                   n_q, n_obj, o);
+}
+
+// B2: grid (query tiles of 256, slots); the object of slot c is sel[c].
+__global__ void __launch_bounds__(kTcThreads)
+object_top1_gathered_tc_kernel(const uint2* __restrict__ query,
+                               const uint4* __restrict__ db,
+                               const int* __restrict__ obj_start,
+                               const int* __restrict__ n_rows,
+                               const int* __restrict__ sel,    // (n_sel,)
+                               float* __restrict__ out_dist,   // (n_q, n_sel)
+                               int* __restrict__ out_row,      // (n_q, n_sel)
+                               int n_q, int n_sel, int n_obj) {
   const int c = blockIdx.y;
   const int o = sel[c];            // the same for the whole block
-  const int qi = blockIdx.x * kQTile + threadIdx.x;
-  uint32_t best = kHoleKey;
   if (o >= 0 && o < n_obj) {
-    uint32_t w[8] = {0, 0, 0, 0, 0, 0, 0, 0};
-    load_query(query, qi, n_q, w);
-    best = object_min_key(w, db, obj_start[o], n_rows[o], tile);
+    object_tile_top1(query, db, obj_start[o], n_rows[o], out_dist, out_row,
+                     n_q, n_sel, c);
+    return;
   }
-  store_key(out_dist, out_row, qi, n_q, n_sel, c, best);
+  const int qi = blockIdx.x * kTcQTile + threadIdx.x;   // a hole
+  if (qi < n_q) {
+    const size_t cell = static_cast<size_t>(qi) * n_sel + c;
+    out_dist[cell] = static_cast<float>(kHoleKey >> kRowBits);
+    out_row[cell] = kHoleKey & kRowMask;
+  }
 }
 
 }  // namespace
@@ -292,10 +252,10 @@ extern "C" int tod_object_top1_gathered(const void* query, const void* db,
                                         int n_q, int n_sel, int n_obj,
                                         void* stream) {
   if (n_q > 0 && n_sel > 0) {
-    const dim3 grid((n_q + kQTile - 1) / kQTile, n_sel);
-    object_top1_gathered_kernel<<<grid, kQTile, 0,
-                                  static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint4*>(query), static_cast<const uint4*>(db),
+    const dim3 grid((n_q + kTcQTile - 1) / kTcQTile, n_sel);
+    object_top1_gathered_tc_kernel<<<grid, kTcThreads, 0,
+                                     static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint2*>(query), static_cast<const uint4*>(db),
         static_cast<const int*>(obj_start), static_cast<const int*>(n_rows),
         static_cast<const int*>(sel), static_cast<float*>(out_dist),
         static_cast<int*>(out_row), n_q, n_sel, n_obj);

@@ -6,7 +6,8 @@ Gumbel noise from ``jax.random`` inside the sampler; here the noise is an
 argument, (A, 3, n, M) for one round of ``n`` hypotheses over ``M`` matches,
 drawn by a callback. The main path's callback, :class:`ThreefryNoise`,
 follows the reference's key path and draws its very threefry bits
-(``utils/prng.py``); a test may hand in any other.
+(``utils/prng.py``; on a card, kernel N1 draws each call's noise in one
+launch); a test may hand in any other.
 """
 
 from __future__ import annotations
@@ -72,7 +73,8 @@ class ThreefryNoise:
     the key straight to ``detect_objects``: ``key_det = key``, no tier 1.
     A triple key ``k`` gives one ``gumbel(split(k, 3)[v], (n, M))`` per
     vertex ``v``. The keys are split on the host; each call draws all
-    (A, 3) Gumbel arrays as one vectorised threefry on ``device``."""
+    (A, 3) Gumbel arrays on ``device`` with one :func:`prng.gumbel` (one
+    launch of kernel N1 on a card)."""
 
     def __init__(self, key: np.ndarray, max_instances: int, segmented: bool,
                  device: torch.device | str):

@@ -10,11 +10,17 @@ on any device. Copied from JAX 0.9.0: ``jax/_src/prng.py``
 
 A key is a numpy ``uint32`` array ``(..., 2)``, as ``jax.random``'s raw
 keys: keys live on the host, where :func:`prng_key` and :func:`split` run
-in numpy. :func:`random_bits`, :func:`uniform` and :func:`gumbel` run in
-PyTorch on the device they are given, vectorised over a leading batch of
-keys, with uint32 arithmetic emulated in int64 (PyTorch's uint32 has no
-add or shifts). The keys go up once, from pinned memory without a wait, so
-a draw adds no host/device synchronisation.
+in numpy. The keys go up once, from pinned memory without a wait, so a
+draw adds no host/device synchronisation.
+
+:func:`gumbel` (the RANSAC's noise) and :func:`threefry_bits` launch the
+hand-written kernel N1, ``csrc/threefry_gumbel.cu`` (threefry, uniform and
+Gumbel fused, one launch a batch of keys, 4 bytes written a draw), on a
+CUDA device, and run their plain PyTorch twins :func:`gumbel_torch` and
+:func:`threefry_bits_torch` on the CPU. The twins, :func:`random_bits` and
+:func:`uniform` run in PyTorch on the device they are given, vectorised
+over a leading batch of keys, with uint32 arithmetic emulated in int64
+(PyTorch's uint32 has no add or shifts).
 """
 
 from __future__ import annotations
@@ -25,12 +31,15 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from tod_tpu_torch import kernels
+
 MASK = 0xFFFFFFFF
 KS_PARITY = 0x1BD11BDA
 ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 F32_ONE_BITS = 0x3F800000     # 1.0f: the exponent the mantissa bits fill
 F32_NMANT = 23
 F32_TINY = float(np.finfo(np.float32).tiny)
+MAX_DRAWS = 2**31 - 1   # draws a key that kernel N1 takes (a 32-bit count)
 
 
 def threefry2x32(k1, k2, x1, x2):
@@ -71,10 +80,14 @@ def split(key: np.ndarray, n: int = 2) -> np.ndarray:
     return np.stack([b1, b2], axis=-1).astype(np.uint32)
 
 
-def _keys_on(keys: np.ndarray, device: torch.device) -> torch.Tensor:
-    """(..., 2) host keys as an int64 tensor on ``device``, sent from
-    pinned memory to a card without waiting for it."""
-    host = torch.from_numpy(np.asarray(keys, np.uint32).astype(np.int64))
+def _keys_on(keys: np.ndarray, device: torch.device,
+             words: bool = False) -> torch.Tensor:
+    """(..., 2) host keys on ``device``, as int64 values or (``words``) as
+    their uint32 words in an int32 tensor, sent from pinned memory to a card
+    without waiting for it."""
+    keys = np.ascontiguousarray(keys, np.uint32)
+    host = torch.from_numpy(keys.view(np.int32) if words
+                            else keys.astype(np.int64))
     if device.type == "cuda":
         return host.pin_memory().to(device, non_blocking=True)
     return host.to(device)
@@ -112,9 +125,81 @@ def uniform(keys: np.ndarray, shape: Sequence[int], minval: float = 0.0,
     return torch.clamp_min(floats * span + float(lo), float(lo))
 
 
-def gumbel(keys: np.ndarray, shape: Sequence[int],
-           device: torch.device | str = "cpu") -> torch.Tensor:
-    """``jax.random.gumbel(key, shape, float32)`` (mode "low") for every
-    key: ``-log(-log(u))`` of ``uniform(tiny, 1)``."""
+def gumbel_torch(keys: np.ndarray, shape: Sequence[int],
+                 device: torch.device | str = "cpu") -> torch.Tensor:
+    """Plain PyTorch twin of kernel N1's Gumbel mode:
+    ``jax.random.gumbel(key, shape, float32)`` (mode "low") for every key,
+    ``-log(-log(u))`` of ``uniform(tiny, 1)``."""
     u = uniform(keys, shape, F32_TINY, 1.0, device)
     return -torch.log(-torch.log(u))
+
+
+def threefry_bits_torch(keys: np.ndarray, shape: Sequence[int],
+                        device: torch.device | str = "cpu") -> torch.Tensor:
+    """Plain PyTorch twin of kernel N1's bits mode: :func:`random_bits` as
+    int32 (the uint32 bits reinterpreted)."""
+    bits = random_bits(keys, shape, device)
+    return ((bits ^ 0x80000000) - 0x80000000).to(torch.int32)
+
+
+def _checked(keys: np.ndarray, shape: Sequence[int],
+             device: torch.device | str):
+    """``(keys, n, device)`` as kernel N1 takes them, or raise: (..., 2)
+    keys, at most MAX_DRAWS draws a key, on a CPU or CUDA device."""
+    keys = np.asarray(keys)
+    if keys.ndim < 1 or keys.shape[-1] != 2:
+        raise ValueError(f"keys must be (..., 2), got {keys.shape}")
+    n = math.prod(shape)
+    if n > MAX_DRAWS:
+        raise ValueError(f"{n} draws a key exceed the kernel's {MAX_DRAWS}")
+    device = torch.device(device)
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no threefry path for {device}")
+    return keys, n, device
+
+
+def _launch(keys: np.ndarray, shape: Sequence[int], n: int,
+            device: torch.device, bits: bool) -> torch.Tensor:
+    """One launch of kernel N1 for all ``keys`` on the current stream."""
+    out = torch.empty((*keys.shape[:-1], *shape),
+                      dtype=torch.int32 if bits else torch.float32,
+                      device=device)
+    if out.numel():
+        k = _keys_on(keys, device, words=True)
+        kernels.call("threefry_gumbel", "tod_threefry_gumbel",
+                     (k.data_ptr(), out.data_ptr()),
+                     (keys.size // 2, n, int(bits)),
+                     torch.cuda.current_stream(device).cuda_stream)
+    return out
+
+
+def gumbel(keys: np.ndarray, shape: Sequence[int],
+           device: torch.device | str = "cpu") -> torch.Tensor:
+    """``jax.random.gumbel(key, shape, float32)`` for every key of ``keys``
+    (..., 2): (..., *shape) float32. A CUDA device runs kernel N1 (one
+    launch; or raise), the CPU :func:`gumbel_torch`."""
+    keys, n, device = _checked(keys, shape, device)
+    if device.type == "cpu":
+        return gumbel_torch(keys, shape, device)
+    out = _launch(keys, shape, n, device, bits=False)
+    gumbel.launches += bool(out.numel())
+    return out
+
+
+gumbel.launches = 0
+
+
+def threefry_bits(keys: np.ndarray, shape: Sequence[int],
+                  device: torch.device | str = "cpu") -> torch.Tensor:
+    """``jax.random.bits(key, shape, uint32)`` for every key, as int32:
+    kernel N1's bits mode on a CUDA device (or raise),
+    :func:`threefry_bits_torch` on the CPU."""
+    keys, n, device = _checked(keys, shape, device)
+    if device.type == "cpu":
+        return threefry_bits_torch(keys, shape, device)
+    out = _launch(keys, shape, n, device, bits=True)
+    threefry_bits.launches += bool(out.numel())
+    return out
+
+
+threefry_bits.launches = 0

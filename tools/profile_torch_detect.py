@@ -13,13 +13,14 @@ FusedDetectorConfig()'s own operating point), warms it up on the fixture's
 frames, then traces ``--frames`` calls of ``detect`` with torch.profiler.
 Prints the host latency per frame, the device-busy share of the traced
 window, per-stage host times (each stage of ``detect`` ended by a
-synchronize; ``noise``, the RANSAC's threefry draws, is timed inside the
-geometry stage and summed a frame), one frame's noise draws counted and
-timed alone (chip_smoke.noise_cost), and the top operators by device time;
-writes the chrome trace to ``--trace``. ``--compare-noise`` also times
-``detect`` (closed loop, in turns: threefry, generator, generator,
-threefry) with the detector's own threefry noise and with Gumbel noise from
-a ``torch.Generator`` (one ``torch.rand`` a draw, the noise before the port
+synchronize; ``noise``, the RANSAC's threefry draws by kernel N1, is timed
+inside the geometry stage and summed a frame), one frame's noise draws
+counted and timed alone, through N1 and through its plain twin
+(chip_smoke.noise_cost), and the top operators by device time; writes the
+chrome trace to ``--trace``. ``--compare-noise`` also times ``detect``
+(closed loop, in turns: threefry, generator, generator, threefry) with the
+detector's own threefry noise and with Gumbel noise from a
+``torch.Generator`` (one ``torch.rand`` a draw, the noise before the port
 replayed the reference's), so that the noise's share of a frame shows end
 to end. Needs a CUDA device; imports no JAX.
 """
