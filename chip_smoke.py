@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the port's serving paths (segmented ORB/Hamming and SIFT/L2, and
-the global-kNN ORB path) once on one NVIDIA GPU.
+the global-kNN ORB path) and its trainer once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -142,9 +142,34 @@ the smoke fixture's):
             at 1000 objects (coarse->fine); resident bytes and peak
             device memory.
 
+Then training (cells/trainer.py train_object), on the views of
+tests/data/torch_train_fixture.npz (the bench's objects 0-2, 60 views of
+480x640 each, and the reference's trained outputs):
+
+6. train    object 0's per-view descriptors, world points and valid masks
+            equal to the reference's; objects 0-2 trained as the bench
+            trains them (ORB, 600 features, the Trainer's dedup at 8 bits /
+            5 mm) and recompressed at 16 bits / 5 mm (bench._recompress):
+            every model's rows equal to the reference's at both, the last
+            equal to the smoke fixture's models; two B5 launches an object
+            (the dedups' self k-NN) and no other kernel. B5 at the dedup's
+            shapes (a model's rows against themselves) against its twin,
+            bit for bit, and timed beside its twin and bound; the training
+            time an object and a view (median of the three, after one
+            warm object).
+6b.         the port-trained models in the 100-object smoke catalog, served
+            at phase 4's operating point on both frames: phase 4's checks
+            (every placement within 2 cm; the reference's accepted objects
+            and poses within 1 cm and 2 degrees), one B1 launch a frame.
+6c.         object 0 trained with SIFT on every fifth view (12 of 60): the
+            valid masks and world points equal to the reference's, the
+            descriptors within 2e-5 and the quantised entries off by one
+            in at most QUANT_SHARE of them.
+
 The line before the card's is a JSON object of every kernel of the paths
 (launches on the main paths, error against the twin, time, the twin's time,
-the card's bound for the same work and the PR of the kernel's design; N1,
+the card's bound for the same work and the PR of the kernel's design; B5
+also at the dedup's shape; N1,
 which replaces no Pallas kernel, also with its torch.rand yardstick); the
 last line is
 ``{"ok": true, "device": {...}}``.
@@ -171,6 +196,7 @@ FIXTURE = os.path.join(DATA, "torch_smoke_fixture.npz")
 STREAM_FIXTURE = os.path.join(DATA, "torch_stream_fixture.npz")
 SIFT_FIXTURE = os.path.join(DATA, "torch_sift_fixture.npz")
 GLOBAL_FIXTURE = os.path.join(DATA, "torch_global_fixture.npz")
+TRAIN_FIXTURE = os.path.join(DATA, "torch_train_fixture.npz")
 Q = 2048
 KERNEL_RUNS = 24       # CUDA-event timings of a kernel and its twin
 TWIN_RUNS = 3          # twin timings at 1000 objects (~0.1-2 s each)
@@ -258,6 +284,17 @@ SIFT_CONFIG = {**BENCH_CONFIG, "feature": "SIFT", "radius": 0.9}
 GLOBAL_CONFIG = dict(pipeline="global", min_quality=156.0)
 Q_GLOBAL = 5000        # every keypoint of a frame is a query
 B5_SHAPES = ((5, 35.0), (8, 50.0), (5, None))   # (k, radius) held and timed
+# The bench's training (bench.py build_db): ORB with 600 features (3
+# levels, scale 1.2, FAST threshold 20: the trainer's defaults), the
+# Trainer's dedup at 8 bits / 5 mm, then the bench's load-time
+# recompression at 16 bits / 5 mm (bench._recompress, "16x5")
+TRAIN_FEATURES = {"type": "ORB", "n_features": 600}
+TRAIN_DEDUP = (8, 0.005)
+RECOMPRESS = (16, 0.005)
+DEDUP_K = 8            # compress_model's k-NN
+# SIFT descriptors against the reference's: the pixel contraction's order
+# (tests/test_torch_sift.py DESC_ATOL)
+SIFT_ATOL = 2e-5
 EDGE_ROWS = 20000      # B5's edge-case DB: five splits of 4096 rows
 B5_EDGE_Q = (1, 17, 65, 300, 1000)   # ragged against 16-query m-tiles
 T1_Q, T1_N = 5120, 262144   # tools/bench_dot_iso.py's shape
@@ -1391,6 +1428,171 @@ def global_phases(dev, card: str, fx, frames, large, launches: dict):
                  modes_ms=t1["popc"], b5_route=b5_route, routes_ms=t1))
 
 
+def unpacked(bits: np.ndarray, n: int) -> np.ndarray:
+    return np.unpackbits(bits, axis=-1, count=n,
+                         bitorder="little").astype(bool)
+
+
+def train_phases(dev, card: str, fx, frames, launches: dict) -> dict:
+    """Phases 6, 6b and 6c: training on the card, held to the reference's
+    trained models (tests/data/torch_train_fixture.npz), and the trained
+    models served. ``frames`` are the prepared smoke fixture frames.
+    Returns B5's fields at the dedup's shape for the ``kernels`` line."""
+    from tod_tpu_torch.cells.trainer import (feature_settings, fill_model,
+                                             train_object, train_views)
+    from tod_tpu_torch.models.fused import FusedDetector
+    from tod_tpu_torch.ops import hamming as ham
+    from tod_tpu_torch.ops.compress import compress_model
+    from tod_tpu_torch.ops.segmented_l2 import quantize_numpy
+    from tod_tpu_torch.types import fixture_observations
+
+    tx = np.load(TRAIN_FIXTURE)
+    model_ids = [str(s) for s in fx["model_ids"]]
+    views = [fixture_observations(tx, i) for i in range(len(model_ids))]
+    n_feat = TRAIN_FEATURES["n_features"]
+
+    # ---- 6. object 0's views, then each object's model -------------------
+    desc, world, valid = train_views(views[0], feature_settings(
+        TRAIN_FEATURES), dev)
+    same = (np.array_equal(valid, unpacked(tx["views0_valid"], n_feat))
+            and np.array_equal(desc, tx["views0_desc"])
+            and np.array_equal(world, tx["views0_world"], equal_nan=True))
+    log(f"train: object 0: {len(views[0])} views of "
+        f"{views[0][0].image.shape[:2]}: {int(valid.sum())} valid of "
+        f"{valid.size} keypoints; descriptors, world points and valid masks "
+        f"equal to the reference's: {same}")
+    if not same:
+        raise AssertionError("train: object 0's per-view outputs differ "
+                             "from the reference's")
+
+    def train(i):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        d, p = train_object(views[i], TRAIN_FEATURES, *TRAIN_DEDUP,
+                            device=dev)
+        t1 = time.perf_counter()
+        d16, p16 = compress_model(d, p.reshape(-1, 3), *RECOMPRESS,
+                                  device=dev)
+        return (d, p.reshape(-1, 3)), (d16, p16), t1 - t0, \
+            time.perf_counter() - t1
+
+    train(0)                                            # warm
+    reset_counts()
+    secs, rc_secs, trained = [], [], []
+    for i, oid in enumerate(model_ids):
+        (d8, p8), (d16, p16), s, rc = train(i)
+        secs.append(s)
+        rc_secs.append(rc)
+        stacked = tx[f"stacked{i}_desc"], tx[f"stacked{i}_points"]
+        keep8 = unpacked(tx[f"keep8_{i}"], len(stacked[0]))
+        same = (np.array_equal(d8, stacked[0][keep8])
+                and np.array_equal(p8, stacked[1][keep8])
+                and np.array_equal(d16, fx[f"desc{i}"])
+                and np.array_equal(p16, fx[f"points{i}"]))
+        log(f"train: {oid}: {len(stacked[0])} rows before dedup, "
+            f"{len(d8)} after {TRAIN_DEDUP[0]} bits / "
+            f"{TRAIN_DEDUP[1] * 1e3:g} mm, {len(d16)} after "
+            f"{RECOMPRESS[0]} / {RECOMPRESS[1] * 1e3:g} mm; descriptors and "
+            f"points equal to the reference's at both: {same}; trained in "
+            f"{s:.3f} s, recompressed in {rc:.3f} s")
+        if not same:
+            raise AssertionError(f"train: {oid}'s model differs from the "
+                                 "reference's")
+        trained.append(fill_model(oid, d16, p16))
+    launches["6"] = read_counts()
+    log(f"train: {len(model_ids)} objects, launches "
+        + ", ".join(f"{name} {n}" for name, n in zip(
+            [f"B{i + 1}" for i in range(5)] + ["T1", "N1"], launches["6"])))
+    want = [0, 0, 0, 0, 2 * len(model_ids), 0, 0]
+    if list(launches["6"]) != want:
+        raise AssertionError(f"train: launches {list(launches['6'])}, "
+                             f"expected {want} (two B5 dedups an object)")
+    n_views = len(views[0])
+    log(f"time: training per object median {np.median(secs):.3f} s "
+        f"({np.median(secs) / n_views * 1e3:.2f} ms a view of {n_views}; "
+        f"objects {', '.join(f'{s:.3f}' for s in secs)} s, after one warm "
+        f"object), {RECOMPRESS[0]}x{RECOMPRESS[1] * 1e3:g} recompression "
+        f"median {np.median(rc_secs) * 1e3:.2f} ms; {card}")
+
+    # B5 at the dedup's own shapes: a model's rows against themselves
+    err = 0.0
+    shapes = []
+    rows0 = tx["stacked0_desc"]
+    for radius, d, what in (
+            (TRAIN_DEDUP[0], rows0, "obj000 before dedup"),
+            (RECOMPRESS[0], rows0[unpacked(tx["keep8_0"], len(rows0))],
+             "obj000 after dedup 8")):
+        rows = torch.from_numpy(d).to(dev)
+        words = ham.pack_db_bits(rows)
+        err = max(err, check_b5(rows, words, len(d), DEDUP_K, radius,
+                                f"the dedup of {what} (Q = N)"))
+        shapes.append((rows, words, radius))
+    rows, words, radius = shapes[0]
+    n = rows.shape[0]
+    ms = cuda_ms(lambda: ham.hamming_topk_fused(rows, words, n, k=DEDUP_K,
+                                                radius=radius))
+    ms16 = cuda_ms(lambda: ham.hamming_topk_fused(
+        shapes[1][0], shapes[1][1], shapes[1][0].shape[0], k=DEDUP_K,
+        radius=shapes[1][2]))
+    plain_ms = cuda_ms(lambda: ham.hamming_topk_fused_torch(
+        rows, words, n, DEDUP_K, radius), runs=TWIN_RUNS, warmup=1)
+    pairs = n * n
+    b5_bound = hamming_bound(pairs, 2 * n * 32 + n * DEDUP_K * 8)
+    log(f"kernels: B5 at the dedup's shape {ms:.3f} ms median of "
+        f"{KERNEL_RUNS} ({pairs / ms / 1e6:.1f} G pairs/s) at Q = N = {n} "
+        f"rows, k {DEDUP_K}, radius {radius}; twin {plain_ms:.3f} ms median "
+        f"of {TWIN_RUNS}; bound {b5_bound[0]:.4f} ms by {b5_bound[1]}; "
+        f"the recompression's shape (N = {shapes[1][0].shape[0]}, radius "
+        f"{shapes[1][2]}) {ms16:.3f} ms; {card}")
+    del shapes, rows, words
+
+    # ---- 6b. the port-trained models served ------------------------------
+    catalog = smoke_models(model_ids, [(m.descriptors, m.points)
+                                       for m in trained])
+    det = FusedDetector(catalog, config(fx), seed=0, device=dev)
+    reset_counts()
+    found = [det.detect(*frame) for frame in frames]
+    launches["6b"] = read_counts()
+    check_launches("train->serve", len(frames), launches["6b"], full=0)
+    for f, res in enumerate(found):
+        check_frame(f, res, fx, what="train->serve")
+    log("train->serve: the port-trained models served: every placement "
+        "within 2 cm; accepted objects and poses agree with the reference")
+    del det, catalog
+
+    # ---- 6c. SIFT training on the reference's views ----------------------
+    sv = [views[0][v] for v in tx["sift_views"]]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    desc, world, valid = train_views(sv, feature_settings(
+        {**TRAIN_FEATURES, "type": "SIFT"}), dev)
+    sift_s = time.perf_counter() - t0
+    flat = valid.reshape(-1)
+    model = fill_model(model_ids[0], desc.reshape(-1, 128)[flat],
+                       world.reshape(-1, 3)[flat])
+    want_d, want_p = tx["sift0_desc"], tx["sift0_points"]
+    exact = (np.array_equal(valid, unpacked(tx["sift0_valid"], n_feat))
+             and np.array_equal(model.points, want_p))
+    gap = float(np.abs(model.descriptors - want_d).max()) if exact else 1.0
+    diff = quantize_numpy(model.descriptors).astype(np.int32) \
+        - quantize_numpy(want_d).astype(np.int32)
+    log(f"train: SIFT, {model_ids[0]} on {len(sv)} of {len(views[0])} "
+        f"views (every {tx['sift_views'][1]}th): {model.n_points} rows; "
+        f"valid masks and points equal to the reference's: {exact}; "
+        f"descriptors within {gap:.3g} (bound {SIFT_ATOL}); "
+        f"{int((diff != 0).sum())} of {diff.size} quantised entries differ "
+        f"(max {int(np.abs(diff).max())}); trained in {sift_s:.3f} s "
+        f"({sift_s / len(sv) * 1e3:.2f} ms a view); {card}")
+    if not exact or gap > SIFT_ATOL or np.abs(diff).max() > 1 \
+            or (diff != 0).mean() > QUANT_SHARE:
+        raise AssertionError("train: the SIFT model differs from the "
+                             "reference's")
+    return dict(dedup_ms=ms, dedup_plain_ms=plain_ms,
+                dedup_bound_ms=b5_bound[0], dedup_bound_by=b5_bound[1],
+                dedup_shape=f"Q = N = {n}, k {DEDUP_K}, radius {radius}",
+                dedup_max_abs_err=err)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -1618,6 +1820,8 @@ def main() -> int:
     del large
     torch.cuda.empty_cache()
     b3, b4 = sift_phases(dev, card, fx, frames, launches)
+    torch.cuda.empty_cache()
+    b5_dedup = train_phases(dev, card, fx, frames, launches)
 
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
@@ -1644,7 +1848,9 @@ def main() -> int:
          "launches": total(3), "library_ms": None, "design_pr": 7, **b4},
         {"name": "B5 radius k-NN Hamming over the whole DB", "route": "cuda",
          "source": SOURCE_B5, "replaces": B5_REPLACES, "launches": total(4),
-         "library_ms": None, "design_pr": 6, **b5},
+         "library_ms": None, "design_pr": 6,
+         **{**b5, **b5_dedup, "max_abs_err": max(
+             b5["max_abs_err"], b5_dedup["dedup_max_abs_err"])}},
         {"name": "T1 isolation bench: B5's sweep without extraction "
          "(dist_sum timed; every mode in modes_ms)", "route": "cuda",
          "source": SOURCE_B5, "replaces": T1_REPLACES, "launches": total(5),

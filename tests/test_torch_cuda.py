@@ -1,5 +1,6 @@
 """The port's CUDA kernels (B1, B2, B3, B4 of the SIFT/L2 path, and B5 and
-its isolation modes T1 of the global-kNN path, on every route) against
+its isolation modes T1 of the global-kNN path, on every route, with B5 also
+at the training dedup's shapes) against
 their plain PyTorch twins, on the card, with the edges of the tensor-core
 tiles (ragged Q and n_valid, short objects beside padding, the full int8
 range, all-zero and all-one descriptors, ties across fragments, lanes,
@@ -18,13 +19,14 @@ import pytest
 import torch
 
 from tod_tpu_torch.geometry.ransac import ThreefryNoise
+from tod_tpu_torch.ops import compress as tcompress
 from tod_tpu_torch.ops import hamming as tham
 from tod_tpu_torch.ops import segmented as tseg
 from tod_tpu_torch.ops import segmented_l2 as tl2
 from tod_tpu_torch.types import TodModel
 from tod_tpu_torch.utils import prng
 from tod_tpu_torch.utils.smoke_catalog import (
-    HAMMING_TILE_TIES, edge_case_arrays_hamming,
+    HAMMING_TILE_TIES, dedup_case_arrays, edge_case_arrays_hamming,
     edge_case_arrays_hamming_tiles, edge_case_arrays_l2,
     edge_case_arrays_l2_int8)
 
@@ -427,6 +429,45 @@ def test_b5_refuses_what_it_cannot_take():
         tham.hamming_probe(q, words, n, "dot_only")                   # mode
     with pytest.raises(ValueError):
         tham.hamming_probe(q, words, n, "row_min", "bf16")            # route
+
+
+# ---- the model dedup on B5 (training) -------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_rows", [2, 9, 400, 3000, 20000])
+@pytest.mark.parametrize("radius", [8, 16])
+def test_b5_matches_twin_at_the_dedup_shapes(n_rows, radius):
+    """A model's rows against themselves (Q = N), k = 8: exact duplicates
+    at distance 0 (more than k), chains and equal-distance ties, and rows
+    just inside and outside the radius."""
+    dev = _cuda()
+    d, _ = dedup_case_arrays(n_rows, max(n_rows, 64))
+    rows = torch.from_numpy(d[:n_rows]).to(dev)
+    words = tham.pack_db_bits(rows)
+    k = min(8, n_rows)
+    before = tham.hamming_topk_fused.launches
+    got = tham.hamming_topk_fused(rows, words, n_rows, k=k, radius=radius)
+    torch.cuda.synchronize()
+    assert tham.hamming_topk_fused.launches == before + 1
+    want = tham.hamming_topk_fused_torch(rows, words, n_rows, k, radius)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    # every row finds itself (or an equal earlier row) first
+    assert (got[0][:, 0] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_rows", [0, 1, 2, 400, 20000])
+def test_compress_model_on_the_card_equals_the_cpu_path(n_rows):
+    dev = _cuda()
+    d, p = dedup_case_arrays(7, max(n_rows, 64))
+    d, p = d[:n_rows], p[:n_rows]
+    for hamming in (8, 16):
+        before = tham.hamming_topk_fused.launches
+        got = tcompress.compress_model(d, p, hamming, 0.005, device=dev)
+        assert tham.hamming_topk_fused.launches == before + (n_rows > 1)
+        want = tcompress.compress_model(d, p, hamming, 0.005, device="cpu")
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_array_equal(got[1], want[1])
 
 
 # ---- the reference's threefry noise on the card ----------------------------

@@ -32,7 +32,9 @@ def test_port_imports_no_jax_cv2_yaml_or_reference():
     assert out.returncode == 0, out.stderr
     got = json.loads(out.stdout.strip().splitlines()[-1])
     for name in ("models.fused", "ops.sift", "ops.segmented_l2",
-                 "ops.hamming", "ops.matching", "geometry.detection"):
+                 "ops.hamming", "ops.matching", "geometry.detection",
+                 "ops.morphology", "ops.compress", "parallel.train",
+                 "cells.trainer"):
         assert f"tod_tpu_torch.{name}" in got["modules"]
-    assert len(got["modules"]) >= 22
+    assert len(got["modules"]) >= 28
     assert got["banned"] == [] and got["loaded"] == []

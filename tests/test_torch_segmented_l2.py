@@ -20,7 +20,9 @@ import jax.numpy as jnp
 from tod_tpu.db.models import TodModel as JaxModel
 from tod_tpu.ops.pallas import segmented_l2 as jl2
 from tod_tpu_torch import convert
+from tod_tpu_torch.cells import trainer as ttrainer
 from tod_tpu_torch.models import fused as tfused
+from tod_tpu_torch.ops import compress as tcompress
 from tod_tpu_torch.ops import segmented as tseg
 from tod_tpu_torch.ops import segmented_l2 as tl2
 from tod_tpu_torch.types import TodModel
@@ -211,7 +213,8 @@ def test_wrappers_run_twins_for_cpu_tensors(rng):
     tfused.FusedDetector.__init__, tseg.pack_segmented,
     tl2.pack_segmented_l2, convert.segmented_db_from_jax,
     convert.segmented_db_f_from_jax, tfused.pack_models,
-    convert.model_db_from_jax])
+    convert.model_db_from_jax, ttrainer.train_object,
+    tcompress.compress_model, tcompress.self_knn])
 def test_entry_points_default_to_the_card(entry):
     """Entry points serve on the card unless the caller names another
     device (the tests name "cpu"); none falls back when no card is found."""

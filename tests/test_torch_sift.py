@@ -134,8 +134,16 @@ def test_sift_detect_and_compute_matches():
     q_j = np.asarray(jl2.quantize_descriptors(d_j))
     assert _quant_gap(tl2.quantize_descriptors(d_t).numpy(), q_j) \
         <= QUANT_SHARE
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsift.sift_detect_and_compute(_t(g), mask=_t(g) > 0, **kw)
+    # a keypoint mask (training's) restricts detection as the reference's
+    mask = np.zeros(g.shape, np.uint8)
+    mask[20:100, 30:125] = 255
+    k_jm, _ = jax.jit(lambda x, m: jsift.sift_detect_and_compute(
+        x, mask=m, **kw))(jnp.asarray(g), jnp.asarray(mask))
+    k_tm, _ = tsift.sift_detect_and_compute(_t(g), mask=_t(mask), **kw)
+    for name in ("xy", "level", "valid"):
+        np.testing.assert_array_equal(getattr(k_tm, name).numpy(),
+                                      np.asarray(getattr(k_jm, name)), name)
+    assert int(k_tm.valid.sum()) < int(valid.sum())
 
 
 # ---- the SIFT slice as a whole ---------------------------------------------

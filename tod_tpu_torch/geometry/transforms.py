@@ -13,6 +13,8 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from tod_tpu_torch.ops.image import fma_f32
+
 
 def _det3(m: torch.Tensor) -> torch.Tensor:
     return (m[..., 0, 0] * (m[..., 1, 1] * m[..., 2, 2] - m[..., 1, 2] * m[..., 2, 1])
@@ -178,3 +180,25 @@ def invert_pose(R: torch.Tensor, T: torch.Tensor
     """R_out = R^T, T_out = -R_out @ T."""
     R_out = R.transpose(-1, -2)
     return R_out, -torch.einsum("...ij,...j->...i", R_out, T)
+
+
+def camera_to_world(R: torch.Tensor, T: torch.Tensor,
+                    points: torch.Tensor) -> torch.Tensor:
+    """world = (x - T) @ R for (K, 3) camera-frame points
+    (training.cpp:175-195), summed as the compiled reference's CPU dot of
+    shape (K, 3) x (3, 3) sums (read off its results): in rows below
+    ``K // 8 * 8``, columns 0 and 1 as ``(d0 r0 + d1 r1) + d2 r2`` with
+    every operation rounded and column 2 as the fused chain
+    ``fma(d2, r2, fma(d1, r1, d0 r0))``; the tail rows use the chain in
+    every column. Bit-equal to ``jax.jit`` from K = 40 on (the trainer's K
+    is its feature count); below, XLA's small-dot code orders some rows
+    otherwise."""
+    d = points.to(torch.float32) - T.reshape(1, 3).to(torch.float32)
+    R = R.to(torch.float32)
+    d0, d1, d2 = d[:, 0:1], d[:, 1:2], d[:, 2:3]
+    chain = fma_f32(d2, R[2], fma_f32(d1, R[1], d0 * R[0]))
+    split = (d0 * R[0] + d1 * R[1]) + d2 * R[2]
+    body = torch.arange(d.shape[0], device=d.device)[:, None] \
+        < d.shape[0] // 8 * 8
+    column = torch.arange(3, device=d.device)[None, :] < 2
+    return torch.where(body & column, split, chain)

@@ -8,7 +8,7 @@ top-K. ``stable_topk`` is the one top-k of the port: it keeps
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -102,16 +102,20 @@ def nms3x3(score: torch.Tensor) -> torch.Tensor:
 
 def select_topk_keypoints(fast: torch.Tensor, harris: torch.Tensor,
                           is_corner: torch.Tensor, k: int,
-                          edge_threshold: int = 31
+                          edge_threshold: int = 31,
+                          mask: Optional[torch.Tensor] = None
                           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Top-k corners by Harris response after FAST-score NMS. Returns
-    ``(xy int32 (k,2), response (k,), valid (k,))``."""
+    """Top-k corners by Harris response after FAST-score NMS, only where
+    ``mask > 0`` when a (H,W) ``mask`` is given. Returns ``(xy int32 (k,2),
+    response (k,), valid (k,))``."""
     h, w = fast.shape
     keep = is_corner & nms3x3(fast)
     inside = torch.zeros((h, w), dtype=torch.bool, device=fast.device)
     inside[edge_threshold:h - edge_threshold,
            edge_threshold:w - edge_threshold] = True
     keep = keep & inside
+    if mask is not None:
+        keep = keep & (mask > 0)
     ranked = torch.where(keep, harris,
                          torch.full((), -torch.inf, device=fast.device))
     resp, idx = stable_topk(ranked.reshape(-1), k)

@@ -1,8 +1,10 @@
 """Dense image ops: grayscale, separable Gaussian blur, pyramid resize.
 
-Port of tod_tpu/ops/image.py. Arithmetic follows the reference's order
-(separate multiply and add passes, f32 throughout) so that results agree
-with it to the last bit where the reference's own order is fixed.
+Port of tod_tpu/ops/image.py. Arithmetic follows the reference's order,
+f32 throughout, and rounds as the reference rounds where it runs: serving
+converts frames to gray eagerly (separate multiply and add passes), while
+the compiled programs fuse multiply-adds (:func:`fma_f32`), so that results
+agree with it to the last bit where the reference's own order is fixed.
 """
 
 from __future__ import annotations
@@ -25,6 +27,38 @@ def rgb_to_gray(image: torch.Tensor) -> torch.Tensor:
     return 0.299 * r + 0.587 * g + 0.114 * b
 
 
+def fma_f32(a: torch.Tensor, b, c: torch.Tensor) -> torch.Tensor:
+    """f32 ``a * b + c`` rounded once, as a fused multiply-add, on any
+    device: the product is exact in f64, the f64 sum is rounded to odd (an
+    inexact sum with an even last bit moves one ulp toward its TwoSum
+    error), and rounding that to f32 is then correct."""
+    if isinstance(b, torch.Tensor):
+        b = b.to(torch.float64)
+    p = a.to(torch.float64) * b
+    c = c.to(torch.float64)
+    s = p + c
+    back = s - p
+    err = (p - (s - back)) + (c - back)
+    bits = s.view(torch.int64)
+    step = torch.where((err != 0) & ((bits & 1) == 0),
+                       torch.where((err > 0) == (s > 0), 1, -1), 0)
+    return (bits + step).view(torch.float64).to(torch.float32)
+
+
+def rgb_to_gray_fused(image: torch.Tensor) -> torch.Tensor:
+    """:func:`rgb_to_gray` as the reference's compiled programs round it
+    (the trainer's, tod_tpu/cells/trainer.py:49; serving converts eagerly):
+    XLA fuses the weighted sum into ``fma(0.114, b, fma(0.299, r, 0.587
+    g))``."""
+    img = image.to(torch.float32)
+    if img.dim() == 2:
+        return img
+    r, g, b = img[..., 0], img[..., 1], img[..., 2]
+    c = [torch.full((), v, dtype=torch.float32, device=img.device)
+         for v in (0.299, 0.587, 0.114)]
+    return fma_f32(c[2], b, fma_f32(c[0], r, c[1] * g))
+
+
 # Copied from tod_tpu/ops/image.py:29 (_gaussian_kernel1d), numpy only.
 def _gaussian_kernel1d(ksize: int, sigma: float) -> np.ndarray:
     # Same formula as cv::getGaussianKernel.
@@ -35,24 +69,28 @@ def _gaussian_kernel1d(ksize: int, sigma: float) -> np.ndarray:
     return (k / k.sum()).astype(np.float32)
 
 
-def _weighted_taps(taps: List[torch.Tensor], k: np.ndarray) -> torch.Tensor:
-    acc = taps[0] * float(k[0])
-    for i in range(1, len(taps)):
-        acc = acc + taps[i] * float(k[i])
+def _fused_taps(taps: List[torch.Tensor], k: np.ndarray) -> torch.Tensor:
+    acc = fma_f32(taps[0], float(k[0]), taps[1] * float(k[1]))
+    for i in range(2, len(taps)):
+        acc = fma_f32(taps[i], float(k[i]), acc)
     return acc
 
 
 def gaussian_blur(image: torch.Tensor, ksize: int = 7,
                   sigma: float = 2.0) -> torch.Tensor:
-    """Separable Gaussian blur with replicate (edge) borders."""
+    """Separable Gaussian blur with replicate (edge) borders, rounded as the
+    reference's compiled programs round it (ORB and SIFT describe inside
+    them, at serving and at training): LLVM fuses each pass's sum of
+    products into ``fma(k0, t0, k1 t1)``, then ``fma(ki, ti, acc)`` tap by
+    tap."""
     k = _gaussian_kernel1d(ksize, sigma)
     pad = ksize // 2
     h, w = image.shape
     x = image.to(torch.float32)
     xp = F.pad(x[None, None], (pad, pad, 0, 0), mode="replicate")[0, 0]
-    x = _weighted_taps([xp[:, i:i + w] for i in range(ksize)], k)
+    x = _fused_taps([xp[:, i:i + w] for i in range(ksize)], k)
     xp = F.pad(x[None, None], (0, 0, pad, pad), mode="replicate")[0, 0]
-    return _weighted_taps([xp[i:i + h] for i in range(ksize)], k)
+    return _fused_taps([xp[i:i + h] for i in range(ksize)], k)
 
 
 def _fma_f32(a: np.ndarray, b, c: np.ndarray) -> np.ndarray:
@@ -185,6 +223,34 @@ def resize_bilinear(image: torch.Tensor,
         x = _resize_rows(x, oh, (oh, h, w))
     if ow != w:
         x = _resize_rows(x.T, ow, (x.shape[0], w, ow)).T
+    return x
+
+
+@functools.lru_cache(maxsize=None)
+def nearest_indices(in_size: int, out_size: int) -> np.ndarray:
+    """Source index of each output along one axis of
+    ``jax.image.resize(method="nearest")``: ``floor((i + 0.5) * m / n)`` in
+    f32 (jax/_src/image/scale.py ``_resize_nearest``), as the compiled
+    reference evaluates it: XLA folds ``* m / n`` into one multiply by the
+    f32 constant ``m * (1 / n)`` (at 480 -> 400 that is 1.19999993, and
+    output 2 reads row 2, not 3)."""
+    f32 = np.float32
+    scale = f32(f32(in_size) * (f32(1) / f32(out_size)))
+    centers = np.arange(out_size, dtype=f32) + f32(0.5)
+    return np.floor(centers * scale).astype(np.int64)
+
+
+def resize_nearest(image: torch.Tensor,
+                   out_hw: Tuple[int, int]) -> torch.Tensor:
+    """Nearest-neighbour resize of the two leading axes (CV_INTER_NN, used
+    for depth and masks so that edges do not blend), with the compiled
+    reference's source indices (:func:`nearest_indices`)."""
+    (h, w), (oh, ow) = image.shape[:2], out_hw
+    x = image
+    if oh != h:
+        x = x[torch.from_numpy(nearest_indices(h, oh)).to(x.device)]
+    if ow != w:
+        x = x[:, torch.from_numpy(nearest_indices(w, ow)).to(x.device)]
     return x
 
 

@@ -12,14 +12,15 @@ gives the same bits without the (K, 1369) x (1369, 8192) product.
 from __future__ import annotations
 
 import functools
-from typing import Callable, List, NamedTuple, Tuple
+from typing import Callable, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from tod_tpu_torch.ops.fast import (fast_score, features_per_level,
                                     harris_response, select_topk_keypoints)
-from tod_tpu_torch.ops.image import build_pyramid, gaussian_blur
+from tod_tpu_torch.ops.image import (build_pyramid, fma_f32,
+                                     gaussian_blur, resize_nearest)
 from tod_tpu_torch.ops.matching import pack_bits
 
 HALF_PATCH = 15          # orientation patch radius (cv::ORB half_patch_size)
@@ -91,36 +92,60 @@ def _circle_half_widths() -> np.ndarray:
                             - np.minimum(dys**2, HALF_PATCH**2))).astype(int)
 
 
+def scan_sum(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive f32 prefix sums along axis 0, added as the reference's
+    compiled CPU ``cumsum`` adds them (XLA rewrites the full-length
+    reduce-window into blocks of 16): each block of 16 summed in order,
+    the blocks' totals prefix-summed the same way, then each block's
+    exclusive offset added once."""
+    n = x.shape[0]
+    if n <= 16:
+        rows = [x[0]]
+        for i in range(1, n):
+            rows.append(rows[-1] + x[i])
+        return torch.stack(rows)
+    m = -(-n // 16)
+    blocks = torch.nn.functional.pad(
+        x.reshape(n, -1), (0, 0, 0, m * 16 - n)).reshape(m, 16, -1)
+    cols = [blocks[:, 0]]
+    for j in range(1, 16):
+        cols.append(cols[-1] + blocks[:, j])
+    prefix = torch.stack(cols, 1)
+    totals = scan_sum(prefix[:, 15])
+    offsets = torch.cat([torch.zeros_like(totals[:1]), totals[:-1]])
+    return (prefix + offsets[:, None]).reshape(m * 16, *x.shape[1:])[:n]
+
+
 def orientation_moments(img: torch.Tensor
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dense (m10, m01) intensity-centroid moment maps of the 31x31 circular
-    patch, from integral images (zero borders)."""
+    patch, from integral images (zero borders), rounded as the reference's
+    compiled programs round them: the integral images by :func:`scan_sum`,
+    and each moment's 30 weighted terms fused into ``fma(-15, t0, -14 t1)``,
+    then ``fma(d, t, acc)`` term by term (the two moments side by side)."""
     widths = _circle_half_widths()
     h, w = img.shape
     x = img.to(torch.float32)
     pad = HALF_PATCH + 1
     zpad = torch.nn.functional.pad
-    v = zpad(torch.cumsum(zpad(x, (0, 0, 1, 0)), dim=0),
-             (pad, pad, pad, pad))
-    hc = zpad(torch.cumsum(zpad(x, (1, 0, 0, 0)), dim=1),
-              (pad, pad, pad, pad))
+    v = zpad(scan_sum(zpad(x, (0, 0, 1, 0))), (pad, pad, pad, pad))
+    hc = zpad(scan_sum(zpad(x, (1, 0, 0, 0)).T).T, (pad, pad, pad, pad))
 
     def vslice(arr, dy, dx):
         return arr[pad + dy:pad + dy + h, pad + dx:pad + dx + w]
 
-    m10 = torch.zeros_like(x)
-    m01 = torch.zeros_like(x)
-    for dy in range(-HALF_PATCH, HALF_PATCH + 1):
-        hw = int(widths[dy + HALF_PATCH])
-        if dy != 0:
-            row_sum = vslice(hc, dy, hw + 1) - vslice(hc, dy, -hw)
-            m01 = m01 + dy * row_sum
-    for dx in range(-HALF_PATCH, HALF_PATCH + 1):
-        hw = int(widths[dx + HALF_PATCH])
-        if dx != 0:
-            col_sum = vslice(v, hw + 1, dx) - vslice(v, -hw, dx)
-            m10 = m10 + dx * col_sum
-    return m10, m01
+    terms = []
+    for d in range(-HALF_PATCH, HALF_PATCH + 1):
+        hw = int(widths[d + HALF_PATCH])
+        if d != 0:
+            col_sum = vslice(v, hw + 1, d) - vslice(v, -hw, d)
+            row_sum = vslice(hc, d, hw + 1) - vslice(hc, d, -hw)
+            terms.append((float(d), torch.stack([col_sum, row_sum])))
+    (d0, t0), (d1, t1) = terms[:2]
+    acc = fma_f32(t0, d0, t1 * d1)
+    for d, t in terms[2:]:
+        acc = fma_f32(t, d, acc)
+    return acc[0], acc[1]
 
 
 def keypoint_angles(img: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
@@ -169,13 +194,16 @@ def brief_descriptors(blurred: torch.Tensor, xy: torch.Tensor,
 
 def detect_and_describe(gray: torch.Tensor, describe: Callable,
                         n_features: int, n_levels: int, scale_factor: float,
-                        fast_threshold: float, edge_threshold: int
+                        fast_threshold: float, edge_threshold: int,
+                        mask: Optional[torch.Tensor] = None
                         ) -> Tuple[Keypoints, torch.Tensor]:
     """FAST/Harris keypoints over the pyramid with exactly ``n_features``
     padded slots, each level's descriptors from ``describe(level image, xy,
     angle)`` (zero on invalid slots). Keypoint coords are integer level
     coords scaled to level 0 (no sub-pixel refinement, the serving
-    default)."""
+    default). A (H,W) ``mask`` (nonzero = allowed; training's object mask)
+    restricts detection: each level tests it nearest-resized to the
+    level's size as a float (tod_tpu/ops/orb.py:289-294)."""
     levels = build_pyramid(gray, n_levels, scale_factor)
     counts = features_per_level(n_features, n_levels, scale_factor)
     kxs: List[torch.Tensor] = []
@@ -186,8 +214,12 @@ def detect_and_describe(gray: torch.Tensor, describe: Callable,
             continue
         score, is_corner = fast_score(img, fast_threshold)
         harris = harris_response(img)
+        lvl_mask = mask
+        if mask is not None and img.shape != mask.shape:
+            lvl_mask = resize_nearest(mask.to(torch.float32), img.shape)
         xy, resp, valid = select_topk_keypoints(score, harris, is_corner,
-                                                k_lvl, edge_threshold)
+                                                k_lvl, edge_threshold,
+                                                lvl_mask)
         angle = keypoint_angles(img, xy)
         desc = describe(img, xy, angle)
         desc = torch.where(valid[:, None], desc,
@@ -209,12 +241,18 @@ def detect_and_describe(gray: torch.Tensor, describe: Callable,
 def orb_detect_and_compute(gray: torch.Tensor, n_features: int = 500,
                            n_levels: int = 3, scale_factor: float = 1.2,
                            fast_threshold: float = 20.0,
-                           edge_threshold: int = EDGE_THRESHOLD
+                           edge_threshold: int = EDGE_THRESHOLD,
+                           mask: Optional[torch.Tensor] = None,
+                           subpixel: bool = False
                            ) -> Tuple[Keypoints, torch.Tensor]:
     """ORB keypoints + 256-bit descriptors, (n_features, 32) uint8
     (:func:`detect_and_describe` with steered BRIEF on the level blurred at
-    sigma 2)."""
+    sigma 2), restricted to ``mask`` when one is given."""
+    if subpixel:
+        raise NotImplementedError(
+            "tod_tpu_torch: sub-pixel keypoints are ROADMAP A16")
     return detect_and_describe(
         gray, lambda img, xy, angle: brief_descriptors(
             gaussian_blur(img, 7, 2.0), xy, angle),
-        n_features, n_levels, scale_factor, fast_threshold, edge_threshold)
+        n_features, n_levels, scale_factor, fast_threshold, edge_threshold,
+        mask)

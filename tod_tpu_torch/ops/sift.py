@@ -120,11 +120,9 @@ def sift_detect_and_compute(gray: torch.Tensor, n_features: int = 500,
                             ) -> Tuple[Keypoints, torch.Tensor]:
     """FAST/Harris keypoints + SIFT-128 float descriptors, (n_features, 128)
     float32, with orb_detect_and_compute's contract (padded slots,
-    ``valid``). A keypoint ``mask`` belongs to training, not serving."""
-    if mask is not None:
-        raise NotImplementedError(
-            "tod_tpu_torch: masked SIFT detection (training) is ROADMAP A9")
+    ``valid``), restricted to ``mask`` when one is given."""
     return detect_and_describe(
         gray, lambda img, xy, angle: sift_descriptors(
             gaussian_blur(img, 7, 1.6), xy, angle),   # Lowe's octave sigma
-        n_features, n_levels, scale_factor, fast_threshold, edge_threshold)
+        n_features, n_levels, scale_factor, fast_threshold, edge_threshold,
+        mask)

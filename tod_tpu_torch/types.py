@@ -1,14 +1,15 @@
-"""The port's model holder and result type.
+"""The port's model holder, observation record and result type.
 
-``TodModel`` mirrors tod_tpu/db/models.py (a trained model's attachments:
-descriptors, points and the span prior); ``PoseResult`` mirrors
-tod_tpu/cells/types.py. Both are plain numpy holders, neutral between the two
-packages.
+``TodModel`` and ``Observation`` mirror tod_tpu/db/models.py (a trained
+model's attachments: descriptors, points and the span prior; a turntable
+view); ``PoseResult`` mirrors tod_tpu/cells/types.py. All are plain numpy
+holders, neutral between the two packages.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import List
 
 import numpy as np
 
@@ -50,3 +51,34 @@ class PoseResult:
     rms_residual: float = 0.0     # RMS 3D residual (m) over the inliers
     clique_size: int = 0          # greedy inlier-clique statistic
     quality: float = 0.0          # fused confidence (confidence_v2)
+
+
+@dataclass
+class Observation:
+    """One turntable view of an object: what the trainer reads."""
+
+    image: np.ndarray        # (H,W,3) u8 RGB or (H,W) gray
+    depth: np.ndarray        # (h,w) u16 millimeters (0 invalid) or f32 m
+    mask: np.ndarray         # (H,W) u8, nonzero on the object
+    K: np.ndarray            # (3,3) intrinsics
+    R: np.ndarray            # (3,3) camera rotation
+    T: np.ndarray            # (3,) camera translation
+    frame_number: int = 0
+
+
+def fixture_observations(fx, obj: int) -> List[Observation]:
+    """Object ``obj``'s views from a training fixture
+    (tools/make_torch_train_fixture.py): gray stored as one channel and
+    given back as the renders' three equal channels, the mask unpacked
+    from its bits."""
+    gray, depth, masks, value, K, R, T, frame = (
+        fx[f"{name}{obj}"] for name in ("gray", "depth", "mask",
+                                        "mask_value", "K", "R", "T",
+                                        "frame"))
+    bits = np.unpackbits(masks, axis=-1, count=gray.shape[-1],
+                         bitorder="little").astype(bool)
+    return [Observation(image=np.repeat(gray[v][..., None], 3, axis=-1),
+                        depth=depth[v],
+                        mask=np.where(bits[v], value, 0).astype(value.dtype),
+                        K=K[v], R=R[v], T=T[v], frame_number=int(frame[v]))
+            for v in range(len(gray))]

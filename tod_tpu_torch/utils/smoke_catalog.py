@@ -228,6 +228,46 @@ def edge_case_arrays_hamming_tiles(seed: int, n_q: int
     return descs, q[:n_q]
 
 
+def dedup_case_arrays(seed: int, n_rows: int
+                      ) -> Tuple[np.ndarray, np.ndarray]:
+    """(descriptors (n_rows, 32) u8, points (n_rows, 3) f32) for the model
+    dedup (``ops/compress.py``), n_rows >= 64: a quarter random rows in a
+    10 cm cube; a quarter copies of earlier rows with 0-12 bits flipped,
+    0-8 mm away (duplicates on both sides of the 8-bit and 5 mm
+    thresholds); chains of four rows, each 5 bits and 3 mm from the one
+    before (a row whose suppressor is itself suppressed survives); twelve
+    copies of one row at one point (more equal neighbours than k = 8); and
+    rows 4 bits either side of a row, at equal distance (ties in (dist,
+    row) order)."""
+    rng = np.random.default_rng(seed)
+    desc = rng.integers(0, 256, (n_rows, 32), dtype=np.uint8)
+    pts = rng.uniform(-0.05, 0.05, (n_rows, 3))
+
+    def flipped(row, n_bits):
+        mask = np.zeros(256, bool)
+        mask[rng.choice(256, n_bits, replace=False)] = True
+        return row ^ np.packbits(mask, bitorder="little")
+
+    q = n_rows // 4
+    for r in range(q, 2 * q):
+        src = int(rng.integers(0, r))
+        desc[r] = flipped(desc[src], int(rng.integers(0, 13)))
+        pts[r] = pts[src] + rng.uniform(-0.008, 0.008, 3) / np.sqrt(3)
+    for r in range(2 * q, 3 * q - 3, 4):
+        for c in range(1, 4):
+            desc[r + c] = flipped(desc[r + c - 1], 5)
+            pts[r + c] = pts[r + c - 1] + (0.003, 0.0, 0.0)
+    desc[3 * q:3 * q + 12] = desc[5]
+    pts[3 * q:3 * q + 12] = pts[5]
+    for r in range(3 * q + 12, n_rows - 1, 2):
+        src = int(rng.integers(0, 3 * q))
+        desc[r] = flipped(desc[src], 4)
+        desc[r + 1] = flipped(desc[src], 4)
+        pts[r] = pts[src] + (0.002, 0.0, 0.0)
+        pts[r + 1] = pts[src] - (0.002, 0.0, 0.0)
+    return desc, pts.astype(np.float32)
+
+
 def smoke_catalog(real_ids: Sequence[str],
                   real: Sequence[Tuple[np.ndarray, np.ndarray]],
                   n_objects: int = 100, seed: int = SEED, device=None
