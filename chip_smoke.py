@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the port's serving paths (segmented ORB/Hamming and SIFT/L2, and
-the global-kNN ORB path) and its trainer once on one NVIDIA GPU.
+the global-kNN ORB path), its trainer and its .ork cell graph once on one
+NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -166,6 +167,32 @@ tests/data/torch_train_fixture.npz (the bench's objects 0-2, 60 views of
             descriptors within 2e-5 and the quantised entries off by one
             in at most QUANT_SHARE of them.
 
+Then the cell graph (ROADMAP A12b): the 100-object smoke catalog written
+into a FilesystemDb in a temporary directory (the port's write_model) and
+the two frames as .npz files, each conf/ file run through the port's
+build_pipeline_from_ork and Scheduler with db and source1.path
+overridden:
+
+7a. cells   conf/detection.ork (FeatureDescriptor -> DescriptorMatcher on B5
+            -> GuessGenerator with N1): each frame's MatchSet equal to the
+            reference graph's (tests/data/torch_cells_fixture.npz) field by
+            field, bit for bit; every pose the reference accepted, junk
+            instances included, at its object within 1 cm and 2 degrees,
+            the same accepted objects and instance counts; one B5 launch a
+            frame; B5 against its twin on the graph's catalog; the graph's
+            frame timed in turns with FusedDetector(pipeline="global") at
+            the graph's own operating point, and the per-cell split.
+7b.         conf/detection.serving.ork (SegmentedDetector -> B1 + N1): phase
+            4's checks and its accepted objects, the pose gap to phase 4's
+            logged; one B1 launch a frame; timed in turns with phase 4's
+            direct FusedDetector.
+7c.         conf/training.ork's TodTrainer on object 0's 60 views of
+            tests/data/torch_train_fixture.npz, inserted into the DB as
+            observations, at the fixture's feature settings and the
+            Trainer's dedup (8 bits / 5 mm): the model read back through
+            db/models.py equal to the reference's bit for bit; one B5
+            launch; timed, with the per-cell split.
+
 The line before the card's is a JSON object of every kernel of the paths
 (launches on the main paths, error against the twin, time, the twin's time,
 the card's bound for the same work and the PR of the kernel's design; B5
@@ -197,6 +224,7 @@ STREAM_FIXTURE = os.path.join(DATA, "torch_stream_fixture.npz")
 SIFT_FIXTURE = os.path.join(DATA, "torch_sift_fixture.npz")
 GLOBAL_FIXTURE = os.path.join(DATA, "torch_global_fixture.npz")
 TRAIN_FIXTURE = os.path.join(DATA, "torch_train_fixture.npz")
+CELLS_FIXTURE = os.path.join(DATA, "torch_cells_fixture.npz")
 Q = 2048
 KERNEL_RUNS = 24       # CUDA-event timings of a kernel and its twin
 TWIN_RUNS = 3          # twin timings at 1000 objects (~0.1-2 s each)
@@ -301,6 +329,8 @@ T1_Q, T1_N = 5120, 262144   # tools/bench_dot_iso.py's shape
 INT_MM_ROWS = 1 << 17  # rows a torch._int_mm chunk: a 1 GiB int32 product
 GLOBAL_FRAMES = 60     # timed global detect calls
 NOISE_RUNS = 10        # timed replays of one frame's noise draws
+GRAPH_FRAMES = 20      # timed frames of each .ork graph, in turns with the
+                       # direct detector
 # ragged against the tensor-core tiles' 16-query m-tiles and 256-query
 # blocks, and a selection with holes, a repeated id, out-of-order ids and
 # an id past the 9-object tile-edge catalogs
@@ -1593,6 +1623,229 @@ def train_phases(dev, card: str, fx, frames, launches: dict) -> dict:
                 dedup_max_abs_err=err)
 
 
+def write_catalog_db(root: str, model_ids, models) -> dict:
+    """The 100-object smoke catalog in a port FilesystemDb under ``root``
+    (the port's ``write_model``): its ``.ork`` db parameters."""
+    from tod_tpu_torch.db import FilesystemDb, write_model
+    from tod_tpu_torch.utils.smoke_catalog import smoke_catalog
+
+    params = {"type": "filesystem", "root": os.path.join(root, "db"),
+              "collection": "object_recognition"}
+    db = FilesystemDb(params["root"], params["collection"])
+    ids, arrays = smoke_catalog(model_ids, models, n_objects=N_OBJECTS)
+    for oid, (desc, pts) in zip(ids, arrays):
+        write_model(db, oid, desc, pts)
+    return params
+
+
+def graph_turns(sched, det, frames, n: int):
+    """Milliseconds of ``n`` scheduler iterations of a looping .ork graph
+    (each cell ends in its device read), in turns with ``n`` closed-loop
+    ``det.detect`` calls on the same frames: (graph, direct)."""
+    graph, direct = [], []
+    for i in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sched.execute_iteration()
+        graph.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        det.detect(*frames[i % len(frames)])
+        direct.append((time.perf_counter() - t0) * 1e3)
+    return np.asarray(graph), np.asarray(direct)
+
+
+def log_graph_time(what: str, pipeline, sched, graph, direct, card: str
+                   ) -> None:
+    """A graph's median frame beside the direct detector's, and the
+    per-cell split of the timed iterations (the outer graph and the
+    TodDetector's inner cells)."""
+    log(f"time: {what}: graph frame median {np.median(graph):.2f} ms, p95 "
+        f"{np.percentile(graph, 95):.2f} ms; direct FusedDetector "
+        f"{np.median(direct):.2f} / {np.percentile(direct, 95):.2f} ms, in "
+        f"turns over {len(graph)} frames; {card}")
+    inner = pipeline.cells["pipeline1"].scheduler
+    for line in (sched.timing_report() + "\n"
+                 + inner.timing_report()).splitlines():
+        log(f"time: {what}: {line.strip()}")
+
+
+def cells_phases(dev, card: str, fx, frames, found4, launches: dict) -> None:
+    """Phases 7a-7c: the cell graph (ROADMAP A12b) through the port's .ork
+    path, held to the reference's graph (tests/data/torch_cells_fixture.npz,
+    tools/make_torch_cells_fixture.py), to phase 4's poses and to the
+    reference's trained model. ``frames`` are the prepared smoke frames,
+    ``found4`` phase 4's detections of them."""
+    import tempfile
+
+    from tod_tpu_torch.db import (FilesystemDb, insert_observation,
+                                  load_models_for_objects)
+    from tod_tpu_torch.models.fused import FusedDetector, FusedDetectorConfig
+    from tod_tpu_torch.pipeline import Scheduler, build_pipeline_from_ork
+    from tod_tpu_torch.types import fixture_observations
+
+    cx = np.load(CELLS_FIXTURE)
+    model_ids, models = load_fixture()[1:]
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        db_params = write_catalog_db(tmp, model_ids, models)
+        frame_dir = os.path.join(tmp, "frames")
+        os.makedirs(frame_dir)
+        for f in range(len(fx["images"])):
+            np.savez(os.path.join(frame_dir, f"frame{f}.npz"),
+                     image=fx["images"][f], depth=fx["depths"][f], K=fx["K"])
+        log(f"cells: {N_OBJECTS}-object catalog written to a FilesystemDb "
+            f"and {len(fx['images'])} frames as .npz in "
+            f"{time.perf_counter() - t0:.1f} s")
+        over = {"source1": {"path": frame_dir, "loop": False},
+                "pipeline1": {"db": db_params, "device": str(dev)}}
+
+        # ---- 7a. conf/detection.ork: the global-kNN cell graph ------------
+        ork = str(cx["ork"])
+        t0 = time.perf_counter()
+        pipeline = build_pipeline_from_ork(os.path.join(ROOT, ork), over)
+        sched = Scheduler(pipeline.plasm)
+        sched.prepare()
+        det = pipeline.cells["pipeline1"]
+        det.scheduler.prepare()            # configures the inner cells
+        index = det.descriptor_matcher.index
+        log(f"cells: {ork} built and configured in "
+            f"{time.perf_counter() - t0:.1f} s: {len(index.object_ids)} "
+            f"objects, {index.n_descriptors} rows on {index.descriptors.device}")
+        reset_counts()
+        results = []
+        for f in range(len(fx["images"])):
+            sched.execute_iteration()
+            m = det.descriptor_matcher.outputs["matches"]
+            same = {name: bool(np.array_equal(getattr(m, name),
+                                              cx[f"match_{name}"][f]))
+                    for name in ("dist", "train_idx", "obj_idx",
+                                 "local_idx", "valid")}
+            log(f"cells: frame {f}: MatchSet ({m.dist.shape[0]} queries x k "
+                f"{m.k}, {int(m.valid.sum())} in radius) equal to the "
+                f"reference's, field by field: {same}")
+            if not all(same.values()):
+                raise AssertionError(f"cells: frame {f}'s MatchSet differs "
+                                     "from the reference's")
+            results.append(list(det.outputs["pose_results"]))
+            query = det.descriptor_matcher.inputs["descriptors"]
+        launches["7a"] = read_counts()
+        check_launches("cells", len(results), launches["7a"], full=4)
+        for f, res in enumerate(results):
+            check_frame(f, res, fx, cx, what="cells")
+        log("cells: every placement within 2 cm; the reference's accepted "
+            "objects (every instance) at its poses within 1 cm and 2 degrees")
+        q = torch.from_numpy(np.ascontiguousarray(query)).to(dev)
+        check_b5(q, index.descriptors, index.n_descriptors, 5, None,
+                 "the cell graph's catalog, frame 1's descriptors")
+        # the direct detector at the graph's own operating point
+        direct = FusedDetector(
+            load_models_for_objects(FilesystemDb(db_params["root"],
+                                                 db_params["collection"])),
+            FusedDetectorConfig(pipeline="global", radius=35.0,
+                                guess=det.guess_generator._cfg),
+            seed=0, device=dev)
+        pipeline.cells["source1"].params["loop"] = True
+        timed = Scheduler(pipeline.plasm)
+        for _ in range(2):                               # warm
+            timed.execute_iteration()
+            direct.detect(*frames[0])
+        timed = Scheduler(pipeline.plasm)
+        det.scheduler.cell_times.clear()
+        det.scheduler.n_iterations = 0
+        graph_ms, direct_ms = graph_turns(timed, direct, frames, GRAPH_FRAMES)
+        log_graph_time(f"{ork} (global-kNN cell graph, {N_OBJECTS} objects)",
+                       pipeline, timed, graph_ms, direct_ms, card)
+        del pipeline, sched, timed, det, index, direct, q
+        torch.cuda.empty_cache()
+
+        # ---- 7b. conf/detection.serving.ork: SegmentedDetector -------------
+        ork = "conf/detection.serving.ork"
+        pipeline = build_pipeline_from_ork(os.path.join(ROOT, ork), over)
+        sched = Scheduler(pipeline.plasm)
+        reset_counts()
+        results = []
+        for f in range(len(fx["images"])):
+            sched.execute_iteration()
+            results.append(list(pipeline.cells["pipeline1"].outputs[
+                "pose_results"]))
+        launches["7b"] = read_counts()
+        check_launches("cells-serving", len(results), launches["7b"], full=0)
+        gap = 0.0
+        for f, (res, mine) in enumerate(zip(results, found4)):
+            check_frame(f, res, fx, what="cells-serving")
+            if sorted(r.object_id for r in res) != sorted(
+                    r.object_id for r in mine):
+                raise AssertionError(f"cells-serving: frame {f}: accepted "
+                                     "objects differ from phase 4's")
+            for r in res:
+                dt, ang = min(pose_error(r.R, r.T, p.R, p.T) for p in mine
+                              if p.object_id == r.object_id)
+                gap = max(gap, dt, np.radians(ang))
+        log(f"cells-serving: {ork} through the graph: phase 4's accepted "
+            f"objects on both frames; largest pose gap to phase 4's "
+            f"{gap:.3g} (m or rad; the graph's catalog is in the DB's "
+            "object-id order and its depth is the eager cell's, so its "
+            "noise slots and rounding may differ)")
+        seg = pipeline.cells["pipeline1"].serving._detector
+        direct = FusedDetector(smoke_models(model_ids, models), seg.config,
+                               seed=0, device=dev)
+        pipeline.cells["source1"].params["loop"] = True
+        timed = Scheduler(pipeline.plasm)
+        timed.execute_iteration()
+        direct.detect(*frames[0])
+        timed = Scheduler(pipeline.plasm)
+        pipeline.cells["pipeline1"].scheduler.cell_times.clear()
+        pipeline.cells["pipeline1"].scheduler.n_iterations = 0
+        graph_ms, direct_ms = graph_turns(timed, direct, frames, GRAPH_FRAMES)
+        log_graph_time(f"{ork} (SegmentedDetector, {N_OBJECTS} objects)",
+                       pipeline, timed, graph_ms, direct_ms, card)
+        del pipeline, sched, timed, seg, direct
+        torch.cuda.empty_cache()
+
+        # ---- 7c. TodTrainer through conf/training.ork -----------------------
+        tx = np.load(TRAIN_FIXTURE)
+        db = FilesystemDb(db_params["root"], db_params["collection"])
+        for o in fixture_observations(tx, 0):
+            insert_observation(db, model_ids[0], o.frame_number, o.image,
+                               o.depth, o.mask, o.K, o.R, o.T)
+        pipeline = build_pipeline_from_ork(
+            os.path.join(ROOT, "conf", "training.ork"),
+            {"pipeline1": {"db": db_params, "feature": TRAIN_FEATURES,
+                           "object_id": model_ids[0], "device": str(dev),
+                           "dedup_hamming": TRAIN_DEDUP[0],
+                           "dedup_point_m": TRAIN_DEDUP[1]}})
+        sched = Scheduler(pipeline.plasm)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sched.execute_iteration()
+        secs = time.perf_counter() - t0
+        launches["7c"] = read_counts()
+        (model,) = load_models_for_objects(db, [model_ids[0]])
+        stacked = tx["stacked0_desc"], tx["stacked0_points"]
+        keep8 = unpacked(tx["keep8_0"], len(stacked[0]))
+        same = (np.array_equal(model.descriptors, stacked[0][keep8])
+                and np.array_equal(model.points, stacked[1][keep8]))
+        log(f"cells-train: conf/training.ork's TodTrainer on "
+            f"{model_ids[0]}'s 60 views from the DB: model document "
+            f"{model.document_id}, {model.n_points} rows; descriptors and "
+            f"points equal to the reference's (dedup {TRAIN_DEDUP[0]} bits / "
+            f"{TRAIN_DEDUP[1] * 1e3:g} mm) bit for bit: {same}; "
+            f"{secs:.3f} s; launches " + ", ".join(
+                f"{name} {n}" for name, n in zip(
+                    [f"B{i + 1}" for i in range(5)] + ["T1", "N1"],
+                    launches["7c"])) + f"; {card}")
+        if not same:
+            raise AssertionError("cells-train: the model differs from the "
+                                 "reference's")
+        if list(launches["7c"]) != [0, 0, 0, 0, 1, 0, 0]:
+            raise AssertionError(f"cells-train: launches "
+                                 f"{list(launches['7c'])}, expected one B5")
+        for line in (sched.timing_report() + "\n" + pipeline.cells[
+                "pipeline1"].scheduler.timing_report()).splitlines():
+            log(f"time: cells-train: {line.strip()}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -1727,6 +1980,7 @@ def main() -> int:
     found = [det.detect(*frame) for frame in frames]
     launches = {"4": read_counts()}
     check_launches("main", len(frames), launches["4"], full=0)
+    found4 = found
     for f, res in enumerate(found):
         check_frame(f, res, fx)
     log("main: every placement within 2 cm; accepted objects and poses "
@@ -1822,6 +2076,8 @@ def main() -> int:
     b3, b4 = sift_phases(dev, card, fx, frames, launches)
     torch.cuda.empty_cache()
     b5_dedup = train_phases(dev, card, fx, frames, launches)
+    torch.cuda.empty_cache()
+    cells_phases(dev, card, fx, frames, found4, launches)
 
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")

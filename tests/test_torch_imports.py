@@ -34,7 +34,39 @@ def test_port_imports_no_jax_cv2_yaml_or_reference():
     for name in ("models.fused", "ops.sift", "ops.segmented_l2",
                  "ops.hamming", "ops.matching", "geometry.detection",
                  "ops.morphology", "ops.compress", "parallel.train",
-                 "cells.trainer"):
+                 "cells.trainer", "utils.config", "pipeline.tendril",
+                 "pipeline.cell", "pipeline.plasm", "pipeline.scheduler",
+                 "pipeline.blackbox", "pipeline.ork_yaml", "pipeline.ork",
+                 "db.document", "db.backends", "db.views", "db.models",
+                 "cells.types", "cells.io", "cells.readers",
+                 "cells.features", "cells.matcher", "cells.guess",
+                 "cells.serving", "models.detector", "models.trainer",
+                 "cli"):
         assert f"tod_tpu_torch.{name}" in got["modules"]
-    assert len(got["modules"]) >= 28
+    assert len(got["modules"]) >= 53
     assert got["banned"] == [] and got["loaded"] == []
+
+
+CLI_PROBE = r"""
+import runpy, sys
+sys.argv = ["tod_tpu_torch.cli", "--help"]
+try:
+    runpy.run_module("tod_tpu_torch.cli", run_name="__main__")
+except SystemExit as e:
+    assert e.code == 0, e.code
+banned = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "cv2", "yaml",
+                                       "tod_tpu", "triton"))
+print("BANNED", banned)
+"""
+
+
+def test_cli_help_imports_no_jax_cv2_yaml_or_reference():
+    """``python -m tod_tpu_torch.cli --help`` on a fresh interpreter."""
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", CLI_PROBE], cwd=ROOT,
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "training" in out.stdout and "detection" in out.stdout
+    assert out.stdout.strip().splitlines()[-1] == "BANNED []"

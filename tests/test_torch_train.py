@@ -43,6 +43,7 @@ from tod_tpu_torch.types import fixture_observations
 from tod_tpu_torch.utils.smoke_catalog import dedup_case_arrays
 from test_torch_features import _frame
 from test_torch_sift import DESC_ATOL, QUANT_SHARE, _quant_gap
+from torch_parity import native_library
 
 torch.set_num_threads(1)
 
@@ -50,6 +51,12 @@ FIXTURE = os.path.join(os.path.dirname(__file__), "data",
                        "torch_train_fixture.npz")
 N_FEATURES = 600
 VIEWS = 6
+
+
+@pytest.fixture(scope="session", autouse=True)
+def _native_library():
+    """The reference's dedup reaches tod_tpu.native: build it safely."""
+    native_library()
 
 
 @pytest.fixture(scope="module")
@@ -444,8 +451,15 @@ def test_trainer_options_and_unported_parts():
         ttrainer.feature_settings({"type": "AKAZE"})
     with pytest.raises(NotImplementedError, match="A16"):
         ttrainer.feature_settings({"type": "ORB", "subpixel": True})
-    with pytest.raises(NotImplementedError, match="A12b"):
-        ttrainer.Trainer()
+    # the Trainer cell came with the cell graph (A12b): it trains on the
+    # card by default, and its unported parts raise by name
+    assert ttrainer.Trainer("t").params["device"] == "cuda"
+    with pytest.raises(NotImplementedError, match="cv2"):
+        ttrainer.Trainer("t", visualize=True,
+                         device="cpu").ensure_configured()
+    with pytest.raises(NotImplementedError, match="A16"):
+        ttrainer.Trainer("t", json_feature_params='{"subpixel": true}',
+                         device="cpu").ensure_configured()
     empty = ttrainer.train_object([], {"type": "ORB"}, device="cpu")
     assert empty[0].shape == (0, 32) and empty[1].shape == (1, 0, 3)
     sift = ttrainer.fill_model("s", np.zeros((2, 128), np.float32),

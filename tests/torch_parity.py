@@ -5,9 +5,16 @@ samplers; the port takes the noise as an argument. These helpers rebuild
 the reference's key path and hand the port the very Gumbel draws the
 reference makes, as numpy arrays. :func:`build_world` trains the small
 two-object world that the slice tests of both serving paths share.
+:func:`native_library` builds and loads the reference's native library
+safely when test workers start together.
 """
 
+import fcntl
 import json
+import os
+import subprocess
+import tempfile
+import time
 
 import numpy as np
 import torch
@@ -16,6 +23,45 @@ import jax
 import jax.numpy as jnp
 
 WORLD_IDS = ["slice_alpha", "slice_beta"]
+
+
+def native_library(attempts: int = 5):
+    """The reference's native library (``tod_tpu.native``), built at most
+    once at a time on this machine and never read half-written.
+
+    ``tod_tpu.native.load`` runs ``make`` when the library is missing or
+    older than its source, under a lock of its own process only: test
+    workers that start together can build at once, and one can load the
+    other's half-written file (``OSError: ... file too short``). Here the
+    build runs under an ``fcntl`` lock shared by every process, with the
+    Makefile's flags, into a temporary file in ``build/`` that is renamed
+    into place; the load is retried a few times, in case a ``make`` run by
+    a reference test is still writing the file."""
+    from tod_tpu import native
+
+    lib, src = native._LIB, native._SRC
+    lock_path = os.path.join(tempfile.gettempdir(), "tod_native_build.lock")
+    with open(lock_path, "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if (not os.path.exists(lib)
+                    or os.path.getmtime(lib) < os.path.getmtime(src)):
+                os.makedirs(os.path.dirname(lib), exist_ok=True)
+                tmp = f"{lib}.{os.getpid()}.tmp"
+                # tod_tpu/native/Makefile's CXXFLAGS and LDFLAGS
+                subprocess.run(["g++", "-O3", "-march=native", "-std=c++17",
+                                "-fPIC", "-Wall", "-Wextra", src, "-shared",
+                                "-lpthread", "-o", tmp], check=True)
+                os.replace(tmp, lib)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+    for attempt in range(attempts):
+        try:
+            return native.load()
+        except OSError:
+            if attempt == attempts - 1:
+                raise
+            time.sleep(0.5 * (attempt + 1))
 
 
 def gumbel_triple(key, n: int, m: int) -> np.ndarray:

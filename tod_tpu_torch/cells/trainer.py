@@ -1,13 +1,15 @@
-"""Training: a TOD model from turntable observations, as plain functions
-(the body of tod_tpu/cells/trainer.py Trainer.process and ModelFiller).
+"""Training: a TOD model from turntable observations
+(tod_tpu/cells/trainer.py), as plain functions and as the Trainer and
+ModelFiller cells.
 
 Per view, masked ORB or SIFT, keypoint validation against the eroded mask
 and the depth, back-projection and camera -> world
 (``parallel/train.py``); the valid rows stacked in view order (mergePoints,
 training.cpp:147-173); for binary descriptors an optional dedup
-(``ops/compress.py``, kernel B5). The Trainer / ModelFiller cells, the DB
-and the ModelWriter need the cell graph and are not ported (ROADMAP A12b);
-nor are the Trainer's debug images, written through cv2.
+(``ops/compress.py``, kernel B5). The cells read the observations from the
+DB and hand a filled model document to the ModelWriter
+(``models/trainer.py TodTrainer``). Not ported: the Trainer's debug images,
+written through cv2.
 """
 
 from __future__ import annotations
@@ -18,10 +20,16 @@ from typing import Dict, List, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from tod_tpu_torch.cells.features import declare_device
+from tod_tpu_torch.cells.guess import no_visualize
+from tod_tpu_torch.db import (Document, ObjectDbParameters,
+                              observations_for_object)
 from tod_tpu_torch.ops.compress import compress_model
 from tod_tpu_torch.ops.depth import rescale_depth
 from tod_tpu_torch.ops.image import rgb_to_gray_fused
 from tod_tpu_torch.parallel.train import train_views_step
+from tod_tpu_torch.pipeline.cell import Cell
+from tod_tpu_torch.pipeline.tendril import Tendrils
 from tod_tpu_torch.types import Observation, TodModel
 
 
@@ -128,10 +136,73 @@ def fill_model(object_id: str, descriptors: np.ndarray,
                     np.asarray(points, np.float32).reshape(-1, 3))
 
 
-class Trainer:
-    """The reference's Trainer cell: needs the cell graph and the DB."""
+class Trainer(Cell):
+    """The reference's Trainer cell (Trainer.cpp): the observations of
+    ``object_id`` from the DB through :func:`train_object` on the cell's
+    device."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "tod_tpu_torch: the Trainer / ModelFiller cells and the DB are "
-            "ROADMAP A12b; call train_object and fill_model")
+    @staticmethod
+    def declare_params(p: Tendrils) -> None:
+        p.declare("json_feature_params",
+                  'Feature params JSON: {"type": "ORB", "n_features": ...,'
+                  ' "n_levels": ..., "scale_factor": ...}',
+                  default='{"type": "ORB"}', required=True)
+        p.declare("json_descriptor_params",
+                  'Descriptor params JSON: {"type": "ORB", ...}',
+                  default='{"type": "ORB"}', required=True)
+        p.declare("visualize", "Debug images (not ported: raises if set).",
+                  default=False)
+        p.declare("dedup_hamming",
+                  "Model compression: drop descriptors within this Hamming "
+                  "distance of an earlier one at (near) the same 3D point. "
+                  "0 disables (reference-parity). Shrinks the matcher DB "
+                  "2-4x on turntable captures.", default=0)
+        p.declare("dedup_point_m",
+                  "3D distance (meters) for the dedup same-place test.",
+                  default=0.005)
+        declare_device(p)
+
+    @staticmethod
+    def declare_io(p: Tendrils, i: Tendrils, o: Tendrils) -> None:
+        i.declare("json_db", "The parameters of the DB as a JSON string.",
+                  required=True)
+        i.declare("object_id", "The id of the object in the DB.",
+                  required=True)
+        o.declare("descriptors", "The stacked descriptors (N,32) u8.")
+        o.declare("points", "The 3d positions (1,N,3) f32, world frame.")
+
+    def configure(self) -> None:
+        no_visualize(self.params["visualize"])
+        feature_settings(self.params["json_feature_params"])   # validate
+
+    def process(self) -> None:
+        db = ObjectDbParameters(self.inputs["json_db"]).generate_db()
+        observations = observations_for_object(db, self.inputs["object_id"])
+        descriptors, points = train_object(
+            observations, self.params["json_feature_params"],
+            dedup_hamming=int(self.params["dedup_hamming"]),
+            dedup_point_m=float(self.params["dedup_point_m"]),
+            device=torch.device(self.params["device"]))
+        self.outputs["descriptors"] = descriptors
+        self.outputs["points"] = points
+
+
+class ModelFiller(Cell):
+    """Packs points + descriptors into a DB document
+    (src/training/ModelFiller.cpp:11-26)."""
+
+    @staticmethod
+    def declare_io(p: Tendrils, i: Tendrils, o: Tendrils) -> None:
+        i.declare("points", "The 3d position of the points.")
+        i.declare("descriptors", "The descriptors.")
+        o.declare("db_document", "The filled document.")
+
+    def process(self) -> None:
+        doc = Document(fields={"Type": "Model", "method": "TOD"})
+        desc = np.asarray(self.inputs["descriptors"])
+        if desc.dtype != np.float32:  # binary ORB bits; floats = SIFT path
+            desc = desc.astype(np.uint8)
+        doc.set_attachment("descriptors", desc)
+        doc.set_attachment("points",
+                           np.asarray(self.inputs["points"], np.float32))
+        self.outputs["db_document"] = doc

@@ -5,8 +5,10 @@ matcher (tod_tpu/ops/matching.py).
 exact Hamming distance of every (query, row) pair as ``popcount(q) +
 popcount(r) - 2 q.r`` on unpacked bits (integers below 2^24 are exact in an
 f32 product), streamed over row chunks with a running top-k, so the Q x N
-distance matrix never materialises. ``l2_topk`` serves only the cell graph
-(ROADMAP A12b) and is not ported yet.
+distance matrix never materialises. :func:`l2_topk` is its counterpart by
+squared L2 distance for float (SIFT) descriptors, which the cell graph's
+DescriptorMatcher runs; the reference computes it in XLA, outside any
+Pallas kernel, and so does this port (a plain f32 product).
 """
 
 from __future__ import annotations
@@ -81,6 +83,37 @@ def hamming_topk(query_u8: torch.Tensor, db_u8: torch.Tensor, n_db_valid: int,
     for base in range(0, n, chunk):
         db_bits = unpack_bits(db_u8[base:base + chunk])     # (chunk, 256)
         dist = q_pop + db_bits.sum(dim=1)[None, :] - 2.0 * (q_bits @ db_bits.T)
+        gidx = torch.arange(base, base + chunk, dtype=torch.int32,
+                            device=dev)
+        dist = torch.where(gidx[None, :] < n_db_valid, dist, big)
+        nd, pos = stable_topk(-dist, k)
+        best_d, best_i = _merge_topk(best_d, best_i, -nd, gidx[pos], k)
+    return best_d, best_i
+
+
+def l2_topk(query: torch.Tensor, db: torch.Tensor, n_db_valid: int,
+            k: int = 5, chunk: int = 4096
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact k-NN by squared L2 distance (tod_tpu/ops/matching.py:107):
+    ``(d_sq (Q, k) f32, idx (Q, k) i32)`` ascending, ties to the lower row,
+    with :func:`hamming_topk`'s contract for ``db`` (N a multiple of
+    ``chunk``) and its padding rows. ``max(|q|^2 + |r|^2 - 2 q.r, 0)`` from
+    an f32 product."""
+    n = db.shape[0]
+    if n % chunk != 0:
+        raise ValueError(f"db rows {n} not a multiple of chunk {chunk}")
+    dev = query.device
+    q32 = query.to(torch.float32)
+    q_sq = (q32 * q32).sum(dim=1, keepdim=True)
+    qn = query.shape[0]
+    best_d = torch.full((qn, k), BIG_DIST, dtype=torch.float32, device=dev)
+    best_i = torch.full((qn, k), -1, dtype=torch.int32, device=dev)
+    big = torch.full((), BIG_DIST, dtype=torch.float32, device=dev)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    for base in range(0, n, chunk):
+        db_c = db[base:base + chunk].to(torch.float32)
+        d_sq = (db_c * db_c).sum(dim=1)[None, :]
+        dist = torch.maximum(q_sq + d_sq - 2.0 * (q32 @ db_c.T), zero)
         gidx = torch.arange(base, base + chunk, dtype=torch.int32,
                             device=dev)
         dist = torch.where(gidx[None, :] < n_db_valid, dist, big)

@@ -9,7 +9,7 @@ holders, neutral between the two packages.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 
@@ -24,6 +24,7 @@ class TodModel:
     # [0, 127], see ops/segmented_l2.py), a quarter of the bytes.
     descriptors: np.ndarray
     points: np.ndarray       # (N, 3) float32 — object/world frame
+    document_id: Optional[str] = None   # the model document it was read from
 
     @property
     def n_points(self) -> int:
@@ -51,6 +52,17 @@ class PoseResult:
     rms_residual: float = 0.0     # RMS 3D residual (m) over the inliers
     clique_size: int = 0          # greedy inlier-clique statistic
     quality: float = 0.0          # fused confidence (confidence_v2)
+    db_params: Optional[dict] = None  # the DB the model came from (cells)
+
+    def set_R(self, R):  # the reference's setters
+        self.R = np.asarray(R, np.float32).reshape(3, 3)
+
+    def set_T(self, T):
+        self.T = np.asarray(T, np.float32).reshape(3)
+
+    def set_object_id(self, db_params, object_id):
+        self.db_params = db_params
+        self.object_id = object_id
 
 
 @dataclass
