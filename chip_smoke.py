@@ -182,16 +182,48 @@ overridden:
             frame; B5 against its twin on the graph's catalog; the graph's
             frame timed in turns with FusedDetector(pipeline="global") at
             the graph's own operating point, and the per-cell split.
-7b.         conf/detection.serving.ork (SegmentedDetector -> B1 + N1): phase
-            4's checks and its accepted objects, the pose gap to phase 4's
-            logged; one B1 launch a frame; timed in turns with phase 4's
-            direct FusedDetector.
+7b.         conf/detection.serving.ork (SegmentedDetector -> B1 + N1): the
+            reference graph's accepted objects (the cells fixture) at its
+            poses within 1 cm and 2 degrees, every placement within 2 cm;
+            the pose gap to phase 4's direct detector logged; one B1
+            launch a frame; timed in turns with phase 4's direct
+            FusedDetector.
+7d.         conf/detection.sift.serving.ork (SegmentedDetector on SIFT ->
+            B3 + N1) over the 100-object SIFT smoke catalog in a second
+            FilesystemDb: every pose the reference's graph reports found
+            within 1 cm and 2 degrees, any other accept a ground-truth
+            placement; one B3 launch a frame.
 7c.         conf/training.ork's TodTrainer on object 0's 60 views of
             tests/data/torch_train_fixture.npz, inserted into the DB as
             observations, at the fixture's feature settings and the
             Trainer's dedup (8 bits / 5 mm): the model read back through
             db/models.py equal to the reference's bit for bit; one B5
             launch; timed, with the per-cell split.
+
+Then ROADMAP A16, held to tests/data/torch_a16_fixture.npz
+(tools/make_torch_a16_fixture.py):
+
+8a. subpix  both frames' ORB keypoints with subpixel=True equal to the
+            reference's; object 0 trained with subpixel from its 60 views
+            (two B5 launches) equal to the reference's sub-pixel model after
+            the 8-bit dedup and the 16x5 recompression, bit for bit; the
+            smoke catalog with object 0 swapped for it served with
+            subpixel=True: the reference's gated detections within 1 cm
+            and 2 degrees, one B1 launch a frame.
+8b. hot     the frontier recipe at 100 slots with reserve_rows the largest
+            model's: two objects added into spare slots, then one dropped
+            (update_models): every DB tensor keeps its shape, dtype and
+            data_ptr, the swap's ms logged, and 3 frames equal a freshly
+            built detector's with the same key, bit for bit, slabs too.
+8c. batch   detect_batch_raw at B = 1, 2, 4 on the ORB full sweep, the
+            global kNN and the SIFT full sweep: one B1, B5 or B3 launch a
+            batch and one frame's N1 launches; every row against the
+            port's per-frame path with its batch key (accepts, inliers and
+            cliques equal, poses at the gate within 1e-5), the B = 2 rows
+            against the reference's per-frame detections with the same
+            keys (1 cm, 2 degrees); ms a frame (median, p95) in turns with
+            detect_raw, device ops a frame, the device-busy share and peak
+            memory at each B.
 
 The line before the card's is a JSON object of every kernel of the paths
 (launches on the main paths, error against the twin, time, the twin's time,
@@ -225,6 +257,7 @@ SIFT_FIXTURE = os.path.join(DATA, "torch_sift_fixture.npz")
 GLOBAL_FIXTURE = os.path.join(DATA, "torch_global_fixture.npz")
 TRAIN_FIXTURE = os.path.join(DATA, "torch_train_fixture.npz")
 CELLS_FIXTURE = os.path.join(DATA, "torch_cells_fixture.npz")
+A16_FIXTURE = os.path.join(DATA, "torch_a16_fixture.npz")
 Q = 2048
 KERNEL_RUNS = 24       # CUDA-event timings of a kernel and its twin
 TWIN_RUNS = 3          # twin timings at 1000 objects (~0.1-2 s each)
@@ -329,12 +362,25 @@ T1_Q, T1_N = 5120, 262144   # tools/bench_dot_iso.py's shape
 INT_MM_ROWS = 1 << 17  # rows a torch._int_mm chunk: a 1 GiB int32 product
 GLOBAL_FRAMES = 60     # timed global detect calls
 NOISE_RUNS = 10        # timed replays of one frame's noise draws
+GRAPH_GATE = 156.0     # the serving .ork files' min_quality
 GRAPH_FRAMES = 20      # timed frames of each .ork graph, in turns with the
                        # direct detector
 # ragged against the tensor-core tiles' 16-query m-tiles and 256-query
 # blocks, and a selection with holes, a repeated id, out-of-order ids and
 # an id past the 9-object tile-edge catalogs
 TILE_Q = (1, 15, 16, 17, 63, 65, 255, 257, 2048)
+# detect_batch_raw's query counts: B x q_cap (B1, B3) and B x 5000 (B5) at
+# B = 2 and 4, and one short of a tile
+BATCH_Q = (2 * Q, 4 * Q, 4 * Q - 77)
+BATCH_Q_GLOBAL = (2 * 5000, 4 * 5000 - 77)
+BATCHES = (1, 2, 4)    # detect_batch_raw's batch sizes (phase 8c)
+BATCH_ROUNDS = 8       # timed rounds of each batch size, in turns
+# a batched row against the port's per-frame path: poses at the gate (the
+# reference's own tolerance for its batched rows, tests/test_e2e.py)
+BATCH_ATOL = 1e-5
+HOT_ADDED = ("obj001", "obj002")   # phase 8b: added into spare slots
+HOT_DROPPED = "obj002"             # then dropped
+HOT_FRAMES = 3
 EDGE_SEL = (8, -1, 2, 1, 8, 0, -1, 7, 3, 12, 5, 6, 4)
 
 
@@ -499,6 +545,20 @@ def tile_case_hamming(n_q: int, device):
               for i, d in enumerate(descs)]
     return pack_segmented(models, db_chunk=256, reserve_rows=200,
                           device=device), torch.from_numpy(q).to(device)
+
+
+def batched_queries(q: torch.Tensor, n: int) -> torch.Tensor:
+    """``n`` copies of the queries ``q`` one after another, as a batch of
+    ``n`` frames reaches the matcher; every copy after the first with a
+    tenth of its bytes replaced by seeded random ones."""
+    rng = np.random.default_rng(4)
+    out = q.repeat(n, 1)
+    tail = out[q.shape[0]:]
+    noise = torch.from_numpy(rng.integers(0, 128, tuple(tail.shape))
+                             .astype(np.int8).view(np.uint8)).to(q.device)
+    pick = torch.from_numpy(rng.random(tuple(tail.shape)) < 0.1).to(q.device)
+    tail[pick] = noise.view(q.dtype)[pick]
+    return out
 
 
 def check_b1(q, sdb, what: str) -> float:
@@ -1090,6 +1150,10 @@ def sift_phases(dev, card: str, fx, frames, launches: dict):
                                 "the full int8 range (objects of 0-300 rows "
                                 "beside reserved padding, ties across "
                                 "fragments and tiles)"))
+    q_batch = batched_queries(q_main, 4)
+    for n_q in BATCH_Q:
+        err = max(err, check_b3(q_batch[:n_q], sdb, f"Q={n_q} "
+                                "(detect_batch_raw's B x q_cap)"))
     ms = cuda_ms(lambda: l2.object_top1_l2_sq(q_main, sdb))
     plain_ms = cuda_ms(lambda: l2.object_top1_l2_sq_torch(q_main, sdb),
                        runs=TWIN_RUNS, warmup=1)
@@ -1314,6 +1378,11 @@ def global_phases(dev, card: str, fx, frames, large, launches: dict):
     for k, radius in B5_SHAPES:
         err = max(err, check_b5(q_main, db.words, n_main, k, radius,
                                 "the smoke catalog"))
+    q_batch = batched_queries(q_main, 4)
+    for n_q in BATCH_Q_GLOBAL:
+        err = max(err, check_b5(q_batch[:n_q], db.words, n_main,
+                                cfg.k_matches, cfg.radius, f"Q={n_q} "
+                                "(detect_batch_raw's B x 5000)"))
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     n_edge = 0
     for n_q in B5_EDGE_Q:
@@ -1623,19 +1692,33 @@ def train_phases(dev, card: str, fx, frames, launches: dict) -> dict:
                 dedup_max_abs_err=err)
 
 
-def write_catalog_db(root: str, model_ids, models) -> dict:
-    """The 100-object smoke catalog in a port FilesystemDb under ``root``
-    (the port's ``write_model``): its ``.ork`` db parameters."""
+def write_catalog_db(root: str, model_ids, models, name: str = "db"
+                     ) -> dict:
+    """The 100-object smoke catalog in a port FilesystemDb ``root/name``
+    (the port's ``write_model``; quantised SIFT models as ``q / 256``): its
+    ``.ork`` db parameters."""
     from tod_tpu_torch.db import FilesystemDb, write_model
     from tod_tpu_torch.utils.smoke_catalog import smoke_catalog
 
-    params = {"type": "filesystem", "root": os.path.join(root, "db"),
+    params = {"type": "filesystem", "root": os.path.join(root, name),
               "collection": "object_recognition"}
     db = FilesystemDb(params["root"], params["collection"])
     ids, arrays = smoke_catalog(model_ids, models, n_objects=N_OBJECTS)
     for oid, (desc, pts) in zip(ids, arrays):
+        if desc.dtype == np.int8:
+            desc = desc.astype(np.float32) / 256.0
         write_model(db, oid, desc, pts)
     return params
+
+
+def graph_view(cx, prefix: str) -> dict:
+    """The reference graph's poses ``prefix_*`` of the cells fixture under
+    the ``ref_*`` keys :func:`check_frame` and :func:`check_gated_frame`
+    read, with the gate of the graph's .ork file."""
+    view = {"ref_" + k[len(prefix) + 1:]: cx[k] for k in cx.files
+            if k.startswith(prefix + "_")}
+    view["config_json"] = np.asarray(json.dumps({"min_quality": GRAPH_GATE}))
+    return view
 
 
 def graph_turns(sched, det, frames, n: int):
@@ -1670,10 +1753,11 @@ def log_graph_time(what: str, pipeline, sched, graph, direct, card: str
 
 
 def cells_phases(dev, card: str, fx, frames, found4, launches: dict) -> None:
-    """Phases 7a-7c: the cell graph (ROADMAP A12b) through the port's .ork
-    path, held to the reference's graph (tests/data/torch_cells_fixture.npz,
-    tools/make_torch_cells_fixture.py), to phase 4's poses and to the
-    reference's trained model. ``frames`` are the prepared smoke frames,
+    """Phases 7a-7d: the cell graph (ROADMAP A12b) and the serving graphs
+    (A12e) through the port's .ork path, held to the reference's graphs
+    (tests/data/torch_cells_fixture.npz, tools/make_torch_cells_fixture.py)
+    and to the reference's trained model; the gap to phase 4's poses
+    logged. ``frames`` are the prepared smoke frames,
     ``found4`` phase 4's detections of them."""
     import tempfile
 
@@ -1770,22 +1854,22 @@ def cells_phases(dev, card: str, fx, frames, found4, launches: dict) -> None:
                 "pose_results"]))
         launches["7b"] = read_counts()
         check_launches("cells-serving", len(results), launches["7b"], full=0)
+        ref_graph = graph_view(cx, "serving")
         gap = 0.0
         for f, (res, mine) in enumerate(zip(results, found4)):
-            check_frame(f, res, fx, what="cells-serving")
-            if sorted(r.object_id for r in res) != sorted(
-                    r.object_id for r in mine):
-                raise AssertionError(f"cells-serving: frame {f}: accepted "
-                                     "objects differ from phase 4's")
+            check_frame(f, res, fx, ref_graph, what="cells-serving")
             for r in res:
-                dt, ang = min(pose_error(r.R, r.T, p.R, p.T) for p in mine
-                              if p.object_id == r.object_id)
-                gap = max(gap, dt, np.radians(ang))
-        log(f"cells-serving: {ork} through the graph: phase 4's accepted "
-            f"objects on both frames; largest pose gap to phase 4's "
-            f"{gap:.3g} (m or rad; the graph's catalog is in the DB's "
-            "object-id order and its depth is the eager cell's, so its "
-            "noise slots and rounding may differ)")
+                errs = [pose_error(r.R, r.T, p.R, p.T) for p in mine
+                        if p.object_id == r.object_id]
+                if errs:
+                    dt, ang = min(errs)
+                    gap = max(gap, dt, np.radians(ang))
+        log(f"cells-serving: {ork} through the graph: the reference graph's "
+            f"accepted objects on both frames at its poses (1 cm, 2 deg); "
+            f"largest pose gap to phase 4's direct detector {gap:.3g} (m or "
+            "rad; the graph's catalog is in the DB's object-id order and its "
+            "depth is the eager cell's, so its noise slots and rounding may "
+            "differ)")
         seg = pipeline.cells["pipeline1"].serving._detector
         direct = FusedDetector(smoke_models(model_ids, models), seg.config,
                                seed=0, device=dev)
@@ -1800,6 +1884,37 @@ def cells_phases(dev, card: str, fx, frames, found4, launches: dict) -> None:
         log_graph_time(f"{ork} (SegmentedDetector, {N_OBJECTS} objects)",
                        pipeline, timed, graph_ms, direct_ms, card)
         del pipeline, sched, timed, seg, direct
+        torch.cuda.empty_cache()
+
+        # ---- 7d. conf/detection.sift.serving.ork: SIFT SegmentedDetector ---
+        phase_t0 = time.perf_counter()
+        ork = "conf/detection.sift.serving.ork"
+        s_ids, s_models = load_fixture(SIFT_FIXTURE)[1:]
+        sift_params = write_catalog_db(tmp, s_ids, s_models, "db_sift")
+        pipeline = build_pipeline_from_ork(os.path.join(ROOT, ork), {
+            **over, "pipeline1": {"db": sift_params, "device": str(dev)}})
+        sched = Scheduler(pipeline.plasm)
+        reset_counts()
+        results = []
+        for f in range(len(fx["images"])):
+            sched.execute_iteration()
+            results.append(list(pipeline.cells["pipeline1"].outputs[
+                "pose_results"]))
+        launches["7d"] = read_counts()
+        check_launches("cells-sift", len(results), launches["7d"], full=2)
+        ref_graph = graph_view(cx, "sift")
+        for f, res in enumerate(results):
+            check_gated_frame(f, res, fx, ref_graph, "ref", f, "cells-sift")
+            want = sorted(str(i) for i, g in zip(ref_graph["ref_ids"],
+                                                 ref_graph["ref_frame"])
+                          if g == f)
+            log(f"cells-sift: frame {f}: accepted objects equal to the "
+                f"reference graph's: {sorted(r.object_id for r in res) == want}")
+        log(f"cells-sift: {ork} through the graph: every pose the reference "
+            "graph reports found within 1 cm and 2 degrees, no other accept "
+            f"off a ground-truth placement; phase 7d took "
+            f"{time.perf_counter() - phase_t0:.1f} s")
+        del pipeline, sched
         torch.cuda.empty_cache()
 
         # ---- 7c. TodTrainer through conf/training.ork -----------------------
@@ -1844,6 +1959,302 @@ def cells_phases(dev, card: str, fx, frames, found4, launches: dict) -> None:
         for line in (sched.timing_report() + "\n" + pipeline.cells[
                 "pipeline1"].scheduler.timing_report()).splitlines():
             log(f"time: cells-train: {line.strip()}")
+
+
+# ---- ROADMAP A16: sub-pixel, hot catalog updates, batched detection -------
+
+
+def fixture_view(ax, prefix: str, config_key: str) -> dict:
+    """The ``prefix_*`` detections of ``ax`` with the config they were made
+    at, under the keys :func:`check_gated_frame` reads."""
+    return {"config_json": ax[config_key], "batch_seed": ax["batch_seed"],
+            **{k: ax[k] for k in ax.files if k.startswith(prefix + "_")}}
+
+
+def db_layout(det) -> dict:
+    """(shape, dtype, data_ptr) of every tensor of the detector's DBs."""
+    return {f"{which}.{f.name}": (tuple(t.shape), t.dtype, t.data_ptr())
+            for which, db in (("sdb", det.sdb), ("cdb", det.cdb))
+            if db is not None for f in dataclasses.fields(db)
+            for t in [getattr(db, f.name)] if isinstance(t, torch.Tensor)}
+
+
+def same_detections(a, b, gate: float, what: str) -> float:
+    """Accepted instances, inlier counts and clique sizes equal; R and T
+    within BATCH_ATOL at the accepts of quality >= ``gate``, or raise.
+    Returns the largest R/T gap over every accept."""
+    for name in ("accepted", "n_inliers", "clique_size"):
+        if not torch.equal(getattr(a, name), getattr(b, name)):
+            raise AssertionError(f"{what}: {name} differ")
+    from tod_tpu_torch.models.fused import CLIQUE_WEIGHT
+
+    acc = a.accepted
+    gated = acc & (a.n_inliers + CLIQUE_WEIGHT * a.clique_size >= gate)
+    gap = gated_gap = 0.0
+    for name in ("R", "T"):
+        d = (getattr(a, name) - getattr(b, name)).abs()
+        d = d.reshape(d.shape[:acc.dim()] + (-1,)).amax(-1)
+        gap = max(gap, float(d[acc].max()) if acc.any() else 0.0)
+        gated_gap = max(gated_gap, float(d[gated].max())
+                        if gated.any() else 0.0)
+    if gated_gap >= BATCH_ATOL:
+        raise AssertionError(f"{what}: poses at the gate {gated_gap:.3g} "
+                             "apart")
+    return gap
+
+
+def stacked(frames, n: int):
+    """``n`` prepared frames, cycling over ``frames``, as the (B, ...)
+    tensors ``detect_batch_raw`` takes."""
+    return [torch.stack(t) for t in zip(*(frames[i % len(frames)]
+                                          for i in range(n)))]
+
+
+def synced_ms(fn) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def device_profile(fn) -> tuple:
+    """(device operations, device-busy ms, window ms) of ``fn()`` under
+    torch.profiler: kernels and copies, as tools/profile_torch_detect.py
+    counts them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
+                 ) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return (len(device), sum(e.time_range.elapsed_us() for e in device)
+            / 1e3, wall)
+
+
+def batch_path(name: str, det, fx, frames, view: dict, prefix: str,
+               matcher: int, launches: dict, card: str) -> None:
+    """Phase 8c on one path: ``det`` through
+    ``detect_batch_raw`` at each of BATCHES: every row against the port's
+    per-frame path with its batch key, the B = 2 rows against the
+    reference's per-frame detections with the same keys (``view``'s
+    ``prefix_*``), one
+    launch of kernel B<matcher + 1> and one frame's N1 launches a batch;
+    then timed in turns with ``detect_raw``, traced and measured for peak
+    memory at each B."""
+    from tod_tpu_torch.geometry.ransac import ThreefryNoise
+    from tod_tpu_torch.utils import prng
+
+    n_inst = det.config.guess.ransac.max_instances
+    gate = det.config.min_quality
+    seed = int(view["batch_seed"])
+    reset_counts()
+    det.detect_raw(*frames[0])
+    per_frame_n1 = read_counts()[6]
+    gap = 0.0
+    for n in BATCHES:
+        det._key = prng.prng_key(seed)
+        keys = prng.split(prng.split(det._key)[1], n)
+        reset_counts()
+        _, rows = det.detect_batch_raw(*stacked(frames, n))
+        counts = launches[f"8c {name} B={n}"] = read_counts()
+        want = [int(i == matcher) for i in range(6)] + [per_frame_n1]
+        log(f"batch: {name}, B={n}: launches " + ", ".join(
+            f"{k} {c}" for k, c in zip([f"B{i + 1}" for i in range(5)]
+                                       + ["T1", "N1"], counts)))
+        if list(counts) != want:
+            raise AssertionError(f"batch: {name}, B={n}: launches "
+                                 f"{list(counts)}, expected {want}")
+        for b in range(n):
+            row = type(rows)(*(x[b] for x in rows))
+            det.noise = ThreefryNoise(keys[b], n_inst, det.segmented,
+                                      det.device)
+            mine = det.detect_raw(*frames[b % len(frames)])[1]
+            det.noise = None
+            gap = max(gap, same_detections(row, mine, gate,
+                                           f"batch: {name}, B={n}, row {b}"))
+            if n == 2:
+                check_gated_frame(b, det.poses(row), fx, view, prefix, b,
+                                  f"batch {name} B=2")
+    log(f"batch: {name}: every row at B = {BATCHES} equal to the port's "
+        f"per-frame path with its batch key (accepts, inliers, cliques; "
+        f"largest R/T gap {gap:.3g}, at the gate below {BATCH_ATOL}); the "
+        "B = 2 rows hold the reference's gated detections (1 cm, 2 deg)")
+
+    batches = {n: stacked(frames, n) for n in BATCHES}
+    for n in BATCHES:                                   # warm
+        det.detect_batch_raw(*batches[n])
+    ms = {"frame": []} | {n: [] for n in BATCHES}
+    for r in range(BATCH_ROUNDS):
+        ms["frame"].append(synced_ms(lambda: det.detect_raw(
+            *frames[r % len(frames)])))
+        for n in BATCHES:
+            ms[n].append(synced_ms(lambda: det.detect_batch_raw(
+                *batches[n])) / n)
+    ops_1 = device_profile(lambda: det.detect_raw(*frames[0]))
+    for n in BATCHES:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ops, busy, wall = device_profile(
+            lambda: det.detect_batch_raw(*batches[n]))
+        log(f"time: batch: {name}, B={n}: {np.median(ms[n]):.2f} ms a frame "
+            f"median, p95 {np.percentile(ms[n], 95):.2f} (detect_raw in "
+            f"turns {np.median(ms['frame']):.2f} / "
+            f"{np.percentile(ms['frame'], 95):.2f}) over {BATCH_ROUNDS} "
+            f"batches; {ops / n:.0f} device ops a frame (detect_raw "
+            f"{ops_1[0]}); device busy {busy / n:.2f} ms a frame, "
+            f"{100 * busy / wall:.1f} % of the traced batch ({wall:.2f} ms); "
+            f"peak device memory {torch.cuda.max_memory_allocated()} bytes; "
+            f"{card}")
+
+
+def a16_phases(dev, card: str, fx, frames, launches: dict) -> None:
+    """Phases 8a-8c (ROADMAP A16), held to tests/data/torch_a16_fixture.npz
+    (tools/make_torch_a16_fixture.py) and to the port's own paths.
+    ``frames`` are the prepared smoke frames."""
+    from tod_tpu_torch.cells.trainer import train_object
+    from tod_tpu_torch.models.fused import FusedDetector
+    from tod_tpu_torch.ops.compress import compress_model
+    from tod_tpu_torch.ops.orb import orb_detect_and_compute
+    from tod_tpu_torch.types import fixture_observations
+
+    ax = np.load(A16_FIXTURE)
+    model_ids, models = load_fixture()[1:]
+    phase_t0 = time.perf_counter()
+
+    # ---- 8a. sub-pixel keypoints, model and serving ----------------------
+    cfg_sub = config(ax, key="sub_config_json", subpixel=True)
+    for f, (gray, _, _) in enumerate(frames):
+        kps, _ = orb_detect_and_compute(
+            gray, n_features=cfg_sub.n_features, n_levels=cfg_sub.n_levels,
+            scale_factor=cfg_sub.scale_factor,
+            fast_threshold=cfg_sub.fast_threshold, subpixel=True)
+        xy, valid = kps.xy.cpu().numpy(), kps.valid.cpu().numpy()
+        same = (np.array_equal(xy, ax["sub_xy"][f])
+                and np.array_equal(valid, ax["sub_valid"][f]))
+        log(f"subpixel: frame {f}: {int(valid.sum())} keypoints, "
+            f"{int((xy[valid] != np.round(xy[valid])).any(1).sum())} off "
+            f"the integer pixels; equal to the reference's bit for bit: "
+            f"{same}")
+        if not same:
+            raise AssertionError(f"subpixel: frame {f}'s keypoints differ")
+    tx = np.load(TRAIN_FIXTURE)
+    views = fixture_observations(tx, 0)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    d8, p8 = train_object(views, {**TRAIN_FEATURES, "subpixel": True},
+                          *TRAIN_DEDUP, device=dev)
+    secs = time.perf_counter() - t0
+    d16, p16 = compress_model(d8, p8.reshape(-1, 3), *RECOMPRESS, device=dev)
+    launches["8a train"] = read_counts()
+    keep16 = unpacked(ax["sub_keep16"], len(ax["sub8_desc"]))
+    same = (np.array_equal(d8, ax["sub8_desc"])
+            and np.array_equal(p8.reshape(-1, 3), ax["sub8_points"])
+            and np.array_equal(d16, ax["sub8_desc"][keep16])
+            and np.array_equal(p16, ax["sub8_points"][keep16]))
+    log(f"subpixel: {model_ids[0]} trained with subpixel from "
+        f"{len(views)} views in {secs:.3f} s: {len(d8)} rows after "
+        f"{TRAIN_DEDUP[0]} bits / {TRAIN_DEDUP[1] * 1e3:g} mm, {len(d16)} "
+        f"after {RECOMPRESS[0]} / {RECOMPRESS[1] * 1e3:g} mm; equal to the "
+        f"reference's sub-pixel model at both, bit for bit: {same}; "
+        f"launches {list(launches['8a train'])}; {card}")
+    if not same or list(launches["8a train"]) != [0, 0, 0, 0, 2, 0, 0]:
+        raise AssertionError("subpixel: the sub-pixel model differs from "
+                             "the reference's, or not two B5 launches")
+    # object 0 swapped for its sub-pixel model; the fillers stay copies of
+    # the integer models, as in the fixture
+    catalog = smoke_models(model_ids, models)
+    catalog[0] = dataclasses.replace(catalog[0], descriptors=d16, points=p16)
+    det = FusedDetector(catalog, cfg_sub, seed=int(ax["seed"]), device=dev)
+    reset_counts()
+    found = [det.detect(*frame) for frame in frames]
+    launches["8a serve"] = read_counts()
+    check_launches("subpixel", len(frames), launches["8a serve"], full=0)
+    view = fixture_view(ax, "subserve", "sub_config_json")
+    for f, res in enumerate(found):
+        check_gated_frame(f, res, fx, view, "subserve", f, "subpixel")
+    log("subpixel: served with subpixel on the catalog with the sub-pixel "
+        f"{model_ids[0]}: the reference's gated detections within 1 cm and "
+        f"2 degrees; phase 8a took {time.perf_counter() - phase_t0:.1f} s")
+    phase_t0 = time.perf_counter()
+    del det, catalog
+
+    # ---- 8b. hot catalog updates on the frontier recipe --------------------
+    sfx = np.load(STREAM_FIXTURE)
+    catalog = smoke_models(model_ids, models)
+    cfg_hot = dataclasses.replace(
+        config(sfx, **FRONTIER), catalog_capacity=N_OBJECTS,
+        reserve_rows=max(m.n_points for m in catalog))
+    added = [m for m in catalog if m.object_id in HOT_ADDED]
+    start = [m for m in catalog if m.object_id not in HOT_ADDED]
+    det = FusedDetector(start, cfg_hot, seed=0, device=dev)
+    layout = db_layout(det)
+    for frame in frames:                    # streaming state to reset
+        det.detect(*frame)
+    for step, now in (("add", start + added),
+                      ("drop", [m for m in start + added
+                                if m.object_id != HOT_DROPPED])):
+        swap_ms = synced_ms(lambda: det.update_models(now))
+        moved = [k for k, v in db_layout(det).items() if layout[k] != v]
+        fresh = FusedDetector(now, cfg_hot, seed=0, device=dev)
+        fresh._key = det._key.copy()
+        reset_counts()
+        seen = set()
+        for f in range(HOT_FRAMES):
+            a = det.detect_raw(*frames[f % len(frames)])[1]
+            b = fresh.detect_raw(*frames[f % len(frames)])[1]
+            same = all(torch.equal(x, y) for x, y in zip(a, b)) and all(
+                torch.equal(x, y) for x, y in zip(det.slab, fresh.slab))
+            if not same:
+                raise AssertionError(f"hot-swap: {step}: frame {f} differs "
+                                     "from a fresh detector's")
+            seen |= {r.object_id for r in det.poses(a)}
+        counts = launches[f"8b {step}"] = read_counts()
+        check_launches(f"hot-swap {step}", 2 * HOT_FRAMES, counts, full=0,
+                       gathered=1)
+        log(f"hot-swap: {step} ({len(now)} objects in {N_OBJECTS} slots, "
+            f"reserve {cfg_hot.reserve_rows} rows): update_models "
+            f"{swap_ms:.2f} ms, one upload of {det.sdb.nbytes()} + "
+            f"{det.cdb.nbytes()} bytes into the same tensors (shape, dtype "
+            f"and data_ptr unchanged: {not moved}); {HOT_FRAMES} frames "
+            f"equal to a fresh detector's with the same key, bit for bit, "
+            f"slabs too; accepted at the gate: {sorted(seen)}; {card}")
+        if moved:
+            raise AssertionError(f"hot-swap: {step}: {moved} moved")
+        if step == "drop" and HOT_DROPPED in seen:
+            raise AssertionError("hot-swap: the dropped object was found")
+    del det, fresh, catalog, start, added
+    torch.cuda.empty_cache()
+    log(f"hot-swap: phase 8b took {time.perf_counter() - phase_t0:.1f} s")
+
+    # ---- 8c. batched detection on the three paths ------------------------
+    sx, s_ids, s_models = load_fixture(SIFT_FIXTURE)
+    gx = np.load(GLOBAL_FIXTURE)
+    catalog = smoke_models(model_ids, models)
+    for name, cfg, cat, matcher, key in (
+            ("orb full sweep", config(fx), catalog, 0, "orb"),
+            ("global kNN", config(gx, GLOBAL_CONFIG), catalog, 4, "global"),
+            ("sift full sweep", config(sx, SIFT_CONFIG),
+             smoke_models(s_ids, s_models), 2, "sift")):
+        if json.loads(str(ax[f"batch_{key}_config_json"])) != json.loads(
+                json.dumps(dataclasses.asdict(cfg))):
+            raise AssertionError(f"batch: {name}: config differs from the "
+                                 "fixture's")
+        det = FusedDetector(cat, cfg, device=dev)
+        phase_t0 = time.perf_counter()
+        batch_path(name, det, fx, frames, fixture_view(
+            ax, f"batch_{key}", f"batch_{key}_config_json"), f"batch_{key}",
+            matcher, launches, card)
+        log(f"batch: {name}: phase 8c took "
+            f"{time.perf_counter() - phase_t0:.1f} s")
+        del det
+        torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -1905,6 +2316,10 @@ def main() -> int:
                                 "0-300 rows beside reserved padding, ties "
                                 "across fragments, lanes and tiles, all-zero "
                                 "and all-one descriptors)"))
+    q_batch = batched_queries(q_main, 4)
+    for n_q in BATCH_Q:
+        err = max(err, check_b1(q_batch[:n_q], sdb, f"Q={n_q} "
+                                "(detect_batch_raw's B x q_cap)"))
     ms = cuda_ms(lambda: seg.object_top1(q_main, sdb))
     plain_ms = cuda_ms(lambda: seg.object_top1_torch(q_main, sdb))
     pairs = Q * sum(sdb.rows_host)
@@ -2078,6 +2493,8 @@ def main() -> int:
     b5_dedup = train_phases(dev, card, fx, frames, launches)
     torch.cuda.empty_cache()
     cells_phases(dev, card, fx, frames, found4, launches)
+    torch.cuda.empty_cache()
+    a16_phases(dev, card, fx, frames, launches)
 
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")

@@ -427,14 +427,16 @@ def test_tod_detector_cells_blackbox_wiring(model_db, fx):
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="cv2"):
         TodDetector("d", visualize=True)
+    # sub-pixel keypoints are ported (test_torch_subpixel.py): the cells
+    # take them
     feat = tc.FeatureDescriptor("f", json_feature_params=json.dumps(
         {"type": "ORB", "subpixel": True}), **CPU)
-    with pytest.raises(NotImplementedError, match="A16"):
-        feat.ensure_configured()
+    feat.ensure_configured()
+    assert feat._settings["subpixel"] is True
     seg = tc.SegmentedDetector("s", json_feature_params=json.dumps(
         {"type": "ORB", "subpixel": True}), **CPU)
-    with pytest.raises(NotImplementedError, match="A16"):
-        seg.ensure_configured()
+    seg.ensure_configured()
+    assert seg._detector.config.subpixel is True
     with pytest.raises(NotImplementedError, match="cv2"):
         tc.Trainer("t", visualize=True, **CPU).ensure_configured()
 

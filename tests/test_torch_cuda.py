@@ -546,3 +546,59 @@ def test_n1_refuses_what_it_cannot_take():
         prng.gumbel(key, (1 << 16, 1 << 15), dev)            # 2^31 draws
     with pytest.raises(ValueError):
         prng.threefry_bits(np.zeros((4, 3), np.uint32), (4,), dev)
+
+
+# ---- the batched query counts of detect_batch_raw --------------------------
+
+# B x q_cap (B1, B3) and B x 5000 (B5) at B = 2 and 4, and one short of a
+# tile
+BATCH_Q = [2 * 2048, 4 * 2048, 4 * 2048 - 77]
+BATCH_Q_GLOBAL = [2 * 5000, 4 * 5000, 4 * 5000 - 77]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_q", BATCH_Q)
+def test_b1_b3_match_twins_at_the_batched_q(n_q):
+    """B1 and B3 bit for bit against their twins over the edge-case DBs at
+    the query counts of a batch of frames folded into the query axis."""
+    dev = _cuda()
+    rng = np.random.default_rng(n_q)
+    _, db = _edge_case_db(rng, dev)
+    q = torch.from_numpy(rng.integers(0, 256, (n_q, 32),
+                                      dtype=np.uint8)).to(dev)
+    d, r = tseg.object_top1(q, db)
+    d_t, r_t = tseg.object_top1_torch(q, db)
+    assert torch.equal(d, d_t) and torch.equal(r, r_t)
+    db_l2, _ = _edge_cases_l2(300 + n_q, 1, dev)
+    q8 = torch.from_numpy(rng.integers(-128, 128, (n_q, 128),
+                                       dtype=np.int8)).to(dev)
+    d_sq, r = tl2.object_top1_l2_sq(q8, db_l2)
+    d_sq_t, r_t = tl2.object_top1_l2_sq_torch(q8, db_l2)
+    assert torch.equal(d_sq, d_sq_t) and torch.equal(r, r_t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_q", BATCH_Q_GLOBAL)
+def test_b5_matches_twin_at_the_batched_q(n_q):
+    """B5 bit for bit against its twin at the global path's operating
+    point (k 5, radius 35) at the query counts of a batch of frames."""
+    dev = _cuda()
+    words, q, _ = _edge_cases_hamming(700 + n_q, n_q, dev)
+    for n_valid in (words.shape[0], words.shape[0] - 77):
+        d, i = tham.hamming_topk_fused(q, words, n_valid, k=5, radius=35)
+        d_t, i_t = tham.hamming_topk_fused_torch(q, words, n_valid, 5, 35)
+        assert torch.equal(d, d_t) and torch.equal(i, i_t), n_valid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fn", [prng.gumbel, prng.threefry_bits],
+                         ids=["gumbel", "bits"])
+def test_n1_wrappers_default_to_the_card(fn):
+    """Named no device, N1's wrappers launch the kernel on the card."""
+    dev = _cuda()
+    keys = prng.split(prng.split(prng.prng_key(12), 4), 3)
+    before = fn.launches
+    got = fn(keys, (128, 192))
+    torch.cuda.synchronize()
+    assert got.is_cuda and fn.launches == before + 1
+    assert torch.equal(got, fn(keys, (128, 192), dev))

@@ -226,8 +226,13 @@ def test_empty_catalog_and_refusals(world):
     assert (d == 1e9).all() and (r == -1).all() and d.shape == (7, 8)
     with pytest.raises(ValueError, match="segmented"):
         world["tdet"].update_models([])
-    with pytest.raises(NotImplementedError, match="A16"):
-        world["tdet"].detect_batch_raw(None, None, None)
+    # batched detection of an empty catalog: batched keypoints, (B, 0, I)
+    frame = det.prepare_frame(world["image"], world["depth"], DEFAULT_K)
+    kps_b, raw_b = det.detect_batch_raw(*(torch.stack([t, t])
+                                          for t in frame))
+    assert kps_b.xy.shape == (2, cfg.n_features, 2)
+    assert torch.equal(kps_b.xy[1], kps.xy)
+    assert raw_b.accepted.shape == (2, 0, cfg.guess.ransac.max_instances)
     # the config round trip and the defaults: FusedDetector(models) serves
     # the global path on the card
     round_trip = convert.config_from_dict(dataclasses.asdict(world["cfg"]))

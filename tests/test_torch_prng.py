@@ -87,13 +87,13 @@ def test_gumbel_within_the_stated_bound(seed):
     key = jax.random.PRNGKey(seed)
     keys = prng.split(prng.prng_key(seed), 3)
     for shape in SHAPES:
-        got = prng.gumbel(keys, shape)                  # one batched draw
+        got = prng.gumbel(keys, shape, "cpu")           # one batched draw
         assert got.shape == (3,) + shape and got.dtype == torch.float32
         for k_h, k_j, g in zip(keys, jax.random.split(key, 3), got):
             ref = np.asarray(jax.random.gumbel(k_j, shape, jnp.float32))
             assert_gumbel_close(g.numpy(), ref)
             # bit for bit with the batch of one
-            assert torch.equal(prng.gumbel(k_h, shape), g)
+            assert torch.equal(prng.gumbel(k_h, shape, "cpu"), g)
 
 
 def test_batched_bits_equal_key_by_key():
@@ -287,7 +287,7 @@ def test_wrappers_on_the_cpu_run_the_twins():
     keys = prng.split(prng.split(prng.prng_key(4), 5), 3)      # (5, 3, 2)
     launches = prng.gumbel.launches, prng.threefry_bits.launches
     for shape in [(7, 9), (128, 192), (13,)]:
-        g = prng.gumbel(keys, shape)
+        g = prng.gumbel(keys, shape, "cpu")
         assert g.dtype == torch.float32 and g.shape == (5, 3) + shape
         assert torch.equal(g, prng.gumbel_torch(keys, shape))
         b = prng.threefry_bits(keys, shape, "cpu")
@@ -296,8 +296,8 @@ def test_wrappers_on_the_cpu_run_the_twins():
         assert torch.equal(b.to(torch.int64) & prng.MASK,
                            prng.random_bits(keys, shape))
     empty = keys[:0]                                            # (0, 3, 2)
-    assert prng.gumbel(empty, (7, 9)).shape == (0, 3, 7, 9)
-    assert prng.threefry_bits(empty, (7, 9)).shape == (0, 3, 7, 9)
+    assert prng.gumbel(empty, (7, 9), "cpu").shape == (0, 3, 7, 9)
+    assert prng.threefry_bits(empty, (7, 9), "cpu").shape == (0, 3, 7, 9)
     assert (prng.gumbel.launches, prng.threefry_bits.launches) == launches
 
 

@@ -26,6 +26,7 @@ from tod_tpu_torch.ops import compress as tcompress
 from tod_tpu_torch.ops import segmented as tseg
 from tod_tpu_torch.ops import segmented_l2 as tl2
 from tod_tpu_torch.types import TodModel
+from tod_tpu_torch.utils import prng
 
 torch.set_num_threads(1)
 
@@ -214,7 +215,8 @@ def test_wrappers_run_twins_for_cpu_tensors(rng):
     tl2.pack_segmented_l2, convert.segmented_db_from_jax,
     convert.segmented_db_f_from_jax, tfused.pack_models,
     convert.model_db_from_jax, ttrainer.train_object,
-    tcompress.compress_model, tcompress.self_knn])
+    tcompress.compress_model, tcompress.self_knn, prng.gumbel,
+    prng.threefry_bits])
 def test_entry_points_default_to_the_card(entry):
     """Entry points serve on the card unless the caller names another
     device (the tests name "cpu"); none falls back when no card is found."""

@@ -340,9 +340,12 @@ def test_sift_config_and_unported_paths(world):
     with pytest.raises(ValueError, match="segmented"):
         tfused.FusedDetector(models, dataclasses.replace(
             cfg, pipeline="global"), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfused.FusedDetector(models, dataclasses.replace(
-            cfg, subpixel=True), device="cpu")
+    # subpixel is ported for ORB; SIFT keeps integer coords, as the
+    # reference does (test_torch_subpixel.py holds its compaction)
+    sub = tfused.FusedDetector(models, dataclasses.replace(
+        cfg, subpixel=True), device="cpu")
+    assert torch.equal(sub.sdb.rows, tfused.FusedDetector(
+        models, cfg, device="cpu").sdb.rows)
     # catalog capacity pads with empty SIFT slots, reserved rows poisoned
     cap = tfused.FusedDetector(models, dataclasses.replace(
         cfg, catalog_capacity=3, reserve_rows=64), device="cpu")

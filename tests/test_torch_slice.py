@@ -144,10 +144,13 @@ def test_config_round_trip_and_unported_paths(world):
     assert dataclasses.asdict(port_cfg) == dataclasses.asdict(cfg)
     models = [TodModel("a", np.zeros((4, 32), np.uint8),
                        np.zeros((4, 3), np.float32))]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfused.FusedDetector(models, dataclasses.replace(port_cfg,
-                                                         subpixel=True),
-                             device="cpu")
+    # sub-pixel keypoints are ported (test_torch_subpixel.py)
+    sub = tfused.FusedDetector(models, dataclasses.replace(port_cfg,
+                                                           subpixel=True),
+                               device="cpu")
+    assert sub.detect_raw(world["image"], world["depth"],
+                          DEFAULT_K)[1].accepted.shape == (
+                              1, cfg.guess.ransac.max_instances)
     # the global-kNN path is ported (test_torch_global.py): it runs
     glob = tfused.FusedDetector(models, dataclasses.replace(
         port_cfg, pipeline="global"), device="cpu")
@@ -156,7 +159,8 @@ def test_config_round_trip_and_unported_paths(world):
     assert det.accepted.shape == (1, cfg.guess.ransac.max_instances)
     # SIFT is ported (test_torch_sift.py), on the segmented pipeline only,
     # as in the reference
-    tfused.check_ported(dataclasses.replace(port_cfg, feature="SIFT"))
+    tfused.FusedDetector(models[:0], dataclasses.replace(
+        port_cfg, feature="SIFT"), device="cpu")
     with pytest.raises(ValueError, match="segmented"):
         tfused.FusedDetector(models, dataclasses.replace(
             port_cfg, feature="SIFT", pipeline="global"), device="cpu")
@@ -164,7 +168,6 @@ def test_config_round_trip_and_unported_paths(world):
     # coarse slot, are refused as the reference refuses them
     for change in (dict(coarse_stride=8), dict(coarse_stride=8, track_width=4,
                                                explore_width=4)):
-        tfused.check_ported(dataclasses.replace(port_cfg, **change))
         assert tfused.FusedDetector(models, dataclasses.replace(
             port_cfg, **change), device="cpu").cdb.rows_host == (1,)
     for change in (dict(track_width=4), dict(explore_width=4),
@@ -174,11 +177,16 @@ def test_config_round_trip_and_unported_paths(world):
             tfused.FusedDetector(models, dataclasses.replace(port_cfg,
                                                              **change),
                                  device="cpu")
+    # hot catalog updates and batched detection are ported
+    # (test_torch_update_models.py, test_torch_batch.py)
     det = tfused.FusedDetector(models, port_cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        det.update_models(models)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        det.detect_batch_raw(None, None, None)
+    words = det.sdb.words
+    det.update_models(models)
+    assert det.sdb.words is words and det.object_ids == ["a"]
+    frame = det.prepare_frame(world["image"], world["depth"], DEFAULT_K)
+    kps, raw = det.detect_batch_raw(*(t[None] for t in frame))
+    assert kps is None and raw.accepted.shape == (
+        1, 1, cfg.guess.ransac.max_instances)
     assert tfused.FusedDetector([], port_cfg, device="cpu").detect(
         world["image"], world["depth"], DEFAULT_K) == []
     # catalog capacity pads with empty slots the reference packs alike

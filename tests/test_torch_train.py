@@ -285,8 +285,16 @@ def test_masked_orb_matches_on_fixture_views(fx, obj, view):
     # every keypoint on the object
     xy = k_t.xy.numpy()[k_t.valid.numpy()].round().astype(int)
     assert (obs.mask[xy[:, 1], xy[:, 0]] > 0).mean() > 0.95
-    with pytest.raises(NotImplementedError, match="A16"):
-        torb.orb_detect_and_compute(torch.from_numpy(gray), subpixel=True)
+    # sub-pixel coords on the masked view (test_torch_subpixel.py): the
+    # compiled reference's, the descriptors unchanged
+    k_j, _ = jax.jit(lambda g, m: jorb.orb_detect_and_compute(
+        g, mask=m, subpixel=True, **kw))(jnp.asarray(gray),
+                                         jnp.asarray(obs.mask))
+    k_s, d_s = torb.orb_detect_and_compute(
+        torch.from_numpy(gray), mask=torch.from_numpy(obs.mask),
+        subpixel=True, **kw)
+    np.testing.assert_array_equal(k_s.xy.numpy(), np.asarray(k_j.xy))
+    assert torch.equal(d_s, d_t)
 
 
 def test_masked_sift_matches():
@@ -341,8 +349,15 @@ def test_train_views_step_matches_stored_reference(fx):
     np.testing.assert_array_equal(desc.numpy(), fx["views0_desc"][:VIEWS])
     np.testing.assert_array_equal(world.numpy(), fx["views0_world"][:VIEWS])
     assert desc.dtype == torch.uint8 and want_valid.sum() > VIEWS * 300
-    with pytest.raises(NotImplementedError, match="A16"):
-        ttrain.train_views_step(*_batch(obs[:1]), subpixel=True)
+    # sub-pixel model points (test_torch_subpixel.py): the same
+    # descriptors; the mask snap starts from the fractional coords, and the
+    # points leave the integer pixels
+    d_s, w_s, v_s = ttrain.train_views_step(*_batch(obs[:1]),
+                                            n_features=N_FEATURES,
+                                            subpixel=True)
+    both = v_s & valid[:1]
+    assert torch.equal(d_s, desc[:1]) and both.sum() > 300
+    assert not torch.equal(w_s[both], world[:1][both])
     with pytest.raises(NotImplementedError, match="A14"):
         ttrain.train_views_sharded()
 
@@ -446,20 +461,19 @@ def test_train_object_matches_reference(fx):
 def test_trainer_options_and_unported_parts():
     s = ttrainer.feature_settings('{"type": "SIFT", "n_features": 50}')
     assert s == dict(feature_type="SIFT", n_features=50, n_levels=3,
-                     scale_factor=1.2, fast_threshold=20.0)
+                     scale_factor=1.2, fast_threshold=20.0, subpixel=False)
     with pytest.raises(ValueError, match="ORB or SIFT"):
         ttrainer.feature_settings({"type": "AKAZE"})
-    with pytest.raises(NotImplementedError, match="A16"):
-        ttrainer.feature_settings({"type": "ORB", "subpixel": True})
+    assert ttrainer.feature_settings({"type": "ORB", "subpixel": True})[
+        "subpixel"] is True
     # the Trainer cell came with the cell graph (A12b): it trains on the
     # card by default, and its unported parts raise by name
     assert ttrainer.Trainer("t").params["device"] == "cuda"
     with pytest.raises(NotImplementedError, match="cv2"):
         ttrainer.Trainer("t", visualize=True,
                          device="cpu").ensure_configured()
-    with pytest.raises(NotImplementedError, match="A16"):
-        ttrainer.Trainer("t", json_feature_params='{"subpixel": true}',
-                         device="cpu").ensure_configured()
+    ttrainer.Trainer("t", json_feature_params='{"subpixel": true}',
+                     device="cpu").ensure_configured()
     empty = ttrainer.train_object([], {"type": "ORB"}, device="cpu")
     assert empty[0].shape == (0, 32) and empty[1].shape == (1, 0, 3)
     sift = ttrainer.fill_model("s", np.zeros((2, 128), np.float32),

@@ -14,6 +14,7 @@ each rounds as the reference does: the depth cells divide millimeters by
 
 from __future__ import annotations
 
+import warnings
 from typing import Tuple
 
 import numpy as np
@@ -96,14 +97,19 @@ class FeatureDescriptor(Cell):
             raise ValueError(
                 f"feature type {self._type!r} not implemented "
                 "(ORB and SIFT are supported, doc/source/index.rst:45)")
-        if feat.get("subpixel", False):
-            raise NotImplementedError(
-                "tod_tpu_torch: sub-pixel keypoints are ROADMAP A16")
         self._settings = dict(
             n_features=int(feat.get("n_features", 1000)),
             n_levels=int(feat.get("n_levels", 3)),
             scale_factor=float(feat.get("scale_factor", 1.2)),
             fast_threshold=float(feat.get("fast_threshold", 20)))
+        # sub-pixel corner refinement, ORB only (ops/orb.py), off by default
+        if feat.get("subpixel", False):
+            if self._type == "ORB":
+                self._settings["subpixel"] = True
+            else:
+                warnings.warn(f"feature param subpixel=true is only "
+                              f"implemented for ORB; {self._type} keypoints "
+                              "keep integer coordinates")
         self._device = torch.device(self.params["device"])
 
     def process(self) -> None:

@@ -8,7 +8,7 @@ reachable from a detection ``.ork``: ``pipeline: segmented``
 (conf/detection.serving.ork) switches TodDetector to this cell, so
 ``python -m tod_tpu_torch.cli detection`` serves it. This cell carries the
 same tendril contract as the global-kNN cell graph (pose_results out).
-Not ported: ``subpixel`` (ROADMAP A16) and the ``visualize`` overlays.
+Not ported: the ``visualize`` overlays.
 """
 
 from __future__ import annotations
@@ -162,7 +162,7 @@ class SegmentedDetector(Cell):
         p.declare("catalog_capacity",
                   "Pad the catalog to this many object slots at pack time "
                   "so hot catalog updates keep the array shapes "
-                  "(update_models is ROADMAP A16). 0 = pack exactly.",
+                  "(FusedDetector.update_models). 0 = pack exactly.",
                   default=0)
         p.declare("reserve_rows",
                   "Per-object-slot row reservation (poisoned padding) for "

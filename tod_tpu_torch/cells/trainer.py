@@ -15,6 +15,7 @@ written through cv2.
 from __future__ import annotations
 
 import json
+import warnings
 from typing import Dict, List, Sequence, Tuple, Union
 
 import numpy as np
@@ -37,21 +38,24 @@ def feature_settings(feature_params: Union[str, Dict]) -> Dict:
     """The Trainer's feature parameters (its ``json_feature_params``, a
     JSON string or a dict) with the reference's defaults: ``type`` ORB or
     SIFT, ``n_features`` 1000, ``n_levels`` 3, ``scale_factor`` 1.2,
-    ``fast_threshold`` 20."""
+    ``fast_threshold`` 20, ``subpixel`` off (sub-pixel model points, ORB
+    only: SIFT warns and keeps integer coords, as the reference does)."""
     feat = json.loads(feature_params) if isinstance(feature_params, str) \
         else dict(feature_params)
     kind = feat.get("type", "ORB")
     if kind not in ("ORB", "SIFT"):
         raise ValueError(f"training supports ORB or SIFT features, "
                          f"not {kind!r}")
-    if feat.get("subpixel", False):
-        raise NotImplementedError(
-            "tod_tpu_torch: sub-pixel model points are ROADMAP A16")
+    subpixel = bool(feat.get("subpixel", False))
+    if subpixel and kind != "ORB":
+        warnings.warn(f"feature param subpixel=true is only implemented for "
+                      f"ORB; {kind} training keeps integer coordinates")
     return dict(feature_type=kind,
                 n_features=int(feat.get("n_features", 1000)),
                 n_levels=int(feat.get("n_levels", 3)),
                 scale_factor=float(feat.get("scale_factor", 1.2)),
-                fast_threshold=float(feat.get("fast_threshold", 20)))
+                fast_threshold=float(feat.get("fast_threshold", 20)),
+                subpixel=subpixel and kind == "ORB")
 
 
 def _depth_for_upload(depth) -> np.ndarray:

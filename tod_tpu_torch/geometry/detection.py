@@ -25,6 +25,7 @@ seed (:func:`fold_best_pose`, :func:`seeds_from_state`).
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -69,12 +70,33 @@ ACTIVE_BOOST = 1e6      # f32 boost of forced/reserved slots in the cut
 
 
 def median_level(dist: torch.Tensor) -> torch.Tensor:
-    """Per-query cross-object median of (Q, O) distances, the mean of the
-    two middle values for an even count (``jnp.median``; ``torch.median``
-    would return the lower one)."""
-    s = torch.sort(dist, dim=1).values
-    o = dist.shape[1]
-    return (s[:, (o - 1) // 2] + s[:, o // 2]) * 0.5
+    """Per-query cross-object median of (..., Q, O) distances, the mean of
+    the two middle values for an even count (``jnp.median``;
+    ``torch.median`` would return the lower one)."""
+    s = torch.sort(dist, dim=-1).values
+    o = dist.shape[-1]
+    return (s[..., (o - 1) // 2] + s[..., o // 2]) * 0.5
+
+
+def _pad_stores(out: ObjectMatches, pad: int) -> ObjectMatches:
+    """Stores grown by ``pad`` empty slots (fewer candidates than the
+    capacity)."""
+    if not pad:
+        return out
+
+    def grow(x, fill):
+        tail = torch.full((x.shape[0], pad) + x.shape[2:], fill,
+                          dtype=x.dtype, device=x.device)
+        return torch.cat([x, tail], 1)
+
+    return ObjectMatches(grow(out.query_pts, 0), grow(out.train_pts, 0),
+                         grow(out.query_idx, -1), grow(out.query_xy, 0),
+                         grow(out.valid, False))
+
+
+def _stacked(x: torch.Tensor) -> torch.Tensor:
+    """(B, A, ...) -> (B * A, ...): frame b's objects at rows b*A.."""
+    return x.flatten(0, 1)
 
 
 def build_object_stores(dist: torch.Tensor, rows: torch.Tensor,
@@ -85,53 +107,55 @@ def build_object_stores(dist: torch.Tensor, rows: torch.Tensor,
                         level: torch.Tensor) -> ObjectMatches:
     """Per-object stores of the ``m_cap`` in-radius matches with the most
     negative cross-object margin d[q,o] - alpha*level[q] (ties: lower
-    query index). ``sel``: (A,) object indices, -1 = empty slot."""
-    q_n = dist.shape[0]
+    query index). ``sel``: (A,) object indices, -1 = empty slot. With a
+    leading frame axis (``dist`` (B, Q, O), ``sel`` (B, A) and the query
+    tensors (B, Q, ...)) the stores of all frames come out stacked, (B * A,
+    m_cap, ...), frame b's at rows b*A to (b+1)*A - 1."""
+    if dist.dim() == 2:
+        return build_object_stores(dist[None], rows[None], q_valid[None],
+                                   query_pts[None], query_xy[None], points,
+                                   obj_start, sel[None], m_cap, radius,
+                                   level[None])
+    n_b, q_n, _ = dist.shape
     cap = min(m_cap, q_n)
-    pad = m_cap - cap
-    o_safe = sel.clamp_min(0).long()
-    d = dist[:, o_safe].T                                       # (A,Q)
-    pri = d - MARGIN_ALPHA * level[None, :]
-    ok = (d <= radius) & q_valid[None, :] & (sel >= 0)[:, None]
+    o_safe = sel.clamp_min(0).long()                            # (B,A)
+    bi = torch.arange(n_b, device=dist.device)[:, None]
+    d = dist.transpose(1, 2)[bi, o_safe]                        # (B,A,Q)
+    pri = d - MARGIN_ALPHA * level[:, None, :]
+    ok = (d <= radius) & q_valid[:, None, :] & (sel >= 0)[..., None]
     neg_inf = torch.full((), -torch.inf, device=dist.device)
-    top, kp = stable_topk(torch.where(ok, -pri, neg_inf), cap)   # (A,cap)
+    top, kp = stable_topk(torch.where(ok, -pri, neg_inf), cap)  # (B,A,cap)
     got = torch.isfinite(top)
+    b3 = bi[..., None]
     # a hole slot's rows (HOLE_ROW) are never gathered: the reference clamps
     # the index and masks the value, the port masks the index
-    g_row = torch.where(got, obj_start[o_safe].long()[:, None]
-                        + rows[kp, o_safe[:, None]], 0)
+    g_row = torch.where(got, obj_start[o_safe].long()[..., None]
+                        + rows[b3, kp, o_safe[..., None]], 0)
     zero = torch.zeros((), device=dist.device)
-    out = ObjectMatches(
-        query_pts=torch.where(got[..., None], query_pts[kp], zero),
-        train_pts=torch.where(got[..., None], points[g_row], zero),
-        query_idx=torch.where(got, kp, -1),
-        query_xy=torch.where(got[..., None], query_xy[kp], zero),
-        valid=got)
-    if pad:   # fewer queries than the capacity: pad the stores up to it
-        def grow(x, fill):
-            tail = torch.full((x.shape[0], pad) + x.shape[2:], fill,
-                              dtype=x.dtype, device=x.device)
-            return torch.cat([x, tail], 1)
-
-        out = ObjectMatches(grow(out.query_pts, 0), grow(out.train_pts, 0),
-                            grow(out.query_idx, -1), grow(out.query_xy, 0),
-                            grow(out.valid, False))
-    return out
+    return _pad_stores(ObjectMatches(
+        query_pts=_stacked(torch.where(got[..., None], query_pts[b3, kp],
+                                       zero)),
+        train_pts=_stacked(torch.where(got[..., None], points[g_row], zero)),
+        query_idx=_stacked(torch.where(got, kp, -1)),
+        query_xy=_stacked(torch.where(got[..., None], query_xy[b3, kp],
+                                      zero)),
+        valid=_stacked(got)), m_cap - cap)
 
 
 def prescreen_scores(dist: torch.Tensor, level: torch.Tensor,
                      q_valid: torch.Tensor, radius: float,
                      top: int) -> torch.Tensor:
     """Per-object presence proxy: the summed magnitude of the ``top`` most
-    negative cross-object margins among in-radius matches. (O,)."""
-    m = dist - MARGIN_ALPHA * level[:, None]
-    inr = (dist <= radius) & q_valid[:, None]
+    negative cross-object margins among in-radius matches. (..., O) of
+    (..., Q, O) distances."""
+    m = dist - MARGIN_ALPHA * level[..., None]
+    inr = (dist <= radius) & q_valid[..., None]
     neg = torch.where(inr, torch.clamp_min(-m, 0.0),
                       torch.zeros((), device=dist.device))
-    k = min(top, neg.shape[0])
+    k = min(top, neg.shape[-2])
     # the values are multiples of 1/8 below 2^20: the sum is exact in any
     # order; + 0.0 turns an all -0.0 sum into the reference's +0.0
-    return torch.topk(neg.T, k, dim=1).values.sum(-1) + 0.0
+    return torch.topk(neg.transpose(-1, -2), k, dim=-1).values.sum(-1) + 0.0
 
 
 def activation_cut(scores: torch.Tensor, n_active: int,
@@ -139,10 +163,11 @@ def activation_cut(scores: torch.Tensor, n_active: int,
                    force_active: Optional[torch.Tensor] = None
                    ) -> torch.Tensor:
     """Top ``n_active`` object indices by tier-1 score (ties: lower index),
-    -1 below ``min_score``. ``force_active`` (bool (O,)) objects are boosted
-    above every unforced score (keeping their own as the tie-break), and so
-    are the top ``act.active_reserve`` score-qualified unforced ones, so a
-    full tracked slab never displaces a fresh find from tier 2."""
+    -1 below ``min_score``, along the last axis of (..., O) ``scores``.
+    ``force_active`` (bool, ``scores``' shape) objects are boosted above
+    every unforced score (keeping their own as the tie-break), and so are
+    the top ``act.active_reserve`` score-qualified unforced ones, so a full
+    tracked slab never displaces a fresh find from tier 2."""
     cut = scores
     if force_active is not None:
         boost = force_active
@@ -151,7 +176,7 @@ def activation_cut(scores: torch.Tensor, n_active: int,
             neg_inf = torch.full((), -torch.inf, device=scores.device)
             nf = torch.where(force_active, neg_inf, scores.float())
             picked = torch.zeros_like(force_active)
-            picked[stable_topk(nf, r)[1]] = True
+            picked.scatter_(-1, stable_topk(nf, r)[1], True)
             boost = force_active | (picked & (scores >= act.min_score)
                                     & ~force_active)
         cut = torch.where(boost, scores + ACTIVE_BOOST, scores)
@@ -175,16 +200,23 @@ def detect_objects(noise: NoiseFn, matches: ObjectMatches,
 
 def scatter_detections(det: ObjectDetections, active: torch.Tensor,
                        n_objects: int) -> ObjectDetections:
-    """Scatter active-object results back to the full object axis; -1 slots
-    are dropped (they never clobber object 0)."""
-    safe = torch.where(active >= 0, active, n_objects).long()
-    acc = det.accepted & (active >= 0)[:, None]
+    """Scatter active-object results back to the full object axis: ``det``
+    holds one row per entry of ``active`` (..., A), in its order; -1 slots
+    are dropped (they never clobber object 0). Returns (..., n_objects, I,
+    ...)."""
+    lead = active.shape[:-1]
+    act = active.reshape(-1, active.shape[-1])
+    n_b, n_a = act.shape
+    safe = torch.where(act >= 0, act, n_objects).long()
+    bi = torch.arange(n_b, device=act.device)[:, None]
+    acc = det.accepted & (act >= 0).reshape(-1)[:, None]
 
     def put(x):
-        full = torch.zeros((n_objects + 1,) + x.shape[1:], dtype=x.dtype,
+        x = x.reshape((n_b, n_a) + x.shape[1:])
+        full = torch.zeros((n_b, n_objects + 1) + x.shape[2:], dtype=x.dtype,
                            device=x.device)
-        full[safe] = x
-        return full[:n_objects]
+        full[bi, safe] = x
+        return full[:, :n_objects].reshape(lead + (n_objects,) + x.shape[2:])
 
     zero = torch.zeros((), device=acc.device)
     return ObjectDetections(
@@ -193,6 +225,11 @@ def scatter_detections(det: ObjectDetections, active: torch.Tensor,
         accepted=put(acc),
         rms_residual=put(torch.where(acc, det.rms_residual, zero)),
         clique_size=put(torch.where(acc, det.clique_size, 0)))
+
+
+def frame_rows(det: ObjectDetections, n_b: int) -> ObjectDetections:
+    """(B * O, ...) detections of B frames as (B, O, ...)."""
+    return ObjectDetections(*(x.unflatten(0, (n_b, -1)) for x in det))
 
 
 # ---- the global-kNN path: flat (Q, k) matches ------------------------------
@@ -207,47 +244,45 @@ def cluster_matches(obj_idx: torch.Tensor, dist: torch.Tensor,
     for the objects ``object_ids`` (A,) (-1 = empty slot): per object the
     valid matches of finite query points, best priority first, where the
     priority is (rank within its query, then distance) as ``rank * stride +
-    dist`` with the stride one above the largest valid distance, ties to the
-    lower flat index. The reference vmaps one object's top-k; here the
-    objects are a batch dimension."""
-    q, k = obj_idx.shape
+    dist`` with the stride one above the frame's largest valid distance,
+    ties to the lower flat index. The reference vmaps one object's top-k;
+    here the objects are a batch dimension. With a leading frame axis (the
+    matches (B, Q, k, ...), ``object_ids`` (B, A)) the stores of all frames
+    come out stacked, (B * A, max_matches, ...)."""
+    if obj_idx.dim() == 2:
+        return cluster_matches(obj_idx[None], dist[None], valid[None],
+                               train_pts[None], query_pts[None],
+                               query_xy[None], object_ids[None], max_matches)
+    n_b, q, k = obj_idx.shape
     qk = q * k
     dev = dist.device
-    obj_flat = obj_idx.reshape(qk)
-    dist_flat = dist.reshape(qk)
+    obj_flat = obj_idx.reshape(n_b, qk)
+    dist_flat = dist.reshape(n_b, qk)
     rank_flat = torch.arange(k, dtype=torch.float32, device=dev).repeat(q)
     q_finite = torch.isfinite(query_pts).all(-1)
-    valid_flat = valid.reshape(qk) & q_finite.repeat_interleave(k)
-    t_flat = train_pts.reshape(qk, 3)
+    valid_flat = valid.reshape(n_b, qk) & q_finite.repeat_interleave(k, 1)
+    t_flat = train_pts.reshape(n_b, qk, 3)
     kp_of_flat = torch.arange(q, device=dev).repeat_interleave(k)
     zero = torch.zeros((), device=dev)
-    stride = torch.where(valid_flat, dist_flat, zero).max() + 1.0
-    priority = rank_flat * stride + dist_flat
+    stride = torch.where(valid_flat, dist_flat, zero).amax(-1, True) + 1.0
+    priority = rank_flat * stride + dist_flat                   # (B,QK)
     cap = min(max_matches, qk)
-    pad = max_matches - cap
     ids = object_ids.to(obj_flat.dtype)
-    mask = valid_flat[None, :] & (obj_flat[None, :] == ids[:, None]) \
-        & (ids >= 0)[:, None]                                     # (A, QK)
+    mask = valid_flat[:, None, :] & (obj_flat[:, None, :] == ids[..., None]) \
+        & (ids >= 0)[..., None]                                 # (B,A,QK)
     neg_inf = torch.full((), -torch.inf, device=dev)
-    top, sel = stable_topk(torch.where(mask, -priority[None, :], neg_inf), cap)
+    top, sel = stable_topk(torch.where(mask, -priority[:, None, :], neg_inf),
+                           cap)                                 # (B,A,cap)
     ok = torch.isfinite(top)
     kp = kp_of_flat[sel]
-    out = ObjectMatches(
-        query_pts=torch.where(ok[..., None], query_pts[kp], zero),
-        train_pts=torch.where(ok[..., None], t_flat[sel], zero),
-        query_idx=torch.where(ok, kp, -1),
-        query_xy=torch.where(ok[..., None], query_xy[kp], zero),
-        valid=ok)
-    if pad:   # fewer flat matches than the capacity: pad the stores up to it
-        def grow(x, fill):
-            tail = torch.full((x.shape[0], pad) + x.shape[2:], fill,
-                              dtype=x.dtype, device=x.device)
-            return torch.cat([x, tail], 1)
-
-        out = ObjectMatches(grow(out.query_pts, 0), grow(out.train_pts, 0),
-                            grow(out.query_idx, -1), grow(out.query_xy, 0),
-                            grow(out.valid, False))
-    return out
+    b3 = torch.arange(n_b, device=dev)[:, None, None]
+    return _pad_stores(ObjectMatches(
+        query_pts=_stacked(torch.where(ok[..., None], query_pts[b3, kp],
+                                       zero)),
+        train_pts=_stacked(torch.where(ok[..., None], t_flat[b3, sel], zero)),
+        query_idx=_stacked(torch.where(ok, kp, -1)),
+        query_xy=_stacked(torch.where(ok[..., None], query_xy[b3, kp], zero)),
+        valid=_stacked(ok)), max_matches - cap)
 
 
 def active_objects(obj_idx: torch.Tensor, valid: torch.Tensor,
@@ -255,16 +290,47 @@ def active_objects(obj_idx: torch.Tensor, valid: torch.Tensor,
                    n_active: int) -> torch.Tensor:
     """The ``n_active`` objects (int32) with the most valid matches of
     finite query points, ties to the lower index; -1 where an object has
-    none. Every object, in order, when ``n_active`` covers the catalog."""
+    none. Every object, in order, when ``n_active`` covers the catalog.
+    (A,) of one frame's (Q, k) matches; (B, A) of B frames' (B, Q, k)."""
     dev = obj_idx.device
+    lead = obj_idx.shape[:-2]
     if n_active >= n_objects:
-        return torch.arange(n_objects, dtype=torch.int32, device=dev)
-    v = valid & torch.isfinite(query_pts).all(-1)[:, None]
-    counts = torch.zeros(n_objects, dtype=torch.int32, device=dev)
-    counts.index_add_(0, obj_idx.clamp_min(0).reshape(-1).long(),
+        return torch.arange(n_objects, dtype=torch.int32,
+                            device=dev).expand(lead + (n_objects,))
+    v = valid & torch.isfinite(query_pts).all(-1)[..., None]
+    n_b = math.prod(lead)
+    # each frame counts into its own n_objects bins
+    offset = torch.arange(n_b, device=dev).reshape(lead + (1, 1)) * n_objects
+    counts = torch.zeros(n_b * n_objects, dtype=torch.int32, device=dev)
+    counts.index_add_(0, (obj_idx.clamp_min(0).long() + offset).reshape(-1),
                       v.reshape(-1).to(torch.int32))
-    top, active = stable_topk(counts, n_active)
+    top, active = stable_topk(counts.reshape(lead + (n_objects,)), n_active)
     return torch.where(top > 0, active, -1).to(torch.int32)
+
+
+def detect_frames_from_matches(
+        noise: NoiseFn, obj_idx: torch.Tensor, dist: torch.Tensor,
+        valid: torch.Tensor, train_pts: torch.Tensor, query_pts: torch.Tensor,
+        query_xy: torch.Tensor, spans: torch.Tensor,
+        cfg: GuessConfig) -> Tuple[ObjectMatches, ObjectDetections]:
+    """Cluster + detect (GuessGenerator::process) for B frames at once, the
+    matches (B, Q, k, ...): each frame's active set
+    (:func:`active_objects`) and its stores (:func:`cluster_matches`), then
+    the multi-instance RANSAC once over the B frames' stacked objects
+    (``noise`` draws (B * A, ...), frame b's objects at rows b*A..).
+    Detections are (B, O, I, ...); objects outside a frame's active set
+    carry accepted=False rows."""
+    n_b = obj_idx.shape[0]
+    n_objects = spans.shape[0]
+    n_active = min(cfg.max_active_objects, n_objects)
+    active = active_objects(obj_idx, valid, query_pts, n_objects, n_active)
+    clustered = cluster_matches(obj_idx, dist, valid, train_pts, query_pts,
+                                query_xy, active, cfg.max_matches_per_object)
+    det = detect_objects(noise, clustered,
+                         spans[active.clamp_min(0).long()].reshape(-1), cfg)
+    if n_active == n_objects:
+        return clustered, frame_rows(det, n_b)
+    return clustered, scatter_detections(det, active, n_objects)
 
 
 def detect_frame_from_matches(
@@ -272,20 +338,82 @@ def detect_frame_from_matches(
         valid: torch.Tensor, train_pts: torch.Tensor, query_pts: torch.Tensor,
         query_xy: torch.Tensor, spans: torch.Tensor,
         cfg: GuessConfig) -> Tuple[ObjectMatches, ObjectDetections]:
-    """Cluster + detect (GuessGenerator::process): the active set
-    (:func:`active_objects`), its stores (:func:`cluster_matches`) and the
-    multi-instance RANSAC on them. Detections have leading dim O; objects
-    outside the active set carry accepted=False rows."""
-    n_objects = spans.shape[0]
-    n_active = min(cfg.max_active_objects, n_objects)
-    active = active_objects(obj_idx, valid, query_pts, n_objects, n_active)
-    clustered = cluster_matches(obj_idx, dist, valid, train_pts, query_pts,
-                                query_xy, active, cfg.max_matches_per_object)
-    det = detect_objects(noise, clustered, spans[active.clamp_min(0).long()],
-                         cfg)
-    if n_active == n_objects:
-        return clustered, det
-    return clustered, scatter_detections(det, active, n_objects)
+    """:func:`detect_frames_from_matches` of one frame's (Q, k) matches:
+    detections with leading dim O."""
+    clustered, det = detect_frames_from_matches(
+        noise, obj_idx[None], dist[None], valid[None], train_pts[None],
+        query_pts[None], query_xy[None], spans, cfg)
+    return clustered, ObjectDetections(*(x[0] for x in det))
+
+
+def detect_frames_segmented(
+        noise: NoiseFn, dist: torch.Tensor, rows: torch.Tensor,
+        q_valid: torch.Tensor, query_pts: torch.Tensor,
+        query_xy: torch.Tensor, points: torch.Tensor,
+        obj_start: torch.Tensor, spans: torch.Tensor, cfg: GuessConfig,
+        act: ActivationConfig, radius: float,
+        force: Optional[torch.Tensor] = None, n_forced: int = 0,
+        force_active: Optional[torch.Tensor] = None,
+        seeds: Optional[SeedPose] = None
+) -> Tuple[torch.Tensor, ObjectDetections]:
+    """Tier-1 presence scoring on the pre-screened objects + tier-2
+    certified multi-instance RANSAC on the activated set, for B frames at
+    once: ``dist``/``rows`` (B, Q, O), the query tensors (B, Q, ...).
+    Each frame is pre-screened, stored and cut on its own; the adjacency
+    fill and both RANSAC tiers run once over the B frames' stacked objects
+    (``noise`` draws (B * A, ...), frame b's objects at rows b*A..).
+    Returns ``(scores (B, O), ObjectDetections (B, O, I, ...))``.
+
+    ``force`` (bool (B, O)): objects that bypass the prescreen ranking (the
+    reserved coarse->fine slots); ``n_forced`` widens the tier-1 set by the
+    reserved-slot count so they never displace ranked objects.
+    ``force_active`` (bool (B, O), tracked slots only) also bypasses the
+    activation cut (:func:`activation_cut`). ``seeds`` (SeedPose (B, O,
+    ...)) enter each activated object's tier-2 rounds."""
+    n_b, _, n_objects = dist.shape
+    dev = dist.device
+    bi = torch.arange(n_b, device=dev)[:, None]
+    level = median_level(dist)
+    n_pre = (min(act.prescreen + (n_forced if force is not None else 0),
+                 n_objects) if act.prescreen > 0 else n_objects)
+    if n_pre < n_objects:
+        pre = prescreen_scores(dist, level, q_valid, radius,
+                               act.prescreen_top)
+        if force is not None:
+            pre = torch.where(force, torch.full((), torch.inf, device=dev),
+                              pre)
+        pre_ids = stable_topk(pre, n_pre)[1]
+    else:
+        pre_ids = torch.arange(n_objects, device=dev).expand(n_b, n_objects)
+
+    # ---- tier 1: lean presence scores -------------------------------------
+    stores = build_object_stores(dist, rows, q_valid, query_pts, query_xy,
+                                 points, obj_start, pre_ids, act.m_cap,
+                                 radius, level)
+    graphs = fill_adjacency(stores, spans[pre_ids].reshape(-1),
+                            cfg.sensor_error)
+    g1 = noise("tier1", (n_b * n_pre, 3, act.n_hypotheses, act.m_cap))
+    pre_scores = presence_score(g1, stores, graphs, cfg.sensor_error)
+    scores = torch.zeros((n_b, n_objects), dtype=pre_scores.dtype,
+                         device=dev)
+    # un-screened objects keep score 0
+    scores.scatter_(1, pre_ids, pre_scores.reshape(n_b, n_pre))
+
+    # ---- tier 2: full certified RANSAC on the activated set ---------------
+    active = activation_cut(scores, min(cfg.max_active_objects, n_objects),
+                            act, force_active)
+    stores = build_object_stores(dist, rows, q_valid, query_pts, query_xy,
+                                 points, obj_start, active,
+                                 cfg.max_matches_per_object, radius, level)
+    a_safe = active.clamp_min(0)
+    act_seeds = None
+    if seeds is not None:
+        act_seeds = SeedPose(R=_stacked(seeds.R[bi, a_safe]),
+                             T=_stacked(seeds.T[bi, a_safe]),
+                             ok=_stacked(seeds.ok[bi, a_safe] & (active >= 0)))
+    det = detect_objects(noise, stores, spans[a_safe].reshape(-1), cfg,
+                         act_seeds)
+    return scores, scatter_detections(det, active, n_objects)
 
 
 def detect_frame_segmented(
@@ -298,55 +426,18 @@ def detect_frame_segmented(
         force_active: Optional[torch.Tensor] = None,
         seeds: Optional[SeedPose] = None
 ) -> Tuple[torch.Tensor, ObjectDetections]:
-    """Tier-1 presence scoring on the pre-screened objects + tier-2
-    certified multi-instance RANSAC on the activated set. Returns
-    ``(scores (O,), ObjectDetections (O, I, ...))``.
+    """:func:`detect_frames_segmented` of one frame: ``dist``/``rows`` (Q,
+    O), ``force``/``force_active`` (O,), ``seeds`` on the (O,) axis.
+    Returns ``(scores (O,), ObjectDetections (O, I, ...))``."""
+    def one(x):
+        return None if x is None else x[None]
 
-    ``force`` (bool (O,)): objects that bypass the prescreen ranking (the
-    reserved coarse->fine slots); ``n_forced`` widens the tier-1 set by the
-    reserved-slot count so they never displace ranked objects.
-    ``force_active`` (bool (O,), tracked slots only) also bypasses the
-    activation cut (:func:`activation_cut`). ``seeds`` (SeedPose on this
-    object axis) enter each activated object's tier-2 rounds."""
-    n_objects = spans.shape[0]
-    dev = dist.device
-    level = median_level(dist)
-    n_pre = (min(act.prescreen + (n_forced if force is not None else 0),
-                 n_objects) if act.prescreen > 0 else n_objects)
-    if n_pre < n_objects:
-        pre = prescreen_scores(dist, level, q_valid, radius,
-                               act.prescreen_top)
-        if force is not None:
-            pre = torch.where(force, torch.full((), torch.inf, device=dev),
-                              pre)
-        pre_ids = stable_topk(pre, n_pre)[1]
-    else:
-        pre_ids = torch.arange(n_objects, device=dev)
-
-    # ---- tier 1: lean presence scores -------------------------------------
-    stores = build_object_stores(dist, rows, q_valid, query_pts, query_xy,
-                                 points, obj_start, pre_ids, act.m_cap,
-                                 radius, level)
-    graphs = fill_adjacency(stores, spans[pre_ids], cfg.sensor_error)
-    g1 = noise("tier1", (n_pre, 3, act.n_hypotheses, act.m_cap))
-    pre_scores = presence_score(g1, stores, graphs, cfg.sensor_error)
-    scores = torch.zeros(n_objects, dtype=pre_scores.dtype, device=dev)
-    scores[pre_ids] = pre_scores       # un-screened objects keep score 0
-
-    # ---- tier 2: full certified RANSAC on the activated set ---------------
-    active = activation_cut(scores, min(cfg.max_active_objects, n_objects),
-                            act, force_active)
-    stores = build_object_stores(dist, rows, q_valid, query_pts, query_xy,
-                                 points, obj_start, active,
-                                 cfg.max_matches_per_object, radius, level)
-    a_safe = active.clamp_min(0)
-    act_seeds = None
-    if seeds is not None:
-        act_seeds = SeedPose(R=seeds.R[a_safe], T=seeds.T[a_safe],
-                             ok=seeds.ok[a_safe] & (active >= 0))
-    det = detect_objects(noise, stores, spans[a_safe], cfg, act_seeds)
-    det = det._replace(accepted=det.accepted & (active >= 0)[:, None])
-    return scores, scatter_detections(det, active, n_objects)
+    scores, det = detect_frames_segmented(
+        noise, dist[None], rows[None], q_valid[None], query_pts[None],
+        query_xy[None], points, obj_start, spans, cfg, act, radius,
+        one(force), n_forced, one(force_active),
+        None if seeds is None else SeedPose(*(x[None] for x in seeds)))
+    return scores[0], ObjectDetections(*(x[0] for x in det))
 
 
 # ---- coarse->fine selection and streaming state --------------------------

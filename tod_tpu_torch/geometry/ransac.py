@@ -102,6 +102,24 @@ class ThreefryNoise:
         return prng.gumbel(self.keys(stage, n_obj), (n, m), self.device)
 
 
+class BatchNoise:
+    """The draws of B frames whose objects lie stacked on one axis (frame
+    b's A objects at rows b*A to (b+1)*A - 1, as the batched geometry stacks
+    them): each frame's rows come down its own :class:`ThreefryNoise` key
+    path, all of them from one :func:`prng.gumbel` (one launch of kernel N1
+    a call on a card, however many frames)."""
+
+    def __init__(self, frames: Sequence[ThreefryNoise]):
+        self.frames = list(frames)
+        self.device = self.frames[0].device
+
+    def __call__(self, stage: str, shape: Tuple[int, ...]) -> torch.Tensor:
+        n_obj, _, n, m = shape
+        per_frame = n_obj // len(self.frames)
+        keys = np.concatenate([f.keys(stage, per_frame) for f in self.frames])
+        return prng.gumbel(keys, (n, m), self.device)
+
+
 class RansacRound(NamedTuple):
     R: torch.Tensor            # (A,3,3) object->camera
     T: torch.Tensor            # (A,3)
@@ -386,7 +404,7 @@ def detect_object_instances(gumbels: Sequence[torch.Tensor],
         clique_size=torch.stack([r.clique_size for r in rounds], 1))
 
 
-__all__ = ["CLIQUE_STAT_STEPS", "NoiseFn", "ObjectDetections",
+__all__ = ["BatchNoise", "CLIQUE_STAT_STEPS", "NoiseFn", "ObjectDetections",
            "RansacConfig", "RansacRound", "RigidFit", "SeedPose",
            "ThreefryNoise",
            "consistency_log_weights", "detect_object_instances",

@@ -22,8 +22,13 @@ whole catalog (kernel B5 of ``ops/hamming.py`` on the card), the objects
 with the most matches form the active set, their matches are clustered per
 object and the multi-instance RANSAC runs on them.
 
-Configuration values of other serving paths raise ``NotImplementedError``
-naming the ROADMAP item that ports them; none falls back silently.
+:meth:`FusedDetector.detect_batch_raw` detects B frames at once on either
+path: one matcher launch over the B frames' queries, and the geometry's
+tiers once over the B frames' objects (one N1 launch a stage).
+:meth:`FusedDetector.update_models` swaps the segmented catalog, in place
+when it fits the ``catalog_capacity`` / ``reserve_rows`` reservation.
+``subpixel`` refines the ORB keypoints' reported coords (SIFT keeps integer
+coords, as in the reference).
 """
 
 from __future__ import annotations
@@ -37,10 +42,12 @@ import torch
 from tod_tpu_torch.geometry.detection import (
     AGE_NEVER, ActivationConfig, GuessConfig, coarse_select,
     detect_frame_from_matches, detect_frame_gathered, detect_frame_segmented,
-    fold_best_pose, merge_tracked, reserved_force_mask, seeds_from_state,
-    tracked_from_age, tracked_needy, update_age)
-from tod_tpu_torch.geometry.ransac import (NoiseFn, ObjectDetections,
-                                           RansacConfig, ThreefryNoise)
+    detect_frames_from_matches, detect_frames_segmented, fold_best_pose,
+    merge_tracked, reserved_force_mask, seeds_from_state, tracked_from_age,
+    tracked_needy, update_age)
+from tod_tpu_torch.geometry.ransac import (BatchNoise, NoiseFn,
+                                           ObjectDetections, RansacConfig,
+                                           ThreefryNoise)
 from tod_tpu_torch.ops.depth import depth_to_3d_sparse, to_metric_depth
 from tod_tpu_torch.ops.fast import stable_topk
 from tod_tpu_torch.ops.hamming import hamming_topk_fused, pack_db_bits
@@ -63,7 +70,10 @@ from tod_tpu_torch.utils import prng
 class FusedDetectorConfig:
     """The reference's operating point, field for field (same names and
     defaults), so a reference config converts one to one
-    (``convert.config_from_dict``)."""
+    (``convert.config_from_dict``). ``k_matches`` and ``db_chunk`` serve
+    the global path (the DB is padded to ``db_chunk`` rows, as the
+    reference pads it). ``matcher`` selects nothing here: whatever its
+    value, a CUDA tensor runs kernel B5 and a CPU tensor its plain twin."""
 
     n_features: int = 5000
     n_levels: int = 3
@@ -101,20 +111,6 @@ class FusedDetectorConfig:
         if self.coarse_slack is not None:
             return self.coarse_slack
         return 0.15 if self.feature == "SIFT" else 16.0
-
-
-def check_ported(cfg: FusedDetectorConfig) -> None:
-    """Raise for configuration values of paths this package has not ported.
-    ``k_matches`` and ``db_chunk`` serve the global path (the DB is padded
-    to ``db_chunk`` rows, as the reference pads it). ``matcher`` selects
-    nothing here: whatever its value, a CUDA tensor runs kernel B5 and a
-    CPU tensor its plain twin."""
-    missing = [
-        (cfg.subpixel, "subpixel keypoints are ROADMAP A16"),
-    ]
-    for bad, why in missing:
-        if bad:
-            raise NotImplementedError(f"tod_tpu_torch: {why}")
 
 
 CLIQUE_WEIGHT = 16.0
@@ -221,7 +217,7 @@ def stage_features_compact(gray: torch.Tensor, depth: torch.Tensor,
     """Features + 3D + query compaction: keep the ``q_cap`` best keypoints
     with valid 3D, padded to a multiple of 512. Returns ``(xy, qp, dsc,
     ok)``; ``dsc`` is (Q, 32) uint8 for ORB, (Q, 128) int8 (quantised) for
-    SIFT."""
+    SIFT. ``cfg.subpixel`` refines the ORB keypoints only."""
     extract = dict(n_features=cfg.n_features, n_levels=cfg.n_levels,
                    scale_factor=cfg.scale_factor,
                    fast_threshold=cfg.fast_threshold)
@@ -229,7 +225,8 @@ def stage_features_compact(gray: torch.Tensor, depth: torch.Tensor,
         kps, desc = sift_detect_and_compute(gray, **extract)
         desc = quantize_descriptors(desc)
     else:
-        kps, desc = orb_detect_and_compute(gray, **extract)
+        kps, desc = orb_detect_and_compute(gray, subpixel=cfg.subpixel,
+                                           **extract)
     query_pts = depth_to_3d_sparse(to_metric_depth(depth), K, kps.xy)
     finite = torch.isfinite(query_pts).all(-1) & kps.valid
     k = min(cfg.q_cap, cfg.n_features)
@@ -346,7 +343,8 @@ def stage_features(gray: torch.Tensor, depth: torch.Tensor, K: torch.Tensor,
     keypoint is invalid or has no depth)."""
     kps, desc = orb_detect_and_compute(
         gray, n_features=cfg.n_features, n_levels=cfg.n_levels,
-        scale_factor=cfg.scale_factor, fast_threshold=cfg.fast_threshold)
+        scale_factor=cfg.scale_factor, fast_threshold=cfg.fast_threshold,
+        subpixel=cfg.subpixel)
     query_pts = depth_to_3d_sparse(to_metric_depth(depth), K, kps.xy)
     query_pts = torch.where(kps.valid[:, None], query_pts,
                             _full(torch.nan, query_pts))
@@ -368,10 +366,10 @@ def geom_db(db: ModelDb) -> GeomDb:
 
 def flat_matches(kps_valid: torch.Tensor, dist: torch.Tensor,
                  rows: torch.Tensor, geom: GeomDb, radius: float):
-    """``(obj_idx, valid, train_pts)`` of the matcher's (Q, k) output:
-    valid where the row is real, within ``radius`` and the keypoint valid;
-    ``obj_idx`` -1 elsewhere."""
-    valid = (rows >= 0) & (dist <= radius) & kps_valid[:, None]
+    """``(obj_idx, valid, train_pts)`` of the matcher's (..., Q, k)
+    output: valid where the row is real, within ``radius`` and the keypoint
+    valid; ``obj_idx`` -1 elsewhere."""
+    valid = (rows >= 0) & (dist <= radius) & kps_valid[..., None]
     safe = rows.clamp_min(0).long()
     obj_idx = torch.where(valid, geom.obj_of_row[safe], -1)
     return obj_idx, valid, geom.points[safe]
@@ -392,18 +390,38 @@ def stage_geometry(noise: NoiseFn, kps_xy: torch.Tensor,
 
 
 def empty_detections(n_objects: int, cfg: FusedDetectorConfig,
-                     device: torch.device | str) -> ObjectDetections:
-    """All-empty detections, for an empty catalog."""
+                     device: torch.device | str,
+                     lead: Tuple[int, ...] = ()) -> ObjectDetections:
+    """All-empty detections, for an empty catalog: (*lead, n_objects, I,
+    ...)."""
     n_inst = cfg.guess.ransac.max_instances
 
     def zeros(*shape, dtype=torch.float32):
-        return torch.zeros((n_objects, n_inst) + shape, dtype=dtype,
+        return torch.zeros(lead + (n_objects, n_inst) + shape, dtype=dtype,
                            device=device)
 
     return ObjectDetections(
         R=zeros(3, 3), T=zeros(3), n_inliers=zeros(dtype=torch.int64),
         accepted=zeros(dtype=torch.bool), rms_residual=zeros(),
         clique_size=zeros(dtype=torch.int64))
+
+
+def load_db(old, new, device: torch.device):
+    """``new`` (a DB packed on the host) on ``device``: written into
+    ``old``'s tensors when ``old`` is a DB of the same kind whose every
+    tensor has the shape and dtype of ``new``'s (their storage does not
+    move), else uploaded into new tensors."""
+    names = [f.name for f in dataclasses.fields(new)
+             if isinstance(getattr(new, f.name), torch.Tensor)]
+    fits = type(old) is type(new) and all(
+        getattr(old, n).shape == getattr(new, n).shape
+        and getattr(old, n).dtype == getattr(new, n).dtype for n in names)
+    if fits:
+        for n in names:
+            getattr(old, n).copy_(getattr(new, n))
+        return dataclasses.replace(new, **{n: getattr(old, n) for n in names})
+    return dataclasses.replace(new, **{n: getattr(new, n).to(device)
+                                       for n in names})
 
 
 class FusedDetector:
@@ -418,7 +436,6 @@ class FusedDetector:
             raise ValueError(
                 "FusedDetector serves SIFT/L2 through the segmented "
                 "pipeline only (pipeline='segmented')")
-        check_ported(cfg)
         if cfg.track_width or cfg.explore_width:
             if cfg.coarse_stride <= 0:
                 raise ValueError(
@@ -435,12 +452,28 @@ class FusedDetector:
         self._key = prng.prng_key(seed)
         # a test's noise in place of the frame key's draws (None: the key's)
         self.noise: Optional[NoiseFn] = None
-        models = list(models)
         self.segmented = cfg.pipeline == "segmented"
         if not self.segmented:
-            self.db, self.object_ids = pack_models(models, cfg.db_chunk,
+            self.db, self.object_ids = pack_models(list(models),
+                                                   cfg.db_chunk,
                                                    device=self.device)
             return
+        self.sdb: Optional[SegmentedDb | SegmentedDbF] = None
+        self.cdb: Optional[SegmentedDb | SegmentedDbF] = None
+        self._pack_catalog(models)
+
+    def _pack_catalog(self, models: Sequence[TodModel]) -> None:
+        """Pack (or re-pack) the segmented DB and, with ``coarse_stride >
+        0``, its stride-subsampled companion, padded to
+        ``catalog_capacity`` slots with empty ones and each object's segment
+        to at least ``reserve_rows`` rows; then reset the streaming state
+        (slot indices may mean other objects now). Each DB is packed on the
+        host and uploaded into the tensors of the DB it replaces when every
+        tensor keeps its shape and dtype (a catalog that fits the
+        reservation: one upload, the storage stays where it was), else into
+        new ones."""
+        cfg = self.config
+        models = list(models)
         sift = cfg.feature == "SIFT"
         pack = pack_segmented_l2 if sift else pack_segmented
         if cfg.catalog_capacity > len(models):
@@ -448,8 +481,9 @@ class FusedDetector:
                      else np.zeros((0, 32), np.uint8))
             models += [TodModel("", empty, np.zeros((0, 3), np.float32))
                        for _ in range(cfg.catalog_capacity - len(models))]
-        self.sdb = pack(models, reserve_rows=cfg.reserve_rows,
-                        device=self.device)
+        self.sdb = load_db(self.sdb, pack(models,
+                                          reserve_rows=cfg.reserve_rows,
+                                          device="cpu"), self.device)
         self.object_ids = [m.object_id for m in models]
         # streaming state of coarse->fine serving, per object slot: frames
         # since last accepted, the last accepted pose, the exploration
@@ -462,7 +496,6 @@ class FusedDetector:
         self._explore_pos = 0
         self._last_coarse_sel: Optional[torch.Tensor] = None
         self.slab = None   # the last frame's (sel, force, force_act)
-        self.cdb: Optional[SegmentedDb | SegmentedDbF] = None
         if cfg.coarse_stride > 0 and models:
             # the coarse DB is chunked to the SUBSAMPLED segment length, as
             # the reference packs it (its layout is the reference's)
@@ -470,10 +503,12 @@ class FusedDetector:
             med_rows = int(np.median([max(m.n_points, 1) for m in sub]))
             c_chunk = next((c for c in (512, 1024, 2048, 4096)
                             if c >= med_rows), 4096)
-            self.cdb = pack(
+            self.cdb = load_db(self.cdb, pack(
                 sub, db_chunk=c_chunk,
                 reserve_rows=-(-cfg.reserve_rows // cfg.coarse_stride),
-                device=self.device)
+                device="cpu"), self.device)
+        else:
+            self.cdb = None
 
     def _explore_ids(self) -> torch.Tensor:
         """The next ``explore_width`` catalog indices of the deterministic
@@ -574,17 +609,71 @@ class FusedDetector:
                                                         self._last_T, det)
         return det
 
-    def detect_batch_raw(self, grays, depths, Ks):
-        raise NotImplementedError(
-            "tod_tpu_torch: batched detection is ROADMAP A16")
+    def detect_batch_raw(self, grays: torch.Tensor, depths: torch.Tensor,
+                         Ks: torch.Tensor):
+        """B frames at once: (B, H, W) gray frames and depths and (B, 3, 3)
+        K on the device (stacked :meth:`prepare_frame` tensors) in,
+        ``(keypoints, detections (B, O, I, ...))`` out as the reference
+        returns them: the keypoints (fields (B, n_features, ...)) on the
+        global path, None on the segmented ones. The key splits once a
+        batch, ``keys = split(sub, B)``, and frame b draws its noise from
+        ``keys[b]`` down the per-frame key path. Features run frame by
+        frame; the matcher runs once over the B frames' queries (one B1,
+        B3 or B5 launch) and each geometry stage once over their objects
+        (one N1 launch). The segmented paths run the full exact sweep even
+        with ``coarse_stride > 0`` and leave the streaming state as it
+        is."""
+        if self.noise is not None:
+            raise ValueError("detect_batch_raw draws its noise from the "
+                             "detector's key; unset detector.noise")
+        cfg = self.config
+        n_b = grays.shape[0]
+        self._key, sub = prng.split(self._key)
+        noise = BatchNoise([
+            ThreefryNoise(k, cfg.guess.ransac.max_instances, self.segmented,
+                          self.device) for k in prng.split(sub, n_b)])
+        if not self.segmented:
+            feats = [stage_features(*frame, cfg)
+                     for frame in zip(grays, depths, Ks)]
+            kps = Keypoints(*(torch.stack(f) for f in
+                              zip(*(kp for kp, _, _ in feats))))
+            desc = torch.stack([d for _, d, _ in feats])
+            query_pts = torch.stack([q for _, _, q in feats])
+            if not self.object_ids:
+                return kps, empty_detections(0, cfg, self.device, (n_b,))
+            dist, rows = (t.unflatten(0, (n_b, -1)) for t in
+                          match_against_db(desc.flatten(0, 1), self.db, cfg))
+            geom = geom_db(self.db)
+            obj_idx, valid, train_pts = flat_matches(kps.valid, dist, rows,
+                                                     geom, cfg.radius)
+            return kps, detect_frames_from_matches(
+                noise, obj_idx, dist, valid, train_pts, query_pts, kps.xy,
+                geom.spans, cfg.guess)[1]
+        xy, qp, dsc, ok = (torch.stack(t) for t in zip(*(
+            stage_features_compact(*frame, cfg)
+            for frame in zip(grays, depths, Ks))))
+        if not self.object_ids:
+            return None, empty_detections(0, cfg, self.device, (n_b,))
+        dist, rows = (t.unflatten(0, (n_b, -1))
+                      for t in match_full(dsc.flatten(0, 1), self.sdb))
+        return None, detect_frames_segmented(
+            noise, dist, rows, ok, qp, xy, self.sdb.points,
+            self.sdb.obj_start, self.sdb.spans, cfg.guess, cfg.activation,
+            cfg.radius)[1]
 
     def update_models(self, models: Sequence[TodModel]) -> None:
+        """Hot catalog update of the segmented pipeline: re-pack and swap
+        the DB (and the coarse DB) and reset the streaming state. When the
+        detector was built with ``catalog_capacity`` / ``reserve_rows`` and
+        the new catalog fits (same slot count, every object within the
+        reservation), the DB's tensors keep their shapes and storage and
+        the swap is one upload; a catalog that outgrows its reservation
+        gets new tensors."""
         if not self.segmented:
             raise ValueError("update_models is a segmented-pipeline API; "
                              "rebuild the FusedDetector for the global-kNN "
                              "path")
-        raise NotImplementedError(
-            "tod_tpu_torch: hot catalog updates are ROADMAP A16")
+        self._pack_catalog(models)
 
     def detect(self, image, depth, K) -> List[PoseResult]:
         """Poses of one frame, gated by ``min_confidence`` (inliers) and

@@ -124,6 +124,33 @@ def select_topk_keypoints(fast: torch.Tensor, harris: torch.Tensor,
     return xy, resp, valid
 
 
+def subpixel_offsets(score: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
+    """Sub-pixel corner localisation: per axis, the vertex of the 3-point
+    parabola through the score map at the integer keypoint and its two
+    neighbours (coords clipped one pixel inside the map). Returns (K, 2)
+    float32 offsets in [-0.5, 0.5]; 0 where the parabola is flat (|second
+    difference| <= 1e-6). The products by 2 and 0.5 are exact and the
+    division is a true tensor division, as the compiled reference rounds
+    them."""
+    h, w = score.shape
+    x = xy[:, 0].long().clamp(1, w - 2)
+    y = xy[:, 1].long().clamp(1, h - 2)
+    one = torch.ones((), device=score.device)
+    zero = torch.zeros((), device=score.device)
+
+    def parab(sm, s0, sp):
+        denom = sm - 2.0 * s0 + sp
+        curved = torch.abs(denom) > 1e-6
+        off = torch.where(curved,
+                          0.5 * (sm - sp) / torch.where(curved, denom, one),
+                          zero)
+        return torch.clamp(off, -0.5, 0.5)
+
+    ox = parab(score[y, x - 1], score[y, x], score[y, x + 1])
+    oy = parab(score[y - 1, x], score[y, x], score[y + 1, x])
+    return torch.stack([ox, oy], dim=-1)
+
+
 # Copied from tod_tpu/ops/fast.py:138 (features_per_level), numpy only.
 def features_per_level(n_features: int, n_levels: int,
                        scale_factor: float) -> Tuple[int, ...]:

@@ -18,7 +18,8 @@ import numpy as np
 import torch
 
 from tod_tpu_torch.ops.fast import (fast_score, features_per_level,
-                                    harris_response, select_topk_keypoints)
+                                    harris_response, select_topk_keypoints,
+                                    subpixel_offsets)
 from tod_tpu_torch.ops.image import (build_pyramid, fma_f32,
                                      gaussian_blur, resize_nearest)
 from tod_tpu_torch.ops.matching import pack_bits
@@ -195,13 +196,16 @@ def brief_descriptors(blurred: torch.Tensor, xy: torch.Tensor,
 def detect_and_describe(gray: torch.Tensor, describe: Callable,
                         n_features: int, n_levels: int, scale_factor: float,
                         fast_threshold: float, edge_threshold: int,
-                        mask: Optional[torch.Tensor] = None
+                        mask: Optional[torch.Tensor] = None,
+                        subpixel: bool = False
                         ) -> Tuple[Keypoints, torch.Tensor]:
     """FAST/Harris keypoints over the pyramid with exactly ``n_features``
     padded slots, each level's descriptors from ``describe(level image, xy,
     angle)`` (zero on invalid slots). Keypoint coords are integer level
-    coords scaled to level 0 (no sub-pixel refinement, the serving
-    default). A (H,W) ``mask`` (nonzero = allowed; training's object mask)
+    coords scaled to level 0; ``subpixel`` adds each keypoint's
+    :func:`subpixel_offsets` on its level's FAST score map before the
+    scaling (orientation and descriptors still sample the integer pixel).
+    A (H,W) ``mask`` (nonzero = allowed; training's object mask)
     restricts detection: each level tests it nearest-resized to the
     level's size as a float (tod_tpu/ops/orb.py:289-294)."""
     levels = build_pyramid(gray, n_levels, scale_factor)
@@ -225,7 +229,10 @@ def detect_and_describe(gray: torch.Tensor, describe: Callable,
         desc = torch.where(valid[:, None], desc,
                            torch.zeros((), dtype=desc.dtype,
                                        device=desc.device))
-        kxs.append(xy.to(torch.float32) * scale_factor**lvl)
+        xy_f = xy.to(torch.float32)
+        if subpixel:
+            xy_f = xy_f + subpixel_offsets(score, xy)
+        kxs.append(xy_f * scale_factor**lvl)
         all_resp.append(resp)
         all_angle.append(angle)
         all_level.append(torch.full((k_lvl,), lvl, dtype=torch.int32,
@@ -247,12 +254,10 @@ def orb_detect_and_compute(gray: torch.Tensor, n_features: int = 500,
                            ) -> Tuple[Keypoints, torch.Tensor]:
     """ORB keypoints + 256-bit descriptors, (n_features, 32) uint8
     (:func:`detect_and_describe` with steered BRIEF on the level blurred at
-    sigma 2), restricted to ``mask`` when one is given."""
-    if subpixel:
-        raise NotImplementedError(
-            "tod_tpu_torch: sub-pixel keypoints are ROADMAP A16")
+    sigma 2), restricted to ``mask`` when one is given; ``subpixel``
+    refines the reported coords (:func:`detect_and_describe`)."""
     return detect_and_describe(
         gray, lambda img, xy, angle: brief_descriptors(
             gaussian_blur(img, 7, 2.0), xy, angle),
         n_features, n_levels, scale_factor, fast_threshold, edge_threshold,
-        mask)
+        mask, subpixel)

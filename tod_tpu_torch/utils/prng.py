@@ -174,7 +174,7 @@ def _launch(keys: np.ndarray, shape: Sequence[int], n: int,
 
 
 def gumbel(keys: np.ndarray, shape: Sequence[int],
-           device: torch.device | str = "cpu") -> torch.Tensor:
+           device: torch.device | str = "cuda") -> torch.Tensor:
     """``jax.random.gumbel(key, shape, float32)`` for every key of ``keys``
     (..., 2): (..., *shape) float32. A CUDA device runs kernel N1 (one
     launch; or raise), the CPU :func:`gumbel_torch`."""
@@ -190,7 +190,7 @@ gumbel.launches = 0
 
 
 def threefry_bits(keys: np.ndarray, shape: Sequence[int],
-                  device: torch.device | str = "cpu") -> torch.Tensor:
+                  device: torch.device | str = "cuda") -> torch.Tensor:
     """``jax.random.bits(key, shape, uint32)`` for every key, as int32:
     kernel N1's bits mode on a CUDA device (or raise),
     :func:`threefry_bits_torch` on the CPU."""

@@ -1,6 +1,6 @@
 #!/usr/bin/env python
 """Write tests/data/torch_cells_fixture.npz, the cell-graph reference of
-chip_smoke.py (phase 7a).
+chip_smoke.py (phases 7a, 7b and 7d).
 
 Runs with the JAX package on the CPU, after make_torch_smoke_fixture.py:
 
@@ -21,6 +21,15 @@ scheduler iteration a frame. Per frame the file holds
   top-5 of every query, then the radius cut;
 - every pose the GuessGenerator accepted (``ref_*``: frame, object id, R,
   T and the unique-inlier count).
+
+Then the two serving graphs, unchanged but for ``db`` and ``source1.path``,
+each one scheduler iteration a frame: ``conf/detection.serving.ork``
+(SegmentedDetector, ORB) over the same catalog and
+``conf/detection.sift.serving.ork`` (SegmentedDetector, SIFT) over the
+100-object SIFT smoke catalog (the SIFT fixture's three models served as
+``q / 256`` and their fillers) in a second FilesystemDb: every pose each
+graph reports at its quality gate (``serving_*``, ``sift_*``: frame,
+object id, R, T, quality and inliers).
 """
 
 from __future__ import annotations
@@ -38,6 +47,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 ORK = os.path.join(ROOT, "conf", "detection.ork")
+SERVING = (("serving", os.path.join(ROOT, "conf", "detection.serving.ork")),
+           ("sift", os.path.join(ROOT, "conf", "detection.sift.serving.ork")))
 COLLECTION = "object_recognition"
 
 
@@ -48,6 +59,8 @@ def main() -> None:
         data, "torch_smoke_fixture.npz"))
     ap.add_argument("--out", default=os.path.join(
         data, "torch_cells_fixture.npz"))
+    ap.add_argument("--sift", default=os.path.join(
+        data, "torch_sift_fixture.npz"))
     ap.add_argument("--objects", type=int, default=100,
                     help="catalog size (smaller ones rehearse chip_smoke.py "
                          "on a CPU)")
@@ -59,16 +72,25 @@ def main() -> None:
     from tod_tpu_torch.utils.smoke_catalog import smoke_catalog
 
     fx = np.load(args.smoke)
+    sx = np.load(args.sift)
     model_ids = [str(s) for s in fx["model_ids"]]
     ids, arrays = smoke_catalog(
         model_ids, [(fx[f"desc{i}"], fx[f"points{i}"])
                     for i in range(len(model_ids))], n_objects=args.objects)
+    s_ids, s_arrays = smoke_catalog(
+        [str(s) for s in sx["model_ids"]],
+        [(sx[f"desc{i}"], sx[f"points{i}"]) for i in range(3)],
+        n_objects=args.objects)
     with tempfile.TemporaryDirectory() as tmp:
         db_params = {"type": "filesystem", "root": os.path.join(tmp, "db"),
                      "collection": COLLECTION}
         db = FilesystemDb(db_params["root"], COLLECTION)
         for oid, (desc, pts) in zip(ids, arrays):
             write_model(db, oid, desc, pts)
+        sift_params = dict(db_params, root=os.path.join(tmp, "db_sift"))
+        sift_db = FilesystemDb(sift_params["root"], COLLECTION)
+        for oid, (desc, pts) in zip(s_ids, s_arrays):
+            write_model(sift_db, oid, desc.astype(np.float32) / 256.0, pts)
         frames = os.path.join(tmp, "frames")
         os.makedirs(frames)
         n_frames = len(fx["images"])
@@ -98,6 +120,23 @@ def main() -> None:
                   flush=True)
         print(sched.timing_report(), flush=True)
 
+        served = {}
+        for name, ork in SERVING:
+            pipeline = build_pipeline_from_ork(ork, {
+                "source1": {"path": frames, "loop": False},
+                "pipeline1": {"db": sift_params if name == "sift"
+                              else db_params}})
+            sched = Scheduler(pipeline.plasm)
+            served[name] = []
+            for f in range(n_frames):
+                t0 = time.time()
+                sched.execute_iteration()
+                found = pipeline.cells["pipeline1"].outputs["pose_results"]
+                served[name] += [(f, r) for r in found]
+                print(f"{name} frame {f}: {time.time() - t0:.0f}s; "
+                      f"{[(r.object_id, round(r.quality)) for r in found]}",
+                      flush=True)
+
     out = {
         "ork": np.asarray(os.path.relpath(ORK, ROOT)),
         "overrides_json": np.asarray(json.dumps(
@@ -116,6 +155,20 @@ def main() -> None:
         "ref_T": np.asarray([r.T for _, r in ref], np.float32).reshape(-1, 3),
         "ref_inliers": np.asarray([r.confidence for _, r in ref], np.float32),
     }
+    for name, ork in SERVING:
+        got = served[name]
+        out.update({
+            f"{name}_ork": np.asarray(os.path.relpath(ork, ROOT)),
+            f"{name}_frame": np.asarray([f for f, _ in got], np.int32),
+            f"{name}_ids": np.asarray([r.object_id for _, r in got]),
+            f"{name}_R": np.asarray([r.R for _, r in got],
+                                    np.float32).reshape(-1, 3, 3),
+            f"{name}_T": np.asarray([r.T for _, r in got],
+                                    np.float32).reshape(-1, 3),
+            f"{name}_quality": np.asarray([r.quality for _, r in got],
+                                          np.float32),
+            f"{name}_inliers": np.asarray([r.confidence for _, r in got],
+                                          np.float32)})
     np.savez_compressed(args.out, **out)
     print(f"wrote {args.out} ({os.path.getsize(args.out) / 1e6:.2f} MB)")
 
