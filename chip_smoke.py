@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the port's serving paths (segmented ORB/Hamming and SIFT/L2, and
-the global-kNN ORB path), its trainer and its .ork cell graph once on one
-NVIDIA GPU.
+the global-kNN ORB path), its trainer, its .ork cell graph and the 2D-only
+path for depthless frames once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -225,10 +225,37 @@ Then ROADMAP A16, held to tests/data/torch_a16_fixture.npz
             detect_raw, device ops a frame, the device-busy share and peak
             memory at each B.
 
+Then ROADMAP A13 and A15, held to tests/data/torch_a13_fixture.npz
+(tools/make_torch_a13_fixture.py: the reference's graph on the same frames
+without depth):
+
+9a. 2D      conf/detection.ork through the port's graph over the two frames
+            with an empty depth (the GuessGenerator's 2D-only path: P3P
+            graph-RANSAC over all 100 catalog objects): each MatchSet equal
+            to the cells fixture's; the reference graph's accepted
+            (object, instance) pairs and unique-inlier counts, poses within
+            1 cm and 2 degrees (each pose's error against the ground-truth
+            placement logged for both packages); every object's round 0
+            (found, n_unique) against the reference's (equal for the
+            accepted objects) and the accepted objects' round-0 triples
+            (logged); one B5 launch a frame and one N1 launch a round; B5
+            timed at the graph's shape (radius None) beside its bound; the
+            depthless frame timed in turns with the depth frame (median,
+            p95), the per-cell split and peak device memory.
+9b. split   one depthless frame split into stages by StageTimer's CUDA
+            events (features, matcher, clustering, each round's noise,
+            graph, sampling, P3P, consensus, refinement, read-back), the
+            device-busy share of a graph frame, the host waits inside one
+            round (torch's sync debug mode); then ``python -m
+            tod_tpu_torch.cli detection -c conf/detection.ork --frames DIR
+            --niter 1 --profile DIR2`` once (the .ork's db root pointed at
+            the catalog in a temporary copy): the trace must hold B5's and
+            N1's kernels by their CUDA names.
+
 The line before the card's is a JSON object of every kernel of the paths
 (launches on the main paths, error against the twin, time, the twin's time,
 the card's bound for the same work and the PR of the kernel's design; B5
-also at the dedup's shape; N1,
+also at the dedup's shape and at the .ork graph's radius-None shape; N1,
 which replaces no Pallas kernel, also with its torch.rand yardstick); the
 last line is
 ``{"ok": true, "device": {...}}``.
@@ -257,6 +284,7 @@ SIFT_FIXTURE = os.path.join(DATA, "torch_sift_fixture.npz")
 GLOBAL_FIXTURE = os.path.join(DATA, "torch_global_fixture.npz")
 TRAIN_FIXTURE = os.path.join(DATA, "torch_train_fixture.npz")
 CELLS_FIXTURE = os.path.join(DATA, "torch_cells_fixture.npz")
+A13_FIXTURE = os.path.join(DATA, "torch_a13_fixture.npz")
 A16_FIXTURE = os.path.join(DATA, "torch_a16_fixture.npz")
 Q = 2048
 KERNEL_RUNS = 24       # CUDA-event timings of a kernel and its twin
@@ -381,6 +409,16 @@ BATCH_ATOL = 1e-5
 HOT_ADDED = ("obj001", "obj002")   # phase 8b: added into spare slots
 HOT_DROPPED = "obj002"             # then dropped
 HOT_FRAMES = 3
+A13_TURNS = 8          # timed frames of the depthless and the depth graph
+# Phase 9a's accepts that the card's f32 rounding moves off the reference's
+# (ROADMAP queue C): (frame, object, instance) -> (the card's unique
+# inliers, the reference's). Frame 0's obj002 takes the other branch of the
+# planar two-fold ambiguity in round 0: the f32 P3P candidates round
+# otherwise on the card, a candidate counts 370 inliers where the CPU's
+# counts 369 and the top 8 change; run in chunks of 16 objects instead of
+# 32 (another cuBLAS batch), the same round gives the reference's count.
+# Its keypoint invalidation then changes what round 4 sees.
+A13_GAPS = {(0, "obj002", 0): (233, 234), (0, "obj002", 4): (8, 8)}
 EDGE_SEL = (8, -1, 2, 1, 8, 0, -1, 7, 3, 12, 5, 6, 4)
 
 
@@ -2257,6 +2295,406 @@ def a16_phases(dev, card: str, fx, frames, launches: dict) -> None:
         torch.cuda.empty_cache()
 
 
+# ---- ROADMAP A13 and A15: the 2D-only path and its stage split ------------
+
+
+def write_frames(root: str, fx, depthless: bool) -> str:
+    """The smoke frames as .npz files in ``root`` (image, K; depth, or an
+    empty depth): the directory."""
+    os.makedirs(root)
+    for f in range(len(fx["images"])):
+        np.savez(os.path.join(root, f"frame{f}.npz"), image=fx["images"][f],
+                 depth=np.zeros((0, 0)) if depthless else fx["depths"][f],
+                 K=fx["K"])
+    return root
+
+
+def a13_reference(ax, f: int):
+    """The reference graph's 2D accepts of frame ``f``: [(object id,
+    instance, unique inliers, R, T)] in the graph's order."""
+    rows = np.nonzero(ax["acc_frame"] == f)[0]
+    return [(str(ax["acc_ids"][i]), int(ax["acc_instance"][i]),
+             int(ax["acc_inliers"][i]), ax["acc_R"][i], ax["acc_T"][i])
+            for i in rows]
+
+
+def gt_error(fx, image: int, object_id: str, R, T) -> str:
+    """The pose's error against the nearest ground-truth placement of the
+    object in frame ``image``, or "no placement"."""
+    errs = [pose_error(R, T, gR, gT) for oid, gR, gT in zip(
+        fx["gt_ids"][image], fx["gt_R"][image], fx["gt_T"][image])
+        if str(oid) == object_id]
+    if not errs:
+        return "no placement"
+    dt, ang = min(errs)
+    return f"{dt * 100:.2f} cm / {ang:.2f} deg"
+
+
+def replay_2d(gg, inputs: dict, sub, dev):
+    """The GuessGenerator's 2D call of one frame replayed with its key
+    ``sub`` (as ``_process_2d`` makes it): (ObjectDetections, the clustered
+    stores, the config, the frame's K on the card)."""
+    from tod_tpu_torch.geometry import detection2d as td
+    from tod_tpu_torch.geometry.detection import cluster_matches
+    from tod_tpu_torch.geometry.ransac import ThreefryNoise
+
+    m = inputs["matches"]
+    rcfg = gg._cfg.ransac
+    cfg = td.Pnp2dConfig(n_hypotheses=min(rcfg.n_hypotheses, 512),
+                         min_inliers=rcfg.min_inliers,
+                         max_instances=rcfg.max_instances)
+    valid = m.valid & np.asarray(inputs["keypoints"].valid)[:, None]
+    t = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (
+        m.obj_idx.astype(np.int32), m.dist.astype(np.float32), valid,
+        np.asarray(inputs["matches_3d"], np.float32),
+        np.asarray(inputs["keypoints"].xy, np.float32),
+        np.asarray(inputs["K"], np.float32))]
+    ids = torch.arange(len(inputs["object_ids"]), device=dev)
+    max_m = gg._cfg.max_matches_per_object
+    det = td.detect_frame_2d(ThreefryNoise(sub, cfg.max_instances, False,
+                                           dev), *t[:5], t[5], ids, max_m,
+                             cfg)
+    clustered = cluster_matches(t[0], t[1], t[2], t[3],
+                                torch.zeros((len(t[0]), 3), device=dev),
+                                t[4], ids, max_m)
+    return det, clustered, cfg, t[5]
+
+
+def check_round0(ax, f: int, clustered, cfg, K, sub, dev) -> None:
+    """Round 0 of every catalog object on the card against the reference's
+    (``found``, ``n_unique``), and the accepted objects' round-0 triples:
+    logged (equal given equal noise and graph, which f32 can move; the
+    accepts are held in :func:`check_frame_2d`)."""
+    from tod_tpu_torch.geometry import detection2d as td
+    from tod_tpu_torch.geometry.ransac import (ThreefryNoise,
+                                               consistency_log_weights,
+                                               sample_triples)
+
+    n_obj, mcap = clustered.valid.shape
+    g = ThreefryNoise(sub, cfg.max_instances, False, dev)(
+        "round0", (n_obj, 3, cfg.n_hypotheses, mcap))
+    found, unique = [], []
+    for c in range(0, n_obj, 16):
+        part = type(clustered)(*(x[c:c + 16] for x in clustered))
+        out = td.ransac_round_2d(g[c:c + 16], part, K, part.valid, cfg)
+        found.append(out[4])
+        unique.append(out[3])
+    found = torch.cat(found).cpu().numpy()
+    unique = torch.cat(unique).cpu().numpy()
+    r_found, r_unique = ax["round0_found"][f], ax["round0_unique"][f]
+    same = (found == r_found) & (unique == r_unique)
+    ids = [str(o) for o in ax["object_ids"]]
+    log(f"a13: frame {f}: round 0 (found, n_unique) equal to the "
+        f"reference's on {int(same.sum())} of {n_obj} objects; found "
+        f"{int(found.sum())} vs {int(r_found.sum())}")
+    for row in np.nonzero(ax["triples_frame"] == f)[0]:
+        o = ids.index(str(ax["triples_object"][row]))
+        part = type(clustered)(*(x[o:o + 1] for x in clustered))
+        geom = td.pair_geometry(part)
+        lo, hi = td.scale_range(K, cfg)
+        adj, _ = td.sampling_graph(*geom, part.valid, lo, hi)
+        logw = consistency_log_weights(adj, part.valid)
+        tri, _ = sample_triples(g[o:o + 1], adj, part.valid, logw)
+        got = torch.stack(tri, 1)[0].cpu().numpy()
+        want = ax["triples"][row]
+        log(f"a13: frame {f}: {ids[o]}: round-0 triples equal to the "
+            f"reference's on {int((got == want).all(0).sum())} of "
+            f"{cfg.n_hypotheses} hypotheses")
+
+
+def count_at_round(det, clustered, o: int, inst: int, R, T, K, cfg) -> int:
+    """The port's unique-inlier count of pose (R, T) for object ``o`` at
+    round ``inst``: over its valid matches after the earlier accepted
+    rounds of ``det`` invalidated their inliers' keypoints (a round's
+    inliers are its pose's reprojection inliers)."""
+    from tod_tpu_torch.geometry import detection2d as td
+    from tod_tpu_torch.geometry.adjacency import count_unique_query_indices
+
+    part = type(clustered)(*(x[o:o + 1] for x in clustered))
+    thr2 = cfg.pixel_error ** 2
+    valid = part.valid
+    yes = torch.ones(1, dtype=torch.bool, device=valid.device)
+
+    def inliers(r, t):
+        return td.count_inliers(r[None, None], t[None, None], K, part, valid,
+                                thr2)[:, 0]
+
+    for i in range(inst):
+        if det.accepted[o, i]:
+            valid = td.invalidate_keypoints(
+                valid, part.query_idx, inliers(det.R[o, i], det.T[o, i]), yes)
+    return int(count_unique_query_indices(part.query_idx, inliers(R, T))[0])
+
+
+def check_frame_2d(ax, fx, f: int, res, gg, inputs: dict, sub, dev) -> list:
+    """Frame ``f``'s 2D accepts through the graph (``res``) against the
+    reference's: the same (object, instance) pairs (read off the replayed
+    call, whose poses must be the graph's), each with the reference's
+    unique-inlier count and a pose within 1 cm and 2 degrees of its pose.
+    A count that differs passes when the port's own count at the
+    reference's pose, over the same round's matches, is the reference's
+    (the f32 rounding of the refined pose moved a match across the 4 px
+    threshold). Returns the accepts that differ otherwise: (frame, object,
+    instance, inliers, the reference's, cm and degrees from its pose).
+    Then every object's round 0 (logged)."""
+    ref = a13_reference(ax, f)
+    rep, clustered, cfg, K = replay_2d(gg, inputs, sub, dev)
+    acc = rep.accepted.cpu().numpy()
+    pairs = [(o, i) for o in range(acc.shape[0])
+             for i in range(acc.shape[1]) if acc[o, i]]
+    names = [str(o) for o in inputs["object_ids"]]
+    if [(names[o], i) for o, i in pairs] != [(o, i) for o, i, *_ in ref]:
+        raise AssertionError(f"a13: frame {f}: (object, instance) "
+                             f"{[(names[o], i) for o, i in pairs]}, the "
+                             f"reference's {[(o, i) for o, i, *_ in ref]}")
+    if [r.object_id for r in res] != [names[o] for o, _ in pairs] or not all(
+            np.array_equal(r.R, rep.R[o, i].cpu().numpy())
+            for r, (o, i) in zip(res, pairs)):
+        raise AssertionError(f"a13: frame {f}: the replayed call differs "
+                             "from the graph's")
+    differ = []
+    for r, (o, i), (oid, _, n, R, T) in zip(res, pairs, ref):
+        dt, ang = pose_error(r.R, r.T, R, T)
+        got = int(r.confidence)
+        log(f"a13: frame {f}: {oid} instance {i}: inliers {got} (reference "
+            f"{n}); {dt * 100:.4f} cm / {ang:.4f} deg from the reference's "
+            f"pose; ground truth: port {gt_error(fx, f, oid, r.R, r.T)}, "
+            f"reference {gt_error(fx, f, oid, R, T)}")
+        same = got == n
+        if not same:
+            at_ref = count_at_round(
+                rep, clustered, o, i, torch.from_numpy(R).to(dev),
+                torch.from_numpy(T).to(dev), K, cfg)
+            own = count_at_round(rep, clustered, o, i, rep.R[o, i],
+                                 rep.T[o, i], K, cfg)
+            log(f"a13: frame {f}: {oid} instance {i}: the port counts {own} "
+                f"at its own pose and {at_ref} at the reference's")
+            same = at_ref == n and own == got
+        if not same or dt >= 0.01 or ang >= 2.0:
+            differ.append((f, oid, i, got, n, round(dt * 100, 2),
+                           round(ang, 2)))
+    check_round0(ax, f, clustered, cfg, K, sub, dev)
+    return differ
+
+
+def host_waits(fn) -> int:
+    """Synchronising calls ``fn()`` makes (torch's sync debug mode)."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return sum("called a synchronizing" in str(w.message) for w in caught)
+
+
+def a13_phases(dev, card: str, fx, launches: dict) -> dict:
+    """Phases 9a-9b: conf/detection.ork over depthless frames through the
+    port's graph (ROADMAP A13) held to tests/data/torch_a13_fixture.npz
+    (tools/make_torch_a13_fixture.py), timed in turns with the depth frame;
+    then one depthless frame split into stages with StageTimer and the CLI
+    run once with --profile (A15). Returns B5 at the graph's radius-None
+    shape: its time, bound and the bound's kind."""
+    import tempfile
+
+    from tod_tpu_torch.ops import hamming as ham
+    from tod_tpu_torch.pipeline import Scheduler, build_pipeline_from_ork
+    from tod_tpu_torch.utils import prng
+    from tod_tpu_torch.utils.profiling import StageTimer
+
+    phase_t0 = time.perf_counter()
+    ax, cx = np.load(A13_FIXTURE), np.load(CELLS_FIXTURE)
+    model_ids, models = load_fixture()[1:]
+    n_frames = len(fx["images"])
+    ork = os.path.join(ROOT, str(ax["ork"]))
+    with tempfile.TemporaryDirectory() as tmp:
+        db_params = write_catalog_db(tmp, model_ids, models)
+        dirs = {kind: write_frames(os.path.join(tmp, kind), fx,
+                                   kind == "depthless")
+                for kind in ("depthless", "depth")}
+
+        def graph(kind: str, loop: bool):
+            p = build_pipeline_from_ork(ork, {
+                "source1": {"path": dirs[kind], "loop": loop},
+                "pipeline1": {"db": db_params, "device": str(dev)}})
+            return p, Scheduler(p.plasm)
+
+        # ---- 9a. depthless frames through conf/detection.ork -------------
+        pipeline, sched = graph("depthless", False)
+        det = pipeline.cells["pipeline1"]
+        reset_counts()
+        results, inputs = [], []
+        for f in range(n_frames):
+            sched.execute_iteration()
+            gg = det.guess_generator
+            m = gg.inputs["matches"]
+            if not all(np.array_equal(getattr(m, name), cx[f"match_{name}"][f])
+                       for name in ("dist", "train_idx", "obj_idx",
+                                    "local_idx", "valid")):
+                raise AssertionError(f"a13: frame {f}'s MatchSet differs "
+                                     "from the reference's")
+            if np.asarray(gg.inputs["points3d"]).size:
+                raise AssertionError("a13: the depthless frame has a cloud")
+            results.append(list(det.outputs["pose_results"]))
+            inputs.append({k: gg.inputs[k] for k in (
+                "keypoints", "matches", "matches_3d", "object_ids", "K")})
+        launches["9a"] = read_counts()
+        rounds = gg._cfg.ransac.max_instances
+        log(f"a13: {n_frames} depthless frames, launches " + ", ".join(
+            f"{name} {n}" for name, n in zip(
+                [f"B{i + 1}" for i in range(5)] + ["T1", "N1"],
+                launches["9a"])))
+        if list(launches["9a"]) != [0, 0, 0, 0, n_frames, 0,
+                                    n_frames * rounds]:
+            raise AssertionError(f"a13: launches {list(launches['9a'])}, "
+                                 f"expected one B5 a frame and {rounds} N1 "
+                                 "(one a round)")
+        key = prng.prng_key(int(gg.params["seed"]))
+        differ = []
+        for f, res in enumerate(results):
+            key, sub = prng.split(key)
+            differ += check_frame_2d(ax, fx, f, res, gg, inputs[f], sub, dev)
+        known = {d[:3]: d[3:5] for d in differ if A13_GAPS.get(d[:3])
+                 == d[3:5]}
+        other = [d for d in differ if d[:3] not in known]
+        log(f"a13: accepts off the reference's (frame, object, instance, "
+            f"inliers, the reference's, cm, degrees): {differ}; the gaps of "
+            f"ROADMAP queue C {sorted(A13_GAPS)}, "
+            f"{len(A13_GAPS) - len(known)} of them not seen this run")
+        if other:
+            raise AssertionError(f"a13: accepts off the reference's beyond "
+                                 f"queue C's: {other}")
+        log("a13: both frames: the reference's accepted (object, instance) "
+            "pairs; unique-inlier counts and poses (1 cm, 2 degrees) the "
+            "reference's but for queue C's gaps; one B5 launch a frame and "
+            "one N1 launch a round")
+
+        # B5 at the graph's own shape (radius None) and its bound
+        index = det.descriptor_matcher.index
+        q = torch.from_numpy(np.ascontiguousarray(
+            det.descriptor_matcher.inputs["descriptors"])).to(dev)
+        none_ms = cuda_ms(lambda: ham.hamming_topk_fused(
+            q, index.descriptors, index.n_descriptors, k=5, radius=None))
+        pairs_b5 = q.shape[0] * index.n_descriptors
+        none_bound = hamming_bound(pairs_b5, q.shape[0] * 32
+                                   + index.n_descriptors * 32
+                                   + q.shape[0] * 5 * 8)
+        log(f"kernels: B5 at the graph's shape (Q={q.shape[0]} x "
+            f"{index.n_descriptors} rows, k 5, radius None) {none_ms:.3f} ms "
+            f"median of {KERNEL_RUNS}; bound {none_bound[0]:.3f} ms by "
+            f"{none_bound[1]}; {card}")
+
+        # time: the depthless frame in turns with the depth frame (7a)
+        del pipeline, sched
+        torch.cuda.empty_cache()
+        loops = {kind: graph(kind, True) for kind in ("depthless", "depth")}
+        for p, s in loops.values():
+            s.execute_iteration()                        # warm
+            p.cells["pipeline1"].scheduler.cell_times.clear()
+            p.cells["pipeline1"].scheduler.n_iterations = 0
+        loops = {kind: (p, Scheduler(p.plasm))
+                 for kind, (p, _) in loops.items()}
+        torch.cuda.reset_peak_memory_stats()
+        ms = {"depthless": [], "depth": []}
+        for _ in range(A13_TURNS):
+            for kind, (_, s) in loops.items():
+                ms[kind].append(synced_ms(s.execute_iteration))
+        log(f"time: a13: conf/detection.ork depthless frame median "
+            f"{np.median(ms['depthless']):.2f} ms, p95 "
+            f"{np.percentile(ms['depthless'], 95):.2f} ms; the depth frame "
+            f"(7a's graph) {np.median(ms['depth']):.2f} / "
+            f"{np.percentile(ms['depth'], 95):.2f} ms, in turns over "
+            f"{A13_TURNS} frames each; peak device memory "
+            f"{torch.cuda.max_memory_allocated()} bytes; {card}")
+        p, s = loops["depthless"]
+        for line in (s.timing_report() + "\n" + p.cells[
+                "pipeline1"].scheduler.timing_report()).splitlines():
+            log(f"time: a13: {line.strip()}")
+
+        # ---- 9b. the stage split (StageTimer) and the trace (--profile) ---
+        det = p.cells["pipeline1"]
+        s.execute_iteration()
+        gg = det.guess_generator
+        n_ops, busy, wall = device_profile(s.execute_iteration)
+        log(f"a13-split: one depthless graph frame: {n_ops} device "
+            f"operations, device busy {busy:.2f} of {wall:.2f} ms "
+            f"({100 * busy / wall:.1f} %); {card}")
+        timer = StageTimer(dev)
+        with timer.stage("features"):
+            det.feature_descriptor.process()
+        with timer.stage("matcher"):
+            det.descriptor_matcher.process()
+        gg.timer = timer
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gg.process()
+        torch.cuda.synchronize()
+        guess_ms = (time.perf_counter() - t0) * 1e3
+        gg.timer = None
+        report = timer.report()
+        log(f"a13-split: CUDA-event stages of one depthless frame (the "
+            f"GuessGenerator {guess_ms:.2f} ms on the host clock, stages "
+            f"sum {sum(timer.times.values()) * 1e3:.2f} ms); {card}")
+        for line in report.splitlines():
+            log(f"a13-split: {line.strip()}")
+        _, clustered, cfg, K = replay_2d(gg, inputs[0], prng.prng_key(1),
+                                         dev)
+        from tod_tpu_torch.geometry import detection2d as td
+        from tod_tpu_torch.geometry.ransac import ThreefryNoise
+        run = slice(0, 16)
+        part = type(clustered)(*(x[run] for x in clustered))
+        g = ThreefryNoise(prng.prng_key(1), 1, False, dev)(
+            "round0", (16, 3, cfg.n_hypotheses, part.valid.shape[1]))
+        torch.cuda.synchronize()
+        waits = host_waits(lambda: td.ransac_round_2d(g, part, K, part.valid,
+                                                      cfg))
+        log(f"a13-split: host waits inside one 2D round (16 objects): "
+            f"{waits}")
+        del loops, p, s, det, gg
+        torch.cuda.empty_cache()
+
+        conf = os.path.join(tmp, "detection.ork")
+        with open(ork) as src, open(conf, "w") as dst:
+            dst.write(src.read().replace("root: /tmp/tod_tpu_db",
+                                         f"root: {db_params['root']}"))
+        trace_dir = os.path.join(tmp, "trace")
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "tod_tpu_torch.cli", "detection", "-c",
+             conf, "--frames", dirs["depthless"], "--niter", "1",
+             "--profile", trace_dir], capture_output=True, text=True,
+            timeout=600, cwd=ROOT,
+            env={**os.environ, "PYTHONPATH": ROOT})
+        if r.returncode:
+            raise AssertionError(f"a13-trace: the CLI failed: {r.stderr}")
+        traces = list(Path(trace_dir).glob("*.pt.trace.json"))
+        if len(traces) != 1:
+            raise AssertionError(f"a13-trace: {len(traces)} trace files")
+        with open(traces[0]) as fh:
+            events = json.load(fh)["traceEvents"]
+        kernels = Counter(e["name"] for e in events
+                          if e.get("cat") == "kernel")
+        found = {what: sum(n for name, n in kernels.items() if pat in name)
+                 for what, pat in (("B5 sweep", "tc_sweep_kernel"),
+                                   ("B5 merge", "merge_kernel"),
+                                   ("N1", "threefry_kernel"))}
+        log(f"a13-trace: python -m tod_tpu_torch.cli detection -c "
+            f"conf/detection.ork (db root in a temporary copy) --frames "
+            f"DIR --niter 1 --profile DIR2 in {time.perf_counter() - t0:.1f}"
+            f" s: {r.stdout.strip().splitlines()[0]}; "
+            f"{traces[0].stat().st_size} bytes of trace, "
+            f"{sum(kernels.values())} kernel events; {found}")
+        if not all(found.values()):
+            raise AssertionError(f"a13-trace: the trace lacks B5 or N1: "
+                                 f"{found}")
+    log(f"a13: phases 9a-9b took {time.perf_counter() - phase_t0:.1f} s")
+    return dict(radius_none_ms=none_ms, radius_none_bound_ms=none_bound[0],
+                radius_none_bound_by=none_bound[1])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -2495,6 +2933,8 @@ def main() -> int:
     cells_phases(dev, card, fx, frames, found4, launches)
     torch.cuda.empty_cache()
     a16_phases(dev, card, fx, frames, launches)
+    torch.cuda.empty_cache()
+    b5_graph = a13_phases(dev, card, fx, launches)
 
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
@@ -2522,7 +2962,7 @@ def main() -> int:
         {"name": "B5 radius k-NN Hamming over the whole DB", "route": "cuda",
          "source": SOURCE_B5, "replaces": B5_REPLACES, "launches": total(4),
          "library_ms": None, "design_pr": 6,
-         **{**b5, **b5_dedup, "max_abs_err": max(
+         **{**b5, **b5_dedup, **b5_graph, "max_abs_err": max(
              b5["max_abs_err"], b5_dedup["dedup_max_abs_err"])}},
         {"name": "T1 isolation bench: B5's sweep without extraction "
          "(dist_sum timed; every mode in modes_ms)", "route": "cuda",

@@ -50,6 +50,7 @@ DATA = os.path.join(os.path.dirname(__file__), "data")
 SMOKE = os.path.join(DATA, "torch_smoke_fixture.npz")
 TRAIN = os.path.join(DATA, "torch_train_fixture.npz")
 POSE_TOL = (1e-4, 0.05)     # meters, degrees
+POSE_TOL_2D = (0.01, 2.0)   # the 2D-only path's end-to-end contract
 L2_RTOL = 1e-5              # the f32 product's order (ROADMAP queue C)
 ANGLE_ATOL = 4.8e-7         # two ulps at pi: XLA's atan2 (ROADMAP queue C)
 N_FEATURES = 800
@@ -323,17 +324,30 @@ def test_guess_generator_matches_reference_two_frames(graph_inputs):
 
 
 def test_guess_generator_depthless_frames(graph_inputs):
-    """No cloud and no K: no poses, as in the reference; no cloud with K:
-    the 2D-only path, which is ROADMAP A13."""
-    frame = dict(graph_inputs[0], points3d=np.zeros((0, 0, 3), np.float32))
+    """No cloud and no K: no poses, as in the reference. No cloud with K:
+    the 2D-only path (the reference's ``_process_2d``), two frames in a row
+    from the same seed: the reference cell's accepted objects and instances
+    in the same order with the same unique-inlier counts, poses within
+    ``POSE_TOL_2D`` (the 2D path's f32 P3P and Gauss-Newton round apart
+    more than the 3D path's Horn fits; ROADMAP queue C)."""
+    frames = [dict(f, points3d=np.zeros((0, 0, 3), np.float32))
+              for f in graph_inputs]
     g = tc.GuessGenerator("g", **CPU)
     g.ensure_configured()
-    g.inputs.update(dict(frame, K=None))
+    g.inputs.update(dict(frames[0], K=None))
     g.process()
     assert g.outputs["pose_results"] == []
-    g.inputs.update(frame)
-    with pytest.raises(NotImplementedError, match="A13"):
-        g.process()
+    want = _guess(rc, frames)
+    got = _guess(tc, frames, **CPU)
+    for a_frame, b_frame in zip(got, want):
+        assert [(r.object_id, r.confidence) for r in a_frame] == \
+            [(r.object_id, r.confidence) for r in b_frame]
+        for a, b in zip(a_frame, b_frame):
+            dt, ang = pose_gap(a, b)
+            assert dt < POSE_TOL_2D[0] and ang < POSE_TOL_2D[1], \
+                (a.object_id, dt, ang)
+    assert {r.object_id for r in got[0]} == {"obj000", "obj001", "obj002"}
+    assert max(r.confidence for r in got[0]) >= 100
 
 
 # ---- TodDetector, both pipelines, and the .ork path ---------------------
@@ -405,6 +419,42 @@ def test_tod_detector_ork_matches_reference(text, model_db, frames_dir,
         _same_poses(got, want)
         assert got, "no pose accepted"
         assert all(r.db_params == model_db for r in got)
+
+
+def test_tod_detector_ork_depthless_matches_reference(model_db, fx,
+                                                     tmp_path):
+    """The slice as a whole: the same .ork text through each package's
+    graph over the two frames with their depth removed (each frame an
+    empty depth and K): the 2D-only path in both, the same accepted objects
+    and instances with the same unique-inlier counts, poses within
+    ``POSE_TOL_2D``."""
+    frames = tmp_path / "frames"
+    frames.mkdir()
+    for f in range(len(fx["images"])):
+        np.savez(frames / f"frame{f}.npz", image=fx["images"][f],
+                 depth=np.zeros((0, 0)), K=fx["K"])
+    path = tmp_path / "detection.ork"
+    path.write_text(CELLS_ORK)
+    results = []
+    for build, sched, extra in ((ref_build, RefScheduler, {}),
+                                (build_pipeline_from_ork, Scheduler, CPU)):
+        pipeline = build(str(path), {
+            "source1": {"path": str(frames), "loop": False},
+            "pipeline1": {"db": model_db, **extra}})
+        s = sched(pipeline.plasm)
+        out = []
+        for _ in range(2):
+            s.execute_iteration()
+            out.append(pipeline.cells["pipeline1"].outputs["pose_results"])
+        results.append(out)
+    for got, want in zip(results[1], results[0]):
+        assert [(r.object_id, r.confidence) for r in got] == \
+            [(r.object_id, r.confidence) for r in want]
+        for a, b in zip(got, want):
+            dt, ang = pose_gap(a, b)
+            assert dt < POSE_TOL_2D[0] and ang < POSE_TOL_2D[1], \
+                (a.object_id, dt, ang)
+    assert "obj001" in {r.object_id for r in results[1][0]}
 
 
 def test_tod_detector_cells_blackbox_wiring(model_db, fx):

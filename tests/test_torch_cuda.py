@@ -602,3 +602,100 @@ def test_n1_wrappers_default_to_the_card(fn):
     torch.cuda.synchronize()
     assert got.is_cuda and fn.launches == before + 1
     assert torch.equal(got, fn(keys, (128, 192), dev))
+
+
+# ---- the 2D-only path (P3P graph-RANSAC) on the card -----------------------
+
+def _scene_2d(seed: int = 11):
+    """Flat (Q, 1) matches of two near-planar objects seen at two poses
+    (60 and 40 true matches among junk) and one object of five keypoints;
+    K of the smoke frames. numpy only."""
+    rng = np.random.default_rng(seed)
+    K = np.array([[525.0, 0, 319.5], [0, 525.0, 239.5], [0, 0, 1]],
+                 np.float32)
+    q = 160
+    obj = np.full((q, 1), 2, np.int32)
+    xy = rng.uniform([0, 0], [640, 480], (q, 2)).astype(np.float32)
+    train = rng.uniform(-0.12, 0.12, (q, 1, 3)).astype(np.float32)
+    for o, (lo, n_true, n_all) in enumerate([(0, 60, 90), (90, 40, 155)]):
+        ax = rng.uniform(-0.4, 0.4, 3)
+        th = np.linalg.norm(ax)
+        k = ax / th
+        kx = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
+        R = np.eye(3) + np.sin(th) * kx + (1 - np.cos(th)) * kx @ kx
+        T = np.array([rng.uniform(-0.1, 0.1), rng.uniform(-0.1, 0.1),
+                      0.8 + 0.2 * o])
+        X = train[lo:lo + n_true, 0]
+        X[:, 2] *= 0.05
+        uv = (X @ R.T + T) @ K.T
+        xy[lo:lo + n_true] = uv[:, :2] / uv[:, 2:3] + rng.normal(
+            0, 0.3, (n_true, 2))
+        obj[lo:n_all] = o
+    valid = np.ones((q, 1), bool)
+    dist = rng.uniform(10, 30, (q, 1)).astype(np.float32)
+    return obj, dist, valid, train, xy, K
+
+
+@pytest.mark.cuda
+def test_2d_path_on_the_card_equals_the_cpus():
+    """detect_frame_2d on the card against the CPU: the same accepts and
+    unique-inlier counts, poses within 1e-3; one N1 launch a round; and a
+    round (ransac_round_2d) that never waits for the host."""
+    from tod_tpu_torch.geometry import detection2d as td
+
+    dev = _cuda()
+    arrays = _scene_2d()
+    cfg = td.Pnp2dConfig(n_hypotheses=256, min_inliers=8, max_instances=3)
+    out = {}
+    for d in (torch.device("cpu"), dev):
+        noise = ThreefryNoise(prng.prng_key(7), cfg.max_instances, False, d)
+        t = [torch.from_numpy(a).to(d) for a in arrays]
+        before = prng.gumbel.launches
+        out[d.type] = td.detect_frame_2d(noise, *t[:5], t[5],
+                                         torch.arange(3, device=d), 128, cfg)
+        torch.cuda.synchronize()
+        if d.type == "cuda":
+            assert prng.gumbel.launches == before + cfg.max_instances
+    cpu, gpu = out["cpu"], out["cuda"]
+    acc = cpu.accepted
+    assert acc[0, 0] and acc[1, 0] and not acc[2].any()
+    assert torch.equal(gpu.accepted.cpu(), acc)
+    assert torch.equal(gpu.n_inliers.cpu()[acc], cpu.n_inliers[acc])
+    for name in ("R", "T"):
+        gap = (getattr(gpu, name).cpu() - getattr(cpu, name))[acc].abs()
+        assert float(gap.max()) < 1e-3, name
+
+    t = [torch.from_numpy(a).to(dev) for a in arrays]
+    from tod_tpu_torch.geometry.detection import cluster_matches
+    m = cluster_matches(t[0], t[1], t[2], t[3],
+                        torch.zeros((len(t[0]), 3), device=dev), t[4],
+                        torch.arange(2, device=dev), 128)
+    g = ThreefryNoise(prng.prng_key(7), 1, False, dev)(
+        "round0", (2, 3, cfg.n_hypotheses, 128))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        found = td.ransac_round_2d(g, m, t[5], m.valid, cfg)[4]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert bool(found.all())
+
+
+@pytest.mark.cuda
+def test_stage_timer_on_the_card():
+    """CUDA-event stages: read in report(), positive, the reference's
+    format."""
+    from tod_tpu_torch.utils.profiling import StageTimer, timed
+
+    dev = _cuda()
+    a = torch.ones((2048, 2048), device=dev)
+    timer = StageTimer(dev)
+    for _ in range(3):
+        with timer.stage("matmul"):
+            a @ a
+        with timer.stage("add"):
+            a + a
+    report = timer.report()
+    assert timer.times["matmul"] > timer.times["add"] > 0
+    assert report.splitlines()[0].lstrip().startswith("matmul ")
+    assert timed(lambda: a @ a, n=3) > 0

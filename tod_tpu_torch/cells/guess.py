@@ -9,12 +9,16 @@ its noise is the reference's: ``PRNGKey(seed)`` split once a frame
 (``key, sub = split(key)``), ``sub`` drawn by ``ThreefryNoise`` (kernel N1
 on the card), so the same seed gives the same hypotheses.
 
-Not ported: the 2D-only branch for depthless frames (ROADMAP A13) and the
-``visualize`` overlays, which the reference writes through cv2.
+A depthless frame (empty cloud) with ``K`` wired takes the 2D-only path,
+the reference's ``_process_2d``: ``geometry/detection2d.py
+detect_frame_2d`` over every catalog object, its noise from the same key
+path (one N1 launch a round on the card). Not ported: the ``visualize``
+overlays, which the reference writes through cv2.
 """
 
 from __future__ import annotations
 
+import contextlib
 import warnings
 from typing import List
 
@@ -25,6 +29,7 @@ from tod_tpu_torch.cells.features import declare_device, to_host, upload
 from tod_tpu_torch.cells.types import MatchSet, PoseResult
 from tod_tpu_torch.geometry.detection import (GuessConfig,
                                               detect_frame_from_matches)
+from tod_tpu_torch.geometry.detection2d import Pnp2dConfig, detect_frame_2d
 from tod_tpu_torch.geometry.ransac import RansacConfig, ThreefryNoise
 from tod_tpu_torch.pipeline.cell import Cell
 from tod_tpu_torch.pipeline.tendril import Tendrils
@@ -71,8 +76,8 @@ class GuessGenerator(Cell):
     @staticmethod
     def declare_io(p: Tendrils, i: Tendrils, o: Tendrils) -> None:
         i.declare("image", "The original image (visualization only).")
-        i.declare("K", "3x3 camera matrix — the 2D-only path's input when "
-                  "the point cloud is empty (ROADMAP A13).", default=None)
+        i.declare("K", "3x3 camera matrix — enables the 2D-only P3P path "
+                  "when the point cloud is empty.", default=None)
         i.declare("points3d", "(H,W,3) camera-frame point cloud.")
         i.declare("keypoints", "The query keypoints structure.")
         i.declare("matches", "MatchSet from the DescriptorMatcher.")
@@ -100,6 +105,9 @@ class GuessGenerator(Cell):
             object_batch=int(self.params["object_batch"]))
         self._key = prng.prng_key(int(self.params["seed"]))
         self._device = torch.device(self.params["device"])
+        # a utils.profiling.StageTimer a caller may set: the 2D-only path
+        # then splits its frame into stages (detect_frame_2d's, read-back)
+        self.timer = None
 
     def _emit(self, results: List[PoseResult]) -> None:
         self.outputs["pose_results"] = results
@@ -122,9 +130,8 @@ class GuessGenerator(Cell):
             if self.inputs["K"] is None:
                 self._emit([])
                 return
-            raise NotImplementedError(
-                "tod_tpu_torch: 2D-only detection (a depthless frame with "
-                "K wired) is ROADMAP A13")
+            self._process_2d(np.asarray(self.inputs["K"], np.float32))
+            return
 
         kp_xy = np.asarray(kps.xy, np.float32)
         kp_valid = np.asarray(kps.valid)
@@ -154,16 +161,46 @@ class GuessGenerator(Cell):
             upload(matches.valid, dev), upload(matches_3d, dev, torch.float32),
             upload(query_pts, dev), upload(kp_xy, dev), upload(spans, dev),
             self._cfg)
-        det_r, det_t, det_n, det_acc = to_host(det.R, det.T, det.n_inliers,
-                                               det.accepted)
+        self._emit(self._results(object_ids, *to_host(
+            det.R, det.T, det.n_inliers, det.accepted)))
 
-        results: List[PoseResult] = []
-        for o, object_id in enumerate(object_ids):
-            for inst in range(det_acc.shape[1]):
-                if det_acc[o, inst]:
-                    results.append(PoseResult(
-                        R=det_r[o, inst], T=det_t[o, inst],
-                        object_id=object_id,
-                        confidence=float(det_n[o, inst]),
-                        db_params=self._db_params))
-        self._emit(results)
+    def _process_2d(self, K: np.ndarray) -> None:
+        """2D-only pose search for a depthless frame: P3P graph-RANSAC
+        scored by reprojection consensus (``geometry/detection2d.py``) over
+        every catalog object, at the reference's Pnp2dConfig (the
+        hypothesis batch capped at 512)."""
+        kps = self.inputs["keypoints"]
+        matches: MatchSet = self.inputs["matches"]
+        matches_3d = np.asarray(self.inputs["matches_3d"])
+        object_ids: List[str] = list(self.inputs["object_ids"])
+        kp_xy = np.asarray(kps.xy, np.float32)
+        valid = matches.valid & np.asarray(kps.valid)[:, None]
+
+        rcfg = self._cfg.ransac
+        cfg2d = Pnp2dConfig(n_hypotheses=min(rcfg.n_hypotheses, 512),
+                            min_inliers=rcfg.min_inliers,
+                            max_instances=rcfg.max_instances)
+        self._key, sub = prng.split(self._key)
+        dev = self._device
+        det = detect_frame_2d(
+            ThreefryNoise(sub, cfg2d.max_instances, False, dev),
+            upload(matches.obj_idx, dev, torch.int32),
+            upload(matches.dist, dev, torch.float32), upload(valid, dev),
+            upload(matches_3d, dev, torch.float32), upload(kp_xy, dev),
+            upload(K, dev), torch.arange(len(object_ids), device=dev),
+            self._cfg.max_matches_per_object, cfg2d, timer=self.timer)
+        with (self.timer.stage("read-back") if self.timer
+              else contextlib.nullcontext()):
+            host = to_host(det.R, det.T, det.n_inliers, det.accepted)
+        self._emit(self._results(object_ids, *host))
+
+    def _results(self, object_ids: List[str], det_r, det_t, det_n,
+                 det_acc) -> List[PoseResult]:
+        """Every accepted (object, instance) as a PoseResult, confidence the
+        unique-inlier count, objects in catalog order."""
+        return [PoseResult(R=det_r[o, inst], T=det_t[o, inst],
+                           object_id=object_id,
+                           confidence=float(det_n[o, inst]),
+                           db_params=self._db_params)
+                for o, object_id in enumerate(object_ids)
+                for inst in range(det_acc.shape[1]) if det_acc[o, inst]]

@@ -5,20 +5,23 @@ Usage:
   python -m tod_tpu_torch.cli training  -c conf/training.ork
       [--object_ids '["obj1","obj2"]' | all] [--device cuda]
   python -m tod_tpu_torch.cli detection -c conf/detection.ork --frames DIR
-      [--niter N] [--timing] [--device cuda]
+      [--niter N] [--timing] [--device cuda] [--profile DIR]
 
 The training command iterates the objects with observations in the
 configured DB and runs the TodTrainer pipeline for each. The detection
 command builds the .ork graph with the frame source pointed at a directory
-of .npz frames (image, depth, K) and executes it, one frame a scheduler
-iteration. ``--device`` reaches every computing cell as a .ork override
-(the card by default; ``cpu`` runs the kernels' plain twins). The .ork
-files are read without pyyaml.
+of .npz frames (image, depth, K; an empty depth takes the 2D-only path)
+and executes it, one frame a scheduler iteration; with ``--profile`` the
+loop runs inside a torch.profiler trace written into DIR. ``--device``
+reaches every computing cell as a .ork override (the card by default;
+``cpu`` runs the kernels' plain twins). The .ork files are read without
+pyyaml.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import sys
 
@@ -62,9 +65,6 @@ def cmd_detection(args) -> int:
     from tod_tpu_torch.pipeline.ork import build_pipeline_from_ork, load_ork
     from tod_tpu_torch.pipeline.scheduler import Scheduler
 
-    if args.profile:
-        raise NotImplementedError(
-            "tod_tpu_torch: --profile (utils/profiling.py) is ROADMAP A15")
     overrides = {name: {"device": args.device}
                  for name, spec in load_ork(args.config).items()
                  if spec.get("type") == "TodDetector"}
@@ -81,15 +81,23 @@ def cmd_detection(args) -> int:
             n = 1
 
     sched = Scheduler(pipeline.plasm)
-    for it in range(n):
-        sched.execute_iteration()
-        det = pipeline.cells.get("pipeline1")
-        results = det.outputs["pose_results"] if det else []
-        print(f"frame {it}: {len(results)} poses")
-        for r in results:
-            print(f"  {r.object_id}: "
-                  f"T={[round(float(x), 4) for x in r.T]} "
-                  f"inliers={int(r.confidence)}")
+    profile_ctx = contextlib.nullcontext()
+    if args.profile:
+        from tod_tpu_torch.utils.profiling import trace
+        profile_ctx = trace(args.profile)
+        print(f"capturing a torch.profiler trace -> {args.profile} (a "
+              "Chrome trace: Perfetto, chrome://tracing or TensorBoard)",
+              file=sys.stderr)
+    with profile_ctx:
+        for it in range(n):
+            sched.execute_iteration()
+            det = pipeline.cells.get("pipeline1")
+            results = det.outputs["pose_results"] if det else []
+            print(f"frame {it}: {len(results)} poses")
+            for r in results:
+                print(f"  {r.object_id}: "
+                      f"T={[round(float(x), 4) for x in r.T]} "
+                      f"inliers={int(r.confidence)}")
     if args.timing:
         print(sched.timing_report(), file=sys.stderr)
     return 0
@@ -119,8 +127,8 @@ def main(argv=None) -> int:
     p_det.add_argument("--device", default="cuda",
                        help="torch device to detect on (default: cuda)")
     p_det.add_argument("--profile", default=None, metavar="DIR",
-                       help="a profiler trace of the detection loop "
-                            "(not ported: ROADMAP A15)")
+                       help="write a torch.profiler trace of the "
+                            "detection loop into DIR")
     p_det.set_defaults(func=cmd_detection)
 
     args = parser.parse_args(argv)

@@ -97,9 +97,14 @@ class ThreefryNoise:
                                     self.max_instances)[:, i]
         return prng.split(per_object, 3)
 
-    def __call__(self, stage: str, shape: Tuple[int, ...]) -> torch.Tensor:
+    def __call__(self, stage: str, shape: Tuple[int, ...],
+                 rows: Optional[np.ndarray] = None) -> torch.Tensor:
+        """The draws of ``shape``; with ``rows``, only those objects' of the
+        ``shape[0]`` (each keeps its own key), (len(rows), 3, n, M)."""
         n_obj, _, n, m = shape
-        return prng.gumbel(self.keys(stage, n_obj), (n, m), self.device)
+        keys = self.keys(stage, n_obj)
+        return prng.gumbel(keys if rows is None else keys[rows], (n, m),
+                           self.device)
 
 
 class BatchNoise:
