@@ -252,6 +252,34 @@ without depth):
             the catalog in a temporary copy): the trace must hold B5's and
             N1's kernels by their CUDA names.
 
+Then ROADMAP A14, the sharding layer (tod_tpu_torch/parallel), on meshes
+of this card named four times, (1 x 4) and (2 x 2) (and on the distinct
+cards, where the host has several), each result held bit for bit against
+the port's single-device path, its launches counted into the kernels
+line (the sharded runs only):
+
+10a. match  sharded_hamming_topk and ring_hamming_topk (B5 on each row
+            shard) on the 100-object global catalog at Q = 5000, k 5,
+            radius 35, equal to one B5's dist and rows; sharded_object_top1
+            on the 1000-object ORB (B1) and SIFT (B3) catalogs equal to
+            the single-device columns in shard-major order; each timed
+            beside the single-device kernel.
+10b. serve  ShardedServingDetector at (2 x 2), two streams (stream b sees
+            frame (f + b) % 2), every field of every stream's detections
+            equal to a FusedDetector(seed=b) fed the same compacted
+            queries: the ORB frontier recipe at 1000 objects over 64
+            frames (B1, B2, N1), the ORB full sweep at 100 objects, the
+            SIFT frontier at 1000 objects (B3, B4); a step timed in turns
+            with the two single-device frames.
+10c. batch  detect_batch_sharded at (2 x 2) on both frames: each frame's
+            detections the single-device global path's with the same key.
+10d. train  train_views_sharded at (4 x 1) on object 0's 60 views equal to
+            train_views_step's.
+10e. pipe   PipelinedDetector on the card named three times equal to
+            FusedDetector(pipeline="global").detect_raw frame by frame,
+            timed in turns, and over a stream (detect_stream).
+10f. dry    dryrun_multichip(4, [cuda:0] * 4).
+
 The line before the card's is a JSON object of every kernel of the paths
 (launches on the main paths, error against the twin, time, the twin's time,
 the card's bound for the same work and the PR of the kernel's design; B5
@@ -265,6 +293,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import re
 import subprocess
@@ -289,10 +318,11 @@ A16_FIXTURE = os.path.join(DATA, "torch_a16_fixture.npz")
 Q = 2048
 KERNEL_RUNS = 24       # CUDA-event timings of a kernel and its twin
 TWIN_RUNS = 3          # twin timings at 1000 objects (~0.1-2 s each)
-FRAMES = 100           # timed detect calls: p95 has 5 frames above it
-SIFT_FRAMES = 60       # timed SIFT detect calls
+# Timed depths, cut so that phase 10 fits the run's time (PERF.md §5):
+FRAMES = 40            # timed detect calls: p95 has 2 frames above it
+SIFT_FRAMES = 24       # timed SIFT detect calls
 SIFT_STREAM = 12       # SIFT frames at 1000 objects
-SWEEP_FRAMES = 30      # timed full-sweep frames at 1000 objects
+SWEEP_FRAMES = 12      # timed full-sweep frames at 1000 objects
 N_OBJECTS = 100
 N_LARGE = 1000
 STREAM = 64            # frames at 1000 objects: > one exploration cycle
@@ -388,10 +418,10 @@ EDGE_ROWS = 20000      # B5's edge-case DB: five splits of 4096 rows
 B5_EDGE_Q = (1, 17, 65, 300, 1000)   # ragged against 16-query m-tiles
 T1_Q, T1_N = 5120, 262144   # tools/bench_dot_iso.py's shape
 INT_MM_ROWS = 1 << 17  # rows a torch._int_mm chunk: a 1 GiB int32 product
-GLOBAL_FRAMES = 60     # timed global detect calls
+GLOBAL_FRAMES = 24     # timed global detect calls
 NOISE_RUNS = 10        # timed replays of one frame's noise draws
 GRAPH_GATE = 156.0     # the serving .ork files' min_quality
-GRAPH_FRAMES = 20      # timed frames of each .ork graph, in turns with the
+GRAPH_FRAMES = 8       # timed frames of each .ork graph, in turns with the
                        # direct detector
 # ragged against the tensor-core tiles' 16-query m-tiles and 256-query
 # blocks, and a selection with holes, a repeated id, out-of-order ids and
@@ -402,14 +432,14 @@ TILE_Q = (1, 15, 16, 17, 63, 65, 255, 257, 2048)
 BATCH_Q = (2 * Q, 4 * Q, 4 * Q - 77)
 BATCH_Q_GLOBAL = (2 * 5000, 4 * 5000 - 77)
 BATCHES = (1, 2, 4)    # detect_batch_raw's batch sizes (phase 8c)
-BATCH_ROUNDS = 8       # timed rounds of each batch size, in turns
+BATCH_ROUNDS = 3       # timed rounds of each batch size, in turns
 # a batched row against the port's per-frame path: poses at the gate (the
 # reference's own tolerance for its batched rows, tests/test_e2e.py)
 BATCH_ATOL = 1e-5
 HOT_ADDED = ("obj001", "obj002")   # phase 8b: added into spare slots
 HOT_DROPPED = "obj002"             # then dropped
 HOT_FRAMES = 3
-A13_TURNS = 8          # timed frames of the depthless and the depth graph
+A13_TURNS = 4          # timed frames of the depthless and the depth graph
 # Phase 9a's accepts that the card's f32 rounding moves off the reference's
 # (ROADMAP queue C): (frame, object, instance) -> (the card's unique
 # inliers, the reference's). Frame 0's obj002 takes the other branch of the
@@ -420,6 +450,13 @@ A13_TURNS = 8          # timed frames of the depthless and the depth graph
 # Its keypoint invalidation then changes what round 4 sees.
 A13_GAPS = {(0, "obj002", 0): (233, 234), (0, "obj002", 4): (8, 8)}
 EDGE_SEL = (8, -1, 2, 1, 8, 0, -1, 7, 3, 12, 5, 6, 4)
+# Phase 10 (ROADMAP A14): the meshes of one card's device named four
+# times, (n_data, n_db)
+A14_MESHES = ((1, 4), (2, 2))
+A14_SWEEP_FRAMES = 8    # sharded full-sweep steps at 100 objects
+A14_SIFT_FRAMES = 16    # sharded SIFT frontier steps at 1000 objects
+A14_TURNS = 4           # timed steps, in turns with the single devices
+A14_PIPE_FRAMES = 8     # pipelined global frames, in turns with one device
 
 
 def log(msg: str) -> None:
@@ -2695,6 +2732,301 @@ def a13_phases(dev, card: str, fx, launches: dict) -> dict:
                 radius_none_bound_by=none_bound[1])
 
 
+class Counted:
+    """Launch counts of the sharded paths only: each ``with`` window adds
+    the kernels' launches inside it (comparisons and timings run
+    outside)."""
+
+    def __init__(self):
+        self.total = [0] * 7
+
+    def __enter__(self):
+        reset_counts()
+
+    def __exit__(self, *exc):
+        self.total = [a + b for a, b in zip(self.total, read_counts())]
+
+
+def same_bits(a, b, what: str) -> None:
+    """Every field of two ObjectDetections (or tensors) equal, NaN where
+    the other has NaN, or raise."""
+    pairs = (zip(a._fields, a, b) if hasattr(a, "_fields")
+             else [("tensor", a, b)])
+    for name, x, y in pairs:
+        y = y.to(x.device)
+        if x.shape != y.shape or x.dtype != y.dtype or not bool(
+                ((x == y) | (torch.isnan(x) & torch.isnan(y))).all()
+                if x.is_floating_point() else torch.equal(x, y)):
+            raise AssertionError(f"{what}: {name} differs")
+
+
+def ordered_models(ids, models, empty):
+    """The single-device catalog in a sharded DB's shard-major order."""
+    from tod_tpu_torch.types import TodModel
+
+    by_id = {m.object_id: m for m in models}
+    return [TodModel("", empty, np.zeros((0, 3), np.float32))
+            if i is None else by_id[i] for i in ids]
+
+
+def a14_serving(dev, card: str, mesh, models, cfg, queries, n_frames: int,
+                counted: Counted, what: str) -> None:
+    """Phase 10b on one catalog: a ShardedServingDetector over ``mesh``
+    and one FusedDetector(seed=b) a stream on the shard-major order, fed
+    the same compacted queries (stream b sees ``queries[(f + b) % 2]`` at
+    frame f); every field equal on every frame; then steps timed in turns
+    with the single-device frames."""
+    from tod_tpu_torch.models.fused import FusedDetector
+    from tod_tpu_torch.parallel import ShardedServingDetector
+
+    t0 = time.perf_counter()
+    drv = ShardedServingDetector(mesh, models, cfg, seed=0)
+    empty = (np.zeros((0, 128), np.float32) if cfg.feature == "SIFT"
+             else np.zeros((0, 32), np.uint8))
+    ordered = ordered_models(drv.object_ids, models, empty)
+    refs = [FusedDetector(ordered, cfg, seed=b, device=dev)
+            for b in range(drv.n_data)]
+    log(f"a14 {what}: {len(models)} objects over {mesh.shape}, "
+        f"{drv.sdb.nbytes()} bytes of shards; built in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    def batch(f):
+        per = [queries[(f + b) % len(queries)] for b in range(drv.n_data)]
+        xy, qp, dsc, ok = (torch.stack(t) for t in zip(*per))
+        return xy, qp, ok, dsc
+
+    n_acc = 0
+    for f in range(n_frames):
+        xy, qp, ok, dsc = batch(f)
+        with counted:
+            det = drv.step(xy, qp, ok, dsc)
+        for b, ref in enumerate(refs):
+            one = type(det)(*(x[b] for x in det))
+            same_bits(one, ref.detect_compacted(xy[b], qp[b], dsc[b], ok[b]),
+                      f"a14 {what}: frame {f} stream {b}")
+            n_acc += len(drv.results(det, b))
+    log(f"a14 {what}: {n_frames} steps x {drv.n_data} streams: every field "
+        f"of every stream's detections equal to FusedDetector(seed=b)'s on "
+        f"the same queries; {n_acc} gated accepts")
+    step_ms, one_ms = [], []
+    for f in range(A14_TURNS):
+        xy, qp, ok, dsc = batch(n_frames + f)
+        step_ms.append(synced_ms(lambda: drv.step(xy, qp, ok, dsc)))
+        one_ms.append(synced_ms(lambda: [
+            ref.detect_compacted(xy[b], qp[b], dsc[b], ok[b])
+            for b, ref in enumerate(refs)]))
+    log(f"time: a14 {what}: sharded step (both streams) median "
+        f"{np.median(step_ms):.2f} ms, the two single-device frames "
+        f"{np.median(one_ms):.2f} ms, in turns over {A14_TURNS} steps; peak "
+        f"device memory {torch.cuda.max_memory_allocated()} bytes; {card}")
+
+
+def a14_phases(dev, card: str, fx, frames, launches: dict) -> None:
+    """Phases 10a-10f (ROADMAP A14): the sharded paths on meshes of this
+    card named four times, each held bit for bit against the port's
+    single-device path: 10a the matchers (B5 row-sharded, plain and ring;
+    B1 and B3 object-sharded at 1000 objects), 10b ShardedServingDetector
+    (B1-B4, N1), 10c detect_batch_sharded, 10d train_views_sharded, 10e
+    PipelinedDetector, 10f the dry run. ``frames`` are the prepared smoke
+    frames. With more than one card the matchers also run on the distinct
+    cards."""
+    from tod_tpu_torch.cells.trainer import (feature_settings, view_batch)
+    from tod_tpu_torch.geometry.ransac import ThreefryNoise
+    from tod_tpu_torch.models.fused import (FusedDetector, geom_db,
+                                            match_against_db, match_full,
+                                            pack_models, stage_features,
+                                            stage_features_compact,
+                                            stage_geometry)
+    from tod_tpu_torch.ops import hamming as ham
+    from tod_tpu_torch.ops.segmented import pack_segmented
+    from tod_tpu_torch.ops.segmented_l2 import pack_segmented_l2
+    from tod_tpu_torch.parallel import (PipelinedDetector,
+                                        detect_batch_sharded,
+                                        dryrun_multichip, make_mesh,
+                                        pack_segmented_l2_sharded,
+                                        pack_segmented_sharded,
+                                        ring_hamming_topk,
+                                        sharded_hamming_topk,
+                                        sharded_object_top1,
+                                        train_views_sharded)
+    from tod_tpu_torch.parallel.train import train_views_step
+    from tod_tpu_torch.types import fixture_observations
+    from tod_tpu_torch.utils import prng
+
+    phase_t0 = time.perf_counter()
+    counted = Counted()
+    meshes = {shape: make_mesh(*shape, devices=[dev] * 4)
+              for shape in A14_MESHES}
+    n_cards = torch.cuda.device_count()
+    if n_cards > 1:     # never on a one-card machine
+        meshes[("cards", n_cards)] = make_mesh(n_data=1, n_db=n_cards)
+    mesh22 = meshes[(2, 2)]
+    gx = np.load(GLOBAL_FIXTURE)
+    _, model_ids, models = load_fixture()
+    gcfg = config(gx, GLOBAL_CONFIG)
+    gmodels = smoke_models(model_ids, models, N_OBJECTS)
+
+    # ---- 10a. the matchers ------------------------------------------------
+    q_g = stage_features(*frames[0], gcfg)[1]
+    gdb, _ = pack_models(gmodels, gcfg.db_chunk * math.lcm(
+        *(m.shape["db"] for m in meshes.values())), device=dev)
+    one = lambda: ham.hamming_topk_fused(q_g, gdb.words, gdb.n_valid,  # noqa
+                                         k=gcfg.k_matches, radius=gcfg.radius)
+    want = one()
+    one_ms = cuda_ms(one)
+    for shape, mesh in meshes.items():
+        for name, fn in (("sharded", sharded_hamming_topk),
+                         ("ring", ring_hamming_topk)):
+            run = lambda: fn(mesh, q_g, gdb.words, gdb.n_valid,  # noqa
+                             k=gcfg.k_matches, chunk=gcfg.db_chunk,
+                             radius=gcfg.radius)
+            with counted:
+                got = run()
+            for a, b, field in zip(got, want, ("dist", "rows")):
+                same_bits(a, b, f"a14 {name}_hamming_topk {shape} {field}")
+            log(f"time: a14 {name}_hamming_topk {shape}: {cuda_ms(run):.3f}"
+                f" ms median of {KERNEL_RUNS}, single-device B5 {one_ms:.3f}"
+                f" ms (Q={q_g.shape[0]} x {gdb.n_valid} rows, k "
+                f"{gcfg.k_matches}, radius {gcfg.radius}); dist and rows "
+                f"equal; {card}")
+    del gdb
+    t0 = time.perf_counter()
+    large = smoke_models(model_ids, models, N_LARGE, device=dev)
+    sx, sift_ids, sift_arrays = load_fixture(SIFT_FIXTURE)
+    sift_cfg = config(sx, SIFT_CONFIG)
+    large_sift = smoke_models(sift_ids, sift_arrays, N_LARGE, device=dev)
+    log(f"a14: the {N_LARGE}-object ORB and SIFT catalogs built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    cfg = config(fx)
+    compacted = [stage_features_compact(*frame, cfg) for frame in frames]
+    compacted_sift = [stage_features_compact(*frame, sift_cfg)
+                      for frame in frames]
+    for what, cat, q, pack_sh, pack_one, runs in (
+            ("B1", large, compacted[0][2], pack_segmented_sharded,
+             pack_segmented, KERNEL_RUNS),
+            ("B3", large_sift, compacted_sift[0][2],
+             pack_segmented_l2_sharded, pack_segmented_l2, 8)):
+        db1 = pack_one(cat, device=dev)
+        want = match_full(q, db1)
+        ms1 = cuda_ms(lambda: match_full(q, db1), runs=runs)
+        column = {m.object_id: i for i, m in enumerate(cat)}
+        for shape, mesh in meshes.items():
+            sdb, ids = pack_sh(cat, mesh)
+            if None in ids:
+                raise AssertionError(f"a14: {N_LARGE} objects do not fill "
+                                     f"{shape}'s shards")
+            with counted:
+                got = sharded_object_top1(mesh, q, sdb)
+            cols = torch.tensor([column[i] for i in ids], device=dev)
+            for a, b, field in zip(got, want, ("dist", "rows")):
+                same_bits(a, b[:, cols], f"a14 sharded_object_top1 {what} "
+                          f"{shape} {field}")
+            ms = cuda_ms(lambda: sharded_object_top1(mesh, q, sdb),
+                         runs=runs)
+            log(f"time: a14 sharded_object_top1 {what} {shape}: {ms:.3f} ms "
+                f"median of {runs}, single-device {ms1:.3f} ms (Q="
+                f"{q.shape[0]} x {sum(db1.rows_host)} rows, {N_LARGE} "
+                f"objects, columns in shard-major order equal); {card}")
+            del sdb
+        del db1
+        torch.cuda.empty_cache()
+
+    # ---- 10b. ShardedServingDetector at (2 x 2) ---------------------------
+    torch.cuda.reset_peak_memory_stats()
+    a14_serving(dev, card, mesh22, large,
+                config(np.load(STREAM_FIXTURE), **FRONTIER), compacted,
+                STREAM, counted, f"ORB frontier, {STREAM} frames")
+    del large
+    torch.cuda.empty_cache()
+    a14_serving(dev, card, mesh22, smoke_models(model_ids, models), cfg,
+                compacted, A14_SWEEP_FRAMES, counted,
+                "ORB full sweep (prescreen 32)")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    a14_serving(dev, card, mesh22, large_sift,
+                config(sx, SIFT_CONFIG, "stream_config_json", **FRONTIER),
+                compacted_sift,
+                A14_SIFT_FRAMES, counted, "SIFT frontier")
+    del large_sift, compacted_sift
+    torch.cuda.empty_cache()
+
+    # ---- 10c. detect_batch_sharded at (2 x 2) -----------------------------
+    gdb, _ = pack_models(gmodels, gcfg.db_chunk * 2, device=dev)
+    keys = prng.split(prng.prng_key(7), len(frames))
+    grays, depths, Ks = stacked(frames, len(frames))
+    with counted:
+        det = detect_batch_sharded(mesh22, keys, grays, depths, Ks, gdb,
+                                   gcfg)
+    n_acc = 0
+    for b, frame in enumerate(frames):
+        kps, desc, qp = stage_features(*frame, gcfg)
+        dist, rows = match_against_db(desc, gdb, gcfg)
+        want = stage_geometry(
+            ThreefryNoise(keys[b], gcfg.guess.ransac.max_instances, False,
+                          dev), kps.xy, kps.valid, dist, rows, qp,
+            geom_db(gdb), gcfg)
+        same_bits(type(det)(*(x[b] for x in det)), want,
+                  f"a14 detect_batch_sharded frame {b}")
+        n_acc += int(want.accepted.sum())
+    log(f"a14 detect_batch_sharded (2, 2): both frames' detections equal to "
+        f"the single-device global path's with the same key ({n_acc} "
+        "accepts)")
+    del gdb
+
+    # ---- 10d. train_views_sharded at (4 x 1) ------------------------------
+    tx = np.load(TRAIN_FIXTURE)
+    views = view_batch(fixture_observations(tx, 0), dev)
+    settings = feature_settings(TRAIN_FEATURES)
+    with counted:
+        got = train_views_sharded(make_mesh(4, 1, [dev] * 4),
+                                  **settings)(*views)
+    for a, b, field in zip(got, train_views_step(*views, **settings),
+                           ("descriptors", "world points", "valid")):
+        same_bits(a, b, f"a14 train_views_sharded {field}")
+    log(f"a14 train_views_sharded (4, 1): object 0's {views[0].shape[0]} "
+        "views equal to train_views_step's, every output")
+
+    # ---- 10e. PipelinedDetector on the card named three times -------------
+    pipe = PipelinedDetector(gmodels, gcfg, devices=[dev] * 3, seed=0)
+    single = FusedDetector(gmodels, gcfg, seed=0, device=dev)
+    pipe_ms, one_ms, got = [], [], {}
+    for f in range(A14_PIPE_FRAMES):
+        frame = frames[f % len(frames)]
+        with counted:
+            pipe_ms.append(synced_ms(
+                lambda: got.update(pipe=pipe.detect_raw(*frame)[1])))
+        one_ms.append(synced_ms(
+            lambda: got.update(one=single.detect_raw(*frame)[1])))
+        same_bits(got["pipe"], got["one"], f"a14 PipelinedDetector frame {f}")
+    stream = frames * (A14_PIPE_FRAMES // len(frames))
+    pipe_stream_ms = synced_ms(lambda: pipe.detect_stream(stream))
+    one_stream_ms = synced_ms(lambda: [single.detect_raw(*fr)
+                                       for fr in stream])
+    log(f"a14 PipelinedDetector([cuda:0] * 3): {A14_PIPE_FRAMES} frames, "
+        f"every field equal to FusedDetector(pipeline='global')'s "
+        f"detect_raw; frame median {np.median(pipe_ms):.2f} ms against "
+        f"{np.median(one_ms):.2f} ms, in turns; detect_stream of "
+        f"{len(stream)} frames {pipe_stream_ms:.2f} ms against "
+        f"{one_stream_ms:.2f} ms for the single device's loop, in turns; "
+        f"{card}")
+
+    # ---- 10f. the dry run --------------------------------------------------
+    with counted:
+        shapes = dryrun_multichip(4, [dev] * 4)
+    log(f"a14 dryrun_multichip(4, [cuda:0] * 4): {shapes}")
+
+    launches["10"] = tuple(counted.total)
+    names = [f"B{i + 1}" for i in range(5)] + ["T1", "N1"]
+    log("a14: launches of the sharded paths " + ", ".join(
+        f"{name} {n}" for name, n in zip(names, counted.total)))
+    missing = [name for name, n in zip(names, counted.total)
+               if n == 0 and name != "T1"]
+    if missing:
+        raise AssertionError(f"a14: the sharded paths never launched "
+                             f"{missing}")
+    log(f"a14: phases 10a-10f took {time.perf_counter() - phase_t0:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -2935,6 +3267,8 @@ def main() -> int:
     a16_phases(dev, card, fx, frames, launches)
     torch.cuda.empty_cache()
     b5_graph = a13_phases(dev, card, fx, launches)
+    torch.cuda.empty_cache()
+    a14_phases(dev, card, fx, frames, launches)
 
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")

@@ -699,3 +699,90 @@ def test_stage_timer_on_the_card():
     assert timer.times["matmul"] > timer.times["add"] > 0
     assert report.splitlines()[0].lstrip().startswith("matmul ")
     assert timed(lambda: a @ a, n=3) > 0
+
+
+def _batch_scene(dev, n_obj: int = 16, m: int = 384):
+    """Per-object stores of ``m`` matches (80 % valid) whose query points
+    are the model points moved 0.8 m away with 2 mm of noise, and one
+    round's Gumbel draws, made from a seed on the host."""
+    from tod_tpu_torch.geometry.adjacency import ObjectMatches
+
+    g = torch.Generator().manual_seed(0)
+    t = torch.rand(n_obj, m, 3, generator=g) * 0.3
+    q = t + torch.tensor([0.0, 0.0, 0.8]) \
+        + 0.002 * torch.rand(n_obj, m, 3, generator=g)
+    u = torch.rand(n_obj, 3, 128, m, generator=g).clamp(1e-6, 1 - 1e-6)
+    matches = ObjectMatches(
+        q, t, torch.arange(m).expand(n_obj, m).contiguous(),
+        torch.rand(n_obj, m, 2, generator=g) * 600,
+        torch.rand(n_obj, m, generator=g) < 0.8)
+    return (ObjectMatches(*(x.to(dev) for x in matches)),
+            (-torch.log(-torch.log(u))).to(dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [8, 4])
+def test_fits_do_not_depend_on_the_batch(n):
+    """On the card each object's refit (a weighted Horn fit over 384
+    matches), its 3-path log-weights and its whole RANSAC round are the
+    same in a batch of 16 objects and of ``n`` (the sharded paths run an
+    object's tiers in smaller batches than one device)."""
+    from tod_tpu_torch.geometry import adjacency as tadj
+    from tod_tpu_torch.geometry import ransac as tran
+    from tod_tpu_torch.geometry.transforms import kabsch
+
+    dev = _cuda()
+    m, gum = _batch_scene(dev)
+    spans = torch.full((16,), 0.5, device=dev)
+
+    def run(k):
+        part = type(m)(*(x[:k] for x in m))
+        graphs = tadj.fill_adjacency(part, spans[:k], 0.01)
+        fit = kabsch(part.query_pts, part.train_pts, part.valid.float())
+        logw = tran.consistency_log_weights(graphs.sample | True,
+                                            part.valid)
+        rnd = tran.ransac_round(gum[:k], part, graphs, graphs.valid,
+                                tran.RansacConfig(n_hypotheses=128))
+        return (fit.R, fit.T, logw, *rnd)
+
+    for a, b in zip(run(16), run(n)):
+        assert torch.equal(a[:n], b)
+
+
+@pytest.mark.cuda
+def test_sharded_matchers_on_the_card():
+    """The row-sharded B5 (plain and ring) and the object-sharded B1 on
+    the card named four times, at (1 x 4) and (2 x 2), against the
+    single-device kernels, bit for bit."""
+    from tod_tpu_torch.parallel import (make_mesh, pack_segmented_sharded,
+                                        ring_hamming_topk,
+                                        sharded_hamming_topk,
+                                        sharded_object_top1)
+
+    dev = _cuda()
+    rng = np.random.default_rng(3)
+    q = torch.from_numpy(rng.integers(0, 256, (300, 32), dtype=np.uint8)
+                         ).to(dev)
+    db = torch.from_numpy(rng.integers(0, 256, (4 * 4096, 32),
+                                       dtype=np.uint8)).to(dev)
+    words = tham.pack_db_bits(db)
+    want = tham.hamming_topk_fused(q, words, len(db) - 77, k=5, radius=120)
+    models = [TodModel(f"o{i}", rng.integers(0, 256, (50 + 31 * i, 32),
+                                             dtype=np.uint8),
+                       np.zeros((50 + 31 * i, 3), np.float32))
+              for i in range(7)]
+    for shape in ((1, 4), (2, 2)):
+        mesh = make_mesh(*shape, devices=[dev] * 4)
+        for fn in (sharded_hamming_topk, ring_hamming_topk):
+            got = fn(mesh, q, words, len(db) - 77, k=5, chunk=4096,
+                     radius=120)
+            assert all(torch.equal(a, b) for a, b in zip(got, want))
+        sdb, ids = pack_segmented_sharded(models, mesh, db_chunk=2048)
+        by_id = {mm.object_id: mm for mm in models}
+        one = tseg.pack_segmented(
+            [by_id[i] if i else TodModel("", np.zeros((0, 32), np.uint8),
+                                         np.zeros((0, 3), np.float32))
+             for i in ids], db_chunk=2048, device=dev)
+        got = sharded_object_top1(mesh, q, sdb)
+        assert all(torch.equal(a, b) for a, b in
+                   zip(got, tseg.object_top1(q, one)))

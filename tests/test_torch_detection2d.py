@@ -427,6 +427,45 @@ def test_hopeless_objects_skipped_and_chunks_change_no_accept(
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("chunk", [1, 16, 32])
+def test_consensus_product_same_bits_at_every_chunk(chunk):
+    """The consensus's camera coordinates (``rotate_points``) of 32
+    objects run in chunks of 1, 16 or 32 objects give the same bits, and
+    those of the reference's compiled ``X @ R.T + T`` (vmapped over the
+    hypotheses, mapped over the objects 8 at a time, as its 2D round
+    runs it)."""
+    rng = np.random.default_rng(3)
+    n_a, n_h, m = 32, 48, 40
+    q = rng.normal(size=(n_a * n_h, 4))
+    R = _rotations(q).reshape(n_a, n_h, 3, 3)
+    T = (rng.normal(size=(n_a, n_h, 3)) * 0.1
+         + [0.0, 0.0, 0.8]).astype(np.float32)
+    X = rng.uniform(-0.1, 0.1, (n_a, m, 3)).astype(np.float32)
+
+    def per_object(args):
+        r, t, x = args
+        return jax.vmap(lambda r1, t1: x @ r1.T + t1)(r, t)
+
+    ref = np.asarray(jax.jit(lambda r, t, x: jax.lax.map(
+        per_object, (r, t, x), batch_size=8))(R, T, X))      # (A, H, M, 3)
+    Rt, Tt, Xt = (torch.from_numpy(a) for a in (R, T, X))
+    got = torch.cat([td.rotate_points(Rt[c:c + chunk], Tt[c:c + chunk],
+                                      Xt[c:c + chunk])
+                     for c in range(0, n_a, chunk)])
+    np.testing.assert_array_equal(got.transpose(2, 3).numpy(), ref)
+
+
+def _rotations(q: np.ndarray) -> np.ndarray:
+    """(N, 3, 3) float32 rotations of (N, 4) unnormalised quaternions."""
+    w, x, y, z = (q / np.linalg.norm(q, axis=1, keepdims=True)).T
+    return np.stack([1 - 2 * (y * y + z * z), 2 * (x * y - z * w),
+                     2 * (x * z + y * w), 2 * (x * y + z * w),
+                     1 - 2 * (x * x + z * z), 2 * (y * z - x * w),
+                     2 * (x * z - y * w), 2 * (y * z + x * w),
+                     1 - 2 * (x * x + y * y)], 1).reshape(-1, 3, 3).astype(
+                         np.float32)
+
+
 def test_detect_frame_2d_synthetic():
     """test_pnp.py::test_detect_frame_2d_synthetic through both packages."""
     rng = np.random.default_rng(0)

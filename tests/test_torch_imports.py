@@ -42,9 +42,12 @@ def test_port_imports_no_jax_cv2_yaml_or_reference():
                  "cells.features", "cells.matcher", "cells.guess",
                  "cells.serving", "models.detector", "models.trainer",
                  "cli", "geometry.pnp", "geometry.detection2d",
-                 "utils.profiling"):
+                 "utils.profiling", "parallel", "parallel.mesh",
+                 "parallel.matching", "parallel.segmented",
+                 "parallel.serving", "parallel.detect", "parallel.pipeline",
+                 "parallel.dryrun"):
         assert f"tod_tpu_torch.{name}" in got["modules"]
-    assert len(got["modules"]) >= 56
+    assert len(got["modules"]) >= 63
     assert got["banned"] == [] and got["loaded"] == []
 
 

@@ -358,8 +358,6 @@ def test_train_views_step_matches_stored_reference(fx):
     both = v_s & valid[:1]
     assert torch.equal(d_s, desc[:1]) and both.sum() > 300
     assert not torch.equal(w_s[both], world[:1][both])
-    with pytest.raises(NotImplementedError, match="A14"):
-        ttrain.train_views_sharded()
 
 
 def test_fixture_is_self_consistent(fx):

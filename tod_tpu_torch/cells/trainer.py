@@ -72,6 +72,15 @@ def train_views(observations: Sequence[Observation], settings: Dict,
     """One batch of same-shaped views through :func:`train_views_step` on
     ``device``: (V,K,D) descriptors, (V,K,3) world points, (V,K) valid, on
     the host."""
+    out = train_views_step(*view_batch(observations, device), **settings)
+    return tuple(t.cpu().numpy() for t in out)
+
+
+def view_batch(observations: Sequence[Observation], device
+               ) -> Tuple[torch.Tensor, ...]:
+    """:func:`train_views_step`'s inputs on ``device``: (V,H,W) grays (the
+    fused gray of color views), masks and depths rescaled to the image,
+    (V,3,3) K and R, (V,3) T."""
     images = torch.from_numpy(np.stack([o.image for o in observations]))
     images = images.to(device)
     img_hw = tuple(images.shape[1:3])
@@ -87,10 +96,8 @@ def train_views(observations: Sequence[Observation], settings: Dict,
             np.asarray(getattr(o, name), np.float32).reshape(shape)
             for o in observations])).to(device)
 
-    out = train_views_step(grays, masks.to(device), depths,
-                           cams("K", (3, 3)), cams("R", (3, 3)),
-                           cams("T", (3,)), **settings)
-    return tuple(t.cpu().numpy() for t in out)
+    return (grays, masks.to(device), depths, cams("K", (3, 3)),
+            cams("R", (3, 3)), cams("T", (3,)))
 
 
 def train_object(observations: Sequence[Observation],

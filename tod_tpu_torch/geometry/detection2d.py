@@ -43,6 +43,7 @@ from tod_tpu_torch.geometry.ransac import (ObjectDetections, ThreefryNoise,
                                            sample_triples)
 from tod_tpu_torch.geometry.transforms import _det3
 from tod_tpu_torch.ops.fast import stable_topk
+from tod_tpu_torch.ops.image import fma_f32
 from tod_tpu_torch.utils.profiling import StageTimer
 
 PIXEL_SEP_SQ = 20.0 * 20.0     # same sample-separation rule as the 3D path
@@ -131,18 +132,35 @@ def sampling_graph(dpix2: torch.Tensor, dtrain2: torch.Tensor,
     return adj, counts
 
 
+def rotate_points(R: torch.Tensor, T: torch.Tensor,
+                  X: torch.Tensor) -> torch.Tensor:
+    """``R X + T`` of every object's points under each of its poses: ``R``
+    (A, H, 3, 3), ``T`` (A, H, 3), ``X`` (A, M, 3) -> (A, H, 3, M). Each
+    coordinate is the reference's compiled ``X @ R.T + T``:
+    ``fma(x2, r2, fma(x1, r1, x0 * r0)) + t``, with :func:`fma_f32`, so its
+    bits depend neither on the device nor on how many objects share the
+    call (a batched library product rounds by its own kernel's order)."""
+    xs = X.transpose(1, 2)[:, None]                     # (A, 1, 3, M)
+    cam = torch.empty(R.shape[:2] + X.shape[2:] + X.shape[1:2],
+                      dtype=torch.float32, device=X.device)
+    for j in range(3):      # one row at a time bounds the f64 temporaries
+        r = R[:, :, j, :, None]                         # (A, H, 3, 1)
+        acc = xs[:, :, 0] * r[:, :, 0]
+        acc = fma_f32(xs[:, :, 1], r[:, :, 1], acc)
+        cam[:, :, j] = fma_f32(xs[:, :, 2], r[:, :, 2], acc).add_(
+            T[:, :, j, None])
+    return cam
+
+
 def reprojection_error(R: torch.Tensor, T: torch.Tensor, K: torch.Tensor,
                        X: torch.Tensor, xy: torch.Tensor
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Squared reprojection error and in-front mask of every object's
     points under each of its poses: ``R`` (A, H, 3, 3), ``T`` (A, H, 3),
-    ``X`` (A, M, 3), ``xy`` (A, M, 2) -> (A, H, M) each. The rotation is
-    one batched product per object (no broadcast copy of the points), the
-    rest in place in its output."""
-    n_a, n_h = R.shape[:2]
-    cam = torch.bmm(R.reshape(n_a, n_h * 3, 3), X.transpose(1, 2))
-    cam = cam.view(n_a, n_h, 3, -1).add_(T[..., None])
-    x, y, z = cam.unbind(2)
+    ``X`` (A, M, 3), ``xy`` (A, M, 2) -> (A, H, M) each. The camera
+    coordinates come from :func:`rotate_points`, the rest in place in its
+    output."""
+    x, y, z = rotate_points(R, T, X).unbind(2)
     front = z > 1e-6
     zc = torch.where(torch.abs(z) > 1e-9, z,
                      torch.full((), 1e-9, dtype=z.dtype, device=z.device))
@@ -465,5 +483,5 @@ __all__ = ["LOG_SCALE_GATE", "MIN_TRAIN_SEP", "N_BINS", "N_REFINE",
            "detect_frame_2d", "detect_object_instances_2d",
            "invalidate_keypoints", "mirror_poses",
            "model_normal", "pair_geometry", "ransac_round_2d",
-           "reprojection_error", "sampling_graph", "scale_histogram",
-           "scale_range", "truncated_sse"]
+           "reprojection_error", "rotate_points", "sampling_graph",
+           "scale_histogram", "scale_range", "truncated_sse"]

@@ -22,7 +22,7 @@ from tod_tpu_torch.geometry.adjacency import (AdjacencyGraphs, ObjectMatches,
                                               count_unique_query_indices,
                                               invalidate_query_indices)
 from tod_tpu_torch.geometry.transforms import (RigidFit, apply_rt,
-                                               invert_pose, kabsch)
+                                               invert_pose, kabsch, row_sum)
 from tod_tpu_torch.ops.fast import stable_topk
 from tod_tpu_torch.utils import prng
 
@@ -171,10 +171,14 @@ def _sq_residual(r: torch.Tensor, t: torch.Tensor, q: torch.Tensor,
 
 def consistency_log_weights(sample_adj: torch.Tensor,
                             valid: torch.Tensor) -> torch.Tensor:
-    """log(1 + [A^3 1]_v): 3-path counts in the valid sample graph."""
-    a = (sample_adj & valid[..., :, None] & valid[..., None, :]).float()
-    v = valid.float()[..., None]
-    return torch.log1p((a @ (a @ (a @ v)))[..., 0])
+    """log(1 + [A^3 1]_v): 3-path counts in the valid sample graph. The
+    counts (up to M^3, past f32's 2^24 in a dense graph of a few hundred
+    matches) are formed exactly in f64, whatever the product's order or
+    batch, then taken to f32 as the reference holds them."""
+    a = (sample_adj & valid[..., :, None]
+         & valid[..., None, :]).to(torch.float64)
+    v = valid.to(torch.float64)[..., None]
+    return torch.log1p((a @ (a @ (a @ v)))[..., 0].to(torch.float32))
 
 
 def _masked_weighted_argmax(g: torch.Tensor, mask: torch.Tensor,
@@ -361,7 +365,7 @@ def ransac_round(gumbel: torch.Tensor, matches: ObjectMatches,
     inl_fin = inl & found[:, None]
     res_fin = _sq_residual(r_c, t_c, q, t)
     n_fin = inl_fin.sum(-1)
-    rms = torch.sqrt(torch.where(inl_fin, res_fin, 0.0).sum(-1)
+    rms = torch.sqrt(row_sum(torch.where(inl_fin, res_fin, 0.0), -1)
                      / torch.clamp_min(n_fin, 1))
     csize = _greedy_clique_size(graphs.sample, inl_fin[:, None],
                                 CLIQUE_STAT_STEPS)[:, 0]

@@ -148,17 +148,45 @@ class RigidFit(NamedTuple):
     ok: torch.Tensor   # (...,) bool — enough weight + well-posed rotation
 
 
+FIXED_ORDER_MIN = 4   # CUDA sums of this many rows and more: row_sum
+
+
+def row_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``x.sum(dim)``; on a CUDA tensor of at least ``FIXED_ORDER_MIN``
+    rows along ``dim``, in one fixed pairwise order (the two halves added
+    elementwise, an odd last row carried), so that each sum is the same
+    however many rows share the call: CUDA's reduction kernels and batched
+    products split a long reduction by the whole tensor's shape (measured
+    on the H100 for sums over 192 and 384 rows), and the sharded paths run
+    an object's fit in smaller batches than one device does. Sums of three
+    rows (the triples' fits) came out the same at every batch measured and
+    keep the library's order; so do CPU tensors, whose sums are already
+    independent of the other rows (the parity tests hold their results)."""
+    if not x.is_cuda or x.shape[dim] < FIXED_ORDER_MIN:
+        return x.sum(dim)
+    x = x.movedim(dim, 0)
+    while x.shape[0] > 1:
+        half = x.shape[0] // 2
+        pair = x[:half] + x[half:2 * half]
+        x = torch.cat([pair, x[2 * half:]]) if x.shape[0] % 2 else pair
+    return x[0]
+
+
 def kabsch(query: torch.Tensor, training: torch.Tensor,
            weights: torch.Tensor) -> RigidFit:
     """Weighted rigid fit R @ query + T ~= training (Horn 1987).
-    ``query``/``training``: (..., N, 3); ``weights``: (..., N) >= 0."""
+    ``query``/``training``: (..., N, 3); ``weights``: (..., N) >= 0. The
+    sums over N go through :func:`row_sum`."""
     w = weights[..., None].to(torch.float32)
-    wsum = w.sum(-2) + 1e-30                      # (..., 1)
-    cq = (w * query).sum(-2) / wsum               # (..., 3)
-    ct = (w * training).sum(-2) / wsum
+    wsum = row_sum(w, -2) + 1e-30                 # (..., 1)
+    cq = row_sum(w * query, -2) / wsum            # (..., 3)
+    ct = row_sum(w * training, -2) / wsum
     qc = (query - cq[..., None, :]) * w
     tc = training - ct[..., None, :]
-    S = torch.einsum("...ni,...nj->...ij", qc, tc)
+    if qc.is_cuda and qc.shape[-2] >= FIXED_ORDER_MIN:
+        S = row_sum(qc[..., :, None] * tc[..., None, :], -3)
+    else:
+        S = torch.einsum("...ni,...nj->...ij", qc, tc)
     R, ok = horn_rotation(S)
     T = ct - torch.einsum("...ij,...j->...i", R, cq)
     enough = weights.to(torch.float32).sum(-1) >= 3.0

@@ -183,15 +183,31 @@ def stage_coarse_select(dsc: torch.Tensor, ok: torch.Tensor,
                         explore: Optional[torch.Tensor] = None):
     """The frame's slab: the coarse screen's top objects (kernel B1, or B3
     for SIFT, on the coarse DB, every ``coarse_q_stride``-th query), then
-    the tracked and exploration ids with duplicates holed out. Returns
+    the tracked and exploration ids (:func:`slab_from_coarse`)."""
+    dsc_c, ok_c = coarse_queries(dsc, ok, cfg)
+    return slab_from_coarse(match_full(dsc_c, cdb)[0], ok_c, cfg, tracked,
+                            explore)
+
+
+def coarse_queries(dsc: torch.Tensor, ok: torch.Tensor,
+                   cfg: FusedDetectorConfig):
+    """Every ``coarse_q_stride``-th query: the coarse screen ranks objects
+    on these only (the fine pass sees all)."""
+    if cfg.coarse_q_stride > 1:
+        return dsc[::cfg.coarse_q_stride], ok[::cfg.coarse_q_stride]
+    return dsc, ok
+
+
+def slab_from_coarse(dist_c: torch.Tensor, ok: torch.Tensor,
+                     cfg: FusedDetectorConfig,
+                     tracked: Optional[torch.Tensor] = None,
+                     explore: Optional[torch.Tensor] = None):
+    """The slab of the coarse screen's (Q, O) distances: its top objects,
+    then the tracked and exploration ids with duplicates holed out. Returns
     ``(sel (C,) int32, force, force_act)``: ``force`` marks slots of
     reserved objects (they bypass the in-slab prescreen), ``force_act``
     those of tracked objects (they also bypass the activation cut); both
     None without reserved slots."""
-    if cfg.coarse_q_stride > 1:     # ranking only: the fine pass sees all
-        dsc = dsc[::cfg.coarse_q_stride]
-        ok = ok[::cfg.coarse_q_stride]
-    dist_c, _ = match_full(dsc, cdb)
     width = cfg.fine_width \
         - (cfg.track_width if tracked is not None else 0) \
         - (cfg.explore_width if explore is not None else 0)
@@ -424,6 +440,19 @@ def load_db(old, new, device: torch.device):
                                        for n in names})
 
 
+def prepare_frame(image: np.ndarray, depth: np.ndarray, K: np.ndarray,
+                  device: torch.device | str):
+    """One frame on ``device``: (gray f32, depth, K f32). Integer depth goes
+    up as int32 (millimeters)."""
+    gray = rgb_to_gray(torch.from_numpy(np.ascontiguousarray(image)).to(
+        device))
+    depth = np.asarray(depth)
+    if not np.issubdtype(depth.dtype, np.floating):
+        depth = depth.astype(np.int32)
+    return (gray, torch.from_numpy(np.ascontiguousarray(depth)).to(device),
+            torch.from_numpy(np.asarray(K, np.float32)).to(device))
+
+
 class FusedDetector:
     """Load models once, detect many frames, on one device: the card,
     unless the caller names another."""
@@ -526,16 +555,8 @@ class FusedDetector:
 
     def prepare_frame(self, image: np.ndarray, depth: np.ndarray,
                       K: np.ndarray):
-        """Upload one frame once: (gray f32, depth, K f32) on the device.
-        Integer depth goes up as int32 (millimeters)."""
-        img = torch.from_numpy(np.ascontiguousarray(image)).to(self.device)
-        gray = rgb_to_gray(img)
-        depth = np.asarray(depth)
-        if not np.issubdtype(depth.dtype, np.floating):
-            depth = depth.astype(np.int32)
-        return (gray, torch.from_numpy(np.ascontiguousarray(depth)).to(
-                    self.device),
-                torch.from_numpy(np.asarray(K, np.float32)).to(self.device))
+        """Upload one frame once (:func:`prepare_frame`)."""
+        return prepare_frame(image, depth, K, self.device)
 
     def detect_raw(self, image, depth, K):
         """Device-level API; accepts numpy frames or the tensors of
@@ -547,11 +568,7 @@ class FusedDetector:
         else:
             gray, depth_t, K_t = self.prepare_frame(image, depth, K)
         cfg = self.config
-        # every frame splits the key, an empty catalog's too, as the
-        # reference does
-        self._key, sub = prng.split(self._key)
-        noise = self.noise if self.noise is not None else ThreefryNoise(
-            sub, cfg.guess.ransac.max_instances, self.segmented, self.device)
+        noise = self._frame_noise()
         if not self.segmented:
             kps, desc, query_pts = stage_features(gray, depth_t, K_t, cfg)
             if not self.object_ids:
@@ -560,12 +577,37 @@ class FusedDetector:
             return kps, stage_geometry(noise, kps.xy, kps.valid, dist,
                                        rows, query_pts, geom_db(self.db), cfg)
         xy, qp, dsc, ok = stage_features_compact(gray, depth_t, K_t, cfg)
+        return None, self._detect_segmented(noise, xy, qp, dsc, ok)
+
+    def detect_compacted(self, xy: torch.Tensor, qp: torch.Tensor,
+                         dsc: torch.Tensor, ok: torch.Tensor
+                         ) -> ObjectDetections:
+        """The segmented paths from one frame's compacted queries
+        (:func:`stage_features_compact`'s ``xy, qp, dsc, ok``): what
+        :meth:`detect_raw` does after its features stage, the frame's key
+        split and the streaming state advanced."""
+        if not self.segmented:
+            raise ValueError("detect_compacted serves the segmented paths")
+        return self._detect_segmented(self._frame_noise(), xy, qp, dsc, ok)
+
+    def _frame_noise(self) -> NoiseFn:
+        """Split the detector's key (every frame, an empty catalog's too, as
+        the reference does) and return the frame's noise."""
+        self._key, sub = prng.split(self._key)
+        if self.noise is not None:
+            return self.noise
+        return ThreefryNoise(sub, self.config.guess.ransac.max_instances,
+                             self.segmented, self.device)
+
+    def _detect_segmented(self, noise: NoiseFn, xy, qp, dsc, ok
+                          ) -> ObjectDetections:
+        cfg = self.config
         if not self.object_ids:
-            return None, empty_detections(0, cfg, self.device)
+            return empty_detections(0, cfg, self.device)
         if self.cdb is not None:
-            return None, self._detect_coarse_fine(noise, xy, qp, dsc, ok)
+            return self._detect_coarse_fine(noise, xy, qp, dsc, ok)
         dist, rows = match_full(dsc, self.sdb)
-        return None, detect_frame_segmented(
+        return detect_frame_segmented(
             noise, dist, rows, ok, qp, xy, self.sdb.points,
             self.sdb.obj_start, self.sdb.spans, cfg.guess, cfg.activation,
             cfg.radius)[1]
@@ -682,28 +724,37 @@ class FusedDetector:
 
     def poses(self, det: ObjectDetections) -> List[PoseResult]:
         """The gated poses of :meth:`detect_raw`'s detections, read back to
-        the host once."""
-        n_obj, n_inst = det.accepted.shape
-        packed = torch.cat([
-            det.R.reshape(n_obj, n_inst, 9), det.T,
-            det.n_inliers[..., None].float(), det.accepted[..., None].float(),
-            det.rms_residual[..., None], det.clique_size[..., None].float()],
-            dim=-1).cpu().numpy()                   # the one device read
-        results: List[PoseResult] = []
-        for o, object_id in enumerate(self.object_ids):
-            for inst in range(n_inst):
-                row = packed[o, inst]
-                n_in, accepted = float(row[12]), bool(row[13])
-                if not accepted or n_in < self.config.min_confidence:
-                    continue
-                clique = int(row[15])
-                quality = confidence_v2(n_in, float(row[14]), clique,
-                                        self.config.guess.sensor_error)
-                if quality < self.config.min_quality:
-                    continue
-                results.append(PoseResult(
-                    R=row[:9].reshape(3, 3).copy(), T=row[9:12].copy(),
-                    object_id=object_id, confidence=n_in,
-                    rms_residual=float(row[14]), clique_size=clique,
-                    quality=quality))
-        return results
+        the host once (:func:`gated_poses`)."""
+        return gated_poses(det, self.object_ids, self.config)
+
+
+def gated_poses(det: ObjectDetections, object_ids: Sequence[Optional[str]],
+                cfg: FusedDetectorConfig) -> List[PoseResult]:
+    """One frame's accepted instances, (O, I, ...) detections read back to
+    the host once, at ``cfg.min_confidence`` (inliers) and
+    ``cfg.min_quality`` (:func:`confidence_v2`); ``object_ids`` names the
+    rows."""
+    n_obj, n_inst = det.accepted.shape
+    packed = torch.cat([
+        det.R.reshape(n_obj, n_inst, 9), det.T,
+        det.n_inliers[..., None].float(), det.accepted[..., None].float(),
+        det.rms_residual[..., None], det.clique_size[..., None].float()],
+        dim=-1).cpu().numpy()                       # the one device read
+    results: List[PoseResult] = []
+    for o, object_id in enumerate(object_ids):
+        for inst in range(n_inst):
+            row = packed[o, inst]
+            n_in, accepted = float(row[12]), bool(row[13])
+            if not accepted or n_in < cfg.min_confidence:
+                continue
+            clique = int(row[15])
+            quality = confidence_v2(n_in, float(row[14]), clique,
+                                    cfg.guess.sensor_error)
+            if quality < cfg.min_quality:
+                continue
+            results.append(PoseResult(
+                R=row[:9].reshape(3, 3).copy(), T=row[9:12].copy(),
+                object_id=object_id, confidence=n_in,
+                rms_residual=float(row[14]), clique_size=clique,
+                quality=quality))
+    return results

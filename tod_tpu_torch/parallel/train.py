@@ -2,12 +2,13 @@
 (tod_tpu/parallel/train.py): per view, keypoints and descriptors on the
 masked view, validation against the eroded mask and the depth,
 back-projection and camera -> world. The feature ops take one image, so the
-views run one after another on the device; the reference's sharded step
-(``train_views_sharded``) is not ported.
+views run one after another on a device; :func:`train_views_sharded` splits
+the views over a mesh's ``'data'`` axis.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import torch
@@ -17,6 +18,7 @@ from tod_tpu_torch.ops.depth import depth_to_3d_sparse
 from tod_tpu_torch.ops.morphology import validate_keypoints
 from tod_tpu_torch.ops.orb import orb_detect_and_compute
 from tod_tpu_torch.ops.sift import sift_detect_and_compute
+from tod_tpu_torch.parallel.mesh import Mesh, all_gather, split_even
 
 
 def subpixel_coords(snapped: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
@@ -63,7 +65,27 @@ def train_views_step(grays: torch.Tensor, masks: torch.Tensor,
     return torch.stack(descs), torch.stack(worlds), torch.stack(valids)
 
 
-def train_views_sharded(*args, **kwargs):
-    """The view batch sharded over devices: not ported."""
-    raise NotImplementedError(
-        "tod_tpu_torch: the sharded training step is ROADMAP A14")
+def train_views_sharded(mesh: Mesh, n_features: int = 1000,
+                        n_levels: int = 3, scale_factor: float = 1.2,
+                        subpixel: bool = False, **settings):
+    """The training step with the view batch split over ``'data'``:
+    returns ``fn(grays, masks, depths_m, Ks, Rs, Ts)``. V must divide by
+    the data axis; data row ``i`` runs :func:`train_views_step` on its
+    views on its first device, and the outputs come back concatenated in
+    view order on the mesh's first device. ``settings`` are the step's
+    other keywords (``fast_threshold``, ``feature_type``)."""
+    return functools.partial(_train_sharded, mesh, dict(
+        n_features=n_features, n_levels=n_levels, scale_factor=scale_factor,
+        subpixel=subpixel, **settings))
+
+
+def _train_sharded(mesh: Mesh, settings: dict, *views: torch.Tensor):
+    per = split_even(views[0].shape[0], mesh.shape["data"], "views over "
+                     "'data'")
+    outs = []
+    for i in range(mesh.shape["data"]):
+        dev = mesh.device(i, 0)
+        outs.append(train_views_step(
+            *(v[i * per:(i + 1) * per].to(dev, non_blocking=True)
+              for v in views), **settings))
+    return tuple(all_gather(list(f), mesh.first) for f in zip(*outs))
