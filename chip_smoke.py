@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the port's serving paths (segmented ORB/Hamming and SIFT/L2, and
-the global-kNN ORB path), its trainer, its .ork cell graph and the 2D-only
-path for depthless frames once on one NVIDIA GPU.
+the global-kNN ORB path), its trainer, its .ork cell graph, the 2D-only
+path for depthless frames, its sharding layer, and its reference-era DB
+reader, overlays and user tools once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -280,6 +281,37 @@ line (the sharded runs only):
             timed in turns, and over a stream (detect_stream).
 10f. dry    dryrun_multichip(4, [cuda:0] * 4).
 
+Then the reference-era data, the visualize overlays and the user tools
+(ROADMAP A12c, A12d, A12f), held to tests/data/torch_legacy_fixture.npz
+(tools/make_torch_legacy_fixture.py: a reference-format dump of obj000, its
+model as zlib FileStorage YAML and three training views as PNG and YAML,
+written by the reference and cv2, and the reference's outputs):
+
+11a. legacy the dump's blobs, the model as XML and its points as a raw
+            header decoded on the host (db/legacy.py, utils/png.py), each
+            equal to its npy counterpart bit for bit, the model's decode
+            timed; ``cli migrate`` of the dump: every document's fields and
+            npy attachments equal to tools/migrate_db.py's; conf/detection.ork
+            over an in-process CouchDB server on 127.0.0.1 holding the
+            100-object catalog with obj000 as FileStorage YAML, one frame:
+            its MatchSet and accepts equal to the same graph's over the npy
+            FilesystemDb bit for bit, one B5 launch and N1's; conf/training.ork
+            over the three legacy observations and over their npy copies:
+            the same model bit for bit, one B5 launch each.
+11b. viz    the drawing functions over both frames (the reference's
+            keypoints, poses and MatchSets) equal to cv2's overlays (their
+            digests), each PNG write timed; conf/detection.ork (B5),
+            conf/detection.serving.ork (B1), conf/detection.sift.serving.ork
+            (B3, over the 100-object SIFT smoke catalog) and
+            conf/training.ork with a visualize prefix: the detections and the model equal to the
+            graphs' without it bit for bit, each PNG (poses, clusters,
+            training views) read back by utils/png.py equal to the drawing
+            functions over that frame's outputs; a serving frame with and
+            without visualize timed in turns.
+11c. view   ``cli view obj000`` on the migrated DB prints
+            apps/feature_viewer's text; ``--png`` draws, or stops naming
+            matplotlib where it is not installed.
+
 The line before the card's is a JSON object of every kernel of the paths
 (launches on the main paths, error against the twin, time, the twin's time,
 the card's bound for the same work and the PR of the kernel's design; B5
@@ -315,6 +347,7 @@ TRAIN_FIXTURE = os.path.join(DATA, "torch_train_fixture.npz")
 CELLS_FIXTURE = os.path.join(DATA, "torch_cells_fixture.npz")
 A13_FIXTURE = os.path.join(DATA, "torch_a13_fixture.npz")
 A16_FIXTURE = os.path.join(DATA, "torch_a16_fixture.npz")
+LEGACY_FIXTURE = os.path.join(DATA, "torch_legacy_fixture.npz")
 Q = 2048
 KERNEL_RUNS = 24       # CUDA-event timings of a kernel and its twin
 TWIN_RUNS = 3          # twin timings at 1000 objects (~0.1-2 s each)
@@ -457,6 +490,8 @@ A14_SWEEP_FRAMES = 8    # sharded full-sweep steps at 100 objects
 A14_SIFT_FRAMES = 16    # sharded SIFT frontier steps at 1000 objects
 A14_TURNS = 4           # timed steps, in turns with the single devices
 A14_PIPE_FRAMES = 8     # pipelined global frames, in turns with one device
+VIZ_TURNS = 4           # phase 11b: serving frames with and without
+                        # visualize, in turns
 
 
 def log(msg: str) -> None:
@@ -3027,6 +3062,484 @@ def a14_phases(dev, card: str, fx, frames, launches: dict) -> None:
     log(f"a14: phases 10a-10f took {time.perf_counter() - phase_t0:.1f} s")
 
 
+# ---- phase 11: reference-era data, visualize, the user tools ----------------
+
+
+def couch_server(store: dict):
+    """An in-process server of the CouchDB dialect the port's CouchDb and
+    migrate speak (PUT /db, GET|PUT|DELETE /db/doc, GET|PUT
+    /db/doc/attachment, GET /db/_all_docs) over ``store``: {db: {doc id:
+    {"fields", "rev", "atts": {name: bytes}}}}, on 127.0.0.1. Returns the
+    server (``shutdown`` it) and its URL."""
+    import threading
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    class Handler(BaseHTTPRequestHandler):
+        def log_message(self, *args):
+            pass
+
+        def _send(self, code, body=b"{}", ctype="application/json"):
+            self.send_response(code)
+            self.send_header("Content-Type", ctype)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def _parts(self):
+            return [p for p in self.path.partition("?")[0].split("/") if p]
+
+        def do_PUT(self):
+            parts = self._parts()
+            length = int(self.headers.get("Content-Length", 0))
+            body = self.rfile.read(length) if length else b""
+            if len(parts) == 1:
+                if parts[0] in store:
+                    return self._send(412, b'{"error":"file_exists"}')
+                store[parts[0]] = {}
+                return self._send(201, b'{"ok":true}')
+            doc = store[parts[0]].setdefault(parts[1], {"rev": 0,
+                                                        "atts": {}})
+            if len(parts) == 2:
+                fields = json.loads(body)
+                fields.pop("_rev", None)
+                doc["fields"] = fields
+            else:
+                doc["atts"][parts[2]] = body
+            doc["rev"] += 1
+            self._send(201, json.dumps({"ok": True, "id": parts[1],
+                                        "rev": f"{doc['rev']}-x"}).encode())
+
+        def do_GET(self):
+            parts = self._parts()
+            if parts[1:] == ["_all_docs"]:
+                rows = [{"id": d} for d in sorted(store.get(parts[0], {}))]
+                return self._send(200, json.dumps({"rows": rows}).encode())
+            doc = store.get(parts[0], {}).get(parts[1])
+            if doc is None:
+                return self._send(404, b'{"error":"not_found"}')
+            if len(parts) == 3:
+                return self._send(200, doc["atts"][parts[2]],
+                                  "application/octet-stream")
+            out = dict(doc["fields"], _id=parts[1], _rev=f"{doc['rev']}-x")
+            if doc["atts"]:
+                out["_attachments"] = {n: {"stub": True} for n in doc["atts"]}
+            self._send(200, json.dumps(out).encode())
+
+        def do_DELETE(self):
+            parts = self._parts()
+            store.get(parts[0], {}).pop(parts[1], None)
+            self._send(200, b'{"ok":true}')
+
+    server = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    return server, f"http://127.0.0.1:{server.server_address[1]}"
+
+
+def digest(array: np.ndarray) -> str:
+    """tools/make_torch_legacy_fixture.py's digest of an array."""
+    import hashlib
+
+    a = np.ascontiguousarray(array)
+    return hashlib.sha256(str((a.dtype.str, a.shape)).encode()
+                          + a.tobytes()).hexdigest()
+
+
+def same_array(got, want, what: str) -> None:
+    got, want = np.asarray(got), np.asarray(want)
+    if got.dtype != want.dtype or got.shape != want.shape \
+            or not np.array_equal(got, want):
+        raise AssertionError(f"{what}: {got.dtype}{got.shape} differs from "
+                             f"{want.dtype}{want.shape}")
+
+
+def same_poses(got, want, what: str) -> None:
+    """Every field of two lists of PoseResults, bit for bit."""
+    if [(r.object_id, r.confidence) for r in got] != \
+            [(r.object_id, r.confidence) for r in want]:
+        raise AssertionError(f"{what}: accepted {[r.object_id for r in got]}"
+                             f" against {[r.object_id for r in want]}")
+    for a, b in zip(got, want):
+        same_array(a.R, b.R, f"{what}: {a.object_id}'s R")
+        same_array(a.T, b.T, f"{what}: {a.object_id}'s T")
+
+
+def quiet(fn, *args):
+    """``fn(*args)`` with its standard output captured (the script's own
+    output keeps its last lines for the kernels and ok lines)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        result = fn(*args)
+    return result, buf.getvalue()
+
+
+def legacy_blobs(lx) -> dict:
+    """The fixture's dump: {doc id: (fields, {name: blob})}."""
+    index, data = json.loads(str(lx["dump_json"])), lx["dump_blobs"]
+    return {doc_id: (entry["fields"], {
+        name: data[a:b].tobytes() for name, (a, b) in entry["blobs"].items()})
+        for doc_id, entry in index.items()}
+
+
+def run_graph(ork: str, over: dict, n: int = 1):
+    """A .ork graph run for ``n`` iterations: each detection's pose
+    results (None for a trainer), the pipeline and its scheduler."""
+    from tod_tpu_torch.pipeline import Scheduler, build_pipeline_from_ork
+
+    pipeline = build_pipeline_from_ork(os.path.join(ROOT, ork), over)
+    sched = Scheduler(pipeline.plasm)
+    outs = pipeline.cells["pipeline1"].outputs
+    out = []
+    for _ in range(n):
+        sched.execute_iteration()
+        out.append(list(outs["pose_results"])
+                   if "pose_results" in outs.keys() else None)
+    return out, pipeline, sched
+
+
+def legacy_phases(dev, card: str, fx, launches: dict) -> None:
+    """Phases 11a-11c: reference-era data (db/legacy.py, db/migrate.py)
+    held to tests/data/torch_legacy_fixture.npz
+    (tools/make_torch_legacy_fixture.py), the visualize overlays and PNGs,
+    and the view command."""
+    import tempfile
+
+    from tod_tpu_torch import cli
+    from tod_tpu_torch.cells.trainer import (feature_settings, train_views,
+                                             write_view_pngs)
+    from tod_tpu_torch.cells.types import PoseResult
+    from tod_tpu_torch.db import (Document, FilesystemDb, ObjectDbParameters,
+                                  insert_observation,
+                                  load_models_for_objects,
+                                  observations_for_object)
+    from tod_tpu_torch.db.legacy import decode_legacy_mat
+    from tod_tpu_torch.types import fixture_observations
+    from tod_tpu_torch.utils import png
+    from tod_tpu_torch.utils import visualize as viz
+
+    phase_t0 = time.perf_counter()
+    lx, cx, tx = (np.load(p) for p in (LEGACY_FIXTURE, CELLS_FIXTURE,
+                                       TRAIN_FIXTURE))
+    model_ids, models = load_fixture()[1:]
+    oid = str(lx["object_id"])
+    blobs = legacy_blobs(lx)
+    views = {o.frame_number: o for o in fixture_observations(tx, 0)}
+    views = [views[int(f)] for f in lx["view_frames"]]
+
+    # ---- 11a. decoding: every blob against its npy counterpart -----------
+    desc, pts = models[0]
+    model_blobs = blobs["model_obj0"][1]
+    t0 = time.perf_counter()
+    got_desc = decode_legacy_mat(model_blobs["descriptors"])
+    got_pts = decode_legacy_mat(model_blobs["points"])
+    decode_ms = (time.perf_counter() - t0) * 1e3
+    same_array(got_desc, desc, "legacy: YAML descriptors")
+    same_array(got_pts, pts.reshape(1, -1, 3), "legacy: YAML points")
+    same_array(decode_legacy_mat(lx["desc_xml"].tobytes()), desc,
+               "legacy: XML descriptors")
+    same_array(decode_legacy_mat(lx["points_xml"].tobytes()),
+               pts.reshape(1, -1, 3), "legacy: XML points")
+    same_array(decode_legacy_mat(lx["points_raw"].tobytes()), pts,
+               "legacy: raw-header points")
+    for v, view in enumerate(views):
+        _, atts = blobs[f"obs_{v:03d}"]
+        for name, want in (("image", view.image), ("depth", view.depth),
+                           ("mask", view.mask),
+                           ("K", np.float64(view.K)), ("R", np.float64(
+                               view.R)), ("T", np.float64(view.T)[None])):
+            same_array(decode_legacy_mat(atts[name]), want,
+                       f"legacy: view {v}'s {name}")
+    log(f"legacy: {oid}'s model ({len(desc)} rows) from zlib FileStorage "
+        f"YAML decoded in {decode_ms:.1f} ms on the host; the YAML, XML and "
+        f"raw-header blobs and {len(views)} views' PNG image/depth/mask and "
+        f"YAML K/R/T equal to their npy counterparts bit for bit; {card}")
+
+    server = None
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            # ---- 11a. migrate: the reference tool's documents ------------
+            dump = os.path.join(tmp, "dump")
+            for doc_id, (fields, atts) in blobs.items():
+                os.makedirs(os.path.join(dump, doc_id))
+                with open(os.path.join(dump, doc_id, "doc.json"), "w") as f:
+                    json.dump(fields, f)
+                for name, blob in atts.items():
+                    with open(os.path.join(dump, doc_id, name), "wb") as f:
+                        f.write(blob)
+            migrated = {"type": "filesystem", "root": os.path.join(tmp, "mig"),
+                        "collection": "object_recognition"}
+            _, out = quiet(cli.main, ["migrate", "--src", dump, "--dst",
+                                      json.dumps(migrated)])
+            if json.loads(out) != json.loads(str(lx["migrate_stats"])):
+                raise AssertionError(f"migrate: stats {out.strip()}")
+            mdb = FilesystemDb(migrated["root"], migrated["collection"])
+            got = {doc_id: {"fields": mdb.load(doc_id).fields,
+                            "attachments": {
+                                name: {"dtype": a.dtype.str,
+                                       "shape": list(a.shape),
+                                       "sha256": digest(a)}
+                                for name, a in sorted(
+                                    mdb.load(doc_id).attachments.items())}}
+                   for doc_id in sorted(mdb.all_ids())}
+            if got != json.loads(str(lx["migrated_json"])):
+                raise AssertionError("migrate: the documents differ from "
+                                     "tools/migrate_db.py's")
+            log(f"migrate: {out.strip()}: every document's fields and npy "
+                "attachments equal to tools/migrate_db.py's output")
+
+            # ---- 11a. detection over a CouchDB with obj000 in legacy form --
+            npy = write_catalog_db(tmp, model_ids, models)
+            fdb = FilesystemDb(npy["root"], npy["collection"])
+            store = {npy["collection"]: {}}
+            for doc_id in fdb.all_ids():
+                doc = fdb.load(doc_id)
+                atts = {name: Document.encode_array(a)
+                        for name, a in doc.attachments.items()}
+                if doc.fields["object_id"] == oid:
+                    atts = dict(model_blobs)
+                store[npy["collection"]][doc_id] = {
+                    "fields": doc.fields, "rev": 1, "atts": atts}
+            store["train"] = {
+                doc_id: {"fields": fields, "rev": 1, "atts": dict(atts)}
+                for doc_id, (fields, atts) in blobs.items()
+                if fields["Type"] == "Observation"}
+            server, url = couch_server(store)
+            couch = {"type": "CouchDB", "root": url,
+                     "collection": npy["collection"]}
+            frame_dir = write_frames(os.path.join(tmp, "frames"), fx, False)
+            ork = "conf/detection.ork"
+            over = {"source1": {"path": frame_dir, "loop": False}}
+            results = {}
+            for kind, params in (("npy", npy), ("legacy", couch)):
+                reset_counts()
+                res, pipeline, _ = run_graph(ork, {**over, "pipeline1": {
+                    "db": params, "device": str(dev)}})
+                launches[f"11a-{kind}"] = read_counts()
+                check_launches(f"{kind}-detect", 1, launches[f"11a-{kind}"],
+                               full=4)
+                det = pipeline.cells["pipeline1"]
+                results[kind] = (res[0], det.descriptor_matcher.outputs[
+                    "matches"])
+                del pipeline, det
+            (res_l, m_l), (res_n, m_n) = results["legacy"], results["npy"]
+            for name in ("dist", "train_idx", "obj_idx", "local_idx",
+                         "valid"):
+                same_array(getattr(m_l, name), getattr(m_n, name),
+                           f"legacy-detect: MatchSet {name}")
+            same_poses(res_l, res_n, "legacy-detect")
+            log(f"legacy-detect: {ork} over a CouchDB with {oid} as FileStorage "
+                f"YAML: frame 0's MatchSet and {len(res_l)} accepts equal to "
+                "the npy DB's graph bit for bit")
+
+            # ---- 11a. training from the legacy observations ---------------
+            train_npy = {"type": "filesystem",
+                         "root": os.path.join(tmp, "train"),
+                         "collection": "train"}
+            tdb = FilesystemDb(train_npy["root"], train_npy["collection"])
+            for view in views:
+                insert_observation(tdb, oid, view.frame_number, view.image,
+                                   view.depth, view.mask, view.K, view.R,
+                                   view.T)
+            trained = {}
+            reset_counts()
+            for kind, params in (("npy", train_npy), ("legacy", dict(
+                    couch, collection="train"))):
+                run_graph("conf/training.ork", {"pipeline1": {
+                    "db": params, "feature": TRAIN_FEATURES, "object_id": oid,
+                    "device": str(dev), "dedup_hamming": TRAIN_DEDUP[0],
+                    "dedup_point_m": TRAIN_DEDUP[1]}})
+                trained[kind] = load_models_for_objects(
+                    ObjectDbParameters(params).generate_db(), [oid])[0]
+            launches["11a-train"] = read_counts()
+            same_array(trained["legacy"].descriptors,
+                       trained["npy"].descriptors, "legacy-train: descriptors")
+            same_array(trained["legacy"].points, trained["npy"].points,
+                       "legacy-train: points")
+            if list(launches["11a-train"]) != [0, 0, 0, 0, 2, 0, 0]:
+                raise AssertionError(f"legacy-train: launches "
+                                     f"{list(launches['11a-train'])}, "
+                                     "expected two B5")
+            log(f"legacy-train: conf/training.ork's TodTrainer over {oid}'s "
+                f"{len(views)} legacy observations (PNG, YAML) from the "
+                f"CouchDB: {trained['legacy'].n_points} rows, equal to the "
+                "model trained over the npy observations bit for bit; one "
+                "B5 launch each")
+            server.shutdown()
+            server = None
+
+            # ---- 11b. the drawing functions against the reference's ------
+            K = np.asarray(fx["K"], np.float64)
+            write_ms = []
+            for f in range(len(fx["images"])):
+                image = fx["images"][f]
+                xy, valid = lx["kp_xy"][f], lx["kp_valid"][f]
+                poses = [PoseResult(R=cx["ref_R"][i], T=cx["ref_T"][i],
+                                    object_id=str(cx["ref_ids"][i]),
+                                    confidence=float(cx["ref_inliers"][i]))
+                         for i in np.nonzero(cx["ref_frame"] == f)[0]]
+                drawn = viz.draw_detections(
+                    viz.draw_keypoints(image, xy[valid]), K, poses)
+                mvalid, obj = cx["match_valid"][f], cx["match_obj_idx"][f]
+                flat = mvalid.any(axis=1) & valid
+                clusters = viz.draw_clusters(
+                    image, xy[flat], np.where(mvalid, obj, -1).max(axis=1)[
+                        flat])
+                for what, img, want in (("poses", drawn, lx["pose_sha"][f]),
+                                        ("clusters", clusters,
+                                         lx["cluster_sha"][f])):
+                    if digest(img) != str(want):
+                        raise AssertionError(f"viz: frame {f}'s {what} "
+                                             "overlay differs from cv2's")
+                    t0 = time.perf_counter()
+                    png.write_png(os.path.join(tmp, f"{what}{f}.png"), img)
+                    write_ms.append((time.perf_counter() - t0) * 1e3)
+                    same_array(png.read_png(os.path.join(
+                        tmp, f"{what}{f}.png")), img, f"viz: {what} PNG")
+            log(f"viz: both frames' PoseDrawer and cluster overlays equal to "
+                f"the reference's (cv2) bit for bit; PNG write of each "
+                f"640x480 overlay " + ", ".join(f"{ms:.1f}" for ms in write_ms)
+                + f" ms on the host; {card}")
+
+            # ---- 11b. the graphs with visualize ---------------------------
+            prefix = os.path.join(tmp, "viz_cells")
+            reset_counts()
+            res, pipeline, _ = run_graph(ork, {**over, "pipeline1": {
+                "db": npy, "device": str(dev), "visualize": prefix}})
+            launches["11b-cells"] = read_counts()
+            check_launches("viz-cells", 1, launches["11b-cells"], full=4)
+            same_poses(res[0], res_n, "viz-cells: against no visualize")
+            det = pipeline.cells["pipeline1"]
+            check_drawer(det.pose_drawer, res[0], prefix, "viz-cells")
+            gg = det.guess_generator.inputs
+            kxy = np.asarray(gg["keypoints"].xy, np.float32)
+            flat = gg["matches"].valid.any(axis=1) & np.asarray(
+                gg["keypoints"].valid)
+            want = viz.draw_clusters(gg["image"], kxy[flat], np.where(
+                gg["matches"].valid, gg["matches"].obj_idx, -1).max(axis=1)[
+                    flat])
+            same_array(png.read_png(prefix + "_clusters_0001.png"), want,
+                       "viz-cells: cluster PNG")
+            del pipeline, det, gg
+
+            serving = "conf/detection.serving.ork"
+            plain, p_plain, s_plain = run_graph(serving, {
+                "source1": {"path": frame_dir, "loop": True},
+                "pipeline1": {"db": npy, "device": str(dev)}})
+            prefix = os.path.join(tmp, "viz_serving")
+            reset_counts()
+            seen, p_viz, s_viz = run_graph(serving, {
+                "source1": {"path": frame_dir, "loop": True},
+                "pipeline1": {"db": npy, "device": str(dev),
+                              "visualize": prefix}})
+            launches["11b-serving"] = read_counts()
+            check_launches("viz-serving", 1, launches["11b-serving"], full=0)
+            same_poses(seen[0], plain[0], "viz-serving: against no visualize")
+            check_drawer(p_viz.cells["pipeline1"].pose_drawer, seen[0],
+                         prefix, "viz-serving")
+            times = {"with": [], "without": []}
+            for _ in range(VIZ_TURNS):
+                for kind, sched in (("without", s_plain), ("with", s_viz)):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    sched.execute_iteration()
+                    times[kind].append((time.perf_counter() - t0) * 1e3)
+            log(f"time: {serving}: a frame with visualize median "
+                f"{np.median(times['with']):.2f} ms, without "
+                f"{np.median(times['without']):.2f} ms, in turns over "
+                f"{VIZ_TURNS} frames each; {card}")
+            del p_plain, p_viz, s_plain, s_viz
+
+            sift = "conf/detection.sift.serving.ork"
+            s_ids, s_models = load_fixture(SIFT_FIXTURE)[1:]
+            sift_db = write_catalog_db(tmp, s_ids, s_models, "db_sift")
+            sift_over = {"source1": {"path": frame_dir, "loop": False},
+                         "pipeline1": {"db": sift_db, "device": str(dev)}}
+            plain = run_graph(sift, sift_over)[0]
+            prefix = os.path.join(tmp, "viz_sift")
+            reset_counts()
+            seen, p_viz, _ = run_graph(sift, {**sift_over, "pipeline1": {
+                **sift_over["pipeline1"], "visualize": prefix}})
+            launches["11b-sift"] = read_counts()
+            check_launches("viz-sift", 1, launches["11b-sift"], full=2)
+            same_poses(seen[0], plain[0], "viz-sift: against no visualize")
+            check_drawer(p_viz.cells["pipeline1"].pose_drawer, seen[0],
+                         prefix, "viz-sift")
+            del p_viz
+
+            prefix = os.path.join(tmp, "viz_train")
+            reset_counts()
+            run_graph("conf/training.ork", {"pipeline1": {
+                "db": train_npy, "feature": TRAIN_FEATURES, "object_id": oid,
+                "device": str(dev), "dedup_hamming": TRAIN_DEDUP[0],
+                "dedup_point_m": TRAIN_DEDUP[1], "visualize": prefix}})
+            launches["11b-train"] = read_counts()
+            (model,) = load_models_for_objects(tdb, [oid])
+            same_array(model.descriptors, trained["npy"].descriptors,
+                       "viz-train: against no visualize")
+            same_array(model.points, trained["npy"].points,
+                       "viz-train: against no visualize")
+            group = observations_for_object(tdb, oid)
+            _, world, valid = train_views(group, feature_settings(
+                TRAIN_FEATURES), dev)
+            write_view_pngs(os.path.join(tmp, "again"), oid, group, world,
+                            valid)
+            for v in range(len(group)):
+                name = f"_{oid}_v{v:02d}.png"
+                same_array(png.read_png(prefix + name),
+                           png.read_png(os.path.join(tmp, "again") + name),
+                           f"viz-train: view {v}'s PNG")
+            log(f"viz: conf/detection.ork, {serving}, {sift} and "
+                "conf/training.ork with visualize: the PNGs of every frame "
+                "and view written "
+                "and equal to the port's drawing of that frame's outputs; "
+                "detections and the model equal to the graphs' without "
+                "visualize, bit for bit")
+
+            # ---- 11c. the view command -------------------------------------
+            db_json = json.dumps(migrated)
+            code, out = quiet(cli.main, ["view", oid, "--db", db_json])
+            if code != 0 or out != str(lx["view_text"]):
+                raise AssertionError(f"view: printed {out!r}")
+            try:
+                code, out = quiet(cli.main, ["view", oid, "--db", db_json,
+                                             "--png", os.path.join(
+                                                 tmp, "view.png")])
+                png_note = "--png wrote a figure (matplotlib installed)"
+                if not os.path.exists(os.path.join(tmp, "view.png")):
+                    raise AssertionError("view --png wrote no figure")
+            except SystemExit as err:
+                if "matplotlib" not in str(err):
+                    raise
+                png_note = f"--png stops naming matplotlib: {err}"
+            log(f"view: {oid} on the migrated DB prints the reference's "
+                f"text; {png_note}")
+        finally:
+            if server is not None:
+                server.shutdown()
+    log(f"legacy: phase 11 took {time.perf_counter() - phase_t0:.1f} s")
+
+
+def check_drawer(drawer, results, prefix: str, what: str) -> None:
+    """The PoseDrawer's PNG of the graph's first frame: its image_out,
+    equal to the drawing functions over the drawer's inputs."""
+    from tod_tpu_torch.utils import png
+    from tod_tpu_torch.utils import visualize as viz
+
+    ins = drawer.inputs
+    want = ins["image"]
+    if ins["keypoints"] is not None:
+        kps = ins["keypoints"]
+        want = viz.draw_keypoints(want, np.asarray(kps.xy)[np.asarray(
+            kps.valid)])
+    want = viz.draw_detections(want, np.asarray(ins["K_image"], np.float64),
+                               results)
+    same_array(drawer.outputs["image_out"], want, f"{what}: image_out")
+    same_array(png.read_png(prefix + "_poses_0001.png")[..., ::-1], want,
+               f"{what}: pose PNG")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -3269,6 +3782,8 @@ def main() -> int:
     b5_graph = a13_phases(dev, card, fx, launches)
     torch.cuda.empty_cache()
     a14_phases(dev, card, fx, frames, launches)
+    torch.cuda.empty_cache()
+    legacy_phases(dev, card, fx, launches)
 
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")

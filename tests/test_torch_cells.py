@@ -475,8 +475,13 @@ def test_tod_detector_cells_blackbox_wiring(model_db, fx):
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="cv2"):
-        TodDetector("d", visualize=True)
+    """The options that once raised as not ported now configure:
+    ``visualize`` (test_torch_visualize.py) adds the PoseDrawer to the
+    detector and configures the Trainer, and the cells take sub-pixel
+    keypoints."""
+    det = TodDetector("d", visualize=True, **CPU)
+    assert "pose_drawer" in det._cells
+    assert det._cells["pose_drawer"].params["prefix"] == "/tmp/tod_tpu_viz"
     # sub-pixel keypoints are ported (test_torch_subpixel.py): the cells
     # take them
     feat = tc.FeatureDescriptor("f", json_feature_params=json.dumps(
@@ -487,8 +492,10 @@ def test_unported_options_raise():
         {"type": "ORB", "subpixel": True}), **CPU)
     seg.ensure_configured()
     assert seg._detector.config.subpixel is True
-    with pytest.raises(NotImplementedError, match="cv2"):
-        tc.Trainer("t", visualize=True, **CPU).ensure_configured()
+    trainer = tc.Trainer("t", visualize=True, **CPU)
+    trainer.ensure_configured()
+    trainer.inputs["object_id"] = "obj000"
+    assert trainer._view_sink().args[0] == "/tmp/tod_tpu_train"
 
 
 # ---- TodTrainer ----------------------------------------------------------

@@ -721,12 +721,13 @@ def _batch_scene(dev, n_obj: int = 16, m: int = 384):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [8, 4])
+@pytest.mark.parametrize("n", [8, 4, 1])
 def test_fits_do_not_depend_on_the_batch(n):
     """On the card each object's refit (a weighted Horn fit over 384
-    matches), its 3-path log-weights and its whole RANSAC round are the
+    matches), its adjacency graphs (the pairwise distances' batched
+    product), its 3-path log-weights and its whole RANSAC round are the
     same in a batch of 16 objects and of ``n`` (the sharded paths run an
-    object's tiers in smaller batches than one device)."""
+    object's tiers in smaller batches than one device, down to one)."""
     from tod_tpu_torch.geometry import adjacency as tadj
     from tod_tpu_torch.geometry import ransac as tran
     from tod_tpu_torch.geometry.transforms import kabsch
@@ -743,7 +744,7 @@ def test_fits_do_not_depend_on_the_batch(n):
                                             part.valid)
         rnd = tran.ransac_round(gum[:k], part, graphs, graphs.valid,
                                 tran.RansacConfig(n_hypotheses=128))
-        return (fit.R, fit.T, logw, *rnd)
+        return (fit.R, fit.T, logw, *graphs, *rnd)
 
     for a, b in zip(run(16), run(n)):
         assert torch.equal(a[:n], b)

@@ -137,8 +137,18 @@ def test_filesystem_update_in_place_drops_stale_attachments(tmp_path):
 
 
 def test_non_npy_attachment_names_the_migration():
-    with pytest.raises(ValueError, match="migrate_db"):
+    """A non-npy blob goes to the reference-era decoder (db/legacy.py), as
+    the reference's ``decode_array`` does: a FileStorage matrix decodes,
+    a map without its fields raises ``LegacyDecodeError``."""
+    from tod_tpu_torch.db.legacy import LegacyDecodeError
+
+    with pytest.raises(LegacyDecodeError, match="FileStorage"):
         Document.decode_array(b"%YAML:1.0\nmat: !!opencv-matrix\n")
+    np.testing.assert_array_equal(
+        Document.decode_array(b"%YAML:1.0\nmat: !!opencv-matrix\n"
+                              b"   rows: 1\n   cols: 2\n   dt: i\n"
+                              b"   data: [ 3, -4 ]\n"),
+        np.array([[3, -4]], np.int32))
 
 
 # ---- one FilesystemDb, both packages ----------------------------------------

@@ -1,6 +1,7 @@
 """tod_tpu_torch stands alone: importing it and every submodule pulls in
 neither JAX, cv2, yaml nor the JAX package (none of them is installed on
-the machine with the GPU), and builds no kernel."""
+the machine with the GPU), nor matplotlib (only ``view --png`` imports
+it), and builds no kernel."""
 
 import json
 import os
@@ -19,7 +20,7 @@ for name in names:
 from tod_tpu_torch import kernels
 banned = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "cv2", "yaml",
-                                       "tod_tpu", "triton"))
+                                       "tod_tpu", "triton", "matplotlib"))
 print(json.dumps({"modules": names, "banned": banned,
                   "loaded": sorted(kernels._loaded)}))
 """
@@ -45,9 +46,10 @@ def test_port_imports_no_jax_cv2_yaml_or_reference():
                  "utils.profiling", "parallel", "parallel.mesh",
                  "parallel.matching", "parallel.segmented",
                  "parallel.serving", "parallel.detect", "parallel.pipeline",
-                 "parallel.dryrun"):
+                 "parallel.dryrun", "utils.png", "utils.visualize",
+                 "utils.ingest", "db.legacy", "db.migrate", "cells.viz"):
         assert f"tod_tpu_torch.{name}" in got["modules"]
-    assert len(got["modules"]) >= 63
+    assert len(got["modules"]) >= 69
     assert got["banned"] == [] and got["loaded"] == []
 
 
@@ -60,7 +62,7 @@ except SystemExit as e:
     assert e.code == 0, e.code
 banned = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "cv2", "yaml",
-                                       "tod_tpu", "triton"))
+                                       "tod_tpu", "triton", "matplotlib"))
 print("BANNED", banned)
 """
 

@@ -212,10 +212,11 @@ def test_depth_to_3d_matches():
     np.testing.assert_array_equal(got.numpy(), want)
 
 
-@pytest.mark.parametrize("n_points", [40, 600, 1000, 1003])
+@pytest.mark.parametrize("n_points", list(range(1, 65)) + [600, 1000, 1003])
 def test_camera_to_world_matches_compiled_reference(n_points):
-    """Bit for bit against the compiled dot, one view and a vmapped batch
-    (the trainer's form) alike."""
+    """Bit for bit against the compiled dot at every row count, one view
+    alone and a vmapped batch of views (the trainer's form), which XLA
+    orders otherwise at 36-39 rows."""
     rng = np.random.default_rng(n_points)
     V = 3
     R = np.stack([np.linalg.qr(rng.normal(size=(3, 3)))[0]
@@ -223,13 +224,15 @@ def test_camera_to_world_matches_compiled_reference(n_points):
     T = rng.normal(size=(V, 3)).astype(np.float32)
     P = (rng.normal(size=(V, n_points, 3)) * 0.3
          + (0, 0, 0.8)).astype(np.float32)
-    want = np.asarray(jax.jit(jax.vmap(jtf.camera_to_world))(R, T, P))
-    np.testing.assert_array_equal(
-        want[0], np.asarray(jax.jit(jtf.camera_to_world)(R[0], T[0], P[0])))
-    got = np.stack([ttf.camera_to_world(*(torch.from_numpy(a[v])
-                                           for a in (R, T, P))).numpy()
-                    for v in range(V)])
-    np.testing.assert_array_equal(got, want)
+    batched = np.asarray(jax.jit(jax.vmap(jtf.camera_to_world))(R, T, P))
+    single = jax.jit(jtf.camera_to_world)
+    for v in range(V):
+        args = [torch.from_numpy(a[v]) for a in (R, T, P)]
+        np.testing.assert_array_equal(
+            ttf.camera_to_world(*args, views=V).numpy(), batched[v])
+        np.testing.assert_array_equal(
+            ttf.camera_to_world(*args).numpy(),
+            np.asarray(single(R[v], T[v], P[v])))
 
 
 @pytest.mark.parametrize("shape", [(480, 640), (400, 533), (333, 444),
@@ -465,11 +468,13 @@ def test_trainer_options_and_unported_parts():
     assert ttrainer.feature_settings({"type": "ORB", "subpixel": True})[
         "subpixel"] is True
     # the Trainer cell came with the cell graph (A12b): it trains on the
-    # card by default, and its unported parts raise by name
+    # card by default; its view PNGs came with the overlays (A12d), so a
+    # visualize prefix configures (test_torch_visualize.py draws them)
     assert ttrainer.Trainer("t").params["device"] == "cuda"
-    with pytest.raises(NotImplementedError, match="cv2"):
-        ttrainer.Trainer("t", visualize=True,
-                         device="cpu").ensure_configured()
+    viz = ttrainer.Trainer("t", visualize="/x/prefix", device="cpu")
+    viz.ensure_configured()
+    viz.inputs["object_id"] = "o"
+    assert viz._view_sink().args == ("/x/prefix", "o")
     ttrainer.Trainer("t", json_feature_params='{"subpixel": true}',
                      device="cpu").ensure_configured()
     empty = ttrainer.train_object([], {"type": "ORB"}, device="cpu")

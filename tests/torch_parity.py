@@ -178,3 +178,44 @@ def pose_errors(R_a, T_a, R_b, T_b):
     dR = np.asarray(R_a) @ np.asarray(R_b).T
     ang = np.degrees(np.arccos(np.clip((np.trace(dR) - 1) / 2, -1, 1)))
     return dt, float(ang)
+
+
+def write_legacy_dump(root: str, object_id: str, observations, model_desc,
+                      model_pts, model_name: str = "model_obj0") -> None:
+    """A reference-format dump as ``tests/test_migrate.py`` builds it: one
+    model document (``descriptors`` and ``points`` as zlib FileStorage
+    YAML, the points ``1 x N x 3f``) and one document an observation (PNG
+    image/depth/mask, YAML K/R/T), each ``<root>/<docid>/doc.json`` plus
+    one file an attachment, written by the reference's encoder and cv2."""
+    import cv2
+
+    from tod_tpu.db.legacy import encode_legacy_mat
+
+    mdir = os.path.join(root, model_name)
+    os.makedirs(mdir)
+    with open(os.path.join(mdir, "doc.json"), "w") as f:
+        json.dump({"Type": "Model", "object_id": object_id,
+                   "method": "TOD"}, f)
+    with open(os.path.join(mdir, "descriptors"), "wb") as f:
+        f.write(encode_legacy_mat(model_desc))
+    with open(os.path.join(mdir, "points"), "wb") as f:
+        f.write(encode_legacy_mat(np.asarray(model_pts).reshape(1, -1, 3)))
+    for i, obs in enumerate(observations):
+        odir = os.path.join(root, f"obs_{i:03d}")
+        os.makedirs(odir)
+        with open(os.path.join(odir, "doc.json"), "w") as f:
+            json.dump({"Type": "Observation", "object_id": object_id,
+                       "frame_number": int(obs["frame_number"])}, f)
+        img_bgr = cv2.cvtColor(np.asarray(obs["image"]), cv2.COLOR_RGB2BGR)
+        for name, payload in (
+                ("image", cv2.imencode(".png", img_bgr)[1].tobytes()),
+                ("depth", cv2.imencode(
+                    ".png", np.asarray(obs["depth"]))[1].tobytes()),
+                ("mask", cv2.imencode(
+                    ".png", np.asarray(obs["mask"]))[1].tobytes()),
+                ("K", encode_legacy_mat(np.asarray(obs["K"], np.float64))),
+                ("R", encode_legacy_mat(np.asarray(obs["R"], np.float64))),
+                ("T", encode_legacy_mat(
+                    np.asarray(obs["T"], np.float64).reshape(1, 3)))):
+            with open(os.path.join(odir, name), "wb") as f:
+                f.write(payload)

@@ -12,8 +12,10 @@ on the card), so the same seed gives the same hypotheses.
 A depthless frame (empty cloud) with ``K`` wired takes the 2D-only path,
 the reference's ``_process_2d``: ``geometry/detection2d.py
 detect_frame_2d`` over every catalog object, its noise from the same key
-path (one N1 launch a round on the card). Not ported: the ``visualize``
-overlays, which the reference writes through cv2.
+path (one N1 launch a round on the card). With ``visualize`` (true, or a
+PNG path prefix) a depth frame's keypoints are drawn in their object
+clusters' colours and written as ``<prefix>_clusters_<n>.png`` on the host,
+as the reference writes them (no channel flip).
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import torch
 
 from tod_tpu_torch.cells.features import declare_device, to_host, upload
 from tod_tpu_torch.cells.types import MatchSet, PoseResult
+from tod_tpu_torch.cells.viz import viz_prefix
 from tod_tpu_torch.geometry.detection import (GuessConfig,
                                               detect_frame_from_matches)
 from tod_tpu_torch.geometry.detection2d import Pnp2dConfig, detect_frame_2d
@@ -35,15 +38,8 @@ from tod_tpu_torch.pipeline.cell import Cell
 from tod_tpu_torch.pipeline.tendril import Tendrils
 from tod_tpu_torch.utils import prng
 from tod_tpu_torch.utils.config import parse_json_params
-
-
-def no_visualize(value) -> None:
-    """``visualize`` overlays are written through cv2, which this package
-    does not use."""
-    if value:
-        raise NotImplementedError(
-            "tod_tpu_torch: visualize overlays are drawn with cv2 and are "
-            "not ported (ROADMAP A12b, left out); set visualize: false")
+from tod_tpu_torch.utils.png import write_png
+from tod_tpu_torch.utils.visualize import draw_clusters
 
 
 class GuessGenerator(Cell):
@@ -54,8 +50,8 @@ class GuessGenerator(Cell):
                   "(hypothesis batch size here).", default=1000)
         p.declare("sensor_error", "The error (in meters) from the sensor",
                   default=0.01)
-        p.declare("visualize", "Debug overlays (not ported: raises if set).",
-                  default=False)
+        p.declare("visualize", "Debug overlays: false, true (PNGs under "
+                  "/tmp/tod_tpu_viz) or a PNG path prefix.", default=False)
         p.declare("db", "The DB parameters as a JSON string", default="{}")
         p.declare("max_instances",
                   "Static cap on instances found per object", default=5)
@@ -89,7 +85,6 @@ class GuessGenerator(Cell):
         o.declare("Ts", "Translations of the poses.")
 
     def configure(self) -> None:
-        no_visualize(self.params["visualize"])
         self._db_params = parse_json_params(self.params["db"])
         # the reference's hypothesis batch: the iteration count clamped to
         # [128, 4096]
@@ -108,6 +103,7 @@ class GuessGenerator(Cell):
         # a utils.profiling.StageTimer a caller may set: the 2D-only path
         # then splits its frame into stages (detect_frame_2d's, read-back)
         self.timer = None
+        self._viz_counter = 0
 
     def _emit(self, results: List[PoseResult]) -> None:
         self.outputs["pose_results"] = results
@@ -163,6 +159,21 @@ class GuessGenerator(Cell):
             self._cfg)
         self._emit(self._results(object_ids, *to_host(
             det.R, det.T, det.n_inliers, det.accepted)))
+        if self.params["visualize"]:
+            self._write_clusters(matches, kp_xy, kp_valid)
+
+    def _write_clusters(self, matches: MatchSet, kp_xy: np.ndarray,
+                        kp_valid: np.ndarray) -> None:
+        """The headless form of the reference's cluster windows
+        (GuessGenerator.cpp:163-167, 211-221): each matched keypoint in
+        the colour of its highest matched object index."""
+        image = np.asarray(self.inputs["image"])
+        flat_valid = matches.valid.any(axis=1) & kp_valid
+        cluster = np.where(matches.valid, matches.obj_idx, -1).max(axis=1)
+        overlay = draw_clusters(image, kp_xy[flat_valid], cluster[flat_valid])
+        self._viz_counter += 1
+        write_png(f"{viz_prefix(self.params['visualize'])}_clusters_"
+                  f"{self._viz_counter:04d}.png", overlay)
 
     def _process_2d(self, K: np.ndarray) -> None:
         """2D-only pose search for a depthless frame: P3P graph-RANSAC

@@ -7,8 +7,8 @@ tod_tpu_torch.models.fused.FusedDetector, kernels B1-B4 and N1 on the card)
 reachable from a detection ``.ork``: ``pipeline: segmented``
 (conf/detection.serving.ork) switches TodDetector to this cell, so
 ``python -m tod_tpu_torch.cli detection`` serves it. This cell carries the
-same tendril contract as the global-kNN cell graph (pose_results out).
-Not ported: the ``visualize`` overlays.
+same tendril contract as the global-kNN cell graph (pose_results out);
+its poses are drawn by TodDetector's PoseDrawer when ``visualize`` is set.
 """
 
 from __future__ import annotations
@@ -20,7 +20,6 @@ import numpy as np
 import torch
 
 from tod_tpu_torch.cells.features import declare_device
-from tod_tpu_torch.cells.guess import no_visualize
 from tod_tpu_torch.pipeline.cell import Cell
 from tod_tpu_torch.pipeline.tendril import Tendrils
 from tod_tpu_torch.utils.config import parse_json_params
@@ -169,7 +168,8 @@ class SegmentedDetector(Cell):
                   "shape-stable hot catalog updates. 0 = no reservation.",
                   default=0)
         p.declare("seed", "PRNG seed for hypothesis sampling.", default=0)
-        p.declare("visualize", "Pose overlays (not ported: raises if set).",
+        p.declare("visualize", "Accepted for pipeline compatibility (pose "
+                  "overlays are drawn by the PoseDrawer cell).",
                   default=False)
         declare_device(p)
 
@@ -195,7 +195,6 @@ class SegmentedDetector(Cell):
         from tod_tpu_torch.models.fused import (FusedDetector,
                                                 FusedDetectorConfig)
 
-        no_visualize(self.params["visualize"])
         feat = parse_json_params(self.params["json_feature_params"])
         feat_type = feat.get("type", "ORB")
         if feat_type not in ("ORB", "SIFT"):

@@ -8,21 +8,23 @@ and the depth, back-projection and camera -> world
 training.cpp:147-173); for binary descriptors an optional dedup
 (``ops/compress.py``, kernel B5). The cells read the observations from the
 DB and hand a filled model document to the ModelWriter
-(``models/trainer.py TodTrainer``). Not ported: the Trainer's debug images,
-written through cv2.
+(``models/trainer.py TodTrainer``). With ``visualize`` the Trainer writes
+each object's first four views with their valid model points projected
+back into them, ``<prefix>_<object_id>_v<nn>.png``, as the reference does.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import warnings
-from typing import Dict, List, Sequence, Tuple, Union
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from tod_tpu_torch.cells.features import declare_device
-from tod_tpu_torch.cells.guess import no_visualize
+from tod_tpu_torch.cells.viz import DEFAULT_TRAIN_PREFIX, viz_prefix
 from tod_tpu_torch.db import (Document, ObjectDbParameters,
                               observations_for_object)
 from tod_tpu_torch.ops.compress import compress_model
@@ -32,6 +34,8 @@ from tod_tpu_torch.parallel.train import train_views_step
 from tod_tpu_torch.pipeline.cell import Cell
 from tod_tpu_torch.pipeline.tendril import Tendrils
 from tod_tpu_torch.types import Observation, TodModel
+from tod_tpu_torch.utils.png import write_png
+from tod_tpu_torch.utils.visualize import draw_keypoints
 
 
 def feature_settings(feature_params: Union[str, Dict]) -> Dict:
@@ -100,16 +104,42 @@ def view_batch(observations: Sequence[Observation], device
             cams("R", (3, 3)), cams("T", (3,)))
 
 
+ViewSink = Callable[[Sequence[Observation], np.ndarray, np.ndarray], None]
+
+
+def write_view_pngs(prefix: str, object_id: str,
+                    group: Sequence[Observation], world: np.ndarray,
+                    valid: np.ndarray) -> None:
+    """The headless form of the reference Trainer's observation windows
+    (Trainer.cpp:173-180): the first four views of a batch with their
+    valid model points projected back into them (float32 on the host, as
+    the reference computes them), ``<prefix>_<object_id>_v<nn>.png``."""
+    for v in range(min(len(group), 4)):
+        obs = group[v]
+        R = np.asarray(obs.R, np.float32).reshape(3, 3)
+        T = np.asarray(obs.T, np.float32).reshape(3)
+        K = np.asarray(obs.K, np.float32).reshape(3, 3)
+        cam = world[v][valid[v]] @ R.T + T
+        pix = cam @ K.T
+        xy = pix[:, :2] / np.maximum(pix[:, 2:3], 1e-6)
+        overlay = draw_keypoints(np.asarray(obs.image), xy)
+        write_png(f"{prefix}_{object_id}_v{v:02d}.png",
+                  overlay if overlay.ndim == 2 else overlay[..., ::-1])
+
+
 def train_object(observations: Sequence[Observation],
                  feature_params: Union[str, Dict] = '{"type": "ORB"}',
                  dedup_hamming: int = 0, dedup_point_m: float = 0.005,
-                 device="cuda") -> Tuple[np.ndarray, np.ndarray]:
+                 device="cuda", view_sink: Optional[ViewSink] = None
+                 ) -> Tuple[np.ndarray, np.ndarray]:
     """A model from one object's observations: ``(descriptors (N, D),
     points (1, N, 3) float32)``, the Trainer's outputs. Views are read in
     frame-number order (the DB view's), each group of one image and depth
     shape as one batch; ``dedup_hamming > 0`` drops rows within that many
     bits and ``dedup_point_m`` meters of an earlier row (binary descriptors
-    only)."""
+    only). ``view_sink`` (e.g. :func:`write_view_pngs`) is called with each
+    batch's observations, (V, K, 3) world points and (V, K) valid, on the
+    host."""
     settings = feature_settings(feature_params)
     groups: Dict[tuple, List[Observation]] = {}
     for obs in sorted(observations, key=lambda o: o.frame_number):
@@ -118,6 +148,8 @@ def train_object(observations: Sequence[Observation],
     desc_all, pts_all = [], []
     for group in groups.values():
         desc, world, valid = train_views(group, settings, device)
+        if view_sink is not None:
+            view_sink(group, world, valid)
         flat = valid.reshape(-1)
         if flat.any():
             desc_all.append(desc.reshape(-1, desc.shape[-1])[flat])
@@ -161,8 +193,8 @@ class Trainer(Cell):
         p.declare("json_descriptor_params",
                   'Descriptor params JSON: {"type": "ORB", ...}',
                   default='{"type": "ORB"}', required=True)
-        p.declare("visualize", "Debug images (not ported: raises if set).",
-                  default=False)
+        p.declare("visualize", "Debug images: false, true (PNGs under "
+                  "/tmp/tod_tpu_train) or a PNG path prefix.", default=False)
         p.declare("dedup_hamming",
                   "Model compression: drop descriptors within this Hamming "
                   "distance of an earlier one at (near) the same 3D point. "
@@ -183,7 +215,6 @@ class Trainer(Cell):
         o.declare("points", "The 3d positions (1,N,3) f32, world frame.")
 
     def configure(self) -> None:
-        no_visualize(self.params["visualize"])
         feature_settings(self.params["json_feature_params"])   # validate
 
     def process(self) -> None:
@@ -193,9 +224,18 @@ class Trainer(Cell):
             observations, self.params["json_feature_params"],
             dedup_hamming=int(self.params["dedup_hamming"]),
             dedup_point_m=float(self.params["dedup_point_m"]),
-            device=torch.device(self.params["device"]))
+            device=torch.device(self.params["device"]),
+            view_sink=self._view_sink())
         self.outputs["descriptors"] = descriptors
         self.outputs["points"] = points
+
+    def _view_sink(self) -> Optional[ViewSink]:
+        viz = self.params["visualize"]
+        if not viz:
+            return None
+        return functools.partial(
+            write_view_pngs, viz_prefix(viz, DEFAULT_TRAIN_PREFIX),
+            self.inputs["object_id"])
 
 
 class ModelFiller(Cell):

@@ -1,11 +1,17 @@
 """tod: train / detect with ``.ork`` files on the port (the counterpart of
-apps/tod, the ``ork training`` / ``ork detection`` analog).
+apps/tod, the ``ork training`` / ``ork detection`` analog), and the user
+tools: the feature viewer (apps/feature_viewer), the reference-era DB
+migration (tools/migrate_db.py) and recording ingest
+(tools/ingest_frames.py).
 
 Usage:
   python -m tod_tpu_torch.cli training  -c conf/training.ork
       [--object_ids '["obj1","obj2"]' | all] [--device cuda]
   python -m tod_tpu_torch.cli detection -c conf/detection.ork --frames DIR
       [--niter N] [--timing] [--device cuda] [--profile DIR]
+  python -m tod_tpu_torch.cli view <object_id> [--db JSON] [--png PATH]
+  python -m tod_tpu_torch.cli migrate --src URL|DIR --dst JSON [--new-ids]
+  python -m tod_tpu_torch.cli ingest [--format tum|pairs] SRC OUT [...]
 
 The training command iterates the objects with observations in the
 configured DB and runs the TodTrainer pipeline for each. The detection
@@ -15,7 +21,8 @@ and executes it, one frame a scheduler iteration; with ``--profile`` the
 loop runs inside a torch.profiler trace written into DIR. ``--device``
 reaches every computing cell as a .ork override (the card by default;
 ``cpu`` runs the kernels' plain twins). The .ork files are read without
-pyyaml.
+pyyaml. ``view``, ``migrate`` and ``ingest`` run on the host; none of
+them needs cv2 (``--png`` needs matplotlib, imported only then).
 """
 
 from __future__ import annotations
@@ -103,6 +110,72 @@ def cmd_detection(args) -> int:
     return 0
 
 
+def cmd_view(args) -> int:
+    """Summarise an object's TOD model on stdout, as apps/feature_viewer
+    does (the reference's Dealer -> ModelReader plasm, its cloud viewer
+    replaced by the summary and an optional PNG)."""
+    import numpy as np
+
+    from tod_tpu_torch.cells.readers import ModelReader
+    from tod_tpu_torch.db import ObjectDbParameters, find_models_for_object
+
+    db_params = json.loads(args.db)
+    db = ObjectDbParameters(db_params).generate_db()
+    models = find_models_for_object(db, args.object_id, "TOD")
+    if not models:
+        print("There are no tod models available.", file=sys.stderr)
+        return 1
+
+    reader = ModelReader("db_reader", db_params=db_params)
+    reader.inputs["model_id"] = models[0].document_id
+    reader.ensure_configured()
+    reader.process()
+    points = reader.outputs["points"].reshape(-1, 3)
+    desc = reader.outputs["descriptors"]
+
+    mins, maxs = points.min(0), points.max(0)
+    print(f"object_id: {args.object_id}")
+    print(f"model document: {models[0].document_id}")
+    print(f"points: {len(points)}  descriptors: {desc.shape}")
+    print(f"bbox min: {np.round(mins, 4).tolist()}")
+    print(f"bbox max: {np.round(maxs, 4).tolist()}")
+    print(f"span: {float(np.linalg.norm(maxs - mins)):.4f} m")
+
+    if args.png:
+        try:
+            import matplotlib
+        except ImportError as err:
+            raise SystemExit("view --png draws its figure with matplotlib, "
+                             "which is not installed") from err
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+        fig = plt.figure(figsize=(7, 7))
+        ax = fig.add_subplot(projection="3d")
+        ax.scatter(points[:, 0], points[:, 1], points[:, 2], s=1,
+                   c=points[:, 2], cmap="viridis")
+        ax.set_title(f"TOD model: {args.object_id} ({len(points)} features)")
+        fig.savefig(args.png, dpi=120)
+        print(f"wrote {args.png}")
+    return 0
+
+
+def cmd_migrate(args) -> int:
+    from tod_tpu_torch.db.migrate import iter_couch, iter_dump, migrate
+
+    source = (iter_couch(args.src) if args.src.startswith("http")
+              else iter_dump(args.src))
+    stats = migrate(source, args.dst, keep_ids=not args.new_ids)
+    print(json.dumps(stats))
+    return 0
+
+
+def cmd_ingest(args) -> int:
+    from tod_tpu_torch.utils.ingest import ingest
+
+    ingest(args)
+    return 0
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         prog="python -m tod_tpu_torch.cli", description=__doc__,
@@ -130,6 +203,36 @@ def main(argv=None) -> int:
                        help="write a torch.profiler trace of the "
                             "detection loop into DIR")
     p_det.set_defaults(func=cmd_detection)
+
+    p_view = sub.add_parser("view", help="summarise an object's TOD model")
+    p_view.add_argument("object_id",
+                        help="The id of the object whose TOD model to show.")
+    p_view.add_argument("--db", default='{"type": "filesystem", '
+                        '"root": "/tmp/tod_tpu_db"}',
+                        help="DB parameters as a JSON string.")
+    p_view.add_argument("--png", default=None,
+                        help="Write a 3D scatter rendering to this file "
+                             "(needs matplotlib).")
+    p_view.set_defaults(func=cmd_view)
+
+    p_mig = sub.add_parser("migrate", help="rewrite a reference-era DB "
+                           "(CouchDB or dump) as npy documents")
+    p_mig.add_argument("--src", required=True,
+                       help="CouchDB database URL (http://host:5984/dbname) "
+                            "or dump directory path")
+    p_mig.add_argument("--dst", required=True,
+                       help="DB parameter JSON ({'type': 'filesystem'|"
+                            "'CouchDB'|'mem', ...})")
+    p_mig.add_argument("--new-ids", action="store_true",
+                       help="assign fresh document ids instead of keeping "
+                            "the source ids")
+    p_mig.set_defaults(func=cmd_migrate)
+
+    from tod_tpu_torch.utils.ingest import add_arguments
+    p_ing = sub.add_parser("ingest", help="convert an RGB-D recording to "
+                           "DatasetSource .npz frames")
+    add_arguments(p_ing)
+    p_ing.set_defaults(func=cmd_ingest)
 
     args = parser.parse_args(argv)
     return args.func(args)

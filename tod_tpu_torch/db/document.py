@@ -58,13 +58,13 @@ class Document:
 
     @staticmethod
     def decode_array(data: bytes) -> np.ndarray:
-        """Decode an attachment blob (npy). The reference-era cv::Mat
-        formats decode through cv2 (tod_tpu/db/legacy.py), which this
-        package does not use: such a DB is migrated once with the
-        reference's tools/migrate_db.py."""
+        """Decode an attachment blob: native npy, with a fallback to the
+        reference-era cv::Mat formats (FileStorage YAML/XML, PNG, raw
+        header: ``db/legacy.py``), so documents written by a reference
+        install load without migration."""
         try:
             return np.load(io.BytesIO(data), allow_pickle=False)
-        except (ValueError, OSError) as err:
-            raise ValueError(
-                "attachment is not npy: reference-era cv::Mat blobs need "
-                "tools/migrate_db.py (db/legacy.py is not ported)") from err
+        except (ValueError, OSError):
+            from tod_tpu_torch.db.legacy import decode_legacy_mat
+
+            return decode_legacy_mat(data)

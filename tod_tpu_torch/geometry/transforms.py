@@ -188,7 +188,7 @@ def kabsch(query: torch.Tensor, training: torch.Tensor,
     else:
         S = torch.einsum("...ni,...nj->...ij", qc, tc)
     R, ok = horn_rotation(S)
-    T = ct - torch.einsum("...ij,...j->...i", R, cq)
+    T = ct - mat_vec(R, cq)
     enough = weights.to(torch.float32).sum(-1) >= 3.0
     return RigidFit(R=R, T=T, ok=ok & enough)
 
@@ -203,30 +203,58 @@ def apply_rt(R: torch.Tensor, T: torch.Tensor,
     return out + T[..., None, :]
 
 
+def mat_vec(R: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``R @ v`` for (..., 3, 3) and (..., 3). On a CUDA tensor the three
+    terms are summed elementwise in one fixed order (column 0, then 1,
+    then 2), as :func:`apply_rt` does, so that an object's fit cannot
+    depend on how many objects share the call (cuBLAS may take another
+    path for a batch of one matrix than for several). CPU tensors keep the
+    library's product, which the parity tests hold to the reference."""
+    if not R.is_cuda:
+        return torch.einsum("...ij,...j->...i", R, v)
+    v = v[..., None, :]
+    return (R[..., 0] * v[..., 0] + R[..., 1] * v[..., 1]) \
+        + R[..., 2] * v[..., 2]
+
+
 def invert_pose(R: torch.Tensor, T: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """R_out = R^T, T_out = -R_out @ T."""
+    """R_out = R^T, T_out = -R_out @ T (:func:`mat_vec`)."""
     R_out = R.transpose(-1, -2)
-    return R_out, -torch.einsum("...ij,...j->...i", R_out, T)
+    return R_out, -mat_vec(R_out, T)
+
+
+def _split_rows(k: int, views: int) -> int:
+    """How many leading rows of a (k, 3) x (3, 3) dot the compiled
+    reference's CPU code sums with columns 0 and 1 split (read off
+    ``jax.jit`` at every k from 1 to 69 and at 600, 1000 and 1003, one view
+    and vmapped over 2-8): the 8-row blocks from k = 40 on; below, none
+    under 16 rows, the 8-row blocks when ``k % 8 < 4``, and at 36-39 rows
+    the blocks for one view but none in a vmapped batch of several."""
+    body = k // 8 * 8
+    if k >= 40:
+        return body
+    if k < 16 or (k % 8 >= 4 and (k < 32 or views > 1)):
+        return 0
+    return body
 
 
 def camera_to_world(R: torch.Tensor, T: torch.Tensor,
-                    points: torch.Tensor) -> torch.Tensor:
+                    points: torch.Tensor, views: int = 1) -> torch.Tensor:
     """world = (x - T) @ R for (K, 3) camera-frame points
     (training.cpp:175-195), summed as the compiled reference's CPU dot of
-    shape (K, 3) x (3, 3) sums (read off its results): in rows below
-    ``K // 8 * 8``, columns 0 and 1 as ``(d0 r0 + d1 r1) + d2 r2`` with
-    every operation rounded and column 2 as the fused chain
-    ``fma(d2, r2, fma(d1, r1, d0 r0))``; the tail rows use the chain in
-    every column. Bit-equal to ``jax.jit`` from K = 40 on (the trainer's K
-    is its feature count); below, XLA's small-dot code orders some rows
-    otherwise."""
+    shape (K, 3) x (3, 3) sums: in its split rows (:func:`_split_rows`;
+    ``views`` is the size of the vmapped view batch the reference's
+    training step runs the view in), columns 0 and 1 as
+    ``(d0 r0 + d1 r1) + d2 r2`` with every operation rounded; every other
+    entry as the fused chain ``fma(d2, r2, fma(d1, r1, d0 r0))``.
+    Bit-equal to ``jax.jit`` at every K."""
     d = points.to(torch.float32) - T.reshape(1, 3).to(torch.float32)
     R = R.to(torch.float32)
     d0, d1, d2 = d[:, 0:1], d[:, 1:2], d[:, 2:3]
     chain = fma_f32(d2, R[2], fma_f32(d1, R[1], d0 * R[0]))
     split = (d0 * R[0] + d1 * R[1]) + d2 * R[2]
     body = torch.arange(d.shape[0], device=d.device)[:, None] \
-        < d.shape[0] // 8 * 8
+        < _split_rows(d.shape[0], views)
     column = torch.arange(3, device=d.device)[None, :] < 2
     return torch.where(body & column, split, chain)

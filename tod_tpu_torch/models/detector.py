@@ -6,8 +6,10 @@ port's pipeline runtime, every computing cell on the ``device`` param (the
 card unless the caller names another). ``pipeline: cells`` (the default) is
 the reference's global-kNN graph (FeatureDescriptor -> DescriptorMatcher on
 kernel B5 -> GuessGenerator, noise on N1); ``pipeline: segmented`` is the
-serving cell (cells/serving.py, FusedDetector). Not ported: the
-``visualize`` overlays (cv2).
+serving cell (cells/serving.py, FusedDetector). ``visualize`` (true, or
+a PNG path prefix) adds the reference's PoseDrawer subgraph on both
+pipelines (``cells/viz.py``): a PNG a frame of the keypoints and the
+detected poses, drawn and written on the host.
 """
 
 from __future__ import annotations
@@ -17,9 +19,10 @@ from tod_tpu_torch.cells.features import (
     FeatureDescriptor,
     RescaledRegisteredDepth,
 )
-from tod_tpu_torch.cells.guess import GuessGenerator, no_visualize
+from tod_tpu_torch.cells.guess import GuessGenerator
 from tod_tpu_torch.cells.io import PassthroughN
 from tod_tpu_torch.cells.matcher import DescriptorMatcher
+from tod_tpu_torch.cells.viz import PoseDrawer, viz_prefix
 from tod_tpu_torch.pipeline.blackbox import BlackBox
 from tod_tpu_torch.pipeline.cell import CellInfo, Forward
 from tod_tpu_torch.pipeline.tendril import Tendrils
@@ -28,7 +31,6 @@ from tod_tpu_torch.pipeline.tendril import Tendrils
 class TodDetector(BlackBox):
     @classmethod
     def declare_cells(cls, p: Tendrils):
-        no_visualize(p["visualize"])
         device = {"device": p["device"]}
         cells = {
             "depth_map": CellInfo(RescaledRegisteredDepth, device),
@@ -47,11 +49,18 @@ class TodDetector(BlackBox):
             cells["serving"] = CellInfo(SegmentedDetector, {
                 "search_json_params": p["search"],
                 "json_db": p["json_db"],
-                "json_object_ids": p["json_object_ids"], **device})
+                "json_object_ids": p["json_object_ids"],
+                "visualize": p["visualize"], **device})
         else:
-            guess_params = {"db": p["json_db"], **device}
+            guess_params = {"visualize": p["visualize"], "db": p["json_db"],
+                            **device}
             cells["feature_descriptor"] = CellInfo(FeatureDescriptor, device)
             cells["guess_generator"] = CellInfo(GuessGenerator, guess_params)
+        if p["visualize"]:
+            # the reference's DrawKeypoints + imshow + PosesDrawer subgraph
+            # (detector.py:84-108), headless: a PNG sink a frame
+            cells["pose_drawer"] = CellInfo(
+                PoseDrawer, {"prefix": viz_prefix(p["visualize"])})
         return cells
 
     @classmethod
@@ -115,8 +124,10 @@ class TodDetector(BlackBox):
                   "per-object serving pipeline, cells/serving.py). "
                   "Reference .ork files have no such knob and default to "
                   "the cell graph.", default="cells")
-        p.declare("visualize", "Debug overlays (drawn with cv2; not "
-                  "ported: raises if set).", default=False)
+        p.declare("visualize", "Debug overlays: false (off), true (PNGs "
+                  "under /tmp/tod_tpu_viz), or a string path prefix; where "
+                  "the reference pops highgui windows (detector.py:84-108), "
+                  "overlays are written as PNG files.", default=False)
         p.declare("device", 'The torch device every computing cell runs '
                   'on ("cuda", "cuda:1", "cpu").', default="cuda")
 
@@ -137,6 +148,9 @@ class TodDetector(BlackBox):
                      self.passthrough["image"] >> self.serving["image"],
                      self.depth_map["depth"] >> self.serving["depth"],
                      self.passthrough["K_image"] >> self.serving["K"]]
+            if p["visualize"]:
+                graph += self._drawer_inputs(self.serving["keypoints"],
+                                             self.serving["pose_results"])
             return graph
         # depth branch: resize depth to the RGB frame, then back-project the
         # dense cloud the pose search consumes (wiring parity with
@@ -165,4 +179,14 @@ class TodDetector(BlackBox):
                   self.descriptor_matcher["matches", "matches_3d"]
                   >> self.guess_generator["matches", "matches_3d"]]
 
+        if p["visualize"]:
+            graph += self._drawer_inputs(
+                self.feature_descriptor["keypoints"],
+                self.guess_generator["pose_results"])
         return graph
+
+    def _drawer_inputs(self, keypoints, pose_results):
+        return [self.passthrough["image"] >> self.pose_drawer["image"],
+                self.passthrough["K_image"] >> self.pose_drawer["K_image"],
+                keypoints >> self.pose_drawer["keypoints"],
+                pose_results >> self.pose_drawer["pose_results"]]

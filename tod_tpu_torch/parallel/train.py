@@ -60,7 +60,7 @@ def train_views_step(grays: torch.Tensor, masks: torch.Tensor,
             coords = subpixel_coords(coords, kps.xy)
         cam = depth_to_3d_sparse(depth_m, K, coords)
         descs.append(desc)
-        worlds.append(camera_to_world(R, T, cam))
+        worlds.append(camera_to_world(R, T, cam, views=len(grays)))
         valids.append(val.valid)
     return torch.stack(descs), torch.stack(worlds), torch.stack(valids)
 
