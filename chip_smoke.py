@@ -194,6 +194,14 @@ overridden:
             FilesystemDb: every pose the reference's graph reports found
             within 1 cm and 2 degrees, any other accept a ground-truth
             placement; one B3 launch a frame.
+7e.         conf/detection.ork with SIFT features (the global-kNN graph on
+            the L2 matcher, ROADMAP queue C) over the three SIFT smoke
+            models and both frames, against the reference graph's rows
+            and accepts (tests/data/torch_jpeg_fixture.npz sift_graph_*):
+            the query rows whose matched rows differ counted, the rest of
+            the MatchSet exact, squared distances within
+            SIFT_GRAPH_SQ_ATOL; the reference's accepts at its poses; N1
+            only (the L2 matcher is no kernel).
 7c.         conf/training.ork's TodTrainer on object 0's 60 views of
             tests/data/torch_train_fixture.npz, inserted into the DB as
             observations, at the fixture's feature settings and the
@@ -312,6 +320,32 @@ written by the reference and cv2, and the reference's outputs):
             apps/feature_viewer's text; ``--png`` draws, or stops naming
             matplotlib where it is not installed.
 
+Then the last cv2 users (ROADMAP A12g and the synthetic renderer), held to
+tests/data/torch_jpeg_fixture.npz (tools/make_torch_jpeg_fixture.py):
+
+12a. jpeg   every JPEG case (every sampling cv2 writes, sequential and
+            progressive, restart intervals, gray, Adobe RGB, EXIF-rotated;
+            the bench's scene 0 at 480 x 640 as q95 4:2:0, progressive and
+            4:4:4) decoded by utils/jpeg.py equal to cv2's pixels under
+            IMREAD_UNCHANGED and IMREAD_COLOR, a VGA frame's host decode
+            timed; a two-frame "pairs" recording (JPEG colour, PNG depth)
+            through ``cli ingest`` into tools/ingest_frames.py's frames;
+            the first through conf/detection.ork (B5, N1): its MatchSet
+            equal to the reference graph's, the reference's accepts at its
+            poses; a legacy CouchDB with obj000's three views as JPEG
+            attachments trained through conf/training.ork (B5) to the
+            model the reference trains from cv2's pixels.
+12b. render the bench's objects 0-2 rendered on the host by
+            utils/synthetic.py with the bench's capture plan: all 180
+            views' gray, depth and mask equal to the train fixture's;
+            trained on the card through phase 6's path to the smoke
+            fixture's models (B5); the bench's two scenes equal to the
+            smoke fixture's frames and scene 0's BENCH_NOISE=hard
+            degradation to the fixture's digests; the port-trained models
+            served at phase 4's operating point on the rendered scenes
+            giving phase 4's detections bit for bit (B1, N1). Render ms a
+            view and train s an object timed.
+
 The line before the card's is a JSON object of every kernel of the paths
 (launches on the main paths, error against the twin, time, the twin's time,
 the card's bound for the same work and the PR of the kernel's design; B5
@@ -348,6 +382,7 @@ CELLS_FIXTURE = os.path.join(DATA, "torch_cells_fixture.npz")
 A13_FIXTURE = os.path.join(DATA, "torch_a13_fixture.npz")
 A16_FIXTURE = os.path.join(DATA, "torch_a16_fixture.npz")
 LEGACY_FIXTURE = os.path.join(DATA, "torch_legacy_fixture.npz")
+JPEG_FIXTURE = os.path.join(DATA, "torch_jpeg_fixture.npz")
 Q = 2048
 KERNEL_RUNS = 24       # CUDA-event timings of a kernel and its twin
 TWIN_RUNS = 3          # twin timings at 1000 objects (~0.1-2 s each)
@@ -492,6 +527,14 @@ A14_TURNS = 4           # timed steps, in turns with the single devices
 A14_PIPE_FRAMES = 8     # pipelined global frames, in turns with one device
 VIZ_TURNS = 4           # phase 11b: serving frames with and without
                         # visualize, in turns
+# Phase 12: the bench's BENCH_NOISE=hard preset (bench.py NOISE_PRESETS)
+HARD = dict(rgb_sigma=10.0, depth_sigma_mm=5.0, depth_dropout=0.10,
+            n_occluders=2)
+# Phase 7e: the SIFT global-kNN graph's MatchSet against the reference's.
+# Squared L2 distances come from |q|^2 + |r|^2 - 2 q.r (about 2) in f32
+# sums of another order: a few of its ulps (2^-22 each) apart
+SIFT_GRAPH_SQ_ATOL = 2.0 ** -18
+SIFT_GRAPH_ROW_SWAPS = 0    # query rows whose matched rows may differ
 
 
 def log(msg: str) -> None:
@@ -3540,6 +3583,372 @@ def check_drawer(drawer, results, prefix: str, what: str) -> None:
                f"{what}: pose PNG")
 
 
+def sift_graph_phase(dev, card: str, fx, launches: dict) -> None:
+    """Phase 7e: conf/detection.ork with SIFT features on the card (the
+    L2 matcher ``ops/matching.py l2_topk``, queue C's probe), against the
+    reference graph's MatchSets and accepts."""
+    import tempfile
+
+    from tod_tpu_torch.db import FilesystemDb, write_model
+    from tod_tpu_torch.pipeline import Scheduler, build_pipeline_from_ork
+
+    jx = np.load(JPEG_FIXTURE)
+    meta = json.loads(str(jx["sift_graph_json"]))
+    s_ids, s_models = load_fixture(SIFT_FIXTURE)[1:]
+    ref = {"ref_" + k[len("sift_graph_"):]: jx[k] for k in jx.files
+           if k.startswith("sift_graph_")}
+    with tempfile.TemporaryDirectory() as tmp:
+        params = {"type": "filesystem", "root": os.path.join(tmp, "db")}
+        db = FilesystemDb(params["root"])
+        for oid, (desc, pts) in zip(s_ids, s_models):
+            write_model(db, oid, desc.astype(np.float32) / 256.0, pts)
+        frame_dir = write_frames(os.path.join(tmp, "frames"), fx, False)
+        pipeline = build_pipeline_from_ork(
+            os.path.join(ROOT, "conf", "detection.ork"),
+            {"source1": {"path": frame_dir, "loop": False},
+             "pipeline1": {"db": params, "device": str(dev),
+                           **meta["settings"]}})
+        sched = Scheduler(pipeline.plasm)
+        det = pipeline.cells["pipeline1"]
+        reset_counts()
+        results = []
+        for f in range(len(fx["images"])):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sched.execute_iteration()
+            secs = time.perf_counter() - t0
+            m = det.descriptor_matcher.outputs["matches"]
+            swapped = int((m.train_idx != ref["ref_train_idx"][f])
+                          .any(axis=1).sum())
+            same = swapped == 0 and all((
+                np.array_equal(m.valid, ref["ref_valid"][f]),
+                digest(m.obj_idx) == meta["obj_idx"][f],
+                digest(m.local_idx) == meta["local_idx"][f]))
+            gap = float(np.abs(np.float64(m.dist) ** 2 - np.float64(
+                ref["ref_dist"][f]) ** 2).max())
+            rel = np.abs(m.dist - ref["ref_dist"][f]) / np.maximum(
+                ref["ref_dist"][f], 1e-30)
+            log(f"sift-graph: frame {f}: {m.dist.shape[0]} queries x k "
+                f"{m.k}, {int(m.valid.sum())} in radius; query rows whose "
+                f"matched rows differ from the reference's: {swapped}; the "
+                f"rest of the MatchSet equal: {same}; squared distances "
+                f"within {gap:.3g} (bound {SIFT_GRAPH_SQ_ATOL:.3g}), "
+                f"{int((rel > 1e-5).sum())} distances past 1e-5 relative "
+                f"(max {float(rel.max()):.3g}); {secs:.2f} s; {card}")
+            if swapped > SIFT_GRAPH_ROW_SWAPS or not same \
+                    or gap > SIFT_GRAPH_SQ_ATOL:
+                raise AssertionError(f"sift-graph: frame {f}'s MatchSet "
+                                     "differs from the reference's")
+            results.append(list(det.outputs["pose_results"]))
+        launches["7e"] = read_counts()
+        check_launches("sift-graph", len(results), launches["7e"], full=None)
+        for f, res in enumerate(results):
+            check_frame(f, res, fx, ref, what="sift-graph")
+        log("sift-graph: conf/detection.ork with SIFT on the card: every "
+            "placement within 2 cm; the reference's accepts (every "
+            "instance) at its poses within 1 cm and 2 degrees")
+        del pipeline, sched, det
+
+
+# ---- the last cv2 users: JPEG (A12g) and the synthetic renderer -----------
+
+def bench_object(syn, i: int):
+    """bench.py make_obj (BENCH_SHAPES=mixed, bench.py:120-138): a plane,
+    a box and a cylinder in turn."""
+    oid = f"obj{i:03d}"
+    if i % 3 == 0:
+        return syn.SyntheticObject.make(oid, seed=100 + i)
+    if i % 3 == 1:
+        return syn.SyntheticBox.make(oid, seed=100 + i,
+                                     size_m=(0.2, 0.15, 0.1))
+    return syn.SyntheticCylinder.make(oid, seed=100 + i, radius_m=0.08,
+                                      height_m=0.2)
+
+
+def bench_views(syn, obj, plan: dict):
+    """The bench's capture plan (bench.build_db; the train fixture's
+    ``train_dist`` / ``train_elev``): rings of 12 at the first distance,
+    one ring at 60 degrees for each further one, by frame number."""
+    dists = [float(v) for v in plan["train_dist"].split(",")]
+    elevs = tuple(float(v) for v in plan["train_elev"].split(","))
+    views = list(syn.turntable_observations(obj, n_views=12,
+                                            elevations_deg=elevs,
+                                            distance=dists[0]))
+    for extra in dists[1:]:
+        ring = syn.turntable_observations(obj, n_views=12,
+                                          elevations_deg=(60.0,),
+                                          distance=extra)
+        for o in ring:
+            o["frame_number"] += len(views)
+        views += ring
+    return sorted(views, key=lambda o: o["frame_number"])
+
+
+def bench_scenes(syn, objects, n_scenes: int):
+    """bench.py build_scenes (clean): three objects a scene at z 0.75,
+    0.9 and 1.05, x -0.22, 0.02 and 0.24, poses from rng 7."""
+    rng = np.random.default_rng(7)
+    scenes = []
+    for s in range(n_scenes):
+        trio = [objects[(3 * s + j) % len(objects)] for j in range(3)]
+        poses = [syn.facing_pose(rng, z=z)
+                 if isinstance(o, syn.SyntheticObject)
+                 else syn.presenting_pose(rng, z=z)
+                 for o, z in zip(trio, (0.75, 0.9, 1.05))]
+        poses[0][1][0] = -0.22
+        poses[1][1][0] = 0.02
+        poses[2][1][0] = 0.24
+        scenes.append(syn.compose_scene(trio, poses))
+    return scenes
+
+
+def blobs_of(data: np.ndarray, offsets: np.ndarray):
+    return [data[a:b].tobytes() for a, b in zip(offsets[:-1], offsets[1:])]
+
+
+def jpeg_phases(dev, card: str, fx, jx, launches: dict) -> None:
+    """Phase 12a: the JPEG decoder against cv2's pixels, ``cli ingest`` of
+    a JPEG recording, its frame through conf/detection.ork, and training
+    from JPEG attachments of a legacy CouchDB."""
+    import shutil
+    import tempfile
+
+    from tod_tpu_torch import cli
+    from tod_tpu_torch.db import ObjectDbParameters, load_models_for_objects
+    from tod_tpu_torch.utils.jpeg import decode_jpeg
+
+    model_ids, models = load_fixture()[1:]
+    names = [str(n) for n in jx["case_names"]]
+    vga = []
+    for i, (name, data) in enumerate(zip(names, blobs_of(
+            jx["case_blob"], jx["case_offsets"]))):
+        for key, color in (("unchanged", False), ("color", True)):
+            t0 = time.perf_counter()
+            px = decode_jpeg(data, color=color)
+            ms = (time.perf_counter() - t0) * 1e3
+            if f"case{i}_{key}" in jx.files:
+                same_array(px, jx[f"case{i}_{key}"], f"jpeg: {name} ({key})")
+            elif digest(px) != str(jx[f"case{i}_{key}_sha"]):
+                raise AssertionError(f"jpeg: {name} ({key}) differs from "
+                                     "cv2's pixels")
+            else:
+                vga.append(f"{name} ({key}) {ms:.0f} ms")
+    log(f"jpeg: {len(names)} files decoded equal to cv2's pixels under "
+        f"IMREAD_UNCHANGED and IMREAD_COLOR; host decode of a 480x640 "
+        f"frame: {'; '.join(vga)}; {card}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "rec")
+        os.makedirs(src)
+        n_rec = sum(1 for k in jx.files if k.startswith("rec_color"))
+        for f in range(n_rec):
+            for name, key in ((f"color_{f:04d}.jpg", f"rec_color{f}"),
+                              (f"depth_{f:04d}.png", f"rec_depth{f}")):
+                with open(os.path.join(src, name), "wb") as fh:
+                    fh.write(jx[key].tobytes())
+        frames_dir = os.path.join(tmp, "frames")
+        t0 = time.perf_counter()
+        _, text = quiet(cli.main, ["ingest", "--format", "pairs",
+                                   "--rgb-glob", "color_*.jpg",
+                                   "--depth-glob", "depth_*.png", src,
+                                   frames_dir])
+        ingest_s = time.perf_counter() - t0
+        got = {}
+        for name in sorted(os.listdir(frames_dir)):
+            with np.load(os.path.join(frames_dir, name)) as z:
+                got[name] = {k: digest(z[k]) for k in sorted(z.files)}
+        if got != json.loads(str(jx["rec_frames_json"])):
+            raise AssertionError("ingest: the frames differ from "
+                                 "tools/ingest_frames.py's")
+        log(f"ingest: {text.strip()}: a {n_rec}-frame pairs recording (JPEG "
+            f"colour, PNG depth) in {ingest_s:.2f} s on the host; every "
+            "array equal to tools/ingest_frames.py's (cv2)")
+
+        one = os.path.join(tmp, "one")
+        os.makedirs(one)
+        first = sorted(os.listdir(frames_dir))[0]
+        shutil.copy(os.path.join(frames_dir, first), one)
+        npy = write_catalog_db(tmp, model_ids, models)
+        reset_counts()
+        res, pipeline, _ = run_graph("conf/detection.ork", {
+            "source1": {"path": one, "loop": False},
+            "pipeline1": {"db": npy, "device": str(dev)}})
+        launches["12a-detect"] = read_counts()
+        check_launches("jpeg-detect", 1, launches["12a-detect"], full=4)
+        m = pipeline.cells["pipeline1"].descriptor_matcher.outputs["matches"]
+        want = json.loads(str(jx["rec_match_json"]))
+        for name, sha in want.items():
+            if digest(getattr(m, name)) != sha:
+                raise AssertionError(f"jpeg-detect: MatchSet {name} differs "
+                                     "from the reference graph's")
+        ref = {k[len("rec_"):]: jx[k] for k in jx.files
+               if k.startswith("rec_ref_")}
+        check_frame(0, res[0], fx, ref, image=0, what="jpeg-detect")
+        log(f"jpeg-detect: conf/detection.ork over the ingested JPEG frame: "
+            f"MatchSet ({int(m.valid.sum())} in radius) equal to the "
+            "reference graph's; its accepts at the reference's poses")
+        del pipeline, m
+
+        lx = np.load(LEGACY_FIXTURE)
+        oid = str(lx["object_id"])
+        jpegs = dict(zip((int(f) for f in jx["train_frames"]),
+                         blobs_of(jx["train_jpeg"], jx["train_offsets"])))
+        store = {"train": {}}
+        for doc_id, (fields, atts) in legacy_blobs(lx).items():
+            if fields["Type"] == "Observation":
+                store["train"][doc_id] = {"fields": fields, "rev": 1,
+                                          "atts": {**atts, "image": jpegs[
+                                              int(fields["frame_number"])]}}
+        server, url = couch_server(store)
+        try:
+            params = {"type": "CouchDB", "root": url, "collection": "train"}
+            reset_counts()
+            t0 = time.perf_counter()
+            run_graph("conf/training.ork", {"pipeline1": {
+                "db": params, "feature": TRAIN_FEATURES, "object_id": oid,
+                "device": str(dev), "dedup_hamming": TRAIN_DEDUP[0],
+                "dedup_point_m": TRAIN_DEDUP[1]}})
+            train_s = time.perf_counter() - t0
+            (model,) = load_models_for_objects(
+                ObjectDbParameters(params).generate_db(), [oid])
+        finally:
+            server.shutdown()
+        launches["12a-train"] = read_counts()
+        got = {"rows": int(len(model.descriptors)),
+               "descriptors": digest(model.descriptors),
+               "points": digest(np.asarray(model.points, np.float32)
+                                .reshape(-1, 3))}
+        if got != json.loads(str(jx["train_model_json"])):
+            raise AssertionError(f"jpeg-train: the model {got} differs from "
+                                 "the reference's")
+        if list(launches["12a-train"]) != [0, 0, 0, 0, 1, 0, 0]:
+            raise AssertionError(f"jpeg-train: launches "
+                                 f"{list(launches['12a-train'])}, expected "
+                                 "one B5")
+        log(f"jpeg-train: conf/training.ork over {oid}'s {len(jpegs)} views "
+            f"as JPEG attachments of a CouchDB: {got['rows']} rows, equal to "
+            f"the model the reference trains from cv2's pixels; one B5 "
+            f"launch; {train_s:.2f} s; {card}")
+
+
+def rendered_phases(dev, card: str, fx, jx, found4, launches: dict) -> None:
+    """Phase 12b: the bench's workload rendered on the host by the port's
+    renderer, trained and served on the card, each step held to the
+    reference's."""
+    from tod_tpu_torch.cells.trainer import fill_model, train_object
+    from tod_tpu_torch.models.fused import FusedDetector
+    from tod_tpu_torch.ops.compress import compress_model
+    from tod_tpu_torch.types import Observation
+    from tod_tpu_torch.utils import synthetic as syn
+
+    tx = np.load(TRAIN_FIXTURE)
+    plan = json.loads(str(tx["config_json"]))
+    model_ids = [str(s) for s in fx["model_ids"]]
+    t0 = time.perf_counter()
+    objects = [bench_object(syn, i) for i in range(len(model_ids))]
+    texture_s = time.perf_counter() - t0
+    render_ms, train_s, trained = [], [], []
+    for i, obj in enumerate(objects):
+        t0 = time.perf_counter()
+        views = bench_views(syn, obj, plan)
+        render_ms.append((time.perf_counter() - t0) * 1e3 / len(views))
+        masks = np.unpackbits(tx[f"mask{i}"], axis=-1, count=640,
+                              bitorder="little").astype(bool)
+        for v, o in enumerate(views):
+            img = o["image"]
+            if not (img == img[..., :1]).all():
+                raise AssertionError(f"render: {obj.object_id} view {v} is "
+                                     "not gray")
+            same_array(img[..., 0], tx[f"gray{i}"][v],
+                       f"render: {obj.object_id} view {v}'s gray")
+            same_array(o["depth"], tx[f"depth{i}"][v],
+                       f"render: {obj.object_id} view {v}'s depth")
+            same_array(o["mask"] > 0, masks[v],
+                       f"render: {obj.object_id} view {v}'s mask")
+        # as the trainer reads them from the DB: K, R, T as float32
+        obs = [Observation(image=o["image"], depth=o["depth"], mask=o["mask"],
+                           K=np.float32(o["K"]), R=np.float32(o["R"]),
+                           T=np.float32(o["T"]),
+                           frame_number=o["frame_number"]) for o in views]
+        if i == 0:
+            train_object(obs, TRAIN_FEATURES, *TRAIN_DEDUP, device=dev)
+            reset_counts()                                   # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        d8, p8 = train_object(obs, TRAIN_FEATURES, *TRAIN_DEDUP, device=dev)
+        train_s.append(time.perf_counter() - t0)
+        d16, p16 = compress_model(d8, p8.reshape(-1, 3), *RECOMPRESS,
+                                  device=dev)
+        stacked = tx[f"stacked{i}_desc"], tx[f"stacked{i}_points"]
+        keep8 = unpacked(tx[f"keep8_{i}"], len(stacked[0]))
+        same_array(d8, stacked[0][keep8], f"render-train: {obj.object_id} "
+                   "descriptors after dedup 8")
+        same_array(p8.reshape(-1, 3), stacked[1][keep8],
+                   f"render-train: {obj.object_id} points after dedup 8")
+        same_array(d16, fx[f"desc{i}"], f"render-train: {obj.object_id} "
+                   "descriptors (16x5)")
+        same_array(p16, fx[f"points{i}"], f"render-train: {obj.object_id} "
+                   "points (16x5)")
+        trained.append(fill_model(obj.object_id, d16, p16))
+    launches["12b-train"] = read_counts()
+    if list(launches["12b-train"]) != [0, 0, 0, 0, 2 * len(objects), 0, 0]:
+        raise AssertionError(f"render-train: launches "
+                             f"{list(launches['12b-train'])}, expected two "
+                             "B5 an object")
+    log(f"render: {len(objects)} objects x {len(views)} views rendered on the "
+        f"host, every view's gray, depth and mask equal to the reference's; "
+        f"textures {texture_s:.2f} s, render ms a view "
+        + ", ".join(f"{ms:.1f}" for ms in render_ms)
+        + f"; trained on the card to the reference's models (dedup 8 and "
+        f"16x5) in " + ", ".join(f"{s:.2f}" for s in train_s)
+        + f" s an object; {card}")
+
+    t0 = time.perf_counter()
+    scenes = bench_scenes(syn, objects, len(fx["images"]))
+    scene_ms = (time.perf_counter() - t0) * 1e3 / len(scenes)
+    for f, (image, depth) in enumerate(scenes):
+        same_array(image, fx["images"][f], f"render: scene {f}'s image")
+        same_array(depth, fx["depths"][f], f"render: scene {f}'s depth")
+    hard = json.loads(str(jx["hard0_json"]))
+    t0 = time.perf_counter()
+    img, dep = syn.degrade_frame(*scenes[0], np.random.default_rng(1000),
+                                 **HARD)
+    degrade_ms = (time.perf_counter() - t0) * 1e3
+    if (digest(img), digest(dep)) != (hard["image"], hard["depth"]) \
+            or hard["preset"] != HARD:
+        raise AssertionError("render: scene 0's hard degradation differs "
+                             "from the reference's")
+    log(f"render: the bench's {len(scenes)} scenes equal to the smoke "
+        f"fixture's frames ({scene_ms:.1f} ms a scene); scene 0's "
+        f"BENCH_NOISE=hard degradation equal to the reference's "
+        f"({degrade_ms:.1f} ms); {card}")
+
+    catalog = smoke_models(model_ids, [(m.descriptors, m.points)
+                                       for m in trained])
+    det = FusedDetector(catalog, config(fx), seed=0, device=dev)
+    frames = [det.prepare_frame(image, depth, fx["K"])
+              for image, depth in scenes]
+    reset_counts()
+    found = [det.detect(*frame) for frame in frames]
+    launches["12b"] = read_counts()
+    check_launches("render-serve", len(frames), launches["12b"], full=0)
+    for f, (got, want) in enumerate(zip(found, found4)):
+        same_poses(got, want, f"render-serve: frame {f}")
+        log(f"render-serve: frame {f}: " + ", ".join(
+            f"{r.object_id} q={r.quality:.0f} inliers={r.confidence:.0f}"
+            for r in got) + ": phase 4's detections bit for bit")
+    del det, catalog
+
+
+def cv2_free_phases(dev, card: str, fx, found4, launches: dict) -> None:
+    """Phase 12: the JPEG decoder and the synthetic renderer."""
+    phase_t0 = time.perf_counter()
+    jx = np.load(JPEG_FIXTURE)
+    jpeg_phases(dev, card, fx, jx, launches)
+    rendered_phases(dev, card, fx, jx, found4, launches)
+    log(f"cv2-free: phase 12 took {time.perf_counter() - phase_t0:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -3777,6 +4186,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     cells_phases(dev, card, fx, frames, found4, launches)
     torch.cuda.empty_cache()
+    sift_graph_phase(dev, card, fx, launches)
+    torch.cuda.empty_cache()
     a16_phases(dev, card, fx, frames, launches)
     torch.cuda.empty_cache()
     b5_graph = a13_phases(dev, card, fx, launches)
@@ -3784,6 +4195,8 @@ def main() -> int:
     a14_phases(dev, card, fx, frames, launches)
     torch.cuda.empty_cache()
     legacy_phases(dev, card, fx, launches)
+    torch.cuda.empty_cache()
+    cv2_free_phases(dev, card, fx, found4, launches)
 
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")

@@ -166,9 +166,9 @@ def test_ingest_pairs_equals_reference_tool(tmp_path, scale, limit):
 
 
 def test_ingest_errors_match_reference_tool(tmp_path):
-    """A pair mismatch stops both tools alike; a JPEG frame, which the
-    reference reads through cv2, stops the port with an error naming
-    JPEG (ROADMAP A12g)."""
+    """A pair mismatch stops both tools alike; a JPEG frame (even one
+    named ``.png``), which the reference reads through cv2, is read by the
+    port's own decoder into the same frames (ROADMAP A12g)."""
     (tmp_path / "color_0000.png").write_bytes(b"")
     for main in (ingest_frames.main, lambda a: cli.main(["ingest"] + a)):
         with pytest.raises(SystemExit, match="pair mismatch"):
@@ -181,6 +181,11 @@ def test_ingest_errors_match_reference_tool(tmp_path):
     cv2.imwrite(str(jpg / "depth_0000.png"), depth)
     assert ingest_frames.main([str(jpg), str(tmp_path / "r"), "--format",
                                "pairs"]) == 1
-    with pytest.raises(SystemExit, match="JPEG"):
-        cli.main(["ingest", str(jpg), str(tmp_path / "p"), "--format",
-                  "pairs"])
+    assert cli.main(["ingest", str(jpg), str(tmp_path / "p"), "--format",
+                     "pairs"]) == 0
+    _same_frames(tmp_path / "p", tmp_path / "r")
+    # what neither reads stops both
+    (jpg / "color_0000.png").write_bytes(b"\xff\xd8\xff\xd9")
+    for main in (ingest_frames.main, lambda a: cli.main(["ingest"] + a)):
+        with pytest.raises(SystemExit, match="unreadable color image"):
+            main([str(jpg), str(tmp_path / "x"), "--format", "pairs"])

@@ -47,9 +47,11 @@ def test_port_imports_no_jax_cv2_yaml_or_reference():
                  "parallel.matching", "parallel.segmented",
                  "parallel.serving", "parallel.detect", "parallel.pipeline",
                  "parallel.dryrun", "utils.png", "utils.visualize",
-                 "utils.ingest", "db.legacy", "db.migrate", "cells.viz"):
+                 "utils.ingest", "db.legacy", "db.migrate", "cells.viz",
+                 "utils.exif", "utils.jpeg", "utils.raster",
+                 "utils.synthetic"):
         assert f"tod_tpu_torch.{name}" in got["modules"]
-    assert len(got["modules"]) >= 69
+    assert len(got["modules"]) >= 73
     assert got["banned"] == [] and got["loaded"] == []
 
 
@@ -75,4 +77,42 @@ def test_cli_help_imports_no_jax_cv2_yaml_or_reference():
                          timeout=120)
     assert out.returncode == 0, out.stderr
     assert "training" in out.stdout and "detection" in out.stdout
+    assert out.stdout.strip().splitlines()[-1] == "BANNED []"
+
+
+INGEST_PROBE = r"""
+import json, os, sys, tempfile
+import numpy as np
+from tod_tpu_torch import cli
+from tod_tpu_torch.utils import png, synthetic
+# a "pairs" recording of one rendered frame: JPEG colour, PNG depth
+JPEG = bytes.fromhex(sys.argv[1])
+src = tempfile.mkdtemp()
+with open(os.path.join(src, "color_0000.jpg"), "wb") as f:
+    f.write(JPEG)
+png.write_png(os.path.join(src, "depth_0000.png"),
+              np.full((16, 24), 800, np.uint16))
+cli.main(["ingest", "--format", "pairs", "--rgb-glob", "color_*.jpg",
+          src, os.path.join(src, "out")])
+banned = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "cv2", "yaml",
+                                       "tod_tpu", "triton", "matplotlib"))
+print("BANNED", json.dumps(banned))
+"""
+
+
+def test_ingest_of_a_jpeg_imports_no_jax_cv2_yaml_or_reference():
+    """``cli ingest`` of a JPEG recording, and the renderer, import none
+    of them."""
+    import cv2
+    import numpy as np
+
+    img = np.random.default_rng(0).integers(0, 255, (16, 24, 3), np.uint8)
+    jpg = cv2.imencode(".jpg", img)[1].tobytes()
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", INGEST_PROBE, jpg.hex()],
+                         cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "wrote 1 frames" in out.stdout
     assert out.stdout.strip().splitlines()[-1] == "BANNED []"

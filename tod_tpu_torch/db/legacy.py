@@ -17,10 +17,10 @@ The FileStorage reader is this module's own: it reads the
 ``!!opencv-matrix`` (and ``!!opencv-nd-matrix``) maps of a YAML document
 (``%YAML 1.2`` as OpenCV 5 writes it, ``%YAML:1.0`` as older OpenCV did)
 and the ``type_id="opencv-matrix"`` elements of an XML one. PNG goes
-through ``utils/png.py``. JPEG is refused by name: the standard library
-has no JPEG decoder.
+through ``utils/png.py``, JPEG through ``utils/jpeg.py`` (both as
+``cv2.imdecode(..., IMREAD_UNCHANGED)``).
 
-Kept as the reference has them: a 3-channel PNG comes back RGB (cv2
+Kept as the reference has them: a 3-channel PNG or JPEG comes back RGB (cv2
 decodes BGR and the reference converts), a 4-channel one in cv2's BGRA
 order.
 """
@@ -38,6 +38,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from tod_tpu_torch.utils.jpeg import JpegError, decode_jpeg
 from tod_tpu_torch.utils.png import PngError, decode_png
 
 # cv::Mat depth code -> numpy dtype (CV_8U..CV_64F)
@@ -211,15 +212,13 @@ def decode_legacy_mat(data: bytes, prefer: str = "data") -> np.ndarray:
     rows/cols/type binary."""
     if data[:6] == b"\x93NUMPY":
         return np.load(io.BytesIO(data), allow_pickle=False)
-    if data[:2] == b"\xff\xd8":
-        raise LegacyDecodeError(
-            "JPEG attachment: this package has no JPEG decoder (the "
-            "standard library has none); decode it where cv2 is installed")
-    if data[:8] == b"\x89PNG\r\n\x1a\n":
+    if data[:2] == b"\xff\xd8" or data[:8] == b"\x89PNG\r\n\x1a\n":
+        jpeg = data[:2] == b"\xff\xd8"
         try:
-            arr = decode_png(data)
-        except PngError as err:
-            raise LegacyDecodeError(f"PNG blob does not decode: {err}") \
+            arr = decode_jpeg(data) if jpeg else decode_png(data)
+        except (JpegError, PngError) as err:
+            raise LegacyDecodeError(
+                f"{'JPEG' if jpeg else 'PNG'} blob does not decode: {err}") \
                 from err
         if arr.ndim == 3 and arr.shape[2] == 3:
             arr = np.ascontiguousarray(arr[..., ::-1])  # BGR -> RGB

@@ -15,9 +15,10 @@ directory:
   selected by ``--rgb-glob`` / ``--depth-glob``; ``--depth-scale`` gives the
   recorder's depth units per meter (default 1000).
 
-Images are read as ``cv2.imread`` reads them (``utils/png.py``; the color
-image as ``IMREAD_COLOR``, then RGB). A JPEG frame is refused by name: the
-standard library has no JPEG decoder.
+Images are read as ``cv2.imread`` reads them (``utils/png.py``,
+``utils/jpeg.py``): the color image as ``IMREAD_COLOR`` (its EXIF
+orientation applied, gray copied to three channels), then RGB; the depth
+image as ``IMREAD_UNCHANGED``.
 
 Usage:
   python -m tod_tpu_torch.cli ingest --format tum <recording_dir> <out_dir>
@@ -34,26 +35,29 @@ import os
 
 import numpy as np
 
+from tod_tpu_torch.utils.jpeg import JpegError, decode_jpeg
 from tod_tpu_torch.utils.png import SIGNATURE, PngError, decode_png
 
 
 def _imread(path: str, color: bool, what: str) -> np.ndarray:
-    """``cv2.imread(path, IMREAD_COLOR or IMREAD_UNCHANGED)`` for a PNG;
-    a JPEG or an unreadable file stops the tool."""
+    """``cv2.imread(path, IMREAD_COLOR or IMREAD_UNCHANGED)`` for a PNG
+    or a JPEG; an unreadable file stops the tool."""
     try:
         with open(path, "rb") as f:
             data = f.read()
     except OSError:
         data = b""
     if data[:2] == b"\xff\xd8":
-        raise SystemExit(f"{what} image is a JPEG, which this package "
-                         f"cannot decode (no JPEG decoder): {path}")
-    if data[:8] != SIGNATURE:
+        decode, error = decode_jpeg, JpegError
+    elif data[:8] == SIGNATURE:
+        decode, error = decode_png, PngError
+    else:
         raise SystemExit(f"unreadable {what} image: {path}")
     try:
-        return decode_png(data, color=color)
-    except PngError:
-        raise SystemExit(f"unreadable {what} image: {path}") from None
+        return decode(data, color=color)
+    except error as err:
+        raise SystemExit(f"unreadable {what} image: {path} ({err})") \
+            from None
 
 
 def _imread_rgb(path: str) -> np.ndarray:

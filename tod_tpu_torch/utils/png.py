@@ -18,7 +18,9 @@ cv2's rules, read off ``cv2.imdecode`` (OpenCV 5.0):
   the key, full elsewhere);
 - gray with alpha becomes BGRA, its gray copied to three channels;
 - ``IMREAD_COLOR`` gives three 8-bit channels: gray is copied, alpha is
-  dropped and 16-bit samples keep their high byte (``v >> 8``).
+  dropped and 16-bit samples keep their high byte (``v >> 8``), and the
+  image is turned upright by the EXIF orientation of an ``eXIf`` chunk
+  (``utils/exif.py``; ``IMREAD_UNCHANGED`` keeps the stored pixels).
 
 Every filter type and Adam7 interlacing decode. Everything runs on the
 host.
@@ -31,6 +33,8 @@ import zlib
 from typing import Dict, List, Tuple
 
 import numpy as np
+
+from tod_tpu_torch.utils.exif import apply_orientation, orientation
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
 
@@ -159,7 +163,8 @@ def decode_png(data: bytes, color: bool = False) -> np.ndarray:
     """The pixels of a PNG as ``cv2.imdecode`` gives them:
     ``IMREAD_UNCHANGED`` by default ((H, W) gray, (H, W, 3) BGR or
     (H, W, 4) BGRA; uint8 or uint16), ``IMREAD_COLOR`` with ``color``
-    ((H, W, 3) uint8 BGR). Raises :class:`PngError` on anything else."""
+    ((H, W, 3) uint8 BGR, the EXIF orientation applied). Raises
+    :class:`PngError` on anything else."""
     chunks = _chunks(bytes(data))
     if not chunks or chunks[0][0] != b"IHDR" or len(chunks[0][1]) != 13:
         raise PngError("PNG does not start with an IHDR chunk")
@@ -218,6 +223,7 @@ def decode_png(data: bytes, color: bool = False) -> np.ndarray:
         img = img[..., :3]
         if img.dtype == np.uint16:
             img = (img >> 8).astype(np.uint8)
+        img = apply_orientation(img, orientation(data))
     return np.ascontiguousarray(img)
 
 
