@@ -383,6 +383,7 @@ A13_FIXTURE = os.path.join(DATA, "torch_a13_fixture.npz")
 A16_FIXTURE = os.path.join(DATA, "torch_a16_fixture.npz")
 LEGACY_FIXTURE = os.path.join(DATA, "torch_legacy_fixture.npz")
 JPEG_FIXTURE = os.path.join(DATA, "torch_jpeg_fixture.npz")
+SIZES_FIXTURE = os.path.join(DATA, "torch_sizes_fixture.npz")
 Q = 2048
 KERNEL_RUNS = 24       # CUDA-event timings of a kernel and its twin
 TWIN_RUNS = 3          # twin timings at 1000 objects (~0.1-2 s each)
@@ -535,6 +536,11 @@ HARD = dict(rgb_sigma=10.0, depth_sigma_mm=5.0, depth_dropout=0.10,
 # sums of another order: a few of its ulps (2^-22 each) apart
 SIFT_GRAPH_SQ_ATOL = 2.0 ** -18
 SIFT_GRAPH_ROW_SWAPS = 0    # query rows whose matched rows may differ
+# Phase 13: camera sizes (tests/data/torch_sizes_fixture.npz; the scenes,
+# cameras and digests in tod_tpu_torch/utils/camera_sizes.py)
+SIZE_LEVELS = 8         # the grid's deepest pyramid (cv::ORB's default)
+SIZE_RUNS = 10          # timed features-stage calls at each size
+SIZE_TURNS = 10         # timed 720p and VGA detect calls, in turns
 
 
 def log(msg: str) -> None:
@@ -3652,19 +3658,6 @@ def sift_graph_phase(dev, card: str, fx, launches: dict) -> None:
 
 # ---- the last cv2 users: JPEG (A12g) and the synthetic renderer -----------
 
-def bench_object(syn, i: int):
-    """bench.py make_obj (BENCH_SHAPES=mixed, bench.py:120-138): a plane,
-    a box and a cylinder in turn."""
-    oid = f"obj{i:03d}"
-    if i % 3 == 0:
-        return syn.SyntheticObject.make(oid, seed=100 + i)
-    if i % 3 == 1:
-        return syn.SyntheticBox.make(oid, seed=100 + i,
-                                     size_m=(0.2, 0.15, 0.1))
-    return syn.SyntheticCylinder.make(oid, seed=100 + i, radius_m=0.08,
-                                      height_m=0.2)
-
-
 def bench_views(syn, obj, plan: dict):
     """The bench's capture plan (bench.build_db; the train fixture's
     ``train_dist`` / ``train_elev``): rings of 12 at the first distance,
@@ -3682,24 +3675,6 @@ def bench_views(syn, obj, plan: dict):
             o["frame_number"] += len(views)
         views += ring
     return sorted(views, key=lambda o: o["frame_number"])
-
-
-def bench_scenes(syn, objects, n_scenes: int):
-    """bench.py build_scenes (clean): three objects a scene at z 0.75,
-    0.9 and 1.05, x -0.22, 0.02 and 0.24, poses from rng 7."""
-    rng = np.random.default_rng(7)
-    scenes = []
-    for s in range(n_scenes):
-        trio = [objects[(3 * s + j) % len(objects)] for j in range(3)]
-        poses = [syn.facing_pose(rng, z=z)
-                 if isinstance(o, syn.SyntheticObject)
-                 else syn.presenting_pose(rng, z=z)
-                 for o, z in zip(trio, (0.75, 0.9, 1.05))]
-        poses[0][1][0] = -0.22
-        poses[1][1][0] = 0.02
-        poses[2][1][0] = 0.24
-        scenes.append(syn.compose_scene(trio, poses))
-    return scenes
 
 
 def blobs_of(data: np.ndarray, offsets: np.ndarray):
@@ -3840,6 +3815,7 @@ def rendered_phases(dev, card: str, fx, jx, found4, launches: dict) -> None:
     from tod_tpu_torch.ops.compress import compress_model
     from tod_tpu_torch.types import Observation
     from tod_tpu_torch.utils import synthetic as syn
+    from tod_tpu_torch.utils.camera_sizes import bench_object, bench_scenes
 
     tx = np.load(TRAIN_FIXTURE)
     plan = json.loads(str(tx["config_json"]))
@@ -3947,6 +3923,223 @@ def cv2_free_phases(dev, card: str, fx, found4, launches: dict) -> None:
     jpeg_phases(dev, card, fx, jx, launches)
     rendered_phases(dev, card, fx, jx, found4, launches)
     log(f"cv2-free: phase 12 took {time.perf_counter() - phase_t0:.1f} s")
+
+
+# ---- phase 13: camera sizes -------------------------------------------------
+
+def kind_digest(t: torch.Tensor, kind: str) -> str:
+    from tod_tpu_torch.utils.camera_sizes import digest
+
+    return digest(t.cpu().numpy(), kind)
+
+
+def same_digests(got: dict, want: dict, what: str) -> None:
+    bad = sorted(k for k in want if k != "n_valid" and got[k] != want[k])
+    if bad:
+        raise AssertionError(f"{what}: {bad} differ from the reference's")
+
+
+def size_grid_phase(dev, card: str, sx, cfg) -> None:
+    """13a: at every frame size of the grid, the frame rendered on the host
+    and the card's pyramid, ORB and SIFT keypoints against the reference's;
+    the features stage timed."""
+    from tod_tpu_torch.models.fused import (prepare_frame,
+                                            stage_features_compact)
+    from tod_tpu_torch.ops import image as timage
+    from tod_tpu_torch.ops import orb as torb
+    from tod_tpu_torch.ops import sift as tsift
+    from tod_tpu_torch.utils import synthetic as syn
+    from tod_tpu_torch.utils.camera_sizes import size_camera, size_scene
+
+    grid = json.loads(str(sx["grid_json"]))
+    for size, want in grid.items():
+        h, w = (int(v) for v in size.split("x"))
+        t0 = time.perf_counter()
+        image, depth = size_scene(syn, h, w)
+        render_ms = (time.perf_counter() - t0) * 1e3
+        if (digest(image), digest(depth)) != (want["image"], want["depth"]):
+            raise AssertionError(f"sizes: the {size} frame differs from the "
+                                 "reference's render")
+        gray, depth_t, K_t = prepare_frame(image, depth, size_camera(h, w),
+                                           dev)
+        levels = timage.build_pyramid(gray, SIZE_LEVELS, 1.2)
+        moved = [i for i, lv in enumerate(levels)
+                 if digest(lv.cpu().numpy()) != want["levels"][i]]
+        if moved:
+            raise AssertionError(f"sizes: {size} pyramid levels {moved} "
+                                 "differ from the reference's")
+        n_valid = {}
+        for n in (3, SIZE_LEVELS):
+            kps, desc = torb.orb_detect_and_compute(
+                gray, n_features=5000, n_levels=n, scale_factor=1.2)
+            same_digests({**{k: kind_digest(getattr(kps, k), k)
+                             for k in ("valid", "xy", "level")},
+                          "desc": kind_digest(desc, "desc")},
+                         want[f"orb{n}"], f"sizes: {size} ORB {n} levels")
+            kps, _ = tsift.sift_detect_and_compute(
+                gray, n_features=2000, n_levels=n, scale_factor=1.2)
+            same_digests({k: kind_digest(getattr(kps, k), k)
+                          for k in ("valid", "xy", "level")},
+                         want[f"sift{n}"], f"sizes: {size} SIFT {n} levels")
+            n_valid[n] = (want[f"orb{n}"]["n_valid"],
+                          want[f"sift{n}"]["n_valid"])
+        lat = [synced_ms(lambda: stage_features_compact(gray, depth_t, K_t,
+                                                        cfg))
+               for _ in range(SIZE_RUNS + 1)][1:]
+        log(f"sizes: {size}: frame rendered on the host ({render_ms:.0f} ms) "
+            f"equal to the reference's; {SIZE_LEVELS} pyramid levels bit "
+            f"for bit; ORB keypoints and descriptors in slot order and SIFT "
+            f"keypoints equal at 3 and {SIZE_LEVELS} levels (valid ORB/SIFT "
+            f"{n_valid[3]} and {n_valid[SIZE_LEVELS]}); features stage "
+            f"(5000 ORB, 3 levels, compaction to {cfg.q_cap}) median "
+            f"{np.median(lat):.2f} ms a frame over {SIZE_RUNS}; {card}")
+
+
+def size_main_phase(dev, card: str, fx, sx, cfg, launches: dict) -> None:
+    """13b: the main path at 720x1280. Bench objects 0-2 rendered on the
+    host (24 views each), trained on the card (B5's dedup, then 16x5),
+    served in phase 12b's catalog (B1, N1) over two scenes, each step
+    held to the reference's; a 720p detect timed in turns with a VGA
+    frame."""
+    from tod_tpu_torch.cells.trainer import fill_model, train_object
+    from tod_tpu_torch.models.fused import (FusedDetector,
+                                            stage_features_compact)
+    from tod_tpu_torch.ops.compress import compress_model
+    from tod_tpu_torch.types import Observation
+    from tod_tpu_torch.utils import synthetic as syn
+    from tod_tpu_torch.utils.camera_sizes import (HW720, K720, bench_object,
+                                                  bench_scenes, rows_digest,
+                                                  views_720p)
+
+    main = json.loads(str(sx["main_json"]))
+    objects = [bench_object(syn, i) for i in range(len(main["models"]))]
+    trained, render_s, train_s = [], [], []
+    for obj in objects:
+        t0 = time.perf_counter()
+        views = views_720p(syn, obj)
+        render_s.append(time.perf_counter() - t0)
+        want = main["views"][obj.object_id]
+        got = {"n": len(views), **{k: digest(np.stack([o[k] for o in views]))
+                                   for k in ("image", "depth", "mask")}}
+        if got != want:
+            raise AssertionError(f"sizes-train: {obj.object_id}'s 720p views "
+                                 "differ from the reference's render")
+        obs = [Observation(image=o["image"], depth=o["depth"], mask=o["mask"],
+                           K=np.float32(o["K"]), R=np.float32(o["R"]),
+                           T=np.float32(o["T"]),
+                           frame_number=o["frame_number"]) for o in views]
+        if not trained:
+            reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        d8, p8 = train_object(obs, TRAIN_FEATURES, *TRAIN_DEDUP, device=dev)
+        train_s.append(time.perf_counter() - t0)
+        d16, p16 = compress_model(d8, p8.reshape(-1, 3), *RECOMPRESS,
+                                  device=dev)
+        want = main["models"][obj.object_id]
+        got = {"rows8": len(d8), "desc8": digest(d8),
+               "points8": digest(np.asarray(p8, np.float32).reshape(-1, 3)),
+               "rows16": len(d16), "desc16": digest(d16),
+               "points16": digest(np.asarray(p16, np.float32))}
+        if got != want:
+            moved = sorted(k for k in want if got[k] != want[k])
+            raise AssertionError(
+                f"sizes-train: {obj.object_id}'s model differs from the "
+                f"reference's in {moved} ({got['rows8']} / {got['rows16']} "
+                f"rows, the reference {want['rows8']} / {want['rows16']})")
+        trained.append(fill_model(obj.object_id, d16, p16))
+    launches["13-train"] = read_counts()
+    if list(launches["13-train"]) != [0, 0, 0, 0, 2 * len(objects), 0, 0]:
+        raise AssertionError(f"sizes-train: launches "
+                             f"{list(launches['13-train'])}, expected two B5 "
+                             "an object")
+    log(f"sizes-train: {len(objects)} objects x {len(views)} views of "
+        f"720x1280 rendered on the host (" + ", ".join(
+            f"{s:.1f}" for s in render_s) + " s an object), equal to the "
+        f"reference's; trained on the card to the reference's models (dedup "
+        f"8: " + ", ".join(str(main["models"][o.object_id]["rows8"])
+                           for o in objects)
+        + " rows; 16x5: " + ", ".join(str(len(m.descriptors))
+                                      for m in trained)
+        + ") in " + ", ".join(f"{s:.2f}" for s in train_s)
+        + f" s an object; {card}")
+
+    catalog = smoke_models([m.object_id for m in trained],
+                           [(m.descriptors, m.points) for m in trained],
+                           n_objects=main["catalog"])
+    det = FusedDetector(catalog, cfg, seed=main["seed"], device=dev)
+    scenes = bench_scenes(syn, objects, len(main["scenes"]), hw=HW720,
+                          K=K720)
+    frames = []
+    for f, ((image, depth), want) in enumerate(zip(scenes, main["scenes"])):
+        if (digest(image), digest(depth)) != (want["image"], want["depth"]):
+            raise AssertionError(f"sizes-serve: scene {f} differs from the "
+                                 "reference's render")
+        frames.append(det.prepare_frame(image, depth, K720))
+    reset_counts()
+    found = [det.detect(*frame) for frame in frames]
+    launches["13-serve"] = read_counts()
+    check_launches("sizes-serve", len(frames), launches["13-serve"], full=0)
+    ref = {"ref_" + k[len("det_"):]: sx[k] for k in sx.files
+           if k.startswith("det_")}
+    gt = {k: sx[k] for k in ("gt_ids", "gt_R", "gt_T")}
+    for f, (frame, want) in enumerate(zip(frames, main["scenes"])):
+        port = stage_features_compact(*frame, cfg)
+        moved = [k for t, k in zip(port, ("xy", "qp", "dsc", "ok"))
+                 if kind_digest(t, k) != want[k]]
+        if moved:
+            as_set = rows_digest(*(t.cpu().numpy() for t in port)) \
+                == want["rows"]
+            raise AssertionError(
+                f"sizes-serve: scene {f}'s compacted queries differ from the "
+                f"reference's slot by slot in {moved} (as a set: "
+                f"{'equal' if as_set else 'unequal'})")
+        mine = [i for i in range(len(sx["det_ids"]))
+                if sx["det_frame"][i] == f]
+        want_accepts = sorted((str(sx["det_ids"][i]), float(sx["det_conf"][i]))
+                              for i in mine)
+        got_accepts = sorted((r.object_id, float(r.confidence))
+                             for r in found[f])
+        if got_accepts != want_accepts:
+            raise AssertionError(
+                f"sizes-serve: scene {f}'s gated accepts (object, inliers) "
+                f"{got_accepts} differ from the reference's {want_accepts}")
+        check_frame(f, found[f], gt, ref, what="sizes-serve")
+        gap = max([pose_error(r.R, r.T, sx["det_R"][i], sx["det_T"][i])
+                   for i in mine for r in found[f]
+                   if r.object_id == str(sx["det_ids"][i])]
+                  or [(0.0, 0.0)])
+        log(f"sizes-serve: scene {f}: {want['n_valid']} compacted queries "
+            f"equal to the reference's slot by slot; gated accepts "
+            f"(object, inliers) {got_accepts}, the reference's; largest "
+            f"pose gap {gap[0] * 100:.4f} cm / {gap[1]:.4f} deg")
+
+    vga = det.prepare_frame(fx["images"][0], fx["depths"][0], fx["K"])
+    lat = {"720p": [], "VGA": []}
+    for _ in range(2):                      # warm both shapes
+        det.detect(*frames[0])
+        det.detect(*vga)
+    for _ in range(SIZE_TURNS):
+        for name, frame in (("720p", frames[0]), ("VGA", vga)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            det.detect(*frame)
+            lat[name].append((time.perf_counter() - t0) * 1e3)
+    log(f"sizes-time: detect at {main['catalog']} objects, median over "
+        f"{SIZE_TURNS} frames each, in turns: 720x1280 "
+        f"{np.median(lat['720p']):.2f} ms, 480x640 "
+        f"{np.median(lat['VGA']):.2f} ms; {card}")
+    del det, catalog
+
+
+def size_phases(dev, card: str, fx, launches: dict) -> None:
+    """Phase 13: camera sizes."""
+    phase_t0 = time.perf_counter()
+    sx = np.load(SIZES_FIXTURE)
+    cfg = config(sx)
+    size_grid_phase(dev, card, sx, cfg)
+    size_main_phase(dev, card, fx, sx, cfg, launches)
+    log(f"sizes: phase 13 took {time.perf_counter() - phase_t0:.1f} s")
 
 
 def main() -> int:
@@ -4197,6 +4390,8 @@ def main() -> int:
     legacy_phases(dev, card, fx, launches)
     torch.cuda.empty_cache()
     cv2_free_phases(dev, card, fx, found4, launches)
+    torch.cuda.empty_cache()
+    size_phases(dev, card, fx, launches)
 
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")

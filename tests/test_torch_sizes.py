@@ -1,0 +1,167 @@
+"""The port's image pyramid against the compiled reference at every camera
+size of the grid.
+
+The grid: frames of 240x320 (Kinect v1 / Xtion QVGA), 480x640, 480x848 and
+720x1280 (RealSense D4xx), 960x1280 and 1080x1920 (Kinect v2), each with
+the 3-level pyramid at scale 1.2 that every ``conf/*.ork`` uses and
+cv::ORB's default 8 levels. The reference's linear resize is
+``jax.image.resize`` compiled by XLA for an x86-64 CPU with AVX-512; the
+port copies its rounding (``tod_tpu_torch/ops/image.py``: the weights'
+loop shapes and the products' summation orders). Contracts: weights and
+levels bit for bit, ORB keypoints and descriptors in slot order exactly,
+SIFT keypoints exactly and descriptors within ``DESC_ATOL`` (queue C: the
+descriptor sums in another order). The feature checks run here at the
+shapes that fit the file's time, and ``test_torch_sizes_720p.py`` holds
+the trainer's step and the detector at 720x1280.
+
+``TORCH_SIZES_FRAMES=HxW,...`` runs the weight and pyramid cases at those
+frame sizes instead, and the ORB and SIFT cases at each of them with 3 and
+8 levels (``tools/fit_resize_order.py --tests`` sets it).
+"""
+
+import functools
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from tod_tpu.ops import image as jimage
+from tod_tpu.ops import orb as jorb
+from tod_tpu.ops import sift as jsift
+from tod_tpu.utils import synthetic as jsyn
+from tod_tpu_torch.ops import image as timage
+from tod_tpu_torch.ops import orb as torb
+from tod_tpu_torch.ops import sift as tsift
+from tod_tpu_torch.utils import synthetic as tsyn
+from tod_tpu_torch.utils.camera_sizes import GRID, size_scene
+from test_torch_sift import DESC_ATOL
+
+torch.set_num_threads(1)
+
+LEVELS = (3, 8)
+SCALE = 1.2
+_ASKED = os.environ.get("TORCH_SIZES_FRAMES")
+FRAMES = ([tuple(int(v) for v in f.split("x")) for f in _ASKED.split(",")]
+          if _ASKED else list(GRID))
+_EVERY = [(hw, n) for hw in FRAMES for n in LEVELS] if _ASKED else None
+ORB_CASES = _EVERY or [((240, 320), 8), ((480, 848), 3)]
+SIFT_CASES = _EVERY or [((240, 320), 3), ((240, 320), 8)]
+
+
+def _axis_pairs():
+    pairs = set()
+    for h, w in FRAMES:
+        for oh, ow in timage.pyramid_shapes(h, w, max(LEVELS), SCALE)[1:]:
+            pairs.update({(h, oh), (w, ow)})
+    return sorted(pairs)
+
+
+_scene = functools.lru_cache(maxsize=None)(size_scene)
+
+
+@functools.lru_cache(maxsize=None)
+def rendered_gray(h: int, w: int) -> np.ndarray:
+    """Bench objects 0 and 1 rendered at (h, w) by the reference's renderer
+    (the port's renders the same pixels), as the reference's serving gray."""
+    image, _ = _scene(jsyn, h, w)
+    return np.asarray(jimage.rgb_to_gray(jnp.asarray(image)))
+
+
+@pytest.mark.parametrize("in_out", _axis_pairs())
+def test_resize_weights_match_compiled_reference(in_out):
+    """Read off ``jax.image.resize`` of an identity: each output row of the
+    product is one weight column, summed with zeros, so exact."""
+    n_in, n_out = in_out
+    eye = jnp.eye(n_in, dtype=jnp.float32)
+    ref = np.asarray(jax.jit(lambda x: jax.image.resize(
+        x, (n_out, n_in), method="linear"))(eye)).T
+    np.testing.assert_array_equal(timage.resize_weights(n_in, n_out), ref)
+
+
+@pytest.mark.parametrize("n_levels", LEVELS)
+@pytest.mark.parametrize("hw", FRAMES)
+def test_pyramid_levels_match_compiled_reference(hw, n_levels):
+    """Both renderers' frame, both grays, then every level bit for bit."""
+    h, w = hw
+    image_j, depth_j = _scene(jsyn, h, w)
+    image_t, depth_t = _scene(tsyn, h, w)
+    np.testing.assert_array_equal(image_t, image_j)
+    np.testing.assert_array_equal(depth_t, depth_j)
+    gray = rendered_gray(h, w)
+    np.testing.assert_array_equal(
+        timage.rgb_to_gray(torch.from_numpy(image_t)).numpy(), gray)
+    ref = jax.jit(lambda g: jimage.build_pyramid(g, n_levels, SCALE))(
+        jnp.asarray(gray))
+    got = timage.build_pyramid(torch.from_numpy(gray.copy()), n_levels, SCALE)
+    assert [tuple(a.shape) for a in got] == [a.shape for a in ref]
+    for level, (a, b) in enumerate(zip(got, ref)):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b),
+                                      f"level {level}")
+
+
+def test_gemm_orders():
+    """The row product chains over equal depth slices (ceil(depth / 320)
+    slices, rounded up to 8); the column product's kernel follows its
+    output columns in 16-column steps (lanes, parity, lanes, chain)."""
+    assert [timage._row_slice(d) for d in (120, 240, 360, 480, 1080)] \
+        == [120, 240, 184, 240, 272]
+    assert timage.gemm_order(1080, 900, True) == ("chain", 272)
+    kinds = [timage.gemm_order(640, c, False) for c in (80, 81, 96, 97, 113,
+                                                       128, 129)]
+    assert kinds == [("lanes", 640), ("parity", 1024), ("parity", 1024),
+                     ("lanes", 640), ("chain", 512), ("chain", 512),
+                     ("lanes", 640)]
+
+
+def test_short_column_product_is_a_known_gap():
+    """The column product of a level of 50 image rows or fewer runs
+    another oneDNN kernel than the rule's (ROADMAP queue C). At 120x160
+    with 8 levels, level 7 (34 x 45) sums in one chain where the rule
+    takes four lanes: 635 of its 1,530 pixels differ from the reference's
+    on this frame; the other levels are bit for bit."""
+    rng = np.random.default_rng(5)
+    gray = (rng.random((120, 160)) * 255).astype(np.float32)
+    ref = jax.jit(lambda g: jimage.build_pyramid(g, 8, SCALE))(
+        jnp.asarray(gray))
+    got = timage.build_pyramid(torch.from_numpy(gray), 8, SCALE)
+    unequal = [int((a.numpy() != np.asarray(b)).sum())
+               for a, b in zip(got, ref)]
+    assert unequal == [0] * 7 + [635]
+    assert timage.gemm_order(160, 45, False)[0] == "lanes"
+
+
+@pytest.mark.parametrize("hw, n_levels", ORB_CASES)
+def test_orb_matches_in_slot_order(hw, n_levels):
+    gray = rendered_gray(*hw)
+    k_j, d_j = jax.jit(lambda g: jorb.orb_detect_and_compute(
+        g, n_features=5000, n_levels=n_levels, scale_factor=SCALE))(
+        jnp.asarray(gray))
+    k_t, d_t = torb.orb_detect_and_compute(
+        torch.from_numpy(gray.copy()), n_features=5000, n_levels=n_levels,
+        scale_factor=SCALE)
+    assert int(k_t.valid.sum()) > 300
+    for name in ("valid", "level", "xy"):
+        np.testing.assert_array_equal(getattr(k_t, name).numpy(),
+                                      np.asarray(getattr(k_j, name)), name)
+    np.testing.assert_array_equal(d_t.numpy(), np.asarray(d_j))
+
+
+@pytest.mark.parametrize("hw, n_levels", SIFT_CASES)
+def test_sift_matches(hw, n_levels):
+    gray = rendered_gray(*hw)
+    k_j, d_j = jax.jit(lambda g: jsift.sift_detect_and_compute(
+        g, n_features=2000, n_levels=n_levels, scale_factor=SCALE))(
+        jnp.asarray(gray))
+    k_t, d_t = tsift.sift_detect_and_compute(
+        torch.from_numpy(gray.copy()), n_features=2000, n_levels=n_levels,
+        scale_factor=SCALE)
+    assert int(k_t.valid.sum()) > 300
+    for name in ("valid", "level", "xy"):
+        np.testing.assert_array_equal(getattr(k_t, name).numpy(),
+                                      np.asarray(getattr(k_j, name)), name)
+    np.testing.assert_allclose(d_t.numpy(), np.asarray(d_j), rtol=0,
+                               atol=DESC_ATOL)

@@ -101,6 +101,40 @@ def _fma_f32(a: np.ndarray, b, c: np.ndarray) -> np.ndarray:
             + np.asarray(c, np.float32).astype(ld)).astype(np.float32)
 
 
+# The reference's rounding below is its compiled CPU program's on the host its
+# tests run on: x86-64 with AVX-512 and FMA, 48 KiB of L1d and 2 MiB of L2 a
+# core, jax 0.9.0. LLVM's loop shapes and Eigen's blocking depend on these, so
+# the rules hold for that host; ROADMAP queue C says what they were checked on.
+
+
+def _tree_sum(x: np.ndarray) -> np.ndarray:
+    """Column sums of x as the reference's compiled reduce sums them: XLA
+    rewrites a reduction of more than 32 rows into a reduce-window of 32-row
+    windows, padded to a multiple of 32 with ``(pad // 2)`` zero rows in
+    front, each window summed in order, and then reduces the window sums
+    the same way."""
+    n = x.shape[0]
+    if n <= 32:
+        total = np.zeros(x.shape[1:], np.float32)
+        for row in x:
+            total = total + row
+        return total
+    padded = -(-n // 32) * 32
+    xp = np.zeros((padded,) + x.shape[1:], np.float32)
+    xp[(padded - n) // 2:(padded - n) // 2 + n] = x
+    return _tree_sum(np.stack([_tree_sum(xp[b:b + 32])
+                               for b in range(0, padded, 32)]))
+
+
+def _vector_columns(out_size: int, step: int) -> int:
+    """Columns that an LLVM loop of ``step`` columns an iteration computes
+    in its vector body: all whole steps, unless the loop runs 10 steps or
+    fewer, which LLVM unrolls fully (its unroll analysis looks at loops of
+    up to 10 iterations) and so folds every column's constants."""
+    steps = out_size // step
+    return 0 if steps <= 10 else steps * step
+
+
 @functools.lru_cache(maxsize=None)
 def resize_weights(in_size: int, out_size: int) -> np.ndarray:
     """(in, out) f32 weights of ``jax.image.resize(method="linear")`` along
@@ -116,14 +150,16 @@ def resize_weights(in_size: int, out_size: int) -> np.ndarray:
     - in a vectorised loop body, the sample position ``(i + 0.5) *
       inv_scale - 0.5`` is one fused multiply-add, and ``1 - |y * c|`` is
       not fused (an ``fabs`` sits between the product and the difference);
-    - in columns that LLVM unrolled, the sample position is folded to a
-      constant rounded twice, and ``1 - |y| * c`` is one fused multiply-add.
-    The numerators' loop runs 8 columns a step (unrolled from ``out // 8 *
-    8`` on), the totals' loop 32 (unrolled from ``out // 32 * 32`` on, or
-    entirely below 352 columns). Each total is a reduce-window: 32-row
-    blocks summed in order, then the blocks in order. Read off the
-    optimised LLVM IR (``XLA_FLAGS=--xla_dump_to``) and bit-equal to the
-    compiled reference at the 3-level 480x640 pyramid's four sizes."""
+    - in columns whose index LLVM made a constant (the epilogue after the
+      vector body, or every column of a loop it unrolled fully), the sample
+      position is folded to a constant rounded twice, and ``1 - |y| * c``
+      is one fused multiply-add.
+    The weights' loop runs 8 columns a step and the totals' loop 32
+    (:func:`_vector_columns`). Each total is summed as :func:`_tree_sum`
+    sums. Read off the optimised LLVM IR and HLO (``XLA_FLAGS=
+    --xla_dump_to``), and bit-equal to the compiled reference at every
+    axis of the 3- and 8-level pyramids (scale 1.2) of 240x320, 480x640,
+    480x848, 720x1280, 960x1280 and 1080x1920, and at upsampling."""
     f32 = np.float32
     scale = out_size / in_size
     inv_scale = f32(1.0 / scale)
@@ -133,28 +169,22 @@ def resize_weights(in_size: int, out_size: int) -> np.ndarray:
     sample_const = centers * inv_scale + f32(-0.5)
     rows = np.arange(in_size, dtype=f32)[:, None]
 
-    def taps(sample_f, unrolled):
+    def taps(sample_f, folded):
         y = np.abs(sample_f[None, :] - rows)
-        if unrolled:
+        if folded:
             return np.maximum(f32(0), _fma_f32(-y, c, np.ones_like(y)))
         return np.maximum(f32(0), f32(1) - np.abs(y * c))
 
-    def loop(unrolled):
-        """(weights, sample positions) of a loop whose columns ``unrolled``
-        (bool (out,)) were unrolled by LLVM."""
-        return (np.where(unrolled[None, :], taps(sample_const, True),
+    def loop(step):
+        """(weights, sample positions) of a loop of ``step`` columns an
+        iteration."""
+        folded = np.arange(out_size) >= _vector_columns(out_size, step)
+        return (np.where(folded[None, :], taps(sample_const, True),
                          taps(sample_vec, False)),
-                np.where(unrolled, sample_const, sample_vec))
+                np.where(folded, sample_const, sample_vec))
 
-    col = np.arange(out_size)
-    weights, sample_f = loop(col >= out_size // 8 * 8)
-    summed, _ = loop(col >= (0 if out_size < 352 else out_size // 32 * 32))
-    total = np.zeros(out_size, f32)
-    for b in range(0, in_size, 32):
-        part = np.zeros(out_size, f32)
-        for row in summed[b:b + 32]:
-            part = part + row
-        total = total + part
+    weights, sample_f = loop(8)
+    total = _tree_sum(loop(32)[0])
     eps = f32(1000.0 * np.finfo(f32).eps)
     weights = np.where(np.abs(total) > eps,
                        weights / np.where(total != 0, total, f32(1)), f32(0))
@@ -162,53 +192,138 @@ def resize_weights(in_size: int, out_size: int) -> np.ndarray:
     return np.where(inside[None, :], weights, f32(0)).astype(f32)
 
 
-# How XLA's CPU GEMM (Eigen) sums each output of a resize product of shape
-# (rows, depth, cols), read off the compiled reference for the 3-level
-# 480x640 pyramid: "split" restarts the multiply-add chain at that depth and
-# adds the two chains; "parity" keeps one chain for even and one for odd
-# depths and adds them. Other shapes sum in one chain.
-_GEMM_ORDER = {(400, 480, 640): ("split", 240), (333, 480, 640): ("split", 240),
-               (400, 640, 533): ("parity", 2), (333, 640, 444): ("split", 512)}
+# How XLA's CPU dot sums each output of a resize product. The reference's
+# Eigen contraction hands blocks of the product to oneDNN's sgemm, and the
+# order over the depth k is one of three:
+# - "chain": one fused multiply-add chain a block of ``block`` depths, the
+#   blocks' sums added in order;
+# - "parity": in each block of ``block`` depths, one chain over the even and
+#   one over the odd depths of its first (block // 8 * 8), added, then the
+#   rest of the block chained on; the blocks added in order;
+# - "lanes": four chains over k mod 4, then (k0 + k1) + (k2 + k3).
+# The row product (the weights on the right, XLA's rows pass) chains:
+# Eigen's multi-threaded blocking caps a depth block at 320, and the
+# contraction kernel cuts the depth into equal slices, rounded up to 8
+# (_row_slice). The column product (the weights on the left) runs one
+# oneDNN call over the whole depth, whose kernel follows the product's
+# rows (the resize's output columns) in 16-row steps: ((cols - 1) // 16)
+# mod 4 picks lanes, parity, lanes, chain (_COLUMN_KERNELS); chain blocks
+# are 512 deep and parity blocks 1024. Both were read off the compiled
+# reference (tools/fit_resize_order.py): at every product of the grid
+# above and of 120x160, 360x640, 540x960, 600x800, 600x1024, 768x1024 and
+# 1200x1600 (3 and 8 levels), the row rule at every depth from 322 to 474
+# in steps of 8, the column rule at every width from 80 to 271 at depths
+# 320, 336, 480 and 640. The column product of a level of 50 image rows or
+# fewer runs other kernels (ROADMAP queue C).
+_COLUMN_KERNELS = ("lanes", "parity", "lanes", "chain")
+_BLOCK = {"chain": 512, "parity": 1024}
+
+
+def _row_slice(depth: int) -> int:
+    """Depth block of the row product: ``depth`` cut into ceil(depth / 320)
+    equal slices, rounded up to a multiple of 8 (Eigen's multi-threaded
+    ``k_cache`` cap and the contraction kernel's equal k-slices, rounded to
+    its packet of at least 8)."""
+    slices = -(-depth // 320)
+    return -(-(depth // slices) // 8) * 8
+
+
+def gemm_order(depth: int, cols: int, rows_pass: bool) -> Tuple[str, int]:
+    """(kind, block) of the summation order of a resize product of depth
+    ``depth`` into ``cols`` outputs (see ``_COLUMN_KERNELS``)."""
+    if rows_pass:
+        return "chain", _row_slice(depth)
+    kind = _COLUMN_KERNELS[(cols - 1) // 16 % 4]
+    return kind, _BLOCK.get(kind, depth)
+
+
+def _tap_groups(in_size: int, taps: np.ndarray, kind: str, block: int
+                ) -> np.ndarray:
+    """Group of each tap (ascending depths) of one output: the chain it is
+    summed in. "chain": its block, counted from the output's first;
+    "parity": 3 per block (even, odd, rest); "lanes": k mod 4."""
+    if kind == "lanes":
+        return taps % 4
+    first = taps[0] // block
+    if kind == "chain":
+        return taps // block - first
+    start = taps // block * block
+    peeled = np.minimum(block, in_size - start) & ~7
+    rel = taps - start
+    cls = np.where(rel < peeled, rel % 2, 2)
+    return 3 * (taps // block - first) + cls
 
 
 @functools.lru_cache(maxsize=None)
-def _tap_tables(in_size: int, out_size: int, gemm: Tuple[int, int, int],
+def _tap_tables(in_size: int, out_size: int, order: Tuple[str, int],
                 device: torch.device):
-    """(2, out, T) input indices and weights of each output's taps, split
-    into the two chains of the product's summation order, increasing
-    index within a chain, zero weight where a chain has fewer taps."""
+    """(G, out, T) input indices and f64 weights of each output's taps, one
+    row a group of :func:`_tap_groups`, ascending depth within a group,
+    zero weight where a group has fewer taps; and each group's most taps
+    of any output, the steps its chain needs."""
     w = resize_weights(in_size, out_size)
-    how, at = _GEMM_ORDER.get(gemm, ("split", in_size))
-    chains = [[[], []] for _ in range(out_size)]
+    kind, block = order
+    groups = []
     for o in range(out_size):
-        for i in np.nonzero(w[:, o])[0]:
-            g = (i >= at) if how == "split" else i % at
-            chains[o][int(g)].append(i)
-    t = max(1, max(len(c) for ch in chains for c in ch))
-    idx = np.zeros((2, out_size, t), np.int64)
-    wt = np.zeros((2, out_size, t), np.float64)
-    for o, ch in enumerate(chains):
-        for g, taps in enumerate(ch):
-            idx[g, o, :len(taps)] = taps
-            wt[g, o, :len(taps)] = w[taps, o]
+        taps = np.nonzero(w[:, o])[0]
+        g = _tap_groups(in_size, taps, kind, block) if len(taps) else taps
+        groups.append((taps, g))
+    n_groups = max([4 if kind == "lanes" else 1]
+                   + [int(g.max()) + 1 for t, g in groups if len(t)])
+    if kind == "parity":
+        n_groups = -(-n_groups // 3) * 3
+    steps = tuple(max(int((g == j).sum()) for _, g in groups)
+                  for j in range(n_groups))
+    idx = np.zeros((n_groups, out_size, max((1,) + steps)), np.int64)
+    wt = np.zeros(idx.shape, np.float64)
+    for o, (taps, g) in enumerate(groups):
+        for j in range(n_groups):
+            sel = taps[g == j]
+            idx[j, o, :len(sel)] = sel
+            wt[j, o, :len(sel)] = w[sel, o]
     return (torch.from_numpy(idx).to(device),
-            torch.from_numpy(wt).to(device))
+            torch.from_numpy(wt).to(device), steps)
+
+
+def _chain(x: torch.Tensor, idx: torch.Tensor, wt: torch.Tensor,
+           acc: torch.Tensor, steps: int) -> torch.Tensor:
+    """``acc = fma(w_t, x[idx_t], acc)`` over a table's first ``steps``
+    taps in order, one rounding each (a zero weight leaves acc as it
+    is)."""
+    for t in range(steps):
+        acc = fma_f32(x[idx[..., t]], wt[..., t, None], acc)
+    return acc
 
 
 def _resize_rows(x: torch.Tensor, out_size: int,
-                 gemm: Tuple[int, int, int]) -> torch.Tensor:
-    """``W^T @ x`` for the (in, out) resize weights of x's first axis, summed
-    as the reference's GEMM of shape ``gemm`` sums: per chain, one rounding
-    per multiply-add (f32 products are exact in f64), then chain 0 +
-    chain 1."""
-    idx, wt = _tap_tables(x.shape[0], out_size, gemm, x.device)
-    x64 = x.to(torch.float64)
-    acc = torch.zeros((2, out_size, x.shape[1]), dtype=torch.float32,
-                      device=x.device)
-    for t in range(idx.shape[2]):
-        acc = (wt[:, :, t, None] * x64[idx[:, :, t]]
-               + acc.to(torch.float64)).to(torch.float32)
-    return acc[0] + acc[1]
+                 order: Tuple[str, int]) -> torch.Tensor:
+    """``W^T @ x`` for the (in, out) resize weights of x's first axis,
+    summed in the reference's ``order`` (:func:`gemm_order`). A group's
+    chain runs only as many steps as its outputs have taps, so a group
+    that no output reaches (the parity rest when the depth is a multiple
+    of 8 under the block) costs nothing."""
+    idx, wt, steps = _tap_tables(x.shape[0], out_size, order, x.device)
+    zero = torch.zeros((out_size, x.shape[1]), dtype=torch.float32,
+                       device=x.device)
+    kind = order[0]
+    if kind == "lanes":
+        lane = _chain(x, idx, wt, zero.expand(4, -1, -1), max(steps))
+        return (lane[0] + lane[1]) + (lane[2] + lane[3])
+    if kind == "chain":
+        part = _chain(x, idx, wt, zero.expand(idx.shape[0], -1, -1),
+                      max(steps))
+        out = part[0]
+        for p in part[1:]:
+            out = out + p
+        return out
+    out = None
+    for b in range(0, idx.shape[0], 3):
+        even_odd = _chain(x, idx[b:b + 2], wt[b:b + 2],
+                          zero.expand(2, -1, -1), max(steps[b:b + 2]))
+        acc = _chain(x, idx[b + 2], wt[b + 2], even_odd[0] + even_odd[1],
+                     steps[b + 2])
+        out = acc if out is None else out + acc
+    return out
 
 
 def resize_bilinear(image: torch.Tensor,
@@ -216,13 +331,13 @@ def resize_bilinear(image: torch.Tensor,
     """Antialiased linear resize, the ``jax.image.resize(method="linear")``
     op the reference uses (not ``F.interpolate``, which does not low-pass
     when downsampling): rows first, then columns, each a banded product
-    summed as the compiled reference sums it (``_GEMM_ORDER``)."""
+    summed as the compiled reference sums it (:func:`gemm_order`)."""
     x = image.to(torch.float32)
     (h, w), (oh, ow) = x.shape, out_hw
     if oh != h:
-        x = _resize_rows(x, oh, (oh, h, w))
+        x = _resize_rows(x, oh, gemm_order(h, oh, True))
     if ow != w:
-        x = _resize_rows(x.T, ow, (x.shape[0], w, ow)).T
+        x = _resize_rows(x.T, ow, gemm_order(w, ow, False)).T
     return x
 
 
