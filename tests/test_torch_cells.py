@@ -7,9 +7,8 @@ frames) and the training fixture's views (tests/data/torch_train_fixture.npz),
 at small feature counts. Contracts:
 
 - FeatureDescriptor: keypoints bit for bit (Harris responses within
-  test_torch_features.py's bound, angles within ``ANGLE_ATOL``), ORB
-  descriptors bit for bit, SIFT
-  descriptors within ``DESC_ATOL`` (queue C of ROADMAP.md);
+  test_torch_features.py's bound; angles, the host libm's ``atan2f``, bit
+  for bit), ORB and SIFT descriptors bit for bit;
 - RescaledRegisteredDepth and DepthTo3d: bit for bit against the
   reference's eager cells (NaN where invalid);
 - DescriptorMatcher: every field of the MatchSet, the matched 3D points,
@@ -41,7 +40,7 @@ import tod_tpu_torch.db as tdb
 from tod_tpu_torch.models import TodDetector, TodTrainer
 from tod_tpu_torch.pipeline import Scheduler, build_pipeline_from_ork
 from tod_tpu_torch.types import fixture_observations
-from test_torch_sift import DESC_ATOL
+from test_torch_sift import assert_same_descriptors
 from torch_parity import native_library
 
 torch.set_num_threads(1)
@@ -52,7 +51,6 @@ TRAIN = os.path.join(DATA, "torch_train_fixture.npz")
 POSE_TOL = (1e-4, 0.05)     # meters, degrees
 POSE_TOL_2D = (0.01, 2.0)   # the 2D-only path's end-to-end contract
 L2_RTOL = 1e-5              # the f32 product's order (ROADMAP queue C)
-ANGLE_ATOL = 4.8e-7         # two ulps at pi: XLA's atan2 (ROADMAP queue C)
 N_FEATURES = 800
 CPU = {"device": "cpu"}
 
@@ -127,10 +125,8 @@ def test_feature_descriptor_matches_reference(fx, kind):
     for name in ("xy", "level", "valid"):
         np.testing.assert_array_equal(getattr(pk, name),
                                       np.asarray(getattr(rk, name)), name)
-    # XLA's atan2 is 1 ulp off the library's in ~15 % of inputs (ROADMAP
-    # queue C): angles within two ulps at pi
-    np.testing.assert_allclose(pk.angle, np.asarray(rk.angle), rtol=0,
-                               atol=ANGLE_ATOL)
+    # XLA's atan2 calls the host libm's atan2f, which ops/libm.py computes
+    np.testing.assert_array_equal(pk.angle, np.asarray(rk.angle))
     # responses carry the Harris rounding bound of test_torch_features.py
     r = np.asarray(rk.response)
     fin = np.isfinite(r)
@@ -140,7 +136,7 @@ def test_feature_descriptor_matches_reference(fx, kind):
     if kind == "ORB":
         np.testing.assert_array_equal(pd, rd)
     else:
-        np.testing.assert_allclose(pd, rd, rtol=0, atol=DESC_ATOL)
+        assert_same_descriptors(torch.from_numpy(np.asarray(pd)), rd)
 
 
 @pytest.mark.parametrize("case", ["u16", "float", "rescaled"])

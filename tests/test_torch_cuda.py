@@ -787,3 +787,100 @@ def test_sharded_matchers_on_the_card():
         got = sharded_object_top1(mesh, q, sdb)
         assert all(torch.equal(a, b) for a, b in
                    zip(got, tseg.object_top1(q, one)))
+
+
+# ---- L1 (the host libm's atan2f) and L2 (the SIFT contraction) -------------
+
+def _atan2_pairs():
+    """Random pairs over 6 decades, all integer pairs in [-255, 255]^2 and
+    the special values, as float32 (y, x)."""
+    rng = np.random.default_rng(11)
+    n = 1_000_000
+    y = rng.standard_normal(n) * 10.0 ** rng.uniform(-3, 3, n)
+    x = rng.standard_normal(n) * 10.0 ** rng.uniform(-3, 3, n)
+    g = np.arange(-255, 256)
+    gy, gx = (a.ravel() for a in np.meshgrid(g, g, indexing="ij"))
+    vals = np.array([0.0, -0.0, np.inf, -np.inf, np.nan, 1.0, -1.0, 1e-45,
+                     1.17549435e-38, 3.4028235e38, 2.0 ** 26, 2.0 ** 60,
+                     2.0 ** -60])
+    sy, sx = (a.ravel() for a in np.meshgrid(vals, vals, indexing="ij"))
+    return (np.concatenate([y, gy, sy]).astype(np.float32),
+            np.concatenate([x, gx, sx]).astype(np.float32))
+
+
+@pytest.mark.cuda
+def test_l1_matches_plain_atan2f():
+    """Kernel L1 against the plain version on the CPU, bit for bit (NaN
+    where NaN), over 10^6 random pairs, every integer pair of 8-bit
+    differences and the special values; one launch a call."""
+    from tod_tpu_torch.ops import libm
+
+    dev = _cuda()
+    y, x = (torch.from_numpy(a) for a in _atan2_pairs())
+    want = libm.atan2f_torch(y, x)
+    before = libm.atan2f.launches
+    got = libm.atan2f(y.to(dev), x.to(dev)).cpu()
+    assert libm.atan2f.launches == before + 1
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    assert torch.equal(got[~nan].view(torch.int32),
+                       want[~nan].view(torch.int32))
+    assert libm.atan2f(y[:0].to(dev), x[:0].to(dev)).shape == (0,)
+
+
+def _soft_bins(k_count: int, seed: int):
+    """(K, 1369, 8) weights as sift_descriptors makes them (each pixel's
+    magnitude split between two neighbouring orientation bins) and (K,)
+    angle bins."""
+    rng = np.random.default_rng(seed)
+    mag = (rng.random((k_count, 1369)) * 90).astype(np.float32)
+    frac = rng.random((k_count, 1369)).astype(np.float32)
+    b0 = rng.integers(0, 8, (k_count, 1369))
+    t = np.zeros((k_count, 1369, 8), np.float32)
+    np.put_along_axis(t, b0[..., None], (mag * (1 - frac))[..., None], 2)
+    np.put_along_axis(t, ((b0 + 1) % 8)[..., None], (mag * frac)[..., None],
+                      2)
+    return torch.from_numpy(t), torch.from_numpy(rng.integers(0, 32, k_count))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k_count, batch", [(1, 1), (3, 1), (4, 1), (7, 1),
+                                            (30, 1), (905, 1), (1978, 1),
+                                            (271, 12), (330, 2)])
+def test_l2_matches_plain_contraction(k_count, batch):
+    """Kernel L2 (contraction in the reference's order and Lowe's
+    normalisation) against the plain versions on the CPU, bit for bit, in
+    each summation order (lanes, parity, chain) and at the serving and
+    training widths; one launch a call."""
+    from tod_tpu_torch.ops import sift as tsift
+
+    dev = _cuda()
+    t, bins = _soft_bins(k_count, k_count)
+    want = tsift.sift_normalize_torch(tsift.sift_contract_torch(
+        t, bins, batch).reshape(k_count, -1))
+    before = tsift.sift_histograms.launches
+    got = tsift.sift_histograms(t.to(dev), bins.to(dev), batch).cpu()
+    assert tsift.sift_histograms.launches == before + 1
+    assert torch.equal(got, want), tsift.contraction_order(k_count, batch)
+
+
+@pytest.mark.cuda
+def test_features_on_the_card_equal_the_cpus():
+    """ORB and SIFT through L1 and L2 on the card: keypoints, angles and
+    descriptors equal the CPU's plain path, bit for bit (the Harris
+    responses are held elsewhere)."""
+    from tod_tpu_torch.ops import orb as torb
+    from tod_tpu_torch.ops import sift as tsift
+
+    dev = _cuda()
+    rng = np.random.default_rng(2)
+    gray = torch.from_numpy(np.kron(rng.integers(0, 256, (30, 40)),
+                                    np.ones((8, 8))).astype(np.float32))
+    for detect in (torb.orb_detect_and_compute,
+                   tsift.sift_detect_and_compute):
+        k_c, d_c = detect(gray, n_features=1000)
+        k_g, d_g = detect(gray.to(dev), n_features=1000)
+        for name in ("xy", "angle", "level", "valid"):
+            assert torch.equal(getattr(k_c, name), getattr(k_g, name).cpu())
+        assert torch.equal(d_c, d_g.cpu())
+        assert int(k_c.valid.sum()) > 200

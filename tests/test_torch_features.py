@@ -205,15 +205,17 @@ def test_extract_patches_and_brief_match():
     xy = np.stack([rng.integers(torb.PATCH_R, W, n),
                    rng.integers(torb.PATCH_R, H, n)], -1).astype(np.int32)
     angle = rng.uniform(-np.pi, np.pi, n).astype(np.float32)
-    # half-bin angles: the round-half-even bin rule must agree as well
+    # half-bin angles: the round-half-even bin rule must agree as well, as
+    # the compiled reference applies it (a multiply by the step's
+    # reciprocal, which sends 7.5 steps to bin 7 where a division sends it
+    # to 8)
     angle[:8] = (np.arange(8) + 0.5) * np.float32(2 * np.pi / 32)
     p_j = np.asarray(jorb.extract_patches(jnp.asarray(blurred),
                                           jnp.asarray(xy)))
     p_t = torb.extract_patches(_t(blurred), _t(xy)).numpy()
     np.testing.assert_array_equal(p_t, p_j)
-    d_j = np.asarray(jorb.brief_descriptors(jnp.asarray(blurred),
-                                            jnp.asarray(xy),
-                                            jnp.asarray(angle)))
+    d_j = np.asarray(jax.jit(jorb.brief_descriptors)(
+        jnp.asarray(blurred), jnp.asarray(xy), jnp.asarray(angle)))
     d_t = torb.brief_descriptors(_t(blurred), _t(xy), _t(angle)).numpy()
     # bf16-rounded intensities compared exactly: byte-identical
     np.testing.assert_array_equal(d_t, d_j)

@@ -6,15 +6,14 @@ full sweep and coarse->fine with tracked and exploration slots, on the SIFT
 fixture's three trained models (every 4th row kept, so that it runs in
 seconds) with five seeded fillers over the smoke fixture's frames.
 
-Float descriptors are not bit-equal: the reference contracts 1,369 pixels in
-float32 in XLA's order, PyTorch in its own, and the keypoint angle enters the
-orientation histogram as a continuous value (it agrees to ~5e-6 rad, see
-test_torch_features.py::test_orientation_matches). Quantisation then moves
-an int8 entry by one wherever ``d * 256`` lies that close to a half. So the
-float descriptors are held to a stated tolerance, the quantised ones to
-"equal, or off by one in a stated share", and wherever the matcher, the slab
-or the geometry is held exactly the reference's quantised queries are handed
-to the port, as its RANSAC draws are (torch_parity).
+Keypoint angles, float descriptors and their quantised rows equal the
+compiled reference's bit for bit: the port takes the host libm's ``atan2f``
+(``ops/libm.py``), the reference's fused sum of squares, and the summation
+order of the oneDNN kernel under XLA's dot, which depends on the product's
+width (``contraction_order``: lanes, parity or chain). The detectors run on
+the port's own compacted queries (each frame's computed once and shared by
+the tests, ``_own_compaction``), with the reference's RANSAC draws injected
+(torch_parity).
 """
 
 import dataclasses
@@ -50,13 +49,13 @@ torch.set_num_threads(1)
 
 DATA = os.path.join(os.path.dirname(__file__), "data")
 SEED = 5
-# Float descriptors (unit norm, entries <= ~0.3): the angle's ~5e-6 rad gap
-# moves the soft orientation bins by ~6e-6 of a bin and the contraction's
-# order adds a few ulps; 2e-5 bounds both (5.8e-6 seen on the small frame).
-DESC_ATOL = 2e-5
-# Quantised entries that may differ, by one, from the reference's: seen 0 of
-# 38,400 on the small frame and 7 and 10 of 262,144 on the fixture's frames.
-QUANT_SHARE = 2e-4
+# Keypoint counts of the exact-descriptor cases and the order that XLA's
+# dot sums each in (its 8 K columns: 24 or fewer chain in lanes, then
+# ((8 K - 1) // 16) mod 4 picks lanes, parity, lanes, chain, which change
+# past 7,280 and 10,896 columns: the serving levels of 5000 features)
+ORDER_CASES = [(1, "lanes"), (3, "lanes"), (4, "parity"), (7, "chain"),
+               (30, "lanes"), (96, "chain"), (1374, "chain"),
+               (1978, "parity")]
 
 
 def _gray():
@@ -64,11 +63,14 @@ def _gray():
     return np.asarray(jimage.rgb_to_gray(jnp.asarray(img)))
 
 
-def _quant_gap(port_i8: np.ndarray, ref_i8: np.ndarray) -> float:
-    """Share of int8 entries that differ; none may differ by more than 1."""
-    diff = port_i8.astype(np.int32) - ref_i8.astype(np.int32)
-    assert np.abs(diff).max() <= 1
-    return float((diff != 0).mean())
+def assert_same_descriptors(d_t: torch.Tensor, d_j) -> None:
+    """Float descriptors and their quantised int8 rows, bit for bit."""
+    d_j = np.asarray(d_j)
+    assert d_t.dtype == torch.float32 and tuple(d_t.shape) == d_j.shape
+    np.testing.assert_array_equal(d_t.numpy(), d_j)
+    np.testing.assert_array_equal(
+        tl2.quantize_descriptors(d_t).numpy(),
+        np.asarray(jl2.quantize_descriptors(jnp.asarray(d_j))))
 
 
 def test_spatial_tables_equal():
@@ -78,35 +80,113 @@ def test_spatial_tables_equal():
         == (jsift.N_SPATIAL, jsift.N_ORI, jsift.DESC_DIM, jsift.SUPPORT_R)
 
 
-def test_sift_descriptors_match():
-    """The same keypoints and angles through both: the descriptor alone."""
+def _describe_case(n: int, seed: int):
     g = _gray()
     blurred = np.asarray(jimage.gaussian_blur(jnp.asarray(g), 7, 1.6))
-    rng = np.random.default_rng(2)
-    n = 96
+    rng = np.random.default_rng(seed)
     xy = np.stack([rng.integers(jorb.PATCH_R, 160 - jorb.PATCH_R, n),
                    rng.integers(jorb.PATCH_R, 120 - jorb.PATCH_R, n)],
                   -1).astype(np.int32)
     angle = rng.uniform(-np.pi, np.pi, n).astype(np.float32)
-    # half-bin angles (the spatial table's round-half-even rule) and +-pi
+    return blurred, xy, angle
+
+
+def test_sift_descriptors_match():
+    """The same keypoints and angles through both: the descriptor alone,
+    against the compiled reference, with half-bin angles and +-pi."""
+    blurred, xy, angle = _describe_case(96, 2)
+    # half-bin angles (the spatial table's round-half-even rule, applied as
+    # the compiled reference applies it: a multiply by the step's
+    # reciprocal sends 7.5 steps to bin 7) and +-pi
     angle[:8] = (np.arange(8) + 0.5) * np.float32(2 * np.pi / 32)
     angle[8:10] = [np.pi, -np.pi]
-    # Run eagerly, as test_torch_features.py runs brief_descriptors: compiled,
-    # XLA turns the bin rule's division by a constant into a multiply by its
-    # reciprocal, which sends the exact half-bin angle 7.5 * (2 pi / 32) to
-    # bin 7, not 8 (3 of 100,000 seeded angles, all of them exact half
-    # bins; the moments of real keypoints do not produce one).
-    d_j = np.asarray(jsift.sift_descriptors(
-        jnp.asarray(blurred), jnp.asarray(xy), jnp.asarray(angle)))
+    d_j = jax.jit(jsift.sift_descriptors)(
+        jnp.asarray(blurred), jnp.asarray(xy), jnp.asarray(angle))
     d_t = tsift.sift_descriptors(_t(blurred), _t(xy), _t(angle))
-    assert d_t.dtype == torch.float32 and tuple(d_t.shape) == (n, 128)
-    # equal inputs: only the contraction's order and atan2's rounding differ
-    np.testing.assert_allclose(d_t.numpy(), d_j, rtol=0, atol=2e-6)
+    assert_same_descriptors(d_t, d_j)
     np.testing.assert_allclose(np.linalg.norm(d_t.numpy(), axis=1), 1.0,
                                atol=1e-5)
-    q_j = np.asarray(jl2.quantize_descriptors(jnp.asarray(d_j)))
-    assert _quant_gap(tl2.quantize_descriptors(d_t).numpy(), q_j) \
-        <= QUANT_SHARE
+
+
+@pytest.mark.parametrize("n, kind", ORDER_CASES)
+def test_sift_descriptors_exact_in_each_order(n, kind):
+    """Descriptors of ``n`` keypoints bit for bit, for each summation order
+    of the reference's contraction."""
+    assert tsift.contraction_order(n)[0] == kind
+    blurred, xy, angle = _describe_case(n, 10 + n)
+    d_j = jax.jit(jsift.sift_descriptors)(
+        jnp.asarray(blurred), jnp.asarray(xy), jnp.asarray(angle))
+    assert_same_descriptors(
+        tsift.sift_descriptors(_t(blurred), _t(xy), _t(angle)), d_j)
+
+
+def test_serving_float_descriptors_match_fixture_digest():
+    """At the served SIFT config (5000 features, 3 levels) on the smoke
+    fixture's frame 0, prepared as ``FusedDetector`` prepares it, the
+    port's float descriptors before quantisation, every slot, have the
+    digest of the reference's (``ref_desc_digest``, written by
+    tools/make_torch_sift_fixture.py): their level-0 and level-1
+    contractions are 8 K = 10,992 and 15,824 columns wide, orders that the
+    int8 rows alone could not tell apart (chip_smoke.py phase 4d holds
+    both frames on the card)."""
+    from tod_tpu_torch.utils.camera_sizes import digest
+
+    fx = np.load(os.path.join(DATA, "torch_smoke_fixture.npz"))
+    sx = np.load(os.path.join(DATA, "torch_sift_fixture.npz"))
+    cfg = json.loads(str(sx["config_json"]))
+    gray = tfused.prepare_frame(fx["images"][0], fx["depths"][0], fx["K"],
+                                "cpu")[0]
+    _, desc = tsift.sift_detect_and_compute(
+        gray, n_features=cfg["n_features"], n_levels=cfg["n_levels"],
+        scale_factor=cfg["scale_factor"],
+        fast_threshold=cfg["fast_threshold"])
+    assert digest(desc.numpy()) == str(sx["ref_desc_digest"][0])
+
+
+def test_contraction_taps_and_histograms():
+    """The tap tables hold every nonzero table entry once, in its partial
+    sum, with its slot in the pixels its angle bin reads (every pixel that
+    a cell of the bin reads, and no other); the CPU wrapper is the plain
+    contraction and normalisation; the wrapper refuses what it cannot
+    take."""
+    tables = tsift._spatial_tables()
+    for kind, block in {tsift.contraction_order(k) for k in (1, 4, 7)}:
+        taps_ = tsift._contraction_taps((kind, block))
+        starts, weights = taps_.starts, taps_.weights
+        idx, wt = taps_.idx, taps_.wt
+        # each tap's pixel, from its slot in its column's bin's pixels
+        bin_of_tap = np.repeat(np.arange(512) // 16,
+                               np.diff(starts[::4]))
+        depths = taps_.pixels[taps_.pixel_starts[bin_of_tap] + taps_.slots]
+        assert starts[-1] == len(depths) == np.count_nonzero(tables)
+        for b in range(32):
+            pixels = taps_.pixels[taps_.pixel_starts[b]:
+                                  taps_.pixel_starts[b + 1]]
+            assert len(pixels) <= tsift.MAX_PIXELS
+            np.testing.assert_array_equal(
+                pixels, np.nonzero(tables[:, 16 * b:16 * b + 16].any(1))[0])
+        for col in (0, 77, 511):
+            seg = starts[4 * col:4 * col + 5]
+            taps = depths[seg[0]:seg[-1]]
+            assert sorted(taps) == list(np.nonzero(tables[:, col])[0])
+            for g in range(4):
+                part = depths[seg[g]:seg[g + 1]]
+                assert (np.diff(part) > 0).all()
+                assert (tsift.contraction_groups(part, kind, block) == g).all()
+                np.testing.assert_array_equal(idx[g, col, :len(part)], part)
+                assert not wt[g, col, len(part):].any()
+            np.testing.assert_array_equal(weights[seg[0]:seg[-1]],
+                                          tables[taps, col])
+    rng = np.random.default_rng(3)
+    t = torch.from_numpy(rng.random((5, tsift.DEPTH, 8)).astype(np.float32))
+    bins = torch.from_numpy(rng.integers(0, 32, 5))
+    assert torch.equal(tsift.sift_histograms(t, bins),
+                       tsift.sift_normalize_torch(
+                           tsift.sift_contract_torch(t, bins).reshape(5, -1)))
+    with pytest.raises(ValueError):
+        tsift.sift_histograms(t[:, :100], bins)
+    with pytest.raises(ValueError):
+        tsift.sift_histograms(t.to("meta"), bins.to("meta"))
 
 
 def test_sift_detect_and_compute_matches():
@@ -117,23 +197,17 @@ def test_sift_detect_and_compute_matches():
     k_t, d_t = tsift.sift_detect_and_compute(_t(g), **kw)
     valid = np.asarray(k_j.valid)
     assert valid.sum() > 150
-    # keypoints come from the exactly-held detector: equal
-    for name in ("xy", "level", "valid"):
+    # keypoints come from the exactly-held detector, angles from the host
+    # libm's atan2f: equal
+    for name in ("xy", "level", "valid", "angle"):
         np.testing.assert_array_equal(getattr(k_t, name).numpy(),
                                       np.asarray(getattr(k_j, name)), name)
     # responses carry the Harris rounding bound of test_torch_features.py
     r_j = np.asarray(k_j.response)[valid]
     np.testing.assert_allclose(k_t.response.numpy()[valid], r_j, rtol=0,
                                atol=1e-4 * np.abs(r_j).max())
-    # the angle within test_orientation_matches' bound (2 / |moment|)
-    np.testing.assert_allclose(k_t.angle.numpy()[valid],
-                               np.asarray(k_j.angle)[valid], atol=2e-5)
-    np.testing.assert_allclose(d_t.numpy(), np.asarray(d_j), rtol=0,
-                               atol=DESC_ATOL)
+    assert_same_descriptors(d_t, d_j)
     assert not d_t.numpy()[~valid].any()
-    q_j = np.asarray(jl2.quantize_descriptors(d_j))
-    assert _quant_gap(tl2.quantize_descriptors(d_t).numpy(), q_j) \
-        <= QUANT_SHARE
     # a keypoint mask (training's) restricts detection as the reference's
     mask = np.zeros(g.shape, np.uint8)
     mask[20:100, 30:125] = 255
@@ -213,11 +287,25 @@ def _reference_queries(jd, world, f):
     return jd._stages[0](*jd.prepare_frame(image, depth, world["fx"]["K"]))
 
 
-def _inject(monkeypatch, ref):
-    """Hand the port the reference's compaction outputs (xy, 3D points,
-    quantised descriptors, ok) in place of its own."""
-    out = tuple(torch.from_numpy(np.array(a)) for a in ref)
-    monkeypatch.setattr(tfused, "stage_features_compact", lambda *a: out)
+_COMPACTED = {}
+_own_features = tfused.stage_features_compact
+
+
+def _own_compaction(gray, depth, K, cfg):
+    """The port's own compaction outputs, each frame's computed once for
+    the module (the tests' configs share their feature and compaction
+    fields)."""
+    key = (gray.numpy().tobytes(), depth.numpy().tobytes(),
+           K.numpy().tobytes(), cfg.feature, cfg.n_features, cfg.n_levels,
+           cfg.scale_factor, cfg.fast_threshold, cfg.q_cap, cfg.bucket_grid)
+    if key not in _COMPACTED:
+        _COMPACTED[key] = _own_features(gray, depth, K, cfg)
+    return tuple(t.clone() for t in _COMPACTED[key])
+
+
+@pytest.fixture
+def own_features(monkeypatch):
+    monkeypatch.setattr(tfused, "stage_features_compact", _own_compaction)
 
 
 def _assert_same_detections(td, det_t, det_j, what):
@@ -257,33 +345,29 @@ def test_packed_dbs_equal_the_reference(world):
 
 
 def test_compaction_matches_at_small_size(world):
-    """The port's own features against the reference's: keypoints, 3D points
-    and ok equal; quantised descriptors off by one in at most QUANT_SHARE
-    of the entries."""
+    """The port's own features against the reference's: keypoints, 3D
+    points, quantised descriptors and ok equal."""
     jd, td = _pair(world, _config())
     for f in range(2):
         xy, qp, dsc, ok = (np.asarray(a) for a in
                            _reference_queries(jd, world, f))
         image, depth = world["frames"][f]
-        port = [t.numpy() for t in tfused.stage_features_compact(
+        port = [t.numpy() for t in _own_compaction(
             *td.prepare_frame(image, depth, world["fx"]["K"]), td.config)]
         np.testing.assert_array_equal(port[0], xy)
         np.testing.assert_array_equal(port[1], qp)
         np.testing.assert_array_equal(port[3], ok)
         assert port[2].dtype == np.int8 and ok.sum() > 900
-        share = _quant_gap(port[2], dsc)
-        print(f"frame {f}: quantised entries off by one: {share:.2e}")
-        assert share <= QUANT_SHARE
+        np.testing.assert_array_equal(port[2], dsc)
 
 
-def test_full_sweep_detector_matches_reference(world, monkeypatch):
+def test_full_sweep_detector_matches_reference(world, own_features):
     cfg = _config()
     jd, td = _pair(world, cfg)
     found = []
     for f in range(2):
         image, depth = world["frames"][f]
         ref = _reference_queries(jd, world, f)
-        _inject(monkeypatch, ref)
         td.noise = JaxReplayNoise(world["keys"][f],
                                   cfg.guess.ransac.max_instances)
         d_j, r_j = jd._stages[1](ref[2], jd.sdb)
@@ -298,7 +382,7 @@ def test_full_sweep_detector_matches_reference(world, monkeypatch):
     assert len({r.object_id for r in found}) >= 2
 
 
-def test_streaming_detector_matches_reference(world, monkeypatch):
+def test_streaming_detector_matches_reference(world, own_features):
     cfg = _config(**STREAMING)
     jd, td = _pair(world, cfg)
     slabs = []
@@ -312,7 +396,6 @@ def test_streaming_detector_matches_reference(world, monkeypatch):
     jd._coarse = (recording_c1, c2, c3)
     n_acc = 0
     for f, (image, depth) in enumerate(world["frames"]):
-        _inject(monkeypatch, _reference_queries(jd, world, f))
         td.noise = JaxReplayNoise(world["keys"][f],
                                   cfg.guess.ransac.max_instances)
         _, det_j = jd.detect_raw(image, depth, world["fx"]["K"])

@@ -6,8 +6,8 @@ tests/data/torch_train_fixture.npz (tools/make_torch_train_fixture.py: the
 bench's objects 0-2, 60 views each, trained by the reference's batched
 program). Contracts: integer outputs, masks and kept rows bit for bit;
 float points bit for bit (camera_to_world from K = 40 rows on, the shapes
-the trainer meets); SIFT descriptors within 2e-5 and the quantisation share
-of test_torch_sift.py. The reference's training runs compiled
+the trainer meets); SIFT descriptors and their quantised rows bit for bit
+(test_torch_sift.py). The reference's training runs compiled
 (``jax.jit``), so the reference side here is compiled too.
 """
 
@@ -28,7 +28,6 @@ from tod_tpu.ops import image as jimage
 from tod_tpu.ops import morphology as jmorph
 from tod_tpu.ops import orb as jorb
 from tod_tpu.ops import sift as jsift
-from tod_tpu.ops.pallas import segmented_l2 as jl2
 from tod_tpu_torch.cells import trainer as ttrainer
 from tod_tpu_torch.geometry import transforms as ttf
 from tod_tpu_torch.ops import compress as tcompress
@@ -36,13 +35,12 @@ from tod_tpu_torch.ops import depth as tdepth
 from tod_tpu_torch.ops import image as timage
 from tod_tpu_torch.ops import morphology as tmorph
 from tod_tpu_torch.ops import orb as torb
-from tod_tpu_torch.ops import segmented_l2 as tl2
 from tod_tpu_torch.ops import sift as tsift
 from tod_tpu_torch.parallel import train as ttrain
 from tod_tpu_torch.types import fixture_observations
 from tod_tpu_torch.utils.smoke_catalog import dedup_case_arrays
 from test_torch_features import _frame
-from test_torch_sift import DESC_ATOL, QUANT_SHARE, _quant_gap
+from test_torch_sift import assert_same_descriptors
 from torch_parity import native_library
 
 torch.set_num_threads(1)
@@ -301,8 +299,8 @@ def test_masked_orb_matches_on_fixture_views(fx, obj, view):
 
 
 def test_masked_sift_matches():
-    """SIFT with a mask on the small seeded frame: keypoints exact,
-    descriptors within 2e-5, quantised entries as test_torch_sift.py."""
+    """SIFT with a mask on the small seeded frame: keypoints, descriptors
+    and their quantised rows bit for bit."""
     img, _ = _frame()
     gray = np.array(jimage.rgb_to_gray(jnp.asarray(img)))
     mask = np.zeros(gray.shape, np.uint8)
@@ -315,11 +313,7 @@ def test_masked_sift_matches():
     for name in ("xy", "level", "valid"):
         np.testing.assert_array_equal(getattr(k_t, name).numpy(),
                                       np.asarray(getattr(k_j, name)), name)
-    np.testing.assert_allclose(d_t.numpy(), np.asarray(d_j), rtol=0,
-                               atol=DESC_ATOL)
-    assert _quant_gap(tl2.quantize_descriptors(d_t).numpy(),
-                      np.asarray(jl2.quantize_descriptors(d_j))) \
-        <= QUANT_SHARE
+    assert_same_descriptors(d_t, d_j)
     unmasked, _ = tsift.sift_detect_and_compute(torch.from_numpy(gray), **kw)
     assert 50 < int(k_t.valid.sum()) < int(unmasked.valid.sum())
 
@@ -361,6 +355,54 @@ def test_train_views_step_matches_stored_reference(fx):
     both = v_s & valid[:1]
     assert torch.equal(d_s, desc[:1]) and both.sum() > 300
     assert not torch.equal(w_s[both], world[:1][both])
+
+
+@pytest.mark.parametrize("feature_type", ["ORB", "SIFT"])
+def test_small_view_batch_matches_compiled_reference(fx, feature_type):
+    """Three of object 0's views taken every 3rd pixel (160x214), trained
+    at 8 levels, where level 7 (45 x 60) has 50 rows or fewer but the
+    batch's 3 x rows do not: descriptors, world points and valid masks
+    equal ``jax.jit`` of the reference's vmapped step bit for bit (its
+    column products fold the batch into their rows, as
+    ``train_views_step`` passes it; such a level is narrower than twice
+    the 31-pixel keypoint margin, so it yields no keypoint either way)."""
+    from tod_tpu.parallel.train import train_views_step as ref_step
+
+    grays, masks, depths, Ks, Rs, Ts = _batch(
+        fixture_observations(fx, 0)[:3])
+    grays, masks, depths = (a[:, ::3, ::3].contiguous()
+                            for a in (grays, masks, depths))
+    Ks = Ks.clone()
+    Ks[:, :2] /= 3
+    kw = dict(n_features=200, n_levels=8, feature_type=feature_type)
+    inputs = (grays, masks, depths, Ks, Rs, Ts)
+    want = jax.jit(lambda *a: ref_step(*a, **kw))(
+        *(jnp.asarray(t.numpy()) for t in inputs))
+    got = ttrain.train_views_step(*inputs, **kw)
+    for g, w, name in zip(got, want, ("descriptors", "world", "valid")):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w), name)
+    assert int(got[2].sum()) > 100
+
+
+def test_sift_training_view_matches_stored_reference(fx):
+    """Object 0's first SIFT view, trained by the reference's program over
+    its batch of 12 views (stored in the fixture): the view's valid mask,
+    and its masked SIFT descriptors described in that batch's summation
+    order, bit for bit, and so their quantised rows."""
+    view = int(fx["sift_views"][0])
+    obs = fixture_observations(fx, 0)[view:view + 1]
+    grays, masks = _batch(obs)[:2]
+    _, _, valid = ttrain.train_views_step(
+        *_batch(obs), n_features=N_FEATURES, feature_type="SIFT")
+    want_valid = _bits(fx["sift0_valid"], N_FEATURES)[0]
+    np.testing.assert_array_equal(valid.numpy()[0], want_valid)
+    rows = int(want_valid.sum())
+    assert rows > 300
+    _, desc = tsift.sift_detect_and_compute(
+        grays[0], n_features=N_FEATURES, mask=masks[0],
+        batch=len(fx["sift_views"]))
+    assert_same_descriptors(desc[torch.from_numpy(want_valid)],
+                            fx["sift0_desc"][:rows])
 
 
 def test_fixture_is_self_consistent(fx):

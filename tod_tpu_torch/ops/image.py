@@ -214,9 +214,35 @@ def resize_weights(in_size: int, out_size: int) -> np.ndarray:
 # 1200x1600 (3 and 8 levels), the row rule at every depth from 322 to 474
 # in steps of 8, the column rule at every width from 80 to 271 at depths
 # 320, 336, 480 and 640. The column product of a level of 50 image rows or
-# fewer runs other kernels (ROADMAP queue C).
+# fewer runs another kernel: one chain over the whole depth, whatever its
+# width (tools/fit_sift_order.py --short, 20 frame sizes from 48x64 to
+# 180x320 at 3 and 8 levels: every such product wherever the level's row
+# product matched; the small frames it does not match are in ROADMAP
+# queue C).
 _COLUMN_KERNELS = ("lanes", "parity", "lanes", "chain")
 _BLOCK = {"chain": 512, "parity": 1024}
+_SHORT_ROWS = 50
+# Past a width the kernels change (read off at 512 rows, the SIFT tables',
+# by tools/fit_sift_order.py at widths that are multiples of 8): from
+# 7,336 columns the second lanes class chains, from 10,952 the first takes
+# parity, from 43,784 every class chains. (widest width of the old
+# kernel, the class it moves, its new kernel)
+_WIDE_KERNELS = ((7280, 2, "chain"), (10896, 0, "parity"),
+                 (43744, 0, "chain"), (43744, 1, "chain"))
+
+
+def _column_kernel(cols: int) -> str:
+    """The kernel of a column product of more than 50 rows into ``cols``
+    outputs: lanes at 24 or fewer, else by the 16-column step
+    (``_COLUMN_KERNELS``), changed past the widths of ``_WIDE_KERNELS``."""
+    if cols <= 24:
+        return "lanes"
+    step = (cols - 1) // 16 % 4
+    kind = _COLUMN_KERNELS[step]
+    for widest, moved, new in _WIDE_KERNELS:
+        if step == moved and cols > widest:
+            kind = new
+    return kind
 
 
 def _row_slice(depth: int) -> int:
@@ -228,12 +254,19 @@ def _row_slice(depth: int) -> int:
     return -(-(depth // slices) // 8) * 8
 
 
-def gemm_order(depth: int, cols: int, rows_pass: bool) -> Tuple[str, int]:
-    """(kind, block) of the summation order of a resize product of depth
-    ``depth`` into ``cols`` outputs (see ``_COLUMN_KERNELS``)."""
+def gemm_order(depth: int, cols: int, rows_pass: bool,
+               rows: int = 0) -> Tuple[str, int]:
+    """(kind, block) of the summation order of a product of depth ``depth``
+    into ``cols`` outputs (see ``_COLUMN_KERNELS``): a resize's row product
+    (``rows_pass``), or a column product, a resize's or the SIFT
+    contraction's, of ``rows`` rows (0: more than 50). A column product of
+    50 rows or fewer is one chain; of more rows, see
+    :func:`_column_kernel`."""
     if rows_pass:
         return "chain", _row_slice(depth)
-    kind = _COLUMN_KERNELS[(cols - 1) // 16 % 4]
+    if 0 < rows <= _SHORT_ROWS:
+        return "chain", depth
+    kind = _column_kernel(cols)
     return kind, _BLOCK.get(kind, depth)
 
 
@@ -326,18 +359,27 @@ def _resize_rows(x: torch.Tensor, out_size: int,
     return out
 
 
-def resize_bilinear(image: torch.Tensor,
-                    out_hw: Tuple[int, int]) -> torch.Tensor:
+def resize_bilinear(image: torch.Tensor, out_hw: Tuple[int, int],
+                    batch: int = 1) -> torch.Tensor:
     """Antialiased linear resize, the ``jax.image.resize(method="linear")``
     op the reference uses (not ``F.interpolate``, which does not low-pass
-    when downsampling): rows first, then columns, each a banded product
-    summed as the compiled reference sums it (:func:`gemm_order`)."""
+    when downsampling): rows first, then columns, or columns first where
+    the output is narrower than tall (the path the reference's one
+    ``jnp.einsum`` takes, the cheaper), each a banded product summed as
+    the compiled reference sums it (:func:`gemm_order`) when it resizes
+    ``batch`` such images in one vmapped program (XLA folds the batch into
+    the column product's rows; 1 for one image)."""
     x = image.to(torch.float32)
     (h, w), (oh, ow) = x.shape, out_hw
+    if oh != h and ow != w and ow < oh:
+        x = _resize_rows(x.T, ow, gemm_order(w, ow, False,
+                                             rows=batch * h)).T
+        return _resize_rows(x, oh, gemm_order(h, oh, True))
     if oh != h:
         x = _resize_rows(x, oh, gemm_order(h, oh, True))
     if ow != w:
-        x = _resize_rows(x.T, ow, gemm_order(w, ow, False)).T
+        x = _resize_rows(x.T, ow, gemm_order(w, ow, False,
+                                             rows=batch * oh)).T
     return x
 
 
@@ -383,12 +425,14 @@ def pyramid_shapes(height: int, width: int, n_levels: int,
     return tuple(shapes)
 
 
-def build_pyramid(gray: torch.Tensor, n_levels: int,
-                  scale_factor: float) -> List[torch.Tensor]:
-    """Image pyramid; each level resized from level 0."""
+def build_pyramid(gray: torch.Tensor, n_levels: int, scale_factor: float,
+                  batch: int = 1) -> List[torch.Tensor]:
+    """Image pyramid; each level resized from level 0, as the compiled
+    reference resizes it in a vmapped batch of ``batch`` images
+    (:func:`resize_bilinear`)."""
     h, w = gray.shape
     shapes = pyramid_shapes(h, w, n_levels, scale_factor)
     levels = [gray.to(torch.float32)]
     for hw in shapes[1:]:
-        levels.append(resize_bilinear(gray, hw))
+        levels.append(resize_bilinear(gray, hw, batch))
     return levels

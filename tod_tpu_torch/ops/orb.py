@@ -22,6 +22,7 @@ from tod_tpu_torch.ops.fast import (fast_score, features_per_level,
                                     subpixel_offsets)
 from tod_tpu_torch.ops.image import (build_pyramid, fma_f32,
                                      gaussian_blur, resize_nearest)
+from tod_tpu_torch.ops.libm import atan2f
 from tod_tpu_torch.ops.matching import pack_bits
 
 HALF_PATCH = 15          # orientation patch radius (cv::ORB half_patch_size)
@@ -150,17 +151,26 @@ def orientation_moments(img: torch.Tensor
 
 
 def keypoint_angles(img: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
-    """Orientation at integer keypoint coords: atan2(m01, m10)."""
+    """Orientation at integer keypoint coords: atan2(m01, m10), as the host
+    libm's ``atan2f`` rounds it (``ops/libm.py``, kernel L1 on the card)."""
     m10, m01 = orientation_moments(img)
     x, y = xy[:, 0].long(), xy[:, 1].long()
-    return torch.atan2(m01[y, x], m10[y, x])
+    return atan2f(m01[y, x].contiguous(), m10[y, x].contiguous())
+
+
+# The bin rule's divisor 2 pi / 32 as the compiled reference applies it: XLA
+# rewrites the division by a constant into a multiply by its float32
+# reciprocal, 5.0929580 (which sends exact half-bin angles such as 7.5 and
+# 14.5 steps to the lower bin, where a true division rounds them up).
+_BIN_SCALE = float(np.float32(1.0) / np.float32(2.0 * np.pi / N_ANGLE_BINS))
 
 
 def angle_bins(angle: torch.Tensor) -> torch.Tensor:
-    """Steered-BRIEF bin of each angle: round(angle / (2 pi / 32)) mod 32."""
-    step = torch.tensor(2.0 * np.pi / N_ANGLE_BINS, dtype=torch.float32,
-                        device=angle.device)
-    return torch.remainder(torch.round(angle / step), N_ANGLE_BINS).long()
+    """Steered-BRIEF bin of each angle: round(angle / (2 pi / 32)) mod 32,
+    rounded half to even, as the compiled reference evaluates it (a
+    multiply by the reciprocal, ``_BIN_SCALE``)."""
+    return torch.remainder(torch.round(angle * _BIN_SCALE),
+                           N_ANGLE_BINS).long()
 
 
 def extract_patches(image: torch.Tensor, xy: torch.Tensor,
@@ -197,7 +207,7 @@ def detect_and_describe(gray: torch.Tensor, describe: Callable,
                         n_features: int, n_levels: int, scale_factor: float,
                         fast_threshold: float, edge_threshold: int,
                         mask: Optional[torch.Tensor] = None,
-                        subpixel: bool = False
+                        subpixel: bool = False, batch: int = 1
                         ) -> Tuple[Keypoints, torch.Tensor]:
     """FAST/Harris keypoints over the pyramid with exactly ``n_features``
     padded slots, each level's descriptors from ``describe(level image, xy,
@@ -207,8 +217,11 @@ def detect_and_describe(gray: torch.Tensor, describe: Callable,
     scaling (orientation and descriptors still sample the integer pixel).
     A (H,W) ``mask`` (nonzero = allowed; training's object mask)
     restricts detection: each level tests it nearest-resized to the
-    level's size as a float (tod_tpu/ops/orb.py:289-294)."""
-    levels = build_pyramid(gray, n_levels, scale_factor)
+    level's size as a float (tod_tpu/ops/orb.py:289-294). ``batch`` is
+    the images the reference detects in one vmapped program (the trainer's
+    view batch; 1 for one image), whose pyramid sums in that batch's order
+    (:func:`build_pyramid`)."""
+    levels = build_pyramid(gray, n_levels, scale_factor, batch)
     counts = features_per_level(n_features, n_levels, scale_factor)
     kxs: List[torch.Tensor] = []
     all_desc: List[torch.Tensor] = []
@@ -250,14 +263,15 @@ def orb_detect_and_compute(gray: torch.Tensor, n_features: int = 500,
                            fast_threshold: float = 20.0,
                            edge_threshold: int = EDGE_THRESHOLD,
                            mask: Optional[torch.Tensor] = None,
-                           subpixel: bool = False
+                           subpixel: bool = False, batch: int = 1
                            ) -> Tuple[Keypoints, torch.Tensor]:
     """ORB keypoints + 256-bit descriptors, (n_features, 32) uint8
     (:func:`detect_and_describe` with steered BRIEF on the level blurred at
     sigma 2), restricted to ``mask`` when one is given; ``subpixel``
-    refines the reported coords (:func:`detect_and_describe`)."""
+    refines the reported coords and ``batch`` is the vmapped batch
+    (:func:`detect_and_describe`)."""
     return detect_and_describe(
         gray, lambda img, xy, angle: brief_descriptors(
             gaussian_blur(img, 7, 2.0), xy, angle),
         n_features, n_levels, scale_factor, fast_threshold, edge_threshold,
-        mask, subpixel)
+        mask, subpixel, batch)

@@ -7,21 +7,30 @@ orientations are taken relative to the keypoint angle exactly; only the
 rotated 4x4 spatial grid is quantised, into the 32 angle bins of the steered
 BRIEF, as per-bin weight tables applied in one contraction over pixels.
 
-The contraction sums 1,369 pixels in float32 in PyTorch's order, which is
-not XLA's, so descriptors agree with the reference's to a few 1e-7, not bit
-for bit (see tests/test_torch_sift.py); keypoints, angles and angle bins are
-the exactly-held functions of ``ops/fast.py`` and ``ops/orb.py``.
+Every step rounds as the compiled reference rounds it, so descriptors equal
+the reference's bit for bit: the gradient magnitude is ``sqrt(fma(gx, gx,
+gy * gy))`` (LLVM contracts the sum of squares), its orientation the host
+libm's ``atan2f`` (``ops/libm.py``, kernel L1), the contraction over 1,369
+pixels sums in the order of the oneDNN kernel that XLA's CPU dot runs at
+that shape (:func:`contraction_groups`; kernel L2,
+``csrc/sift_descriptor.cu``), and the norms add their squares in 32-wide
+windows in order, then the four windows in order (XLA's reduce-window
+rewrite). Only the nonzero taps of the keypoint's own angle bin are
+summed: every term is >= +0, and the reference's one-hot selection of the
+bin adds exact zeros.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
-from tod_tpu_torch.ops.image import gaussian_blur
+from tod_tpu_torch import kernels
+from tod_tpu_torch.ops.image import fma_f32, gaussian_blur, gemm_order
+from tod_tpu_torch.ops.libm import atan2f
 from tod_tpu_torch.ops.orb import (EDGE_THRESHOLD, N_ANGLE_BINS, PATCH_R,
                                    PATCH_W, Keypoints, angle_bins,
                                    detect_and_describe, extract_patches)
@@ -30,6 +39,9 @@ N_SPATIAL = 4            # 4x4 spatial grid
 N_ORI = 8                # 8 orientation bins
 DESC_DIM = N_SPATIAL * N_SPATIAL * N_ORI   # 128
 SUPPORT_R = 12.0         # descriptor support radius in patch pixels
+DEPTH = PATCH_W * PATCH_W                  # 1,369 pixels a patch
+N_GROUPS = 4             # the contraction's partial sums an output
+MAX_PIXELS = 912         # most pixels an angle bin's cells read (901)
 
 
 # Copied from tod_tpu/ops/sift.py:55 (_spatial_tables), numpy only.
@@ -71,20 +83,214 @@ def _spatial_tables(n_bins: int = N_ANGLE_BINS) -> np.ndarray:
     return tables
 
 
-def sift_descriptors(img: torch.Tensor, xy: torch.Tensor,
-                     angle: torch.Tensor) -> torch.Tensor:
-    """(K, 128) float32 SIFT descriptors at integer level coords ``xy`` with
-    orientations ``angle`` (radians)."""
-    k_count = xy.shape[0]
+def contraction_order(k_count: int, batch: int = 1) -> Tuple[str, int]:
+    """(kind, block) of the order in which the compiled reference sums the
+    descriptor contraction of ``k_count`` keypoints in each of ``batch``
+    images: XLA's CPU dot of the (512, 1369) tables by the (1369, 8 batch
+    k_count) weights (a program vmapped over a batch of images, as the
+    trainer's over its views, folds the batch into the columns), whose
+    oneDNN kernel follows the columns as a resize's column product follows
+    its output columns (:func:`tod_tpu_torch.ops.image.gemm_order`; read
+    off by ``tools/fit_sift_order.py``)."""
+    return gemm_order(DEPTH, N_ORI * batch * k_count, False,
+                      rows=N_ANGLE_BINS * N_SPATIAL * N_SPATIAL)
+
+
+def contraction_groups(taps: np.ndarray, kind: str, block: int
+                       ) -> np.ndarray:
+    """Partial sum (0-3) of each depth of ``taps`` (ascending): "lanes":
+    depth mod 4; "parity": 2 x its block of ``block`` depths + its parity;
+    "chain": its block of ``block`` depths. Each partial is one fused
+    multiply-add chain in ascending depth from +0, and an output is
+    ``(p0 + p1) + (p2 + p3)``: the lanes' sum, the two parity blocks' sums
+    added in order, and the chain blocks added in order (p3 is empty). The
+    kernels' tails (the lanes' last depth 1368, a parity block's depths
+    past its multiple of 8) hold no nonzero tap of the tables, which this
+    checks."""
+    if kind == "lanes":
+        tail = taps >= DEPTH // 4 * 4
+        groups = taps % 4
+    elif kind == "parity":
+        start = taps // block * block
+        tail = taps - start >= (np.minimum(block, DEPTH - start) & ~7)
+        groups = 2 * (taps // block) + taps % 2
+    else:
+        tail = np.zeros(taps.shape, bool)
+        groups = taps // block
+    if tail.any() or (groups >= N_GROUPS).any():
+        raise ValueError(f"{kind} order: taps {taps[tail]} outside the "
+                         f"{N_GROUPS} partial sums")
+    return groups
+
+
+class Taps(NamedTuple):
+    """A contraction order's tap tables (:func:`_contraction_taps`)."""
+    starts: np.ndarray        # (512 x 4 + 1,) int32
+    weights: np.ndarray       # (taps,) float32
+    slots: np.ndarray         # (taps,) int32, its pixel's place in pixels
+    pixel_starts: np.ndarray  # (33,) int32
+    pixels: np.ndarray        # (sum of the bins' pixels,) int32
+    idx: np.ndarray           # (4, 512, most taps of a partial) int64
+    wt: np.ndarray            # (4, 512, most taps of a partial) float32
+
+
+@functools.lru_cache(maxsize=None)
+def _contraction_taps(order: Tuple[str, int]) -> Taps:
+    """The nonzero taps of each table column (angle bin x 16 + cell) split
+    into the order's partial sums. Flat, as kernel L2 reads them: column
+    c's partial g holds taps ``starts[4 c + g] .. starts[4 c + g + 1]``,
+    ascending depth, each tap's weight and its ``slot`` in the pixels
+    (depths) that the 16 columns of its angle bin read (bin b's:
+    ``pixels[pixel_starts[b] .. pixel_starts[b + 1]]``, ascending; at most
+    :data:`MAX_PIXELS`, the kernel stages only those).
+    Padded, for the plain version: ``(idx, wt)``, (4, 512, most taps of a
+    partial), weight 0 past a partial's taps."""
+    tables = _spatial_tables()
+    cells = N_SPATIAL * N_SPATIAL
+    bin_pixels = [np.nonzero(tables[:, b * cells:(b + 1) * cells]
+                             .any(1))[0] for b in range(N_ANGLE_BINS)]
+    if max(len(p) for p in bin_pixels) > MAX_PIXELS:
+        raise ValueError(f"an angle bin reads more than {MAX_PIXELS} pixels")
+    parts = []                    # (column, partial) in the kernel's order
+    for col in range(tables.shape[1]):
+        taps = np.nonzero(tables[:, col])[0]
+        groups = contraction_groups(taps, *order)
+        parts += [(col, taps[groups == g]) for g in range(N_GROUPS)]
+    width = max(len(sel) for _, sel in parts)
+    idx = np.zeros((N_GROUPS, tables.shape[1], width), np.int64)
+    wt = np.zeros(idx.shape, np.float32)
+    for i, (col, sel) in enumerate(parts):
+        idx[i % N_GROUPS, col, :len(sel)] = sel
+        wt[i % N_GROUPS, col, :len(sel)] = tables[sel, col]
+    return Taps(
+        starts=np.cumsum([0] + [len(sel) for _, sel in parts])
+        .astype(np.int32),
+        weights=np.concatenate([tables[sel, col] for col, sel in parts])
+        .astype(np.float32),
+        slots=np.concatenate([np.searchsorted(bin_pixels[col // cells], sel)
+                              for col, sel in parts]).astype(np.int32),
+        pixel_starts=np.cumsum([0] + [len(p) for p in bin_pixels])
+        .astype(np.int32),
+        pixels=np.concatenate(bin_pixels).astype(np.int32),
+        idx=idx, wt=wt)
+
+
+@functools.lru_cache(maxsize=None)
+def _device_taps(order: Tuple[str, int], device: torch.device) -> Taps:
+    """:func:`_contraction_taps` as tensors on ``device``, uploaded once."""
+    return Taps(*(torch.from_numpy(a).to(device)
+                  for a in _contraction_taps(order)))
+
+
+def sift_contract_torch(t: torch.Tensor, bins: torch.Tensor,
+                        batch: int = 1) -> torch.Tensor:
+    """(K, 16, 8) histograms: for each keypoint k, cell s and orientation o
+    the sum over pixels p of ``tables[p, 16 bins[k] + s] * t[k, p, o]``,
+    summed as the compiled reference sums it (:func:`contraction_order`,
+    :func:`contraction_groups`), one rounding a tap (``fma_f32``); the plain
+    version of kernel L2's contraction. ``t`` is the (K, 1369, 8) float32
+    soft-binned gradient weights, ``bins`` the (K,) angle bins, ``batch``
+    the images the reference describes at once."""
+    k_count = t.shape[0]
+    taps = _device_taps(contraction_order(k_count, batch), t.device)
+    idx, wt = taps.idx, taps.wt
+    cols = bins.long()[:, None] * (N_SPATIAL * N_SPATIAL) \
+        + torch.arange(N_SPATIAL * N_SPATIAL, device=t.device)   # (K, 16)
+    rows = torch.arange(k_count, device=t.device)[None, :, None]
+    acc = torch.zeros((N_GROUPS, k_count, N_SPATIAL * N_SPATIAL, N_ORI),
+                      dtype=torch.float32, device=t.device)
+    for step in range(idx.shape[2]):
+        x = t[rows, idx[:, :, step][:, cols]]                # (4, K, 16, 8)
+        acc = fma_f32(x, wt[:, :, step][:, cols, None], acc)
+    return (acc[0] + acc[1]) + (acc[2] + acc[3])
+
+
+def _sqrt_f32(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded float32 square root on any device (PyTorch's CPU
+    float32 ``sqrt`` is not; the f64 root rounds to the same float)."""
+    return torch.sqrt(x.to(torch.float64)).to(torch.float32)
+
+
+def _norm(desc: torch.Tensor) -> torch.Tensor:
+    """(K,) L2 norms of (K, 128) rows, summed as the compiled reference's
+    ``jnp.linalg.norm``: the squares rounded, added in order within each
+    32-wide window from +0, the four windows added in order, the root."""
+    sq = (desc * desc).reshape(desc.shape[0], DESC_DIM // 32, 32)
+    win = sq[:, :, 0]
+    for i in range(1, 32):
+        win = win + sq[:, :, i]
+    total = win[:, 0]
+    for j in range(1, DESC_DIM // 32):
+        total = total + win[:, j]
+    return _sqrt_f32(total)
+
+
+def sift_normalize_torch(desc: torch.Tensor) -> torch.Tensor:
+    """Lowe's normalisation of (K, 128) histograms, in the reference's
+    order: unit norm (+1e-9), clip at 0.2, unit norm again; the plain
+    version of kernel L2's epilogue."""
+    desc = torch.clamp(desc / (_norm(desc) + 1e-9)[:, None], max=0.2)
+    return desc / (_norm(desc) + 1e-9)[:, None]
+
+
+def sift_histograms(t: torch.Tensor, bins: torch.Tensor,
+                    batch: int = 1) -> torch.Tensor:
+    """(K, 128) float32 descriptors from the (K, 1369, 8) soft-binned
+    gradient weights ``t`` and the (K,) angle bins: the contraction, in
+    the order of ``batch`` images described at once, and Lowe's
+    normalisation. Kernel L2 on a CUDA tensor (one launch, counted
+    in ``sift_histograms.launches``; a failed launch raises), the plain
+    :func:`sift_normalize_torch` of :func:`sift_contract_torch` on a CPU
+    tensor."""
+    k_count = t.shape[0]
+    if t.dtype != torch.float32 or tuple(t.shape[1:]) != (DEPTH, N_ORI) \
+            or bins.shape != (k_count,):
+        raise ValueError(f"sift_histograms: t {tuple(t.shape)} {t.dtype}, "
+                         f"bins {tuple(bins.shape)}")
+    if t.device.type == "cpu":
+        return sift_normalize_torch(
+            sift_contract_torch(t, bins, batch).reshape(k_count, DESC_DIM))
+    if t.device.type != "cuda":
+        raise ValueError(f"no SIFT descriptor path for {t.device}")
+    out = torch.empty((k_count, DESC_DIM), dtype=torch.float32,
+                      device=t.device)
+    if k_count:
+        taps = _device_taps(contraction_order(k_count, batch), t.device)
+        t = t.contiguous()
+        bins32 = bins.to(torch.int32).contiguous()
+        kernels.call("sift_descriptor", "tod_sift_contract",
+                     [t.data_ptr(), bins32.data_ptr(), taps.starts.data_ptr(),
+                      taps.slots.data_ptr(), taps.weights.data_ptr(),
+                      taps.pixel_starts.data_ptr(), taps.pixels.data_ptr(),
+                      out.data_ptr()],
+                     [k_count],
+                     torch.cuda.current_stream(t.device).cuda_stream)
+        sift_histograms.launches += 1
+    return out
+
+
+sift_histograms.launches = 0
+
+
+def gradients(img: torch.Tensor, xy: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(gx, gy), each (K, 37, 37): the central-difference gradients (zero
+    border) of the patches of ``img`` at integer level coords ``xy``."""
     patches = extract_patches(img, xy)                    # (K, 37, 37)
-    # central-difference gradients (zero border)
     pad = torch.nn.functional.pad
     gx = pad(patches[:, :, 2:] - patches[:, :, :-2], (1, 1, 0, 0))
     gy = pad(patches[:, 2:, :] - patches[:, :-2, :], (0, 0, 1, 1))
-    mag = torch.sqrt(gx * gx + gy * gy).reshape(k_count, -1)   # (K, P)
-    ori = torch.atan2(gy, gx).reshape(k_count, -1)             # (K, P)
+    return gx, gy
 
-    # orientation relative to the keypoint angle, soft-binned into 8 bins
+
+def soft_bins(gx: torch.Tensor, gy: torch.Tensor,
+              angle: torch.Tensor) -> torch.Tensor:
+    """(K, 1369, 8) float32 weights: each pixel's gradient magnitude split
+    between the two orientation bins (of 8) around its orientation
+    relative to the keypoint ``angle``."""
+    k_count = gx.shape[0]
+    mag = _sqrt_f32(fma_f32(gx, gx, gy * gy)).reshape(k_count, -1)  # (K, P)
+    ori = atan2f(gy, gx).reshape(k_count, -1)                       # (K, P)
     rel = (ori - angle[:, None]) * (N_ORI / (2.0 * np.pi))
     rel = torch.remainder(rel, N_ORI)                          # [0, 8]
     bin0 = torch.floor(rel)
@@ -95,34 +301,35 @@ def sift_descriptors(img: torch.Tensor, xy: torch.Tensor,
     # every pixel feeds two distinct bins, so a scatter writes the same sums
     t = torch.zeros(mag.shape + (N_ORI,), dtype=mag.dtype, device=mag.device)
     t.scatter_(2, b0[:, :, None], (mag * (1.0 - frac))[:, :, None])
-    t.scatter_(2, b1[:, :, None], (mag * frac)[:, :, None])    # (K, P, 8)
+    t.scatter_(2, b1[:, :, None], (mag * frac)[:, :, None])
+    return t
 
-    tables = torch.from_numpy(_spatial_tables()).to(img.device)  # (P, B*16)
-    # one contraction over pixels for all angle bins at once, then the
-    # keypoint's own bin
-    d_all = torch.einsum("kpo,pq->kqo", t, tables)             # (K, B*16, 8)
-    d_all = d_all.reshape(k_count, N_ANGLE_BINS, 16, N_ORI)
-    desc = d_all[torch.arange(k_count, device=img.device),
-                 angle_bins(angle)].reshape(k_count, -1)
 
-    # Lowe normalization: unit norm, clip 0.2, renormalize
-    norm = torch.linalg.norm(desc, dim=1, keepdim=True) + 1e-9
-    desc = torch.clamp(desc / norm, max=0.2)
-    norm = torch.linalg.norm(desc, dim=1, keepdim=True) + 1e-9
-    return (desc / norm).to(torch.float32)
+def sift_descriptors(img: torch.Tensor, xy: torch.Tensor,
+                     angle: torch.Tensor, batch: int = 1) -> torch.Tensor:
+    """(K, 128) float32 SIFT descriptors at integer level coords ``xy`` with
+    orientations ``angle`` (radians), bit for bit the compiled reference's
+    when it describes ``batch`` such images in one vmapped program (the
+    trainer's view batch; 1 for one image)."""
+    t = soft_bins(*gradients(img, xy), angle)
+    return sift_histograms(t, angle_bins(angle), batch)
 
 
 def sift_detect_and_compute(gray: torch.Tensor, n_features: int = 500,
                             n_levels: int = 3, scale_factor: float = 1.2,
                             fast_threshold: float = 20.0,
                             edge_threshold: int = EDGE_THRESHOLD,
-                            mask: Optional[torch.Tensor] = None
+                            mask: Optional[torch.Tensor] = None,
+                            batch: int = 1
                             ) -> Tuple[Keypoints, torch.Tensor]:
     """FAST/Harris keypoints + SIFT-128 float descriptors, (n_features, 128)
     float32, with orb_detect_and_compute's contract (padded slots,
-    ``valid``), restricted to ``mask`` when one is given."""
+    ``valid``), restricted to ``mask`` when one is given; ``batch`` as
+    :func:`sift_descriptors` and
+    :func:`tod_tpu_torch.ops.orb.detect_and_describe` take it."""
     return detect_and_describe(
         gray, lambda img, xy, angle: sift_descriptors(
-            gaussian_blur(img, 7, 1.6), xy, angle),   # Lowe's octave sigma
+            gaussian_blur(img, 7, 1.6), xy, angle,   # Lowe's octave sigma
+            batch),
         n_features, n_levels, scale_factor, fast_threshold, edge_threshold,
-        mask)
+        mask, batch=batch)

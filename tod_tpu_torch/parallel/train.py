@@ -42,14 +42,19 @@ def train_views_step(grays: torch.Tensor, masks: torch.Tensor,
     world points and (V,K) valid, on the tensors' device. ``subpixel``
     (ORB only; SIFT keeps integer coords, as in the reference) refines the
     keypoints and back-projects each model point through
-    :func:`subpixel_coords`."""
+    :func:`subpixel_coords`. The reference's program is vmapped over the V
+    views, and sums the pyramid's column products, the SIFT contraction
+    and camera -> world in that batch's order, as the port does."""
     sub = subpixel and feature_type != "SIFT"
     descs, worlds, valids = [], [], []
     for gray, mask, depth_m, K, R, T in zip(grays, masks, depths_m, Ks, Rs,
                                             Ts):
+        # the reference detects and describes the whole view batch in one
+        # vmapped program, whose dots sum in the order of their batch
         settings = dict(n_features=n_features, n_levels=n_levels,
                         scale_factor=scale_factor,
-                        fast_threshold=fast_threshold, mask=mask)
+                        fast_threshold=fast_threshold, mask=mask,
+                        batch=len(grays))
         if feature_type == "SIFT":
             kps, desc = sift_detect_and_compute(gray, **settings)
         else:

@@ -26,6 +26,13 @@ JAX FusedDetector runs at the bench's SIFT operating point (radius 0.9)
 Both runs use ``min_quality`` 0 so that junk accepts are kept with their
 qualities; the gate is applied on the host after the device stages and
 changes nothing else. ``config_json`` holds the config gated at 156.
+
+``ref_desc_digest`` holds, per frame, the SHA-256 (``camera_sizes.digest``)
+of the reference's float SIFT descriptors before quantisation, all
+``n_features`` slots, as ``jax.jit(sift_detect_and_compute)`` gives them at
+the served config, so that the port's floats are held bit for bit where the
+int8 rows could hide a last-bit difference. ``--float-digests`` adds only
+that key to an existing fixture (~1 min), leaving the rest as it is.
 """
 
 from __future__ import annotations
@@ -72,6 +79,50 @@ def pack_detections(prefix, ref):
     }
 
 
+def float_digests(images, cfg_json: str):
+    """Per frame, the digest of the reference's float SIFT descriptors at
+    the served config (``cfg_json``), and their int8 rows."""
+    import jax
+    import jax.numpy as jnp
+
+    from tod_tpu.ops.image import rgb_to_gray
+    from tod_tpu.ops.pallas.segmented_l2 import quantize_descriptors
+    from tod_tpu.ops.sift import sift_detect_and_compute
+    from tod_tpu_torch.utils.camera_sizes import digest
+
+    cfg = json.loads(cfg_json)
+    run = jax.jit(lambda gray: sift_detect_and_compute(
+        gray, n_features=cfg["n_features"], n_levels=cfg["n_levels"],
+        scale_factor=cfg["scale_factor"],
+        fast_threshold=cfg["fast_threshold"])[1])
+    out = []
+    for image in images:
+        # the gray as FusedDetector.prepare_frame makes it, eagerly
+        desc = run(rgb_to_gray(jnp.asarray(image, jnp.float32)))
+        out.append((digest(np.asarray(desc)),
+                    np.asarray(quantize_descriptors(desc))))
+    return out
+
+
+def check_float_rows(quantised, ref_dsc, ref_ok) -> None:
+    """Every compacted row (``ref_dsc`` where ``ref_ok``) is a row of the
+    floats' quantisation: they are the compaction's own descriptors."""
+    for f, (q, dsc, ok) in enumerate(zip(quantised, ref_dsc, ref_ok)):
+        rows = {r.tobytes() for r in q}
+        if not all(r.tobytes() in rows for r in dsc[ok]):
+            raise SystemExit(f"frame {f}: the float descriptors are not the "
+                             "compaction's")
+
+
+def add_float_digests(path: str, smoke: str) -> None:
+    fx, sx = np.load(smoke), dict(np.load(path))
+    got = float_digests(fx["images"], str(sx["config_json"]))
+    check_float_rows([q for _, q in got], sx["ref_dsc"], sx["ref_ok"])
+    sx["ref_desc_digest"] = np.asarray([d for d, _ in got])
+    np.savez_compressed(path, **sx)
+    print(f"wrote ref_desc_digest {sx['ref_desc_digest']} to {path}")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     data = os.path.join(ROOT, "tests", "data")
@@ -79,7 +130,12 @@ def main() -> None:
         data, "torch_smoke_fixture.npz"))
     ap.add_argument("--out", default=os.path.join(
         data, "torch_sift_fixture.npz"))
+    ap.add_argument("--float-digests", action="store_true",
+                    help="add ref_desc_digest to the fixture at --out only")
     args = ap.parse_args()
+    if args.float_digests:
+        add_float_digests(args.out, args.smoke)
+        return
     os.environ["BENCH_DB_CACHE"] = ""     # train live, cache nothing
     os.environ["BENCH_FEATURE"] = "SIFT"
 
@@ -171,6 +227,10 @@ def main() -> None:
         **pack_detections("ref", ref),
         **pack_detections("stream", stream),
     }
+    got = float_digests([image for image, _, _ in scenes],
+                        str(out["config_json"]))
+    check_float_rows([q for _, q in got], out["ref_dsc"], out["ref_ok"])
+    out["ref_desc_digest"] = np.asarray([d for d, _ in got])
     for i, (q, p) in enumerate(zip(quant, points)):
         out[f"desc{i}"] = q
         out[f"points{i}"] = p
