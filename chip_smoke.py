@@ -50,10 +50,21 @@ any failure raises, exits non-zero and prints no ``ok`` line:
             (frame 0, 5000 features: 1978 keypoints x 1369 pixels): L1
             (csrc/libm_f32.cu, the host libm's atan2f) on those gradients,
             10^6 random pairs and the special values, and L2
-            (csrc/sift_descriptor.cu, the contraction in the reference's
-            order and the normalisation) in each summation order, both
-            against their plain versions bit for bit; timed beside the
-            plain versions and torch.atan2 / torch.einsum.
+            (csrc/sift_descriptor.cu, the fused SIFT descriptor: from the
+            level image to the normalised 128 floats) at K = 1978, at each
+            summation order of the contraction and at the trainer's batch
+            of 12, both against their plain versions on the CPU bit for
+            bit; L1 timed at the level's keypoint angles (its main-path
+            shape) and at the gradients, L2 beside its plain chain on the
+            card, the chain's producers (gradients and soft bins, with L1),
+            torch.atan2 / torch.einsum, and their bounds.
+3h.         kernel L3 (csrc/l2_distances.cu, the L2 matcher's distance tile
+            in the compiled reference's order) against its plain tile bit
+            for bit at 7e's shape (frame 0's 5000 SIFT descriptors x the
+            first DB chunk of 4096 model rows) and at 16384 x 4096, and at
+            one query ("vector") and the "lanes" and "parity" widths;
+            timed beside the plain tile and torch.matmul with the formula
+            (the library column: another rounding).
 4. main     FusedDetector at the bench's operating point on the 100-object
             smoke catalog, frames of tests/data/torch_smoke_fixture.npz
             through prepare_frame -> detect; the compaction stage's
@@ -137,8 +148,8 @@ the smoke fixture's):
 4d. main    the full sweep at 100 objects on both frames: the compaction
             stage against the reference's (keypoints, 3D points, ok and
             quantised descriptors bit for bit); one L1 launch a level for
-            the orientations and one for the gradients, one L2 launch a
-            level; every detection the reference
+            the orientations and one L2 launch (the fused descriptor) a
+            level, none for the gradients; every detection the reference
             accepts at the gate found within 1 cm and 2 degrees; anything
             else accepted at the gate must be a ground-truth placement
             within 2 cm; one B3 launch a frame.
@@ -174,8 +185,8 @@ tests/data/torch_train_fixture.npz (the bench's objects 0-2, 60 views of
             and poses within 1 cm and 2 degrees), one B1 launch a frame.
 6c.         object 0 trained with SIFT on every fifth view (12 of 60): the
             valid masks, world points, descriptors and their quantised
-            entries equal to the reference's (L1 and L2 in the order of
-            the reference's 12-view batch).
+            entries equal to the reference's (L2 in the order of the
+            reference's 12-view batch; one L1 and one L2 launch a level).
 
 Then the cell graph (ROADMAP A12b): the 100-object smoke catalog written
 into a FilesystemDb in a temporary directory (the port's write_model) and
@@ -204,13 +215,12 @@ overridden:
             within 1 cm and 2 degrees, any other accept a ground-truth
             placement; one B3 launch a frame.
 7e.         conf/detection.ork with SIFT features (the global-kNN graph on
-            the L2 matcher, ROADMAP queue C) over the three SIFT smoke
-            models and both frames, against the reference graph's rows
-            and accepts (tests/data/torch_jpeg_fixture.npz sift_graph_*):
-            the query rows whose matched rows differ counted, the rest of
-            the MatchSet exact, squared distances within
-            SIFT_GRAPH_SQ_ATOL; the reference's accepts at its poses; N1
-            only (the L2 matcher is no kernel).
+            the L2 matcher, kernel L3) over the three SIFT smoke models and
+            both frames, against the reference graph's rows and accepts
+            (tests/data/torch_jpeg_fixture.npz sift_graph_*): the MatchSet
+            exact, every distance bit for bit; the reference's accepts at
+            its poses; N1, L1 and L2 (the features) and L3 (a launch a DB
+            chunk) a positive multiple of the frames.
 7c.         conf/training.ork's TodTrainer on object 0's 60 views of
             tests/data/torch_train_fixture.npz, inserted into the DB as
             observations, at the fixture's feature settings and the
@@ -285,8 +295,9 @@ line (the sharded runs only):
 10b. serve  ShardedServingDetector at (2 x 2), two streams (stream b sees
             frame (f + b) % 2), every field of every stream's detections
             equal to a FusedDetector(seed=b) fed the same compacted
-            queries: the ORB frontier recipe at 1000 objects over 64
-            frames (B1, B2, N1), the ORB full sweep at 100 objects, the
+            queries: the ORB frontier recipe at 1000 objects over 32
+            frames (B1, B2, N1; 64 before the script neared its time
+            limit), the ORB full sweep at 100 objects, the
             SIFT frontier at 1000 objects (B3, B4); a step timed in turns
             with the two single-device frames.
 10c. batch  detect_batch_sharded at (2 x 2) on both frames: each frame's
@@ -422,18 +433,28 @@ T1_REPLACES = "tools/bench_dot_iso.py:29"
 N1_REPLACES = "tod_tpu/geometry/ransac.py:127,136"
 SOURCE_L1 = "tod_tpu_torch/csrc/libm_f32.cu"
 SOURCE_SIFT = "tod_tpu_torch/csrc/sift_descriptor.cu"
+SOURCE_L3 = "tod_tpu_torch/csrc/l2_distances.cu"
 # XLA's atan2, which calls the host libm's atan2f (not a Pallas kernel):
 # the keypoint and the gradient orientations
 L1_REPLACES = "tod_tpu/ops/orb.py:163,tod_tpu/ops/sift.py:105"
-# XLA's dot of the tables, the one-hot bin selection and the norms (not a
-# Pallas kernel)
-L2_REPLACES = "tod_tpu/ops/sift.py:121-134"
+# the reference's SIFT descriptor from the patches to the normalisation:
+# XLA's fusions, the libm atan2f call and the tables' dot (not a Pallas
+# kernel)
+L2_REPLACES = "tod_tpu/ops/sift.py:93-134"
+# the L2 matcher's norms, dot and distance (XLA's reduces, dot and fusion;
+# not a Pallas kernel)
+L3_REPLACES = "tod_tpu/ops/matching.py:107-141"
 # float32 operations of atan2f's longest branch (the reduction 4, the two
 # polynomials 20, the products and sums around them 6, y / x and the
 # quadrant fix 3), at the published float32 rate (NVIDIA H100 SXM data
 # sheet, 67 TFLOP/s)
 L1_OPS = 33
 F32_OPS_S = 67e12
+# float32 operations of L2 at a tapped pixel besides atan2f's: the two
+# differences, the sum of squares and its root (3), the relative angle and
+# its remainder (3), floor, frac and the two weights (4)
+L2_PIXEL_OPS = 12
+L3_Q = 16384               # phase 3h's larger tile: queries x one chunk
 L1_PAIRS = 1_000_000       # random pairs of phase 3g
 N1_SHAPE = (16, 3, 1024, 512)    # a round of the global path
 N1_PER_THREAD = 4                # draws a thread of N1 (kPerThread)
@@ -550,8 +571,6 @@ HARD = dict(rgb_sigma=10.0, depth_sigma_mm=5.0, depth_dropout=0.10,
 # Phase 7e: the SIFT global-kNN graph's MatchSet against the reference's.
 # Squared L2 distances come from |q|^2 + |r|^2 - 2 q.r (about 2) in f32
 # sums of another order: a few of its ulps (2^-22 each) apart
-SIFT_GRAPH_SQ_ATOL = 2.0 ** -18
-SIFT_GRAPH_ROW_SWAPS = 0    # query rows whose matched rows may differ
 # Phase 13: camera sizes (tests/data/torch_sizes_fixture.npz; the scenes,
 # cameras and digests in tod_tpu_torch/utils/camera_sizes.py)
 SIZE_LEVELS = 8         # the grid's deepest pyramid (cv::ORB's default)
@@ -1015,9 +1034,10 @@ def check_frame(f: int, found, fx, ref=None, image=None,
 
 
 def wrappers():
-    """The kernel wrappers, B1..B5, T1, N1, L1 and L2."""
+    """The kernel wrappers, B1..B5, T1, N1, L1, L2 and L3."""
     from tod_tpu_torch.ops import hamming as ham
     from tod_tpu_torch.ops import libm
+    from tod_tpu_torch.ops import matching
     from tod_tpu_torch.ops import segmented as seg
     from tod_tpu_torch.ops import segmented_l2 as l2
     from tod_tpu_torch.ops import sift
@@ -1026,13 +1046,13 @@ def wrappers():
     return (seg.object_top1, seg.object_top1_gathered, l2.object_top1_l2,
             l2.object_top1_l2_gathered, ham.hamming_topk_fused,
             ham.hamming_probe, prng.gumbel, libm.atan2f,
-            sift.sift_histograms)
+            sift.sift_descriptors, matching.l2_distances)
 
 
 # the names of :func:`wrappers`' kernels, in the order of :func:`read_counts`
 COUNTED_KERNELS = [f"B{i + 1}" for i in range(5)] + ["T1", "N1", "L1",
-                                                     "L2"]
-N_MATCH_NOISE = 7          # B1..B5, T1 and N1: the counts before L1, L2
+                                                     "L2", "L3"]
+N_MATCH_NOISE = 7          # B1..B5, T1 and N1: the counts before L1-L3
 
 
 def reset_counts() -> None:
@@ -1041,7 +1061,7 @@ def reset_counts() -> None:
 
 
 def read_counts():
-    """Launches of (B1, B2, B3, B4, B5, T1, N1, L1, L2) since
+    """Launches of (B1, B2, B3, B4, B5, T1, N1, L1, L2, L3) since
     :func:`reset_counts`."""
     return tuple(fn.launches for fn in wrappers())
 
@@ -1052,24 +1072,28 @@ def matcher_counts(counts) -> list:
 
 
 def check_feature_counts(what: str, n_frames: int, counts,
-                         sift: bool) -> None:
-    """The path's features went through L1 (the orientations; with SIFT
-    also the gradients) and, with SIFT, L2: a positive multiple of the
-    frames each, and no L2 without SIFT."""
-    l1, l2 = counts[N_MATCH_NOISE:]
-    if l1 < n_frames or l1 % n_frames or (
-            (l2 < n_frames or l2 % n_frames) if sift else l2):
-        raise AssertionError(f"{what}: features' launches L1 {l1}, L2 {l2} "
+                         sift: bool, l3: bool = False) -> None:
+    """The path's features went through L1 (the keypoint orientations) and,
+    with SIFT, L2 (the fused descriptor): a positive multiple of the frames
+    each, one of each a level on a SIFT path (L1 = L2: no separate launch
+    for the gradients' orientations), and no L2 without SIFT; L3 (the L2
+    matcher's tiles) a positive multiple of the frames where ``l3``, else
+    none."""
+    l1, l2, l3_n = counts[N_MATCH_NOISE:]
+    if l1 < n_frames or l1 % n_frames or (l2 != l1 if sift else l2) or (
+            (l3_n < n_frames or l3_n % n_frames) if l3 else l3_n):
+        raise AssertionError(f"{what}: launches L1 {l1}, L2 {l2}, L3 {l3_n} "
                              f"for {n_frames} frames")
 
 
 def check_launches(what: str, n_frames: int, counts, full: int,
-                   gathered=None, sift=None) -> None:
+                   gathered=None, sift=None, l3: bool = False) -> None:
     """One launch a frame of the kernels B<full + 1> and, on a coarse->fine
     path, B<gathered + 1>, and none of the others (T1 on no path); N1 the
     same number of times on every frame, at least once; the features' L1
-    and L2 as :func:`check_feature_counts` has them, SIFT's when ``sift`` (by
-    default, when the path matches with B3)."""
+    and L2 and the L2 matcher's L3 as :func:`check_feature_counts` has
+    them, SIFT's when ``sift`` (by default, when the path matches with B3),
+    L3 where ``l3``."""
     log(f"{what}: {n_frames} frames, launches "
         + ", ".join(f"{name} {n}"
                     for name, n in zip(COUNTED_KERNELS, counts)))
@@ -1081,7 +1105,7 @@ def check_launches(what: str, n_frames: int, counts, full: int,
                              f"{want} and N1 a positive multiple of "
                              f"{n_frames} for {n_frames} frames")
     check_feature_counts(what, n_frames, counts,
-                         full == 2 if sift is None else sift)
+                         full == 2 if sift is None else sift, l3)
 
 
 def check_stream_slab(f: int, slab, sfx, what: str) -> None:
@@ -1354,16 +1378,18 @@ def sift_level0(gray: torch.Tensor):
 
 
 def check_features(dev, card: str, gray: torch.Tensor):
-    """Phase 3g: kernels L1 and L2 against their plain versions on the card
-    at the SIFT main path's level-0 shape of ``gray`` (and L1 on random
-    pairs and the special values, L2 in each summation order), bit for
-    bit; then timed beside the plain versions and one PyTorch call each.
-    Returns their ``kernels`` entries' measured fields."""
+    """Phase 3g: kernels L1 and L2 against their plain versions on the CPU
+    at the SIFT main path's level-0 shape of ``gray`` (L1 also on random
+    pairs and the special values, L2 also in each summation order and at
+    the trainer's batch), bit for bit; then timed beside the plain
+    versions and one PyTorch call each. Returns their ``kernels`` entries'
+    measured fields."""
     from tod_tpu_torch.ops import libm
     from tod_tpu_torch.ops import sift as tsift
     from tod_tpu_torch.ops.orb import angle_bins
 
     def same_bits(got, want, what):
+        got, want = got.cpu(), want.cpu()
         nan = torch.isnan(want)
         ok = torch.equal(torch.isnan(got), nan) and torch.equal(
             got[~nan].view(torch.int32), want[~nan].view(torch.int32))
@@ -1386,73 +1412,183 @@ def check_features(dev, card: str, gray: torch.Tensor):
     for y, x, what in ((gy, gx, "L1 at the SIFT gradients"),
                        (ry, rx, f"L1 on {L1_PAIRS} random pairs"),
                        (sy, sx, "L1 at the special values")):
-        same_bits(libm.atan2f(y, x), libm.atan2f_torch(y, x), what)
-    t = tsift.soft_bins(gx, gy, angle)
-    bins = angle_bins(angle)
+        same_bits(libm.atan2f(y, x), libm.atan2f_torch(y.cpu(), x.cpu()),
+                  what)
     k_count = len(xy)
+    host = [a.cpu() for a in (blurred, xy, angle)]
     orders = {}
     for k, batch in ((1, 1), (3, 1), (4, 1), (7, 1), (30, 1), (k_count, 1),
                      (k_count, 12)):
-        got = tsift.sift_histograms(t[:k], bins[:k], batch)
-        want = tsift.sift_normalize_torch(tsift.sift_contract_torch(
-            t[:k], bins[:k], batch).reshape(k, -1))
-        orders[tsift.contraction_order(k, batch)[0]] = orders.get(
-            tsift.contraction_order(k, batch)[0], 0) + 1
+        got = tsift.sift_descriptors(blurred, xy[:k], angle[:k], batch)
+        want = tsift.sift_describe_torch(host[0], host[1][:k], host[2][:k],
+                                         batch)
+        kind = tsift.contraction_order(k, batch)[0]
+        orders[kind] = orders.get(kind, 0) + 1
         same_bits(got, want, f"L2 at K = {k}, batch {batch}")
     log(f"kernels: L1 equal to atan2f_torch bit for bit at frame 0's SIFT "
         f"level-0 gradients ({gy.numel()} pairs), {L1_PAIRS} random pairs "
-        f"and {sy.numel()} special-value pairs; L2 equal to "
-        f"sift_contract_torch + sift_normalize_torch bit for bit at "
-        f"K = 1 to {k_count} in the orders {orders}")
+        f"and {sy.numel()} special-value pairs; L2 (the fused descriptor) "
+        f"equal to sift_describe_torch on the CPU bit for bit at K = 1 to "
+        f"{k_count} in the orders {orders}")
 
+    # L1 on its main path: the keypoint angles, one launch a level of
+    # k_count (the gradient at each keypoint stands in for its moments)
+    mid = tsift.PATCH_R                   # a patch's centre
+    ay, ax = gy[:, mid, mid].contiguous(), gx[:, mid, mid].contiguous()
+    # the kernels' device time (queued: the wrapper's host work hidden
+    # behind a device sleep) and, beside it, the call's time with it
+    l1_ms = cuda_ms(lambda: libm.atan2f(ay, ax), queued=True)
+    l1_host = cuda_ms(lambda: libm.atan2f(ay, ax))
+    l1_plain = cuda_ms(lambda: libm.atan2f_torch(ay, ax))
+    l1_lib = cuda_ms(lambda: torch.atan2(ay, ax), queued=True)
     n = gy.numel()
-    l1_ms = cuda_ms(lambda: libm.atan2f(gy, gx))
-    l1_plain = cuda_ms(lambda: libm.atan2f_torch(gy, gx))
-    l1_lib = cuda_ms(lambda: torch.atan2(gy, gx))
-    l1_bytes_ms = 12 * n / HBM_BYTES_S * 1e3
-    l1_ops_ms = L1_OPS * n / F32_OPS_S * 1e3
+    l1_grad_ms = cuda_ms(lambda: libm.atan2f(gy, gx), queued=True)
+    l1_bytes_ms = 12 * k_count / HBM_BYTES_S * 1e3
+    l1_ops_ms = L1_OPS * k_count / F32_OPS_S * 1e3
+    log(f"kernels: L1 {l1_ms:.4f} ms median of {KERNEL_RUNS} on the device "
+        f"at {k_count} pairs (a level's keypoint angles: launch-bound; the "
+        f"call with its host work {l1_host:.4f} ms); plain "
+        f"{l1_plain:.4f} ms; torch.atan2 (library; not the function) "
+        f"{l1_lib:.4f} ms; bound {max(l1_bytes_ms, l1_ops_ms):.6f} ms; at "
+        f"the {n} gradient pairs (PR 17's shape) {l1_grad_ms:.4f} ms "
+        f"({n / l1_grad_ms / 1e6:.1f} G pairs/s); {card}")
+
+    l2_ms = cuda_ms(lambda: tsift.sift_descriptors(blurred, xy, angle),
+                    queued=True)
+    l2_host = cuda_ms(lambda: tsift.sift_descriptors(blurred, xy, angle))
+    # its scaling in K: the level's keypoints twice over (the pre-pass
+    # groups them once; each block reads only its own item)
+    xy2, angle2 = xy.repeat(2, 1), angle.repeat(2)
+    same_bits(tsift.sift_descriptors(blurred, xy2, angle2),
+              tsift.sift_describe_torch(host[0], xy2.cpu(), angle2.cpu()),
+              f"L2 at K = {2 * k_count}")
+    l2_ms2 = cuda_ms(lambda: tsift.sift_descriptors(blurred, xy2, angle2),
+                     queued=True)
+    l2_plain = cuda_ms(lambda: tsift.sift_describe_torch(blurred, xy, angle),
+                       runs=TWIN_RUNS, warmup=1)
+    producers_ms = cuda_ms(lambda: tsift.soft_bins(
+        *tsift.gradients(blurred, xy), angle), runs=TWIN_RUNS, warmup=1)
+    t = tsift.soft_bins(gx, gy, angle)
     tables = torch.from_numpy(tsift._spatial_tables()).to(dev)
-    l2_ms = cuda_ms(lambda: tsift.sift_histograms(t, bins))
-    l2_plain = cuda_ms(lambda: tsift.sift_normalize_torch(
-        tsift.sift_contract_torch(t, bins).reshape(k_count, -1)),
-        runs=TWIN_RUNS, warmup=1)
-    l2_lib = cuda_ms(lambda: torch.einsum("kpo,pq->kqo", t, tables))
+    l2_lib = cuda_ms(lambda: torch.einsum("kpo,pq->kqo", t, tables),
+                     queued=True)
     taps = tsift._contraction_taps(tsift.contraction_order(k_count))
     per_col = np.diff(taps.starts).reshape(-1, 4).sum(1)  # a column's taps
-    bins_np = bins.cpu().numpy()
+    bins_np = angle_bins(angle).cpu().numpy()
     cols = (bins_np[:, None] * 16 + np.arange(16)).ravel()
-    fmas = 8 * int(per_col[cols].sum())
-    l2_ops_ms = (2 * fmas + 6 * 128 * k_count) / F32_OPS_S * 1e3
-    # a keypoint's output reads only the pixels its bin's cells tap: 8
-    # floats each; then its bin, its 128 outputs and the tap tables once
+    # an FMA a tap and nonzero orientation: two of the eight (fma(W, +0,
+    # acc) = acc is no work the function needs)
+    fmas = 2 * int(per_col[cols].sum())
     pixels = int(np.diff(taps.pixel_starts)[bins_np].sum())
-    l2_bytes = 32 * pixels + k_count * (4 + 128 * 4) + sum(
-        a.nbytes for a in (taps.starts, taps.slots, taps.weights,
-                           taps.pixel_starts, taps.pixels))
+    l2_ops_ms = (2 * fmas + (L1_OPS + L2_PIXEL_OPS) * pixels
+                 + 6 * 128 * k_count) / F32_OPS_S * 1e3
+    # the level image, each keypoint's xy, angle and 128 outputs, and the
+    # tap tables read once; beside it, the design's traffic: each patch
+    # once and a block's bin's tables (weight, slot) and pixels once
+    table_bytes = sum(a.nbytes for a in (taps.starts, taps.slots,
+                                         taps.weights, taps.pixel_starts,
+                                         taps.pixels))
+    l2_bytes = 4 * blurred.numel() + k_count * (12 + 4 * 128) + table_bytes
     l2_bytes_ms = l2_bytes / HBM_BYTES_S * 1e3
-    log(f"kernels: L1 {l1_ms:.4f} ms median of {KERNEL_RUNS} at {n} pairs "
-        f"({n / l1_ms / 1e6:.1f} G pairs/s); plain {l1_plain:.4f} ms; "
-        f"torch.atan2 (library; not the function) {l1_lib:.4f} ms; bound "
-        f"{max(l1_bytes_ms, l1_ops_ms):.4f} ms (12 bytes a pair "
-        f"{l1_bytes_ms:.4f} ms, {L1_OPS} float operations {l1_ops_ms:.4f} "
-        f"ms); {card}")
-    log(f"kernels: L2 {l2_ms:.4f} ms median of {KERNEL_RUNS} at K = "
-        f"{k_count} ({tsift.contraction_order(k_count)[0]}); plain "
-        f"{l2_plain:.3f} ms median of {TWIN_RUNS}; torch.einsum over every "
-        f"angle bin (library) {l2_lib:.4f} ms; bound "
-        f"{max(l2_bytes_ms, l2_ops_ms):.4f} ms ({l2_bytes} bytes "
-        f"{l2_bytes_ms:.4f} ms, {fmas} FMAs and the norms "
-        f"{l2_ops_ms:.4f} ms); {card}")
+    blocks = -(-np.bincount(bins_np, minlength=32)
+               // tsift.DESCRIBE_PER_BLOCK)
+    design_bytes = k_count * (4 * tsift.DEPTH + 12 + 4 * 128) + int(
+        (blocks * (8 * np.diff(taps.starts[::64])
+                   + 4 * np.diff(taps.pixel_starts))).sum())
+    log(f"kernels: L2 (fused) {l2_ms:.4f} ms median of {KERNEL_RUNS} on the "
+        f"device at K = {k_count} ({tsift.contraction_order(k_count)[0]}; "
+        f"the call with its host work {l2_host:.4f} ms); at K = "
+        f"{2 * k_count} (the keypoints twice, bit for bit) {l2_ms2:.4f} ms, "
+        f"{l2_ms2 / l2_ms:.2f}x; the plain chain on the card {l2_plain:.3f} ms and its producers (patches, "
+        f"gradients, soft bins with L1) {producers_ms:.3f} ms, median of "
+        f"{TWIN_RUNS}; torch.einsum over every angle bin (library) "
+        f"{l2_lib:.4f} ms; bound {max(l2_bytes_ms, l2_ops_ms):.4f} ms "
+        f"({l2_bytes} bytes {l2_bytes_ms:.4f} ms, {fmas} FMAs, {pixels} "
+        f"tapped pixels and the norms {l2_ops_ms:.4f} ms; the design's "
+        f"{design_bytes} bytes, whole patches and a block's tables, "
+        f"{design_bytes / HBM_BYTES_S * 1e3:.4f} ms); {card}")
     return (dict(max_abs_err=0.0, ms=l1_ms, plain_ms=l1_plain,
                  bound_ms=max(l1_bytes_ms, l1_ops_ms),
                  bound_by="bytes" if l1_bytes_ms >= l1_ops_ms
                  else "operations", library_ms=l1_lib,
-                 shape=f"{n} pairs (frame 0's SIFT level-0 gradients)"),
+                 host_ms=l1_host, gradients_ms=l1_grad_ms,
+                 shape=f"{k_count} pairs (frame 0's SIFT level-0 keypoint "
+                 f"angles; gradients_ms: its {n} gradients)"),
             dict(max_abs_err=0.0, ms=l2_ms, plain_ms=l2_plain,
                  bound_ms=max(l2_bytes_ms, l2_ops_ms),
                  bound_by="bytes" if l2_bytes_ms >= l2_ops_ms
                  else "operations", library_ms=l2_lib,
-                 shape=f"K = {k_count} x 1369 x 8 (frame 0's SIFT level 0)"))
+                 host_ms=l2_host, producers_ms=producers_ms,
+                 ms_twice_k=l2_ms2,
+                 design_bytes_ms=design_bytes / HBM_BYTES_S * 1e3,
+                 shape=f"K = {k_count} keypoints x 1369 pixels (frame 0's "
+                 f"SIFT level 0)"))
+
+
+def check_l3(dev, card: str, gray: torch.Tensor):
+    """Phase 3h: kernel L3 against its plain tile on the card, bit for
+    bit, at 7e's shape (``gray``'s 5000 SIFT descriptor slots x the first
+    DB chunk of the three SIFT models' rows), at ``L3_Q`` queries, at one
+    query and at a "lanes" and a "parity" width; timed at 7e's shape
+    beside the plain tile and torch.matmul with the formula. Returns its
+    ``kernels`` entry's measured fields."""
+    from tod_tpu_torch.ops import matching as tm
+    from tod_tpu_torch.ops import sift as tsift
+
+    _, desc = tsift.sift_detect_and_compute(gray, n_features=5000)
+    s_models = load_fixture(SIFT_FIXTURE)[2]
+    rows = torch.from_numpy(np.concatenate(
+        [d for d, _ in s_models]).astype(np.float32) / 256.0).to(dev)
+    chunk = rows[:4096].contiguous()
+    big_q = desc.repeat(-(-L3_Q // len(desc)), 1)[:L3_Q].contiguous()
+    cases = [(desc, chunk, 4096), (big_q, rows[4096:8192].contiguous(),
+                                   4000),
+             (desc[:1], chunk, 4096), (desc[:333], chunk[:100], 100),
+             (desc[:77], chunk[:150], 149)]
+    for q, r, n_valid in cases:
+        kind = tm.l2_order(len(q), len(r))
+        got = tm.l2_distances(q, r, n_valid, kind)
+        want = tm.l2_distances_torch(q, r, n_valid, kind)
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            raise AssertionError(f"L3 at {tuple(q.shape)} x "
+                                 f"{tuple(r.shape)} ({kind}) differs from "
+                                 "its plain tile")
+        log(f"kernels: L3 equal to l2_distances_torch bit for bit at "
+            f"{len(q)} x {len(r)} ({kind}, {n_valid} valid rows)")
+    n_q, kind = len(desc), tm.l2_order(len(desc), 4096)
+    l3_ms = cuda_ms(lambda: tm.l2_distances(desc, chunk, 4096, kind),
+                    queued=True)
+    l3_host = cuda_ms(lambda: tm.l2_distances(desc, chunk, 4096, kind))
+    l3_plain = cuda_ms(lambda: tm.l2_distances_torch(desc, chunk, 4096,
+                                                     kind),
+                       runs=TWIN_RUNS, warmup=1)
+
+    def library():
+        q_sq, r_sq = (desc * desc).sum(1), (chunk * chunk).sum(1)
+        return torch.clamp_min((q_sq[:, None] + r_sq[None]) - 2.0 * (
+            desc @ chunk.T), 0.0)
+
+    l3_lib = cuda_ms(library, queued=True)
+    big_ms = cuda_ms(lambda: tm.l2_distances(big_q, chunk, 4096, kind),
+                     queued=True)
+    l3_ops_ms = 2 * 128 * n_q * 4096 / F32_OPS_S * 1e3
+    l3_bytes = 512 * (n_q + 4096) + 4 * n_q * 4096
+    l3_bytes_ms = l3_bytes / HBM_BYTES_S * 1e3
+    log(f"kernels: L3 {l3_ms:.4f} ms median of {KERNEL_RUNS} on the device "
+        f"at {n_q} x 4096 ({kind}; {2 * 128 * n_q * 4096 / l3_ms / 1e9:.1f} "
+        f"TFLOP/s; the call with its host work {l3_host:.4f} ms); "
+        f"plain {l3_plain:.3f} ms median of {TWIN_RUNS}; torch.matmul with "
+        f"the formula (library; another rounding) {l3_lib:.4f} ms; bound "
+        f"{max(l3_ops_ms, l3_bytes_ms):.4f} ms ({l3_bytes} bytes "
+        f"{l3_bytes_ms:.4f} ms, f32 FMAs {l3_ops_ms:.4f} ms); at {L3_Q} x "
+        f"4096 {big_ms:.4f} ms; {card}")
+    return dict(max_abs_err=0.0, ms=l3_ms, plain_ms=l3_plain,
+                bound_ms=max(l3_ops_ms, l3_bytes_ms),
+                bound_by="operations" if l3_ops_ms >= l3_bytes_ms
+                else "bytes", library_ms=l3_lib, host_ms=l3_host,
+                large_ms=big_ms,
+                shape=f"{n_q} x 4096 (frame 0's SIFT descriptor slots x a "
+                f"DB chunk; large_ms: {L3_Q} x 4096)")
 
 
 def sift_phases(dev, card: str, fx, frames, launches: dict):
@@ -3822,25 +3958,22 @@ def sift_graph_phase(dev, card: str, fx, launches: dict) -> None:
                 np.array_equal(m.valid, ref["ref_valid"][f]),
                 digest(m.obj_idx) == meta["obj_idx"][f],
                 digest(m.local_idx) == meta["local_idx"][f]))
-            gap = float(np.abs(np.float64(m.dist) ** 2 - np.float64(
-                ref["ref_dist"][f]) ** 2).max())
-            rel = np.abs(m.dist - ref["ref_dist"][f]) / np.maximum(
-                ref["ref_dist"][f], 1e-30)
+            ref_dist = ref["ref_dist"][f]
+            off = int((m.dist.view(np.int32)
+                       != ref_dist.view(np.int32)).sum())
             log(f"sift-graph: frame {f}: {m.dist.shape[0]} queries x k "
                 f"{m.k}, {int(m.valid.sum())} in radius; query rows whose "
                 f"matched rows differ from the reference's: {swapped}; the "
-                f"rest of the MatchSet equal: {same}; squared distances "
-                f"within {gap:.3g} (bound {SIFT_GRAPH_SQ_ATOL:.3g}), "
-                f"{int((rel > 1e-5).sum())} distances past 1e-5 relative "
-                f"(max {float(rel.max()):.3g}); {secs:.2f} s; {card}")
-            if swapped > SIFT_GRAPH_ROW_SWAPS or not same \
-                    or gap > SIFT_GRAPH_SQ_ATOL:
+                f"rest of the MatchSet equal: {same}; distances not bit for "
+                f"bit the reference's: {off} of {m.dist.size}; {secs:.2f} s; "
+                f"{card}")
+            if swapped or not same or off or m.dist.dtype != ref_dist.dtype:
                 raise AssertionError(f"sift-graph: frame {f}'s MatchSet "
                                      "differs from the reference's")
             results.append(list(det.outputs["pose_results"]))
         launches["7e"] = read_counts()
         check_launches("sift-graph", len(results), launches["7e"], full=None,
-                       sift=True)
+                       sift=True, l3=True)
         for f, res in enumerate(results):
             check_frame(f, res, fx, ref, what="sift-graph")
         log("sift-graph: conf/detection.ork with SIFT on the card: every "
@@ -4466,6 +4599,8 @@ def main() -> int:
 
     # ---- 3g. L1 and L2, the features' kernels, against their plain versions
     l1, l2 = check_features(dev, card, frames[0][0])
+    # ---- 3h. L3, the L2 matcher's distance tile, against its plain tile
+    l3 = check_l3(dev, card, frames[0][0])
     compacted = [stage_features_compact(*frame, cfg) for frame in frames]
     for f, port in enumerate(compacted):
         missing = compaction_mismatches(port, fx, f)
@@ -4635,12 +4770,18 @@ def main() -> int:
          "source": SOURCE_L1, "replaces": L1_REPLACES,
          "launches": total(7),
          **l1},
-        {"name": "L2 SIFT histograms: the tables' contraction in the "
-         "reference's summation order and Lowe's normalisation (replaces "
-         "XLA's dot and reduce: not a Pallas kernel)", "route": "cuda",
+        {"name": "L2 fused SIFT descriptor: patches, gradients, atan2f, soft "
+         "bins, the tables' contraction in the reference's summation order "
+         "and Lowe's normalisation (replaces XLA's fusions, libm call and "
+         "dot: not a Pallas kernel)", "route": "cuda",
          "source": SOURCE_SIFT, "replaces": L2_REPLACES,
-         "launches": total(8),
-         **l2}]}))
+         "launches": total(8), "design_pr": 18,
+         **l2},
+        {"name": "L3 the L2 matcher's squared distances in the reference's "
+         "summation order (replaces XLA's reduces, dot and fusion: not a "
+         "Pallas kernel)", "route": "cuda", "source": SOURCE_L3,
+         "replaces": L3_REPLACES, "launches": total(9), "design_pr": 18,
+         **l3}]}))
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

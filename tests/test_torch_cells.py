@@ -12,8 +12,8 @@ at small feature counts. Contracts:
 - RescaledRegisteredDepth and DepthTo3d: bit for bit against the
   reference's eager cells (NaN where invalid);
 - DescriptorMatcher: every field of the MatchSet, the matched 3D points,
-  the ids and spans bit for bit (ORB on kernel B5's twin); SIFT rows,
-  validity and objects exactly, distances within ``L2_RTOL``;
+  the ids and spans bit for bit (ORB on kernel B5's twin, SIFT on the
+  reference's ordered L2 arithmetic, ``ops/matching.py l2_topk``);
 - GuessGenerator and TodDetector (both pipelines), from the same inputs or
   the same .ork text in each package: the same accepted object ids, in the
   same order, each pose within ``POSE_TOL`` (meters, degrees) of the
@@ -50,7 +50,6 @@ SMOKE = os.path.join(DATA, "torch_smoke_fixture.npz")
 TRAIN = os.path.join(DATA, "torch_train_fixture.npz")
 POSE_TOL = (1e-4, 0.05)     # meters, degrees
 POSE_TOL_2D = (0.01, 2.0)   # the 2D-only path's end-to-end contract
-L2_RTOL = 1e-5              # the f32 product's order (ROADMAP queue C)
 N_FEATURES = 800
 CPU = {"device": "cpu"}
 
@@ -243,11 +242,10 @@ def test_descriptor_matcher_sift(fx):
     models, query = _small_models(fx, "SIFT")
     ref, mine = _run_matchers(
         _matchers(models, {"type": "L2", "radius": 0.5}), query)
-    for name in ("train_idx", "obj_idx", "local_idx", "valid"):
-        np.testing.assert_array_equal(getattr(mine["matches"], name),
-                                      getattr(ref["matches"], name), name)
-    np.testing.assert_allclose(mine["matches"].dist, ref["matches"].dist,
-                               rtol=L2_RTOL, atol=0)
+    for name in ("dist", "train_idx", "obj_idx", "local_idx", "valid"):
+        a, b = getattr(mine["matches"], name), getattr(ref["matches"], name)
+        assert a.dtype == b.dtype, name
+        np.testing.assert_array_equal(a, b, name)
     np.testing.assert_array_equal(mine["matches_3d"], ref["matches_3d"])
     assert mine["matches"].valid[:, 0].sum() >= 150
 

@@ -5,7 +5,9 @@ their plain PyTorch twins, on the card, with the edges of the tensor-core
 tiles (ragged Q and n_valid, short objects beside padding, the full int8
 range, all-zero and all-one descriptors, ties across fragments, lanes,
 tiles and splits); and the threefry noise kernel N1 against its twins on
-the card and the same draws on the CPU.
+the card and the same draws on the CPU; L1 (the host libm's atan2f), L2
+(the fused SIFT descriptor) and L3 (the L2 matcher's distance tile)
+against their plain versions, bit for bit.
 
 Every test here is marked ``cuda`` and skips without a GPU. The file needs
 neither JAX nor the JAX package, so it also runs on a machine that has
@@ -789,7 +791,7 @@ def test_sharded_matchers_on_the_card():
                    zip(got, tseg.object_top1(q, one)))
 
 
-# ---- L1 (the host libm's atan2f) and L2 (the SIFT contraction) -------------
+# ---- L1 (the host libm's atan2f), L2 (the fused SIFT descriptor), L3 --------
 
 def _atan2_pairs():
     """Random pairs over 6 decades, all integer pairs in [-255, 255]^2 and
@@ -828,47 +830,130 @@ def test_l1_matches_plain_atan2f():
     assert libm.atan2f(y[:0].to(dev), x[:0].to(dev)).shape == (0,)
 
 
-def _soft_bins(k_count: int, seed: int):
-    """(K, 1369, 8) weights as sift_descriptors makes them (each pixel's
-    magnitude split between two neighbouring orientation bins) and (K,)
-    angle bins."""
+def _describe_case(k_count: int, seed: int):
+    """A (200, 260) float32 level with smooth and noisy parts, ``k_count``
+    keypoints (integer xy, some near the border where the patch's start is
+    clamped) and angles (half-bin angles and +-pi among them)."""
     rng = np.random.default_rng(seed)
-    mag = (rng.random((k_count, 1369)) * 90).astype(np.float32)
-    frac = rng.random((k_count, 1369)).astype(np.float32)
-    b0 = rng.integers(0, 8, (k_count, 1369))
-    t = np.zeros((k_count, 1369, 8), np.float32)
-    np.put_along_axis(t, b0[..., None], (mag * (1 - frac))[..., None], 2)
-    np.put_along_axis(t, ((b0 + 1) % 8)[..., None], (mag * frac)[..., None],
-                      2)
-    return torch.from_numpy(t), torch.from_numpy(rng.integers(0, 32, k_count))
+    yy, xx = np.mgrid[0:200, 0:260]
+    img = (100 + 60 * np.sin(xx / 9.0) * np.cos(yy / 13.0)
+           + rng.normal(0, 8, (200, 260))).astype(np.float32)
+    xy = np.stack([rng.integers(0, 260, k_count),
+                   rng.integers(0, 200, k_count)], -1).astype(np.int32)
+    angle = rng.uniform(-np.pi, np.pi, k_count).astype(np.float32)
+    angle[:8] = (np.arange(8)[:k_count] + 0.5) * np.float32(2 * np.pi / 32)
+    angle[8:10] = [np.pi, -np.pi][:max(0, k_count - 8)]
+    return (torch.from_numpy(img), torch.from_numpy(xy),
+            torch.from_numpy(angle))
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("k_count, batch", [(1, 1), (3, 1), (4, 1), (7, 1),
                                             (30, 1), (905, 1), (1978, 1),
                                             (271, 12), (330, 2)])
-def test_l2_matches_plain_contraction(k_count, batch):
-    """Kernel L2 (contraction in the reference's order and Lowe's
-    normalisation) against the plain versions on the CPU, bit for bit, in
+def test_l2_fused_matches_plain_chain(k_count, batch):
+    """Kernel L2 (the fused SIFT descriptor: patches, gradients, L1's
+    atan2f, soft bins, the contraction in the reference's order and Lowe's
+    normalisation) against the plain chain on the CPU, bit for bit, in
     each summation order (lanes, parity, chain) and at the serving and
     training widths; one launch a call."""
     from tod_tpu_torch.ops import sift as tsift
 
     dev = _cuda()
-    t, bins = _soft_bins(k_count, k_count)
-    want = tsift.sift_normalize_torch(tsift.sift_contract_torch(
-        t, bins, batch).reshape(k_count, -1))
-    before = tsift.sift_histograms.launches
-    got = tsift.sift_histograms(t.to(dev), bins.to(dev), batch).cpu()
-    assert tsift.sift_histograms.launches == before + 1
+    img, xy, angle = _describe_case(k_count, k_count)
+    want = tsift.sift_describe_torch(img, xy, angle, batch)
+    before = tsift.sift_descriptors.launches
+    got = tsift.sift_descriptors(img.to(dev), xy.to(dev), angle.to(dev),
+                                 batch).cpu()
+    assert tsift.sift_descriptors.launches == before + 1
     assert torch.equal(got, want), tsift.contraction_order(k_count, batch)
 
 
 @pytest.mark.cuda
+def test_l2_fused_refuses_what_it_cannot_take():
+    from tod_tpu_torch.ops import sift as tsift
+
+    dev = _cuda()
+    img, xy, angle = (a.to(dev) for a in _describe_case(5, 1))
+    assert tsift.sift_descriptors(img, xy[:0], angle[:0]).shape == (0, 128)
+    for bad in ((img[:20], xy, angle), (img.double(), xy, angle),
+                (img, xy[:, :1], angle), (img, xy, angle.cpu())):
+        with pytest.raises(ValueError):
+            tsift.sift_descriptors(*bad)
+
+
+def _l2_rows(rng, n: int) -> np.ndarray:
+    """SIFT-like rows (non-negative, unit norm, clipped at 0.2) and signed
+    ones, half each."""
+    x = rng.random((n // 2, 128)) ** 3
+    x = np.minimum(x / np.linalg.norm(x, axis=1, keepdims=True), 0.2)
+    return np.concatenate([x, rng.standard_normal((n - n // 2, 128))]
+                          ).astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_q, chunk, n_valid", [
+    (1, 4096, 4096), (1, 300, 257), (7, 4096, 4000), (100, 4096, 4096),
+    (513, 4096, 1), (65, 100, 100), (63, 150, 77), (2, 30, 30)])
+def test_l3_matches_plain_tile(n_q, chunk, n_valid):
+    """Kernel L3 against its plain tile on the CPU, bit for bit, at each
+    order (vector, chain, lanes, parity), ragged tiles and padding
+    columns; one launch a call."""
+    from tod_tpu_torch.ops import matching as tm
+
+    dev = _cuda()
+    rng = np.random.default_rng(n_q + chunk)
+    q = torch.from_numpy(_l2_rows(rng, n_q))
+    rows = torch.from_numpy(_l2_rows(rng, chunk))
+    kind = tm.l2_order(n_q, chunk)
+    want = tm.l2_distances_torch(q, rows, n_valid, kind)
+    before = tm.l2_distances.launches
+    got = tm.l2_distances(q.to(dev), rows.to(dev), n_valid, kind).cpu()
+    assert tm.l2_distances.launches == before + 1
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32)), kind
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_q", [1, 513])
+def test_l2_topk_on_the_card_equals_the_cpus(n_q):
+    """The matcher's l2_topk through L3 (one launch a chunk) against the
+    CPU path over three chunks with a partial last one and ties: every
+    distance and row bit for bit."""
+    from tod_tpu_torch.ops import matching as tm
+
+    dev = _cuda()
+    rng = np.random.default_rng(n_q)
+    q = _l2_rows(rng, n_q)
+    db = _l2_rows(rng, 3 * 4096)
+    db[[17, 5000, 9000]] = q[0]
+    want = tm.l2_topk(torch.from_numpy(q), torch.from_numpy(db), 10000)
+    before = tm.l2_distances.launches
+    got = tm.l2_topk(torch.from_numpy(q).to(dev), torch.from_numpy(db).to(dev),
+                     10000)
+    assert tm.l2_distances.launches == before + 3
+    assert torch.equal(got[0].cpu().view(torch.int32),
+                       want[0].view(torch.int32))
+    assert torch.equal(got[1].cpu(), want[1])
+
+
+@pytest.mark.cuda
+def test_l3_refuses_what_it_cannot_take():
+    from tod_tpu_torch.ops import matching as tm
+
+    dev = _cuda()
+    q = torch.zeros((3, 128), device=dev)
+    for bad in ((q.double(), q), (q[:, :64], q), (q, q.cpu())):
+        with pytest.raises(ValueError):
+            tm.l2_distances(*bad, 3, "chain")
+    with pytest.raises(RuntimeError):
+        tm.l2_distances(q, q, 3, "vector")       # one query only
+
+
+@pytest.mark.cuda
 def test_features_on_the_card_equal_the_cpus():
-    """ORB and SIFT through L1 and L2 on the card: keypoints, angles and
-    descriptors equal the CPU's plain path, bit for bit (the Harris
-    responses are held elsewhere)."""
+    """ORB and SIFT through L1 and L2 (the fused SIFT descriptor) on the
+    card: keypoints, angles and descriptors equal the CPU's plain path, bit
+    for bit (the Harris responses are held elsewhere)."""
     from tod_tpu_torch.ops import orb as torb
     from tod_tpu_torch.ops import sift as tsift
 

@@ -19,6 +19,7 @@ the tests, ``_own_compaction``), with the reference's RANSAC draws injected
 import dataclasses
 import json
 import os
+import re
 
 import numpy as np
 import pytest
@@ -146,9 +147,9 @@ def test_serving_float_descriptors_match_fixture_digest():
 def test_contraction_taps_and_histograms():
     """The tap tables hold every nonzero table entry once, in its partial
     sum, with its slot in the pixels its angle bin reads (every pixel that
-    a cell of the bin reads, and no other); the CPU wrapper is the plain
-    contraction and normalisation; the wrapper refuses what it cannot
-    take."""
+    a cell of the bin reads, and no other), a bin's taps within
+    ``MAX_BIN_TAPS``; the CPU wrapper is the plain chain (kernel L2's plain
+    version); the wrapper refuses what it cannot take."""
     tables = tsift._spatial_tables()
     for kind, block in {tsift.contraction_order(k) for k in (1, 4, 7)}:
         taps_ = tsift._contraction_taps((kind, block))
@@ -163,6 +164,7 @@ def test_contraction_taps_and_histograms():
             pixels = taps_.pixels[taps_.pixel_starts[b]:
                                   taps_.pixel_starts[b + 1]]
             assert len(pixels) <= tsift.MAX_PIXELS
+            assert starts[64 * b + 64] - starts[64 * b] <= tsift.MAX_BIN_TAPS
             np.testing.assert_array_equal(
                 pixels, np.nonzero(tables[:, 16 * b:16 * b + 16].any(1))[0])
         for col in (0, 77, 511):
@@ -177,16 +179,37 @@ def test_contraction_taps_and_histograms():
                 assert not wt[g, col, len(part):].any()
             np.testing.assert_array_equal(weights[seg[0]:seg[-1]],
                                           tables[taps, col])
-    rng = np.random.default_rng(3)
-    t = torch.from_numpy(rng.random((5, tsift.DEPTH, 8)).astype(np.float32))
-    bins = torch.from_numpy(rng.integers(0, 32, 5))
-    assert torch.equal(tsift.sift_histograms(t, bins),
-                       tsift.sift_normalize_torch(
-                           tsift.sift_contract_torch(t, bins).reshape(5, -1)))
+    blurred, xy, angle = (_t(a) for a in _describe_case(5, 3))
+    assert torch.equal(tsift.sift_descriptors(blurred, xy, angle),
+                       tsift.sift_describe_torch(blurred, xy, angle))
+    before = tsift.sift_descriptors.launches
+    assert tsift.sift_descriptors(blurred, xy[:0], angle[:0]).shape == (0, 128)
+    assert tsift.sift_descriptors.launches == before   # no kernel on a CPU
     with pytest.raises(ValueError):
-        tsift.sift_histograms(t[:, :100], bins)
+        tsift.sift_descriptors(blurred[:30], xy, angle)
     with pytest.raises(ValueError):
-        tsift.sift_histograms(t.to("meta"), bins.to("meta"))
+        tsift.sift_descriptors(blurred, xy, angle.double())
+    with pytest.raises(ValueError):
+        tsift.sift_descriptors(blurred.to("meta"), xy.to("meta"),
+                               angle.to("meta"))
+
+
+def test_describe_kernel_constants_match_the_package():
+    """Kernel L2's compile-time sizes (csrc/sift_descriptor.cu) are the
+    ones ops/sift.py builds its tables for and chip_smoke.py's bound
+    counts with."""
+    from tod_tpu_torch import kernels
+
+    text = (kernels.CSRC / "sift_descriptor.cu").read_text()
+    got = {name: int(value) for name, value in re.findall(
+        r"constexpr int (k\w+) = (\d+);", text)}
+    assert {k: got[k] for k in ("kPatchR", "kOri", "kGroups", "kBins",
+                                "kMaxPixels", "kMaxTaps", "kPerBlock")} == {
+        "kPatchR": tsift.PATCH_R, "kOri": tsift.N_ORI,
+        "kGroups": tsift.N_GROUPS, "kBins": tsift.N_ANGLE_BINS,
+        "kMaxPixels": tsift.MAX_PIXELS, "kMaxTaps": tsift.MAX_BIN_TAPS,
+        "kPerBlock": tsift.DESCRIBE_PER_BLOCK}
+    assert tsift.DEPTH == (2 * tsift.PATCH_R + 1) ** 2
 
 
 def test_sift_detect_and_compute_matches():

@@ -135,7 +135,8 @@ class DescriptorMatcher(Cell):
             q = upload(query.astype(np.float32), self._device)
             d_sq, rows = l2_topk(q, idx.descriptors, idx.n_descriptors,
                                  k=self._k, chunk=L2_CHUNK)
-            dist = torch.sqrt(d_sq)   # report plain L2 like cv::BFMatcher
+            # plain L2 like cv::BFMatcher, correctly rounded as XLA's root
+            dist = torch.sqrt(d_sq.double()).float()
         return to_host(dist, rows)
 
     def process(self) -> None:

@@ -10,14 +10,15 @@ BRIEF, as per-bin weight tables applied in one contraction over pixels.
 Every step rounds as the compiled reference rounds it, so descriptors equal
 the reference's bit for bit: the gradient magnitude is ``sqrt(fma(gx, gx,
 gy * gy))`` (LLVM contracts the sum of squares), its orientation the host
-libm's ``atan2f`` (``ops/libm.py``, kernel L1), the contraction over 1,369
-pixels sums in the order of the oneDNN kernel that XLA's CPU dot runs at
-that shape (:func:`contraction_groups`; kernel L2,
-``csrc/sift_descriptor.cu``), and the norms add their squares in 32-wide
-windows in order, then the four windows in order (XLA's reduce-window
-rewrite). Only the nonzero taps of the keypoint's own angle bin are
-summed: every term is >= +0, and the reference's one-hot selection of the
-bin adds exact zeros.
+libm's ``atan2f`` (``ops/libm.py``), the contraction over 1,369 pixels
+sums in the order of the oneDNN kernel that XLA's CPU dot runs at that
+shape (:func:`contraction_groups`), and the norms add their squares in
+32-wide windows in order, then the four windows in order (XLA's
+reduce-window rewrite). Only the nonzero taps of the keypoint's own angle
+bin are summed: every term is >= +0, and the reference's one-hot selection
+of the bin adds exact zeros. :func:`sift_descriptors` runs all of it as
+one kernel on the card (L2, ``csrc/sift_descriptor.cu``); its plain
+version is :func:`sift_describe_torch`.
 """
 
 from __future__ import annotations
@@ -31,9 +32,10 @@ import torch
 from tod_tpu_torch import kernels
 from tod_tpu_torch.ops.image import fma_f32, gaussian_blur, gemm_order
 from tod_tpu_torch.ops.libm import atan2f
-from tod_tpu_torch.ops.orb import (EDGE_THRESHOLD, N_ANGLE_BINS, PATCH_R,
-                                   PATCH_W, Keypoints, angle_bins,
+from tod_tpu_torch.ops.orb import (_BIN_SCALE, EDGE_THRESHOLD, N_ANGLE_BINS,
+                                   PATCH_R, PATCH_W, Keypoints, angle_bins,
                                    detect_and_describe, extract_patches)
+from tod_tpu_torch.ops.reduce import square_norms
 
 N_SPATIAL = 4            # 4x4 spatial grid
 N_ORI = 8                # 8 orientation bins
@@ -42,6 +44,13 @@ SUPPORT_R = 12.0         # descriptor support radius in patch pixels
 DEPTH = PATCH_W * PATCH_W                  # 1,369 pixels a patch
 N_GROUPS = 4             # the contraction's partial sums an output
 MAX_PIXELS = 912         # most pixels an angle bin's cells read (901)
+MAX_BIN_TAPS = 2560      # most nonzero taps of an angle bin's 16 cells (2304)
+DESCRIBE_PER_BLOCK = 4   # keypoints a block of kernel L2 (kPerBlock)
+# float32 bits of angle_bins' scale and of soft_bins' N_ORI / (2 pi), the
+# constants kernel L2 takes (a python float meets a float32 tensor as its
+# float32 rounding)
+_BIN_SCALE_BITS = int(np.float32(_BIN_SCALE).view(np.int32))
+_REL_SCALE_BITS = int(np.float32(N_ORI / (2.0 * np.pi)).view(np.int32))
 
 
 # Copied from tod_tpu/ops/sift.py:55 (_spatial_tables), numpy only.
@@ -142,15 +151,19 @@ def _contraction_taps(order: Tuple[str, int]) -> Taps:
     ascending depth, each tap's weight and its ``slot`` in the pixels
     (depths) that the 16 columns of its angle bin read (bin b's:
     ``pixels[pixel_starts[b] .. pixel_starts[b + 1]]``, ascending; at most
-    :data:`MAX_PIXELS`, the kernel stages only those).
+    :data:`MAX_PIXELS`, the kernel describes only those; a bin's taps
+    are contiguous, at most :data:`MAX_BIN_TAPS`).
     Padded, for the plain version: ``(idx, wt)``, (4, 512, most taps of a
     partial), weight 0 past a partial's taps."""
     tables = _spatial_tables()
     cells = N_SPATIAL * N_SPATIAL
     bin_pixels = [np.nonzero(tables[:, b * cells:(b + 1) * cells]
                              .any(1))[0] for b in range(N_ANGLE_BINS)]
-    if max(len(p) for p in bin_pixels) > MAX_PIXELS:
-        raise ValueError(f"an angle bin reads more than {MAX_PIXELS} pixels")
+    if max(len(p) for p in bin_pixels) > MAX_PIXELS \
+            or max(np.count_nonzero(tables[:, b * cells:(b + 1) * cells])
+                   for b in range(N_ANGLE_BINS)) > MAX_BIN_TAPS:
+        raise ValueError(f"an angle bin reads more than {MAX_PIXELS} pixels "
+                         f"or {MAX_BIN_TAPS} taps")
     parts = []                    # (column, partial) in the kernel's order
     for col in range(tables.shape[1]):
         taps = np.nonzero(tables[:, col])[0]
@@ -215,14 +228,7 @@ def _norm(desc: torch.Tensor) -> torch.Tensor:
     """(K,) L2 norms of (K, 128) rows, summed as the compiled reference's
     ``jnp.linalg.norm``: the squares rounded, added in order within each
     32-wide window from +0, the four windows added in order, the root."""
-    sq = (desc * desc).reshape(desc.shape[0], DESC_DIM // 32, 32)
-    win = sq[:, :, 0]
-    for i in range(1, 32):
-        win = win + sq[:, :, i]
-    total = win[:, 0]
-    for j in range(1, DESC_DIM // 32):
-        total = total + win[:, j]
-    return _sqrt_f32(total)
+    return _sqrt_f32(square_norms(desc))
 
 
 def sift_normalize_torch(desc: torch.Tensor) -> torch.Tensor:
@@ -231,45 +237,6 @@ def sift_normalize_torch(desc: torch.Tensor) -> torch.Tensor:
     version of kernel L2's epilogue."""
     desc = torch.clamp(desc / (_norm(desc) + 1e-9)[:, None], max=0.2)
     return desc / (_norm(desc) + 1e-9)[:, None]
-
-
-def sift_histograms(t: torch.Tensor, bins: torch.Tensor,
-                    batch: int = 1) -> torch.Tensor:
-    """(K, 128) float32 descriptors from the (K, 1369, 8) soft-binned
-    gradient weights ``t`` and the (K,) angle bins: the contraction, in
-    the order of ``batch`` images described at once, and Lowe's
-    normalisation. Kernel L2 on a CUDA tensor (one launch, counted
-    in ``sift_histograms.launches``; a failed launch raises), the plain
-    :func:`sift_normalize_torch` of :func:`sift_contract_torch` on a CPU
-    tensor."""
-    k_count = t.shape[0]
-    if t.dtype != torch.float32 or tuple(t.shape[1:]) != (DEPTH, N_ORI) \
-            or bins.shape != (k_count,):
-        raise ValueError(f"sift_histograms: t {tuple(t.shape)} {t.dtype}, "
-                         f"bins {tuple(bins.shape)}")
-    if t.device.type == "cpu":
-        return sift_normalize_torch(
-            sift_contract_torch(t, bins, batch).reshape(k_count, DESC_DIM))
-    if t.device.type != "cuda":
-        raise ValueError(f"no SIFT descriptor path for {t.device}")
-    out = torch.empty((k_count, DESC_DIM), dtype=torch.float32,
-                      device=t.device)
-    if k_count:
-        taps = _device_taps(contraction_order(k_count, batch), t.device)
-        t = t.contiguous()
-        bins32 = bins.to(torch.int32).contiguous()
-        kernels.call("sift_descriptor", "tod_sift_contract",
-                     [t.data_ptr(), bins32.data_ptr(), taps.starts.data_ptr(),
-                      taps.slots.data_ptr(), taps.weights.data_ptr(),
-                      taps.pixel_starts.data_ptr(), taps.pixels.data_ptr(),
-                      out.data_ptr()],
-                     [k_count],
-                     torch.cuda.current_stream(t.device).cuda_stream)
-        sift_histograms.launches += 1
-    return out
-
-
-sift_histograms.launches = 0
 
 
 def gradients(img: torch.Tensor, xy: torch.Tensor
@@ -289,8 +256,8 @@ def soft_bins(gx: torch.Tensor, gy: torch.Tensor,
     between the two orientation bins (of 8) around its orientation
     relative to the keypoint ``angle``."""
     k_count = gx.shape[0]
-    mag = _sqrt_f32(fma_f32(gx, gx, gy * gy)).reshape(k_count, -1)  # (K, P)
-    ori = atan2f(gy, gx).reshape(k_count, -1)                       # (K, P)
+    mag = _sqrt_f32(fma_f32(gx, gx, gy * gy)).reshape(k_count, DEPTH)  # (K, P)
+    ori = atan2f(gy, gx).reshape(k_count, DEPTH)                       # (K, P)
     rel = (ori - angle[:, None]) * (N_ORI / (2.0 * np.pi))
     rel = torch.remainder(rel, N_ORI)                          # [0, 8]
     bin0 = torch.floor(rel)
@@ -305,14 +272,63 @@ def soft_bins(gx: torch.Tensor, gy: torch.Tensor,
     return t
 
 
+def sift_describe_torch(img: torch.Tensor, xy: torch.Tensor,
+                        angle: torch.Tensor, batch: int = 1) -> torch.Tensor:
+    """:func:`sift_descriptors` as a chain of PyTorch ops (the patches'
+    gradients, their soft bins through :func:`atan2f`, the contraction and
+    the normalisation): the plain version of kernel L2."""
+    t = soft_bins(*gradients(img, xy), angle)
+    return sift_normalize_torch(sift_contract_torch(
+        t, angle_bins(angle), batch).reshape(len(xy), DESC_DIM))
+
+
 def sift_descriptors(img: torch.Tensor, xy: torch.Tensor,
                      angle: torch.Tensor, batch: int = 1) -> torch.Tensor:
-    """(K, 128) float32 SIFT descriptors at integer level coords ``xy`` with
-    orientations ``angle`` (radians), bit for bit the compiled reference's
-    when it describes ``batch`` such images in one vmapped program (the
-    trainer's view batch; 1 for one image)."""
-    t = soft_bins(*gradients(img, xy), angle)
-    return sift_histograms(t, angle_bins(angle), batch)
+    """(K, 128) float32 SIFT descriptors at integer level coords ``xy``
+    (K, 2) with orientations ``angle`` (radians) on the (H, W) float32
+    level ``img``, bit for bit the compiled reference's when it describes
+    ``batch`` such images in one vmapped program (the trainer's view
+    batch; 1 for one image). Kernel L2 on a CUDA tensor (one call, which
+    queues its one-block grouping pre-pass and the kernel, counted once in
+    ``sift_descriptors.launches``; a failed launch raises),
+    :func:`sift_describe_torch` on a CPU tensor."""
+    k_count = xy.shape[0]
+    if img.dtype != torch.float32 or img.dim() != 2 \
+            or min(img.shape) < PATCH_W or tuple(xy.shape) != (k_count, 2) \
+            or angle.shape != (k_count,) or angle.dtype != torch.float32 \
+            or not img.device == xy.device == angle.device:
+        raise ValueError(f"sift_descriptors: img {tuple(img.shape)} "
+                         f"{img.dtype} on {img.device}, xy {tuple(xy.shape)} "
+                         f"on {xy.device}, angle {tuple(angle.shape)} "
+                         f"{angle.dtype} on {angle.device}")
+    if img.device.type == "cpu":
+        return sift_describe_torch(img, xy, angle, batch)
+    if img.device.type != "cuda":
+        raise ValueError(f"no SIFT descriptor path for {img.device}")
+    out = torch.empty((k_count, DESC_DIM), dtype=torch.float32,
+                      device=img.device)
+    if k_count:
+        # the kernel's pre-pass groups the keypoints by angle bin here
+        scratch = torch.empty(k_count + 2 * (N_ANGLE_BINS + 1),
+                              dtype=torch.int32, device=img.device)
+        taps = _device_taps(contraction_order(k_count, batch), img.device)
+        img = img.contiguous()
+        xy32 = xy.to(torch.int32).contiguous()
+        angle = angle.contiguous()
+        kernels.call("sift_descriptor", "tod_sift_describe",
+                     [img.data_ptr(), xy32.data_ptr(), angle.data_ptr(),
+                      taps.starts.data_ptr(), taps.slots.data_ptr(),
+                      taps.weights.data_ptr(), taps.pixel_starts.data_ptr(),
+                      taps.pixels.data_ptr(), scratch.data_ptr(),
+                      out.data_ptr()],
+                     [img.shape[0], img.shape[1], k_count, _BIN_SCALE_BITS,
+                      _REL_SCALE_BITS],
+                     torch.cuda.current_stream(img.device).cuda_stream)
+        sift_descriptors.launches += 1
+    return out
+
+
+sift_descriptors.launches = 0
 
 
 def sift_detect_and_compute(gray: torch.Tensor, n_features: int = 500,
