@@ -64,7 +64,18 @@ any failure raises, exits non-zero and prints no ``ok`` line:
             first DB chunk of 4096 model rows) and at 16384 x 4096, and at
             one query ("vector") and the "lanes" and "parity" widths;
             timed beside the plain tile and torch.matmul with the formula
-            (the library column: another rounding).
+            (the library column: another rounding). Then the fused L3
+            (tod_l2_topk, the whole matcher in one call) against the chunk
+            loop and its CPU path, distances and rows bit for bit, at 7e's
+            shape, a cut DB, ties, 1, 7, 513 and 16,384 queries; timed
+            beside the loop's parts and torch.matmul + torch.topk.
+3i.         kernel P1 (csrc/p3p.cu) against its plain version on the CPU
+            bit for bit on 16,384 seeded samples; L4 (csrc/libm_f32.cu:
+            glibc's cosf, sincosf, powf and XLA's log) on 10^6 floats,
+            the special values and the 2D path's ranges, timed beside
+            torch.cos, sin, pow and log (the library column: another
+            rounding); P2 (csrc/gauss_newton.cu) at a 2D chunk's shape and
+            past its shared memory (the rows in a global scratch).
 4. main     FusedDetector at the bench's operating point on the 100-object
             smoke catalog, frames of tests/data/torch_smoke_fixture.npz
             through prepare_frame -> detect; the compaction stage's
@@ -279,6 +290,10 @@ without depth):
             --niter 1 --profile DIR2`` once (the .ork's db root pointed at
             the catalog in a temporary copy): the trace must hold B5's and
             N1's kernels by their CUDA names.
+9c. devices frame 0's catalog object obj002, all 5 rounds of the 2D path on
+            the card and on this machine's CPU from the same inputs: every
+            stage's output (graph, triples, P1's candidates, counts and top
+            8, mirrors, refined poses and SSE, accepts) bit for bit.
 
 Then ROADMAP A14, the sharding layer (tod_tpu_torch/parallel), on meshes
 of this card named four times, (1 x 4) and (2 x 2) (and on the distinct
@@ -444,6 +459,39 @@ L2_REPLACES = "tod_tpu/ops/sift.py:93-134"
 # the L2 matcher's norms, dot and distance (XLA's reduces, dot and fusion;
 # not a Pallas kernel)
 L3_REPLACES = "tod_tpu/ops/matching.py:107-141"
+SOURCE_P1 = "tod_tpu_torch/csrc/p3p.cu"
+SOURCE_P2 = "tod_tpu_torch/csrc/gauss_newton.cu"
+# the reference's refinement: XLA's fusions, jax.jacfwd's Jacobian, LAPACK's
+# solve and the Rodrigues update (not a Pallas kernel)
+P2_REPLACES = "tod_tpu/geometry/pnp.py:225-280"
+# float32 operations of P2 a match and iteration, counted from its source:
+# the residual and Jacobian rows 48, the 21 + 6 products and pairwise sums
+# of its two rows 108
+P2_OPS = 48 + 108
+P2_SHAPE = (32, 16, 1024)       # a 2D chunk's refinement: objects x poses x M
+P2_SCRATCH_SHAPE = (2, 8, 5000)  # rows past P2's shared memory (3,185 matches)
+# the reference's vmapped P3P up to the Horn fit: XLA's fusions and its
+# libm calls (not a Pallas kernel)
+P1_REPLACES = "tod_tpu/geometry/pnp.py:119-222"
+# XLA's cos, pow and sin/cos of the 2D path: calls of the host libm's cosf,
+# powf and sincosf (not a Pallas kernel), and its log
+L4_REPLACES = ("tod_tpu/geometry/pnp.py:54,67,241-242,"
+               "tod_tpu/geometry/detection2d.py:85-95,178-181")
+# float32 operations of one P3P sample in p3p.cu, counted from its source:
+# sides and cosines 47, the coefficients 118, Ferrari 73 with two powf,
+# acosf and cosf (~150 as float-equivalents), six polishes of 4 roots 432,
+# the 4 roots' back-substitution 48, 8 candidates x (8 Newton steps x 81 +
+# the gate 27 + 3)
+P1_OPS = 47 + 118 + 73 + 150 + 432 + 48 + 8 * (8 * 81 + 30)
+P1_BYTES = 72 + 96 + 8          # a sample's inputs and outputs
+P1_SAMPLES = 16384              # 32 objects x 512 hypotheses: a 2D chunk
+LIBM_N = 1_000_000              # random floats of phase 3i
+# double operations of glibc's longest float paths (reduce + polynomial:
+# sincosf ~16, powf ~24; XLA's log ~20 float), counted at the float64 rate
+# (NVIDIA H100 SXM data sheet: 34 TFLOP/s outside the tensor cores)
+LIBM_OPS = 24
+F64_OPS_S = 34e12
+L3_K = 5                        # the graph's knnMatch(k=5)
 # float32 operations of atan2f's longest branch (the reduction 4, the two
 # polynomials 20, the products and sums around them 6, y / x and the
 # quadrant fix 3), at the published float32 rate (NVIDIA H100 SXM data
@@ -554,7 +602,8 @@ A13_TURNS = 4          # timed frames of the depthless and the depth graph
 # counts 369 and the top 8 change; run in chunks of 16 objects instead of
 # 32 (another cuBLAS batch), the same round gives the reference's count.
 # Its keypoint invalidation then changes what round 4 sees.
-A13_GAPS = {(0, "obj002", 0): (233, 234), (0, "obj002", 4): (8, 8)}
+A13_GAPS: dict = {}       # accepts off the reference's (ROADMAP queue C)
+A13_OBJECT = (0, "obj002")   # phase 9c: the frame and object held
 EDGE_SEL = (8, -1, 2, 1, 8, 0, -1, 7, 3, 12, 5, 6, 4)
 # Phase 10 (ROADMAP A14): the meshes of one card's device named four
 # times, (n_data, n_db)
@@ -1034,7 +1083,10 @@ def check_frame(f: int, found, fx, ref=None, image=None,
 
 
 def wrappers():
-    """The kernel wrappers, B1..B5, T1, N1, L1, L2 and L3."""
+    """The kernel wrappers, B1..B5, T1, N1, L1, L2, L3 (the fused matcher),
+    L3t (its distance tile), P1, L4 (libm's cosf / sincosf / powf, XLA's
+    log) and P2 (the Gauss-Newton refinement)."""
+    from tod_tpu_torch.geometry import pnp
     from tod_tpu_torch.ops import hamming as ham
     from tod_tpu_torch.ops import libm
     from tod_tpu_torch.ops import matching
@@ -1046,13 +1098,15 @@ def wrappers():
     return (seg.object_top1, seg.object_top1_gathered, l2.object_top1_l2,
             l2.object_top1_l2_gathered, ham.hamming_topk_fused,
             ham.hamming_probe, prng.gumbel, libm.atan2f,
-            sift.sift_descriptors, matching.l2_distances)
+            sift.sift_descriptors, matching.l2_topk_fused,
+            matching.l2_distances, pnp.p3p_distances, libm.libm_f32,
+            pnp.gauss_newton_pose)
 
 
 # the names of :func:`wrappers`' kernels, in the order of :func:`read_counts`
-COUNTED_KERNELS = [f"B{i + 1}" for i in range(5)] + ["T1", "N1", "L1",
-                                                     "L2", "L3"]
-N_MATCH_NOISE = 7          # B1..B5, T1 and N1: the counts before L1-L3
+COUNTED_KERNELS = [f"B{i + 1}" for i in range(5)] + [
+    "T1", "N1", "L1", "L2", "L3", "L3t", "P1", "L4", "P2"]
+N_MATCH_NOISE = 7          # B1..B5, T1 and N1: the counts before L1-L4
 
 
 def reset_counts() -> None:
@@ -1061,8 +1115,8 @@ def reset_counts() -> None:
 
 
 def read_counts():
-    """Launches of (B1, B2, B3, B4, B5, T1, N1, L1, L2, L3) since
-    :func:`reset_counts`."""
+    """Launches of (B1, B2, B3, B4, B5, T1, N1, L1, L2, L3, L3t, P1, L4,
+    P2) since :func:`reset_counts`."""
     return tuple(fn.launches for fn in wrappers())
 
 
@@ -1076,14 +1130,18 @@ def check_feature_counts(what: str, n_frames: int, counts,
     """The path's features went through L1 (the keypoint orientations) and,
     with SIFT, L2 (the fused descriptor): a positive multiple of the frames
     each, one of each a level on a SIFT path (L1 = L2: no separate launch
-    for the gradients' orientations), and no L2 without SIFT; L3 (the L2
-    matcher's tiles) a positive multiple of the frames where ``l3``, else
-    none."""
-    l1, l2, l3_n = counts[N_MATCH_NOISE:]
+    for the gradients' orientations), and no L2 without SIFT; L3 (the
+    fused L2 matcher) one a frame where ``l3``, else none; L4 (XLA's log
+    of the RANSAC weights) the same number of times on every frame; never
+    L3's tile (the orders the graph does not take), P1 or P2 (the 2D
+    path's)."""
+    l1, l2, l3_n, l3t, p1, l4, p2 = counts[N_MATCH_NOISE:]
     if l1 < n_frames or l1 % n_frames or (l2 != l1 if sift else l2) or (
-            (l3_n < n_frames or l3_n % n_frames) if l3 else l3_n):
-        raise AssertionError(f"{what}: launches L1 {l1}, L2 {l2}, L3 {l3_n} "
-                             f"for {n_frames} frames")
+            l3_n != n_frames if l3 else l3_n) or l3t or p1 or l4 % n_frames \
+            or p2:
+        raise AssertionError(f"{what}: launches L1 {l1}, L2 {l2}, L3 {l3_n}, "
+                             f"L3t {l3t}, P1 {p1}, L4 {l4}, P2 {p2} for "
+                             f"{n_frames} frames")
 
 
 def check_launches(what: str, n_frames: int, counts, full: int,
@@ -1525,20 +1583,328 @@ def check_features(dev, card: str, gray: torch.Tensor):
                  f"SIFT level 0)"))
 
 
+def sift_graph_db(dev):
+    """The SIFT graph's DB as 7e holds it: the three SIFT smoke models'
+    float descriptors (/ 256) padded with zero rows to a multiple of 4,096;
+    (padded rows, valid rows)."""
+    s_models = load_fixture(SIFT_FIXTURE)[2]
+    rows = np.concatenate([d for d, _ in s_models]).astype(np.float32) / 256
+    n = len(rows)
+    pad = np.zeros(((-n) % 4096, 128), np.float32)
+    return torch.from_numpy(np.concatenate([rows, pad])).to(dev), n
+
+
 def check_l3(dev, card: str, gray: torch.Tensor):
-    """Phase 3h: kernel L3 against its plain tile on the card, bit for
-    bit, at 7e's shape (``gray``'s 5000 SIFT descriptor slots x the first
-    DB chunk of the three SIFT models' rows), at ``L3_Q`` queries, at one
+    """Phase 3h: the fused L2 matcher (kernel L3, ``l2_topk_fused``)
+    against the parent's chunk loop (one L3 tile a chunk, ``stable_topk``,
+    ``_merge_topk``: ``l2_topk_chunked``) and against its plain version
+    (``_l2_topk_screened``, on the CPU), distances and rows bit for bit: at
+    7e's shape (frame 0's 5000 SIFT descriptor slots x the three SIFT
+    models' rows, a partial last chunk), at 1, 7 and 513 queries, at
+    ``L3_Q`` queries, at a DB cut inside a chunk and at a DB of every row
+    twice (ties: the lower row). Timed at 7e's shape beside the chunk loop
+    (split into its tiles, sorts and merges) and ``torch.matmul`` with the
+    formula and ``torch.topk`` (the library; another rounding). Then the
+    tile itself (:func:`check_l3_tile`). Returns the ``kernels`` entries'
+    measured fields of L3 and L3t."""
+    from tod_tpu_torch.ops import matching as tm
+    from tod_tpu_torch.ops import sift as tsift
+    from tod_tpu_torch.ops.fast import stable_topk
+
+    _, desc = tsift.sift_detect_and_compute(gray, n_features=5000)
+    db, n_valid = sift_graph_db(dev)
+    big_q = desc.repeat(-(-L3_Q // len(desc)), 1)[:L3_Q].contiguous()
+    twice = torch.cat([db[:n_valid], db[:n_valid]])
+    twice = torch.cat([twice, db[:(-len(twice)) % 4096]]).contiguous()
+    cases = [(desc, db, n_valid, True), (desc[:1], db, n_valid, True),
+             (desc[:7], db, n_valid, True), (desc[:513], db, n_valid, True),
+             (big_q, db, n_valid, False), (desc, db[:3 * 4096], 2 * 4096 + 77,
+                                           True),
+             (desc[:513], twice, 2 * n_valid, True)]
+    for q, rows, nv, plain in cases:
+        got = tm.l2_topk_fused(q, rows, nv, L3_K)
+        want = tm.l2_topk_chunked(q, rows, nv, L3_K, 4096, "chain")
+        checks = [("the chunk loop", want)]
+        if plain:
+            checks.append(("its plain version", tm._l2_topk_screened(
+                q.cpu(), rows.cpu(), nv, L3_K, "chain")))
+        for what, (wd, wi) in checks:
+            if not (torch.equal(got[0].view(torch.int32).cpu(),
+                                wd.view(torch.int32).cpu())
+                    and torch.equal(got[1].cpu(), wi.cpu())):
+                raise AssertionError(f"L3 at {len(q)} queries x {nv} valid "
+                                     f"rows differs from {what}")
+        log(f"kernels: L3 (fused matcher) equal to the chunk loop"
+            f"{' and its plain version' if plain else ''} bit for bit at "
+            f"{len(q)} queries x {nv} valid rows of {len(rows)}, k {L3_K}")
+    n_q = len(desc)
+    fused_ms = cuda_ms(lambda: tm.l2_topk_fused(desc, db, n_valid, L3_K),
+                       queued=True)
+    fused_host = cuda_ms(lambda: tm.l2_topk_fused(desc, db, n_valid, L3_K))
+    loop_ms = cuda_ms(lambda: tm.l2_topk_chunked(desc, db, n_valid, L3_K,
+                                                 4096, "chain"), runs=8)
+    chunk = db[:4096]
+    dist = tm.l2_distances(desc, chunk, 4096, "chain")
+    tile_ms = cuda_ms(lambda: tm.l2_distances(desc, chunk, 4096, "chain"),
+                      queued=True)
+    sort_ms = cuda_ms(lambda: stable_topk(-dist, L3_K), queued=True)
+    best = stable_topk(-dist, L3_K)
+    merge_ms = cuda_ms(lambda: tm._merge_topk(
+        -best[0], best[1].int(), -best[0], best[1].int(), L3_K), queued=True)
+    n_chunks = db.shape[0] // 4096
+    t0 = time.perf_counter()
+    tm._l2_topk_screened(desc.cpu(), db.cpu(), n_valid, L3_K, "chain")
+    plain_ms = (time.perf_counter() - t0) * 1e3
+
+    def library():
+        q_sq, r_sq = (desc * desc).sum(1), (db[:n_valid] * db[:n_valid]).sum(1)
+        d = torch.clamp_min((q_sq[:, None] + r_sq[None]) - 2.0 * (
+            desc @ db[:n_valid].T), 0.0)
+        return torch.topk(d, L3_K, dim=1, largest=False)
+
+    lib_ms = cuda_ms(library, queued=True, runs=8)
+    big_ms = cuda_ms(lambda: tm.l2_topk_fused(big_q, db, n_valid, L3_K),
+                     queued=True, runs=8)
+    pairs = n_q * n_valid
+    ops_ms = 2 * 128 * pairs / F32_OPS_S * 1e3
+    n_bytes = 512 * (n_q + n_valid) + 8 * n_q * L3_K
+    bytes_ms = n_bytes / HBM_BYTES_S * 1e3
+    bound_ms = max(ops_ms, bytes_ms)
+    log(f"kernels: L3 (fused matcher) {fused_ms:.4f} ms median of "
+        f"{KERNEL_RUNS} on the device at {n_q} x {n_valid} valid rows "
+        f"({db.shape[0] // 4096} chunks), k {L3_K} "
+        f"({2 * 128 * pairs / fused_ms / 1e9:.1f} TFLOP/s, "
+        f"{bound_ms / fused_ms * 100:.1f} % of the bound {bound_ms:.4f} ms by "
+        f"{'operations' if ops_ms >= bytes_ms else 'bytes'}; the call with "
+        f"its host work {fused_host:.4f} ms); the parent's chunk loop "
+        f"{loop_ms:.4f} ms whole (its parts a chunk: L3 tile {tile_ms:.4f}, "
+        f"stable_topk {sort_ms:.4f}, _merge_topk {merge_ms:.4f} ms, x "
+        f"{n_chunks} chunks); plain version (CPU) {plain_ms:.1f} ms; "
+        f"torch.matmul with the formula + torch.topk (library; another "
+        f"rounding) {lib_ms:.4f} ms; at {L3_Q} queries {big_ms:.4f} ms; "
+        f"{card}")
+    fused = dict(max_abs_err=0.0, ms=fused_ms, plain_ms=plain_ms,
+                 bound_ms=bound_ms,
+                 bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+                 library_ms=lib_ms, host_ms=fused_host, loop_ms=loop_ms,
+                 loop_parts_ms=dict(tile=tile_ms, stable_topk=sort_ms,
+                                    merge=merge_ms, chunks=n_chunks),
+                 large_ms=big_ms, plain_on="cpu",
+                 shape=f"{n_q} queries x {n_valid} valid rows, k {L3_K} "
+                 f"(7e: frame 0's SIFT descriptor slots x the three SIFT "
+                 f"models; large_ms: {L3_Q} queries)")
+    return fused, check_l3_tile(dev, card, desc, db)
+
+
+def check_p1(dev, card: str) -> tuple:
+    """Phase 3i: kernel P1 against its plain version (on the CPU) bit for
+    bit on seeded P3P samples (the tests' well-posed generator and random
+    triples), and L4 (glibc's cosf, sincosf, powf; XLA's log) against theirs on
+    ``LIBM_N`` random floats, the special values and the ranges the 2D path
+    reaches; each timed. Returns the ``kernels`` entries' fields of P1 and
+    L4."""
+    from tod_tpu_torch.geometry import pnp
+    from tod_tpu_torch.ops import libm
+
+    rng = np.random.default_rng(19)
+    K = np.array([[525.0, 0, 319.5], [0, 525.0, 239.5], [0, 0, 1]])
+    bear, pts = [], []
+    for i in range(P1_SAMPLES):
+        if i % 2:          # a well-posed sample: a pose, 3 points, rays
+            ax = rng.uniform(-0.4, 0.4, 3)
+            th = np.linalg.norm(ax)
+            k = ax / th
+            kx = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]],
+                           [-k[1], k[0], 0]])
+            R = np.eye(3) + np.sin(th) * kx + (1 - np.cos(th)) * kx @ kx
+            T = np.array([*rng.uniform(-0.15, 0.15, 2), 0.9])
+            X = rng.uniform(-0.12, 0.12, (3, 3))
+            X[:, 2] *= 0.1
+            uv = (X @ R.T + T) @ K.T
+            b = np.concatenate([(uv[:, :2] / uv[:, 2:3] - K[:2, 2])
+                                / np.diag(K)[:2], np.ones((3, 1))], 1)
+        else:              # random rays and points
+            b = rng.standard_normal((3, 3)) + [0, 0, 3]
+            X = rng.standard_normal((3, 3)) * 0.2
+        bear.append(b / np.linalg.norm(b, axis=1, keepdims=True))
+        pts.append(X)
+    bear = torch.from_numpy(np.asarray(bear, np.float32))
+    pts = torch.from_numpy(np.asarray(pts, np.float32))
+    b_dev, p_dev = bear.to(dev), pts.to(dev)
+    s, ok = pnp.p3p_distances(b_dev, p_dev)
+    t0 = time.perf_counter()
+    s_w, ok_w = pnp.p3p_distances_torch(bear, pts)
+    p1_plain = (time.perf_counter() - t0) * 1e3
+    if not (torch.equal(s.cpu().view(torch.int32), s_w.view(torch.int32))
+            and torch.equal(ok.cpu(), ok_w)):
+        bad = (s.cpu().view(torch.int32) != s_w.view(torch.int32)).any(-1)
+        raise AssertionError(f"P1 differs from its plain version on "
+                             f"{int(bad.sum())} of {bad.numel()} candidates")
+    p1_ms = cuda_ms(lambda: pnp.p3p_distances(b_dev, p_dev), queued=True)
+    p1_host = cuda_ms(lambda: pnp.p3p_distances(b_dev, p_dev))
+    ops_ms = P1_OPS * P1_SAMPLES / F32_OPS_S * 1e3
+    bytes_ms = P1_BYTES * P1_SAMPLES / HBM_BYTES_S * 1e3
+    log(f"kernels: P1 equal to p3p_distances_torch bit for bit on "
+        f"{P1_SAMPLES} samples ({int(ok.sum())} of {ok.numel()} candidates "
+        f"valid); {p1_ms:.4f} ms median of {KERNEL_RUNS} on the device "
+        f"(the call with its host work {p1_host:.4f} ms); plain version "
+        f"(CPU) {p1_plain:.1f} ms; bound {max(ops_ms, bytes_ms):.5f} ms "
+        f"({P1_OPS} float operations a sample {ops_ms:.5f} ms, bytes "
+        f"{bytes_ms:.5f} ms); {card}")
+    p1 = dict(max_abs_err=0.0, ms=p1_ms, plain_ms=p1_plain,
+              bound_ms=max(ops_ms, bytes_ms),
+              bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+              library_ms=None, host_ms=p1_host, plain_on="cpu",
+              shape=f"{P1_SAMPLES} samples (a 2D chunk: 32 objects x 512 "
+              "hypotheses)")
+
+    x = (rng.standard_normal(LIBM_N) * 10.0 ** rng.uniform(-6, 6, LIBM_N))
+    special = np.array([0.0, -0.0, np.inf, -np.inf, np.nan, 1e-45, -1e-45,
+                        1.17549435e-38, 2.0 ** -12, np.pi / 4, 119.99, 120.0,
+                        3.4028235e38, -3.4028235e38, 1.0, -1.0, 0.5])
+    ranges = np.concatenate([rng.uniform(0, np.pi / 3, 1000),    # theta / 3
+                             rng.uniform(-np.pi, np.pi, 1000),   # the mirror
+                             rng.uniform(0, 1e-3, 1000),         # GN steps
+                             rng.uniform(0, 1e3, 1000)])         # cbrt
+    x = torch.from_numpy(np.concatenate([x, special, ranges])
+                         .astype(np.float32))
+    y = torch.full_like(x, 1.0 / 3.0)
+    x_dev, y_dev = x.to(dev), y.to(dev)
+    plain = {0: lambda: libm.cosf_torch(x), 1: lambda: libm.sincosf_torch(x),
+             2: lambda: libm.powf_torch(x.abs(), y),
+             3: lambda: libm.log_xla_torch(x.abs())}
+    args = {0: (x_dev,), 1: (x_dev,), 2: (x_dev.abs(), y_dev),
+            3: (x_dev.abs(),)}
+    times = {}
+    for fn, name in enumerate(("cosf", "sincosf", "powf", "log")):
+        got = libm.libm_f32(fn, *args[fn])
+        t0 = time.perf_counter()
+        want = plain[fn]()
+        plain_fn_ms = (time.perf_counter() - t0) * 1e3
+        for g, w in zip(*((got, want) if fn == 1 else ((got,), (want,)))):
+            g = g.cpu()
+            nan = torch.isnan(w)
+            if not (torch.equal(torch.isnan(g), nan) and torch.equal(
+                    g[~nan].view(torch.int32), w[~nan].view(torch.int32))):
+                raise AssertionError(f"L4 {name} differs from its plain "
+                                     "version")
+        times[name] = (cuda_ms(lambda: libm.libm_f32(fn, *args[fn]),
+                               queued=True), plain_fn_ms)
+    # the library column: one PyTorch call a function (another rounding)
+    library = {"cosf": lambda: torch.cos(x_dev),
+               "sincosf": lambda: (torch.sin(x_dev), torch.cos(x_dev)),
+               "powf": lambda: torch.pow(args[2][0], y_dev),
+               "log": lambda: torch.log(args[3][0])}
+    lib_ms = {k: cuda_ms(f, queued=True) for k, f in library.items()}
+    n = x.numel()
+    l4_ops_ms = LIBM_OPS * n / F64_OPS_S * 1e3
+    l4_bytes_ms = 12 * n / HBM_BYTES_S * 1e3
+    log(f"kernels: L4 cosf, sincosf, powf, log equal to their plain "
+        f"versions bit for bit on {n} floats (random over 12 decades, the "
+        f"special values, the 2D path's ranges); device / plain (CPU) ms: "
+        + ", ".join(f"{k} {a:.4f} / {b:.1f}" for k, (a, b) in times.items())
+        + "; PyTorch's (another rounding) ms: "
+        + ", ".join(f"{k} {a:.4f}" for k, a in lib_ms.items())
+        + f"; bound (powf) {max(l4_ops_ms, l4_bytes_ms):.4f} ms; {card}")
+    l4 = dict(max_abs_err=0.0, ms=times["powf"][0],
+              plain_ms=times["powf"][1],
+              bound_ms=max(l4_ops_ms, l4_bytes_ms),
+              bound_by="operations" if l4_ops_ms >= l4_bytes_ms else "bytes",
+              library_ms=lib_ms["powf"], plain_on="cpu",
+              every_ms={k: a for k, (a, _) in times.items()},
+              library_every_ms=lib_ms,
+              shape=f"{n} floats (powf timed; every_ms: each function; "
+              "library: torch.pow, cos, sin and cos, log, another "
+              "rounding)")
+    return p1, l4, check_p2(dev, card)
+
+
+def check_p2(dev, card: str) -> dict:
+    """Phase 3i: kernel P2 (the fused Gauss-Newton refinement) against its
+    plain version on the CPU, bit for bit, at a 2D chunk's shape
+    (``P2_SHAPE``: objects x refined poses x matches; seeded poses near
+    the truth, noisy pixels, a fifth of the rows weighted out, a few points
+    behind the camera), and at ``P2_SCRATCH_SHAPE``, whose rows pass
+    shared memory (``pnp.GN_SHARED_BYTES``) into the wrapper's global
+    scratch; each timed."""
+    from tod_tpu_torch.geometry import pnp
+
+    rng = np.random.default_rng(29)
+    K = torch.tensor([[525.0, 0, 319.5], [0, 525.0, 239.5], [0, 0, 1]])
+    out = {}
+    for shape in (P2_SHAPE, P2_SCRATCH_SHAPE):
+        n_obj, n_pose, n = shape
+        X = torch.from_numpy(rng.uniform(-0.12, 0.12, (n_obj, 1, n, 3))
+                             .astype(np.float32))
+        X[:, :, :, 2] += 0.8
+        X[0, 0, :5, 2] = -0.5                      # behind the camera
+        ang = rng.uniform(-0.03, 0.03, (n_obj, n_pose, 3))
+        R0 = torch.from_numpy(np.stack([np.stack([cv_rodrigues(a)
+                                                  for a in row])
+                                        for row in ang]).astype(np.float32))
+        T0 = torch.from_numpy(rng.uniform(-0.01, 0.01, (n_obj, n_pose, 3))
+                              .astype(np.float32))
+        uv = X[..., :2] / X[..., 2:3] * 525.0 + torch.tensor([319.5, 239.5])
+        uv = uv + torch.from_numpy(rng.normal(0, 0.5, uv.shape).astype(
+            np.float32))
+        w = torch.from_numpy((rng.random((n_obj, n_pose, n)) > 0.2)
+                             .astype(np.float32))
+        args = [t.to(dev) for t in (R0, T0, K, X, uv, w)]
+        R, T = pnp.gauss_newton_pose(*args)
+        t0 = time.perf_counter()
+        R_w, T_w = pnp.gauss_newton_pose_torch(R0, T0, K, X, uv, w)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        for got, want, what in ((R, R_w, "R"), (T, T_w, "T")):
+            if not torch.equal(got.cpu().view(torch.int32),
+                               want.view(torch.int32)):
+                raise AssertionError(f"P2 differs from its plain version in "
+                                     f"{what} at {shape}")
+        ms = cuda_ms(lambda: pnp.gauss_newton_pose(*args), queued=True)
+        host = cuda_ms(lambda: pnp.gauss_newton_pose(*args))
+        iters = 5
+        ops_ms = P2_OPS * n_obj * n_pose * n * iters / F32_OPS_S * 1e3
+        bytes_ms = (4 * n_obj * n_pose * n + 20 * n_obj * n
+                    + 48 * 2 * n_obj * n_pose) / HBM_BYTES_S * 1e3
+        where = ("shared memory" if 72 * n <= pnp.GN_SHARED_BYTES
+                 else "a global scratch")
+        log(f"kernels: P2 equal to gauss_newton_pose_torch bit for bit at "
+            f"{n_obj} x {n_pose} poses x {n} matches (rows in {where}), 5 "
+            f"iterations; {ms:.4f} ms median of {KERNEL_RUNS} on the device "
+            f"(the call with its host work {host:.4f} ms); plain version "
+            f"(CPU) {plain_ms:.1f} ms; bound {max(ops_ms, bytes_ms):.5f} ms; "
+            f"{card}")
+        out[shape] = dict(ms=ms, plain_ms=plain_ms,
+                          bound_ms=max(ops_ms, bytes_ms),
+                          bound_by="operations" if ops_ms >= bytes_ms
+                          else "bytes", host_ms=host)
+    n_obj, n_pose, n = P2_SHAPE
+    return dict(max_abs_err=0.0, **out[P2_SHAPE], library_ms=None,
+                plain_on="cpu", scratch_ms=out[P2_SCRATCH_SHAPE]["ms"],
+                shape=f"{n_obj} objects x {n_pose} poses x {n} matches, 5 "
+                "iterations (a 2D chunk's refinement); scratch_ms: "
+                + " x ".join(map(str, P2_SCRATCH_SHAPE)))
+
+
+def cv_rodrigues(ax) -> np.ndarray:
+    """The rotation of axis-angle ``ax`` (numpy, float64)."""
+    th = float(np.linalg.norm(ax))
+    if th == 0.0:
+        return np.eye(3)
+    k = np.asarray(ax) / th
+    kx = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
+    return np.eye(3) + np.sin(th) * kx + (1 - np.cos(th)) * kx @ kx
+
+
+def check_l3_tile(dev, card: str, desc: torch.Tensor, db: torch.Tensor):
+    """Phase 3h: kernel L3's tile against its plain tile on the card, bit for
+    bit, at 7e's shape (``desc``, frame 0's 5000 SIFT descriptor slots, x
+    the first DB chunk of the three SIFT models' rows), at ``L3_Q`` queries, at one
     query and at a "lanes" and a "parity" width; timed at 7e's shape
     beside the plain tile and torch.matmul with the formula. Returns its
     ``kernels`` entry's measured fields."""
     from tod_tpu_torch.ops import matching as tm
-    from tod_tpu_torch.ops import sift as tsift
 
-    _, desc = tsift.sift_detect_and_compute(gray, n_features=5000)
-    s_models = load_fixture(SIFT_FIXTURE)[2]
-    rows = torch.from_numpy(np.concatenate(
-        [d for d, _ in s_models]).astype(np.float32) / 256.0).to(dev)
+    rows = db
     chunk = rows[:4096].contiguous()
     big_q = desc.repeat(-(-L3_Q // len(desc)), 1)[:L3_Q].contiguous()
     cases = [(desc, chunk, 4096), (big_q, rows[4096:8192].contiguous(),
@@ -2925,6 +3291,74 @@ def check_frame_2d(ax, fx, f: int, res, gg, inputs: dict, sub, dev) -> list:
     return differ
 
 
+def bits_differ(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Entries of ``a`` whose bits differ from ``b``'s (NaN as NaN)."""
+    a, b = a.cpu(), b.cpu()
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return max(a.numel(), b.numel(), 1)
+    if a.is_floating_point():
+        nan = torch.isnan(a) & torch.isnan(b)
+        view = torch.int32 if a.dtype == torch.float32 else torch.int64
+        return int(((a.view(view) != b.view(view)) & ~nan).sum())
+    return int((a != b).sum())
+
+
+def check_devices_2d(inputs: dict, gg, sub, dev, card: str) -> None:
+    """Phase 9c: ``A13_OBJECT``'s rounds of the port's 2D path on the card
+    and on this machine's CPU from the same inputs and noise, every stage
+    (the log-ratios, the sampling graph and its histogram, the weights and
+    triples, P1's distances against its plain twin, the candidate poses,
+    the counts and the top 8, the mirrors, the refined poses and the SSE,
+    the round's pose, count and accept, the next round's valid mask)
+    compared bit for bit; raises at any difference, naming the first
+    stage where the devices part."""
+    from tod_tpu_torch.geometry import detection2d as td
+    from tod_tpu_torch.geometry.adjacency import ObjectMatches
+    from tod_tpu_torch.geometry.ransac import ThreefryNoise
+
+    f, name = A13_OBJECT
+    _, clustered, cfg, K = replay_2d(gg, inputs, sub, dev)
+    o = [str(x) for x in inputs["object_ids"]].index(name)
+    part = ObjectMatches(*(x[o:o + 1] for x in clustered))
+    part_cpu = ObjectMatches(*(x.cpu() for x in part))
+    noise = ThreefryNoise(sub, cfg.max_instances, False, dev)
+    n_obj, mcap = clustered.valid.shape
+    valid, valid_cpu = part.valid, part.valid.cpu()
+    t0 = time.perf_counter()
+    stages = 0
+    for i in range(cfg.max_instances):
+        g = noise(f"round{i}", (n_obj, 3, cfg.n_hypotheses, mcap),
+                  rows=np.array([o]))
+        tr_card, tr_cpu = {}, {}
+        out = td.ransac_round_2d(g, part, K, valid, cfg, trace=tr_card)
+        out_cpu = td.ransac_round_2d(g.cpu(), part_cpu, K.cpu(), valid_cpu,
+                                     cfg, trace=tr_cpu)
+        accept = out[4] & (out[3] >= cfg.min_inliers)
+        accept_cpu = out_cpu[4] & (out_cpu[3] >= cfg.min_inliers)
+        valid = td.invalidate_keypoints(valid, part.query_idx, out[2], accept)
+        valid_cpu = td.invalidate_keypoints(valid_cpu, part_cpu.query_idx,
+                                            out_cpu[2], accept_cpu)
+        tr_card.update(R=out[0], T=out[1], inliers=out[2], n_unique=out[3],
+                       found=out[4], accept=accept, next_valid=valid)
+        tr_cpu.update(R=out_cpu[0], T=out_cpu[1], inliers=out_cpu[2],
+                      n_unique=out_cpu[3], found=out_cpu[4],
+                      accept=accept_cpu, next_valid=valid_cpu)
+        for stage, x in tr_card.items():
+            n = bits_differ(x, tr_cpu[stage])
+            stages += 1
+            if n:
+                raise AssertionError(
+                    f"a13-devices: frame {f}, {name}, round {i}: the card "
+                    f"and the CPU part at stage {stage} ({n} of "
+                    f"{x.numel()} entries differ)")
+        log(f"a13-devices: frame {f}, {name}, round {i}: {len(tr_card)} "
+            f"stages equal on the card and the CPU bit for bit (found "
+            f"{bool(out[4][0])}, {int(out[3][0])} unique inliers, accept "
+            f"{bool(accept[0])})")
+    log(f"a13-devices: {stages} stage outputs of {cfg.max_instances} rounds "
+        f"equal on both devices in {time.perf_counter() - t0:.1f} s; {card}")
+
+
 def host_waits(fn) -> int:
     """Synchronising calls ``fn()`` makes (torch's sync debug mode)."""
     import warnings
@@ -3000,6 +3434,12 @@ def a13_phases(dev, card: str, fx, launches: dict) -> dict:
             raise AssertionError(f"a13: launches {list(launches['9a'])}, "
                                  f"expected one B5 a frame and {rounds} N1 "
                                  "(one a round)")
+        l3_n, l3t, p1_n, l4_n, p2_n = launches["9a"][N_MATCH_NOISE + 2:]
+        if l3_n or l3t or p1_n < n_frames * rounds or l4_n < p1_n \
+                or p2_n != 2 * p1_n:
+            raise AssertionError(f"a13: launches {list(launches['9a'])}, "
+                                 "expected P1 at least once a round, L4 "
+                                 "more often, P2 twice a P1, no L3")
         key = prng.prng_key(int(gg.params["seed"]))
         differ = []
         for f, res in enumerate(results):
@@ -3019,6 +3459,10 @@ def a13_phases(dev, card: str, fx, launches: dict) -> dict:
             "pairs; unique-inlier counts and poses (1 cm, 2 degrees) the "
             "reference's but for queue C's gaps; one B5 launch a frame and "
             "one N1 launch a round")
+
+        # ---- 9c. the gap's object, every stage on the card and the CPU ---
+        sub0 = prng.split(prng.prng_key(int(gg.params["seed"])))[1]
+        check_devices_2d(inputs[A13_OBJECT[0]], gg, sub0, dev, card)
 
         # B5 at the graph's own shape (radius None) and its bound
         index = det.descriptor_matcher.index
@@ -4600,7 +5044,9 @@ def main() -> int:
     # ---- 3g. L1 and L2, the features' kernels, against their plain versions
     l1, l2 = check_features(dev, card, frames[0][0])
     # ---- 3h. L3, the L2 matcher's distance tile, against its plain tile
-    l3 = check_l3(dev, card, frames[0][0])
+    l3, l3t = check_l3(dev, card, frames[0][0])
+    # ---- 3i. P1 and L4, the 2D path's kernels, against their plain versions
+    p1, l4, p2 = check_p1(dev, card)
     compacted = [stage_features_compact(*frame, cfg) for frame in frames]
     for f, port in enumerate(compacted):
         missing = compaction_mismatches(port, fx, f)
@@ -4777,11 +5223,33 @@ def main() -> int:
          "source": SOURCE_SIFT, "replaces": L2_REPLACES,
          "launches": total(8), "design_pr": 18,
          **l2},
-        {"name": "L3 the L2 matcher's squared distances in the reference's "
-         "summation order (replaces XLA's reduces, dot and fusion: not a "
-         "Pallas kernel)", "route": "cuda", "source": SOURCE_L3,
-         "replaces": L3_REPLACES, "launches": total(9), "design_pr": 18,
-         **l3}]}))
+        {"name": "L3 the fused L2 matcher: the k nearest rows over the whole "
+         "DB, each squared distance in the reference's summation order "
+         "(replaces XLA's reduces, dot, fusion and top-k: not a Pallas "
+         "kernel)", "route": "cuda", "source": SOURCE_L3,
+         "replaces": L3_REPLACES, "launches": total(9), "design_pr": 19,
+         **l3},
+        {"name": "L3t L3's distance tile, the orders the fused matcher does "
+         "not take (one query; chunks other than 4,096)", "route": "cuda",
+         "source": SOURCE_L3, "replaces": L3_REPLACES,
+         "launches": total(10), "design_pr": 18, **l3t},
+        {"name": "P1 Grunert's P3P up to the Horn fit: sides, quartic, "
+         "Ferrari with glibc's powf and cosf, Newton polishes, the 3x3 "
+         "Newton steps, the gate (replaces XLA's fusions and libm calls: "
+         "not a Pallas kernel)", "route": "cuda", "source": SOURCE_P1,
+         "replaces": P1_REPLACES, "launches": total(11), "design_pr": 19,
+         **p1},
+        {"name": "L4 glibc's FMA builds of cosf, sincosf and powf, and "
+         "XLA's log (replaces XLA's libm calls and log: not a Pallas "
+         "kernel)",
+         "route": "cuda", "source": SOURCE_L1, "replaces": L4_REPLACES,
+         "launches": total(12), "design_pr": 19, **l4},
+        {"name": "P2 the Gauss-Newton pose refinement, every iteration of "
+         "a call in one launch: residuals, Jacobian, the pairwise-summed "
+         "normal equations, the 6x6 LU, the Rodrigues update (replaces "
+         "XLA's fusions, jacfwd and LAPACK's solve: not a Pallas kernel)",
+         "route": "cuda", "source": SOURCE_P2, "replaces": P2_REPLACES,
+         "launches": total(13), "design_pr": 19, **p2}]}))
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,8 +6,10 @@ tiles (ragged Q and n_valid, short objects beside padding, the full int8
 range, all-zero and all-one descriptors, ties across fragments, lanes,
 tiles and splits); and the threefry noise kernel N1 against its twins on
 the card and the same draws on the CPU; L1 (the host libm's atan2f), L2
-(the fused SIFT descriptor) and L3 (the L2 matcher's distance tile)
-against their plain versions, bit for bit.
+(the fused SIFT descriptor), L3 (the fused L2 matcher and its distance
+tile), P1 (P3P) and L4 (glibc's cosf, sincosf, powf; XLA's log) against
+their plain versions, bit for bit; and the 2D path on the card against the
+CPU, bit for bit.
 
 Every test here is marked ``cuda`` and skips without a GPU. The file needs
 neither JAX nor the JAX package, so it also runs on a machine that has
@@ -640,9 +642,10 @@ def _scene_2d(seed: int = 11):
 
 @pytest.mark.cuda
 def test_2d_path_on_the_card_equals_the_cpus():
-    """detect_frame_2d on the card against the CPU: the same accepts and
-    unique-inlier counts, poses within 1e-3; one N1 launch a round; and a
-    round (ransac_round_2d) that never waits for the host."""
+    """detect_frame_2d on the card against the CPU: every field bit for
+    bit (the round rounds alike on both devices: P1 against its twin, fixed
+    sums, the C library's functions); one N1 launch a round; and a round
+    (ransac_round_2d) that never waits for the host."""
     from tod_tpu_torch.geometry import detection2d as td
 
     dev = _cuda()
@@ -661,11 +664,8 @@ def test_2d_path_on_the_card_equals_the_cpus():
     cpu, gpu = out["cpu"], out["cuda"]
     acc = cpu.accepted
     assert acc[0, 0] and acc[1, 0] and not acc[2].any()
-    assert torch.equal(gpu.accepted.cpu(), acc)
-    assert torch.equal(gpu.n_inliers.cpu()[acc], cpu.n_inliers[acc])
-    for name in ("R", "T"):
-        gap = (getattr(gpu, name).cpu() - getattr(cpu, name))[acc].abs()
-        assert float(gap.max()) < 1e-3, name
+    for name, a, b in zip(cpu._fields, cpu, gpu):
+        assert torch.equal(b.cpu(), a), name
 
     t = [torch.from_numpy(a).to(dev) for a in arrays]
     from tod_tpu_torch.geometry.detection import cluster_matches
@@ -916,9 +916,10 @@ def test_l3_matches_plain_tile(n_q, chunk, n_valid):
 @pytest.mark.cuda
 @pytest.mark.parametrize("n_q", [1, 513])
 def test_l2_topk_on_the_card_equals_the_cpus(n_q):
-    """The matcher's l2_topk through L3 (one launch a chunk) against the
-    CPU path over three chunks with a partial last one and ties: every
-    distance and row bit for bit."""
+    """The matcher's l2_topk on the card (one query: one L3 tile a chunk;
+    more: one launch of the fused matcher) against the CPU path over three
+    chunks with a partial last one and ties: every distance and row bit for
+    bit."""
     from tod_tpu_torch.ops import matching as tm
 
     dev = _cuda()
@@ -927,10 +928,11 @@ def test_l2_topk_on_the_card_equals_the_cpus(n_q):
     db = _l2_rows(rng, 3 * 4096)
     db[[17, 5000, 9000]] = q[0]
     want = tm.l2_topk(torch.from_numpy(q), torch.from_numpy(db), 10000)
-    before = tm.l2_distances.launches
+    before = tm.l2_distances.launches, tm.l2_topk_fused.launches
     got = tm.l2_topk(torch.from_numpy(q).to(dev), torch.from_numpy(db).to(dev),
                      10000)
-    assert tm.l2_distances.launches == before + 3
+    assert (tm.l2_distances.launches, tm.l2_topk_fused.launches) == (
+        (before[0] + 3, before[1]) if n_q == 1 else (before[0], before[1] + 1))
     assert torch.equal(got[0].cpu().view(torch.int32),
                        want[0].view(torch.int32))
     assert torch.equal(got[1].cpu(), want[1])
@@ -969,3 +971,160 @@ def test_features_on_the_card_equal_the_cpus():
             assert torch.equal(getattr(k_c, name), getattr(k_g, name).cpu())
         assert torch.equal(d_c, d_g.cpu())
         assert int(k_c.valid.sum()) > 200
+
+
+# ---- L3's fused matcher, P1 and L4 ----------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_q, n_valid, k", [
+    (7, 4096 * 3 - 5, 5), (129, 300, 8), (513, 10000, 1), (300, 3, 5),
+    (1, 9000, 5)])
+def test_l3_fused_matches_the_chunk_loop_and_the_cpu(n_q, n_valid, k):
+    """The fused matcher against the parent's chunk loop (L3 tiles,
+    stable_topk, _merge_topk) on the card and its plain version on the CPU:
+    ties across splits (rows repeated far apart), fewer valid rows than k,
+    a partial last tile; distances and rows bit for bit."""
+    from tod_tpu_torch.ops import matching as tm
+
+    dev = _cuda()
+    rng = np.random.default_rng(n_q + n_valid)
+    q = torch.from_numpy(_l2_rows(rng, n_q))
+    db = _l2_rows(rng, 3 * 4096)
+    db[[2, 4000, 8000, 12000]] = db[1]
+    db[[3, 7000]] = q[0].numpy()
+    db = torch.from_numpy(db)
+    want = tm._l2_topk_screened(q, db, n_valid, k, "chain")
+    loop = tm.l2_topk_chunked(q.to(dev), db.to(dev), n_valid, k, 4096,
+                              "chain")
+    before = tm.l2_topk_fused.launches
+    got = tm.l2_topk_fused(q.to(dev), db.to(dev), n_valid, k)
+    assert tm.l2_topk_fused.launches == before + 1
+    for d, i in (loop, want):
+        assert torch.equal(got[0].cpu().view(torch.int32),
+                           d.cpu().view(torch.int32))
+        assert torch.equal(got[1].cpu(), i.cpu())
+
+
+@pytest.mark.cuda
+def test_l3_fused_refuses_what_it_cannot_take():
+    from tod_tpu_torch.ops import matching as tm
+
+    dev = _cuda()
+    q = torch.zeros((3, 128), device=dev)
+    for bad in ((q.double(), q, 5), (q[:, :64], q, 5), (q, q.cpu(), 5),
+                (q, q, 9), (q, q, 0)):
+        with pytest.raises(ValueError):
+            tm.l2_topk_fused(bad[0], bad[1], 3, bad[2])
+
+
+def _p3p_samples(rng, n):
+    """Half well-posed samples (a pose, three points, their rays), half
+    random rays and points."""
+    K = np.array([[525.0, 0, 319.5], [0, 525.0, 239.5], [0, 0, 1]])
+    bear, pts = [], []
+    for i in range(n):
+        if i % 2:
+            R = np.linalg.qr(rng.standard_normal((3, 3)) * 0.1
+                             + np.eye(3))[0]
+            R *= np.sign(np.linalg.det(R))
+            T = np.array([*rng.uniform(-0.15, 0.15, 2), 0.9])
+            X = rng.uniform(-0.12, 0.12, (3, 3))
+            uv = (X @ R.T + T) @ K.T
+            b = np.concatenate([(uv[:, :2] / uv[:, 2:3] - K[:2, 2])
+                                / np.diag(K)[:2], np.ones((3, 1))], 1)
+        else:
+            b = rng.standard_normal((3, 3)) + [0, 0, 3]
+            X = rng.standard_normal((3, 3)) * 0.2
+        bear.append(b / np.linalg.norm(b, axis=1, keepdims=True))
+        pts.append(X)
+    return (torch.from_numpy(np.asarray(bear, np.float32)),
+            torch.from_numpy(np.asarray(pts, np.float32)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 130, 4096])
+def test_p1_matches_plain_version(n):
+    """Kernel P1 against p3p_distances_torch on the CPU: every distance and
+    validity bit for bit; one launch a call; and p3p's poses (P1, then the
+    fixed-order Horn fit) equal on both devices."""
+    from tod_tpu_torch.geometry import pnp
+
+    dev = _cuda()
+    bear, pts = _p3p_samples(np.random.default_rng(n), n)
+    want = pnp.p3p_distances_torch(bear, pts)
+    before = pnp.p3p_distances.launches
+    got = pnp.p3p_distances(bear.to(dev), pts.to(dev))
+    assert pnp.p3p_distances.launches == before + 1
+    assert torch.equal(got[0].cpu().view(torch.int32),
+                       want[0].view(torch.int32))
+    assert torch.equal(got[1].cpu(), want[1])
+    cpu, card = pnp.p3p(bear, pts), pnp.p3p(bear.to(dev), pts.to(dev))
+    for name, a, b in zip(cpu._fields, cpu, card):
+        assert torch.equal(b.cpu(), a), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fn", [0, 1, 2, 3])
+def test_l4_libm_matches_plain_versions(fn):
+    """L4's cosf, sincosf, powf and XLA's log against their plain versions on
+    the CPU: 200,000 floats over 12 decades, the special values and the 2D
+    path's ranges, bit for bit (NaN as NaN)."""
+    from tod_tpu_torch.ops import libm
+
+    dev = _cuda()
+    rng = np.random.default_rng(fn)
+    x = rng.standard_normal(200_000) * 10.0 ** rng.uniform(-6, 6, 200_000)
+    x = np.concatenate([x, [0.0, -0.0, np.inf, -np.inf, np.nan, 1e-45,
+                            2.0 ** -12, np.pi / 4, 120.0, 3.4e38, 1.0],
+                        rng.uniform(-np.pi, np.pi, 1000)])
+    x = torch.from_numpy(x.astype(np.float32))
+    y = torch.from_numpy(rng.uniform(-3, 3, x.numel()).astype(np.float32))
+    plain = (lambda: (libm.cosf_torch(x),), lambda: libm.sincosf_torch(x),
+             lambda: (libm.powf_torch(x, y),),
+             lambda: (libm.log_xla_torch(x),))[fn]()
+    before = libm.libm_f32.launches
+    got = libm.libm_f32(fn, x.to(dev), y.to(dev) if fn == 2 else None)
+    assert libm.libm_f32.launches == before + 1
+    got = got if fn == 1 else (got,)
+    for g, w in zip(got, plain):
+        g = g.cpu()
+        nan = torch.isnan(w)
+        assert torch.equal(torch.isnan(g), nan)
+        assert torch.equal(g[~nan].view(torch.int32), w[~nan].view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_obj, n_pose, n", [(1, 1, 1), (3, 4, 77),
+                                               (2, 16, 1024), (1, 2, 3185),
+                                               (1, 2, 3186), (1, 2, 5000)])
+def test_p2_matches_plain_version(n_obj, n_pose, n):
+    """Kernel P2 (every Gauss-Newton iteration of a call in one launch)
+    against gauss_newton_pose_torch on the CPU: R and T bit for bit, with
+    rows weighted out, points behind the camera and an odd row count (the
+    pairwise sums' carried row); at the most matches whose rows fit in
+    shared memory (3185: 72 bytes a match, ``pnp.GN_SHARED_BYTES``), one
+    past it and 5000 (the rows in the wrapper's global scratch)."""
+    from tod_tpu_torch.geometry import pnp
+
+    dev = _cuda()
+    rng = np.random.default_rng(n)
+    K = torch.tensor([[525.0, 0, 319.5], [0, 525.0, 239.5], [0, 0, 1]])
+    X = torch.from_numpy(rng.uniform(-0.12, 0.12, (n_obj, 1, n, 3))
+                         .astype(np.float32))
+    X[..., 2] += 0.8
+    X[0, 0, :min(n, 3), 2] = -0.4
+    q = torch.linalg.qr(torch.eye(3) + 0.02 * torch.from_numpy(
+        rng.standard_normal((n_obj, n_pose, 3, 3)).astype(np.float32)))[0]
+    R0 = q * torch.sign(torch.linalg.det(q))[..., None, None]
+    T0 = torch.from_numpy(rng.uniform(-0.01, 0.01, (n_obj, n_pose, 3))
+                          .astype(np.float32))
+    uv = X[..., :2] / X[..., 2:3] * 525.0 + torch.tensor([319.5, 239.5])
+    w = torch.from_numpy((rng.random((n_obj, n_pose, n)) > 0.2)
+                         .astype(np.float32))
+    want = pnp.gauss_newton_pose_torch(R0, T0, K, X, uv, w)
+    before = pnp.gauss_newton_pose.launches
+    got = pnp.gauss_newton_pose(*(t.to(dev) for t in (R0, T0, K, X, uv, w)))
+    assert pnp.gauss_newton_pose.launches == before + 1
+    for g, wt in zip(got, want):
+        assert torch.equal(g.cpu().view(torch.int32), wt.view(torch.int32))

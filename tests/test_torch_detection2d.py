@@ -16,8 +16,7 @@ Contracts:
   Gumbel values and log-weights; the top-8 order with ties; the keypoint
   invalidation; the unique-inlier counts;
 - float: pair geometry within ``DPIX2_ATOL``, ``DTRAIN2_ATOL``,
-  ``LOG_R_ATOL`` and ``GEOM_RTOL``; log-weights within
-  ``LOGW_ATOL``; Gumbel values within ``2^-22 + 2 ulp`` (test_torch_prng.py);
+  ``LOG_R_ATOL`` and ``GEOM_RTOL``; Gumbel values within ``2^-22 + 2 ulp`` (test_torch_prng.py);
   the model normal against ``eigh``'s smallest eigenvector up to sign
   within ``NORMAL_ATOL``, and the mirrored pose the same for both signs;
   mirrored poses within ``POSE_ATOL``;
@@ -46,7 +45,8 @@ from tod_tpu.geometry import ransac as rr
 from tod_tpu_torch.geometry import adjacency as tadj
 from tod_tpu_torch.geometry import detection as tdet
 from tod_tpu_torch.geometry import detection2d as td
-from tod_tpu_torch.geometry.ransac import ThreefryNoise
+from tod_tpu_torch.geometry.ransac import (ThreefryNoise,
+                                           consistency_log_weights)
 from tod_tpu_torch.ops.fast import stable_topk
 from tod_tpu_torch.utils import prng
 from test_torch_pnp import K, random_pose
@@ -60,7 +60,6 @@ GEOM_RTOL = 1e-5         # the histogram's range
 DPIX2_ATOL = 0.125       # px^2: four ulps of |xy|^2 ~ 4e5
 DTRAIN2_ATOL = 1e-8      # m^2: a few ulps of |X|^2 ~ 0.04
 LOG_R_ATOL = 1e-4        # on pairs > 20 px and > 1 cm apart
-LOGW_ATOL = 1e-6         # log(1 + 3-path counts)
 NORMAL_ATOL = 1e-4       # |n . n_ref| within this of 1
 POSE_ATOL = 1e-4         # rotation entries and meters
 GUMBEL_ULP = 2.0 ** -22  # + 2 ulp, test_torch_prng.py's bound
@@ -223,9 +222,33 @@ def test_log_weights_match_reference(stores, graphs):
     ref, got = stores
     adj_ref = graphs[2]
     want = jax.jit(jax.vmap(rr.consistency_log_weights))(adj_ref, ref.valid)
-    from tod_tpu_torch.geometry.ransac import consistency_log_weights
     got_w = consistency_log_weights(torch.from_numpy(adj_ref), got.valid)
-    np.testing.assert_allclose(got_w.numpy(), _np(want), atol=LOGW_ATOL)
+    np.testing.assert_array_equal(got_w.numpy().view(np.int32),
+                                  _np(want).view(np.int32))
+
+
+def test_graph_stages_bit_for_bit(stores, graphs):
+    """The round's first stages are the compiled reference's to the bit:
+    the pair distances (its FMA chains, read off ``jax.jit``), the log
+    ratios and the scale range (XLA's own ``log``), the sampling graph and
+    its histogram, and the weights (``log1p`` of the counts as XLA's
+    ``log(1 + x)``): ``ransac.consistency_log_weights`` against the
+    reference's."""
+    ref, got = stores
+    r_geom, t_geom, adj_ref, counts_ref = graphs
+    for name, want, have in zip(("dpix2", "dtrain2", "log_r", "lo", "hi"),
+                                r_geom, t_geom):
+        want = np.asarray(want, np.float32)
+        np.testing.assert_array_equal(have.numpy().view(np.int32),
+                                      want.view(np.int32), name)
+    adj, counts = td.sampling_graph(*t_geom[:3], got.valid, *t_geom[3:])
+    np.testing.assert_array_equal(adj.numpy(), adj_ref)
+    np.testing.assert_array_equal(counts.numpy(), counts_ref)
+    want = _np(jax.jit(jax.vmap(rr.consistency_log_weights))(adj_ref,
+                                                             ref.valid))
+    np.testing.assert_array_equal(
+        consistency_log_weights(adj, got.valid).numpy().view(np.int32),
+        want.view(np.int32))
 
 
 def _round_keys(seed, n_obj, i):

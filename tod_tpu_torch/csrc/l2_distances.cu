@@ -32,6 +32,25 @@
 // memory. Bound on the H100: 2 x 128 float operations a pair against
 // 4 bytes written; at the matcher's Q x 4,096 tiles the float32 rate
 // bounds it (67 TFLOP/s against 3.35 TB/s).
+//
+// L3 tod_l2_topk is the matcher whole for the "chain" order (more than one
+// query at a chunk of 4,096: the SIFT graph's case): l2_topk's (Q, k)
+// nearest rows over the whole DB, each distance in exactly the tile's
+// order above, with no distance written to device memory. Three kernels in
+// one call: a pre-pass computes every query's and row's |x|^2 once (the
+// 32-wide windows in order); the sweep runs a grid of query tiles x row
+// splits, a block holding its 128 queries in shared memory for the whole
+// sweep and streaming its split's rows in 128-row tiles whose 32-deep
+// slices cp.async stages into a double buffer while the previous slice is
+// multiplied (each output's chain still in ascending depth; 256 threads,
+// 8 x 8 outputs a thread, float4 shared loads); each tile's distances go
+// through shared memory to two threads a query, which keep the k best
+// (distance, row) of their half of the tile's rows in registers; a merge
+// pass takes the k best of the splits' lists. Ties go to the lower row and
+// the start's k (1e9, -1) slots come before any row at or past 1e9, as the
+// chunked scan (ops/matching.py _merge_topk) orders them. Bound: the float
+// rate (2 x 128 operations a pair at 67 TFLOP/s); the design's shared-
+// memory traffic is one float4 of queries and of rows per 16 FMAs.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -205,6 +224,281 @@ l2_vector_kernel(const float* __restrict__ query,
                     __fadd_rn(__fadd_rn(v[0], v[2]), __fadd_rn(v[1], v[3])));
 }
 
+// ---------------------------------------------------------------------------
+// The fused matcher (chain order): norms pre-pass, split sweep, merge
+// ---------------------------------------------------------------------------
+
+constexpr int kFq = 128;              // queries a block
+constexpr int kFr = 128;              // rows a tile
+constexpr int kFside = 16;
+constexpr int kFper = 8;              // outputs a thread along each side
+constexpr int kFthreads = kFside * kFside;
+constexpr int kQpitch = kDim + 4;     // floats a staged query row
+constexpr int kRpitch = kWindow + 4;  // floats a staged row slice
+constexpr int kDpitch = kFr + 1;      // floats a row of the distance tile
+constexpr int kMaxK = 8;
+constexpr int kFusedSmem = (kFq * kQpitch + 2 * kFr * kRpitch
+                            + kFq * kDpitch + kFq) * 4;
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(s), "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+}
+
+// (d, i) before (bd, bi): by distance, then the lower index (-1 first)
+__device__ __forceinline__ bool before(float d, int i, float bd, int bi) {
+  return d < bd || (d == bd && i < bi);
+}
+
+// insert (cd, ci), known to come before entry k - 1, into the sorted list
+__device__ __forceinline__ void insert(float (&d)[kMaxK], int (&ix)[kMaxK],
+                                      int k, float cd, int ci) {
+  bool placed = false;
+#pragma unroll
+  for (int s = kMaxK - 1; s >= 1; --s) {
+    if (s < k && !placed) {
+      if (before(cd, ci, d[s - 1], ix[s - 1])) {
+        d[s] = d[s - 1];
+        ix[s] = ix[s - 1];
+      } else {
+        d[s] = cd;
+        ix[s] = ci;
+        placed = true;
+      }
+    }
+  }
+  if (!placed) {
+    d[0] = cd;
+    ix[0] = ci;
+  }
+}
+
+__device__ __forceinline__ void last(const float (&d)[kMaxK],
+                                     const int (&ix)[kMaxK], int k,
+                                     float* wd, int* wi) {
+#pragma unroll
+  for (int s = 0; s < kMaxK; ++s)
+    if (s == k - 1) {
+      *wd = d[s];
+      *wi = ix[s];
+    }
+}
+
+// |x|^2 of rows [0, n) of a (n, 128) matrix, one thread a row
+__global__ void __launch_bounds__(256)
+norms_kernel(const float* __restrict__ a, int n_a, const float* __restrict__ b,
+             int n_b, float* __restrict__ out) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= n_a + n_b) return;
+  const float* row = r < n_a ? a + static_cast<int64_t>(r) * kDim
+                             : b + static_cast<int64_t>(r - n_a) * kDim;
+  float total = 0.0f;
+#pragma unroll
+  for (int w = 0; w < kDim / kWindow; ++w) {
+    float x[kWindow];
+#pragma unroll
+    for (int i = 0; i < kWindow / 4; ++i) {
+      const float4 v = __ldg(reinterpret_cast<const float4*>(
+          row + w * kWindow) + i);
+      x[4 * i] = v.x;
+      x[4 * i + 1] = v.y;
+      x[4 * i + 2] = v.z;
+      x[4 * i + 3] = v.w;
+    }
+    const float win = window_sum(x);
+    total = w == 0 ? win : __fadd_rn(total, win);
+  }
+  out[r] = total;
+}
+
+// stage depths [depth0, depth0 + 32) of rows [r0, r0 + 128) (an index past
+// n_rows reads the last row: such rows are never scanned)
+__device__ __forceinline__ void stage_rows(const float* __restrict__ rows,
+                                           int r0, int n_rows, int depth0,
+                                           float* dst) {
+#pragma unroll
+  for (int c = 0; c < kFr * kWindow / 4 / kFthreads; ++c) {
+    const int i = threadIdx.x + c * kFthreads;
+    const int row = i / (kWindow / 4), quad = i % (kWindow / 4);
+    const int src_row = min(r0 + row, n_rows - 1);
+    cp_async16(dst + row * kRpitch + 4 * quad,
+               rows + static_cast<int64_t>(src_row) * kDim + depth0
+                   + 4 * quad);
+  }
+}
+
+__global__ void __launch_bounds__(kFthreads, 1)
+l2_topk_sweep(const float* __restrict__ query, const float* __restrict__ rows,
+              const float* __restrict__ norms, float* __restrict__ part_d,
+              int* __restrict__ part_i, int n_q, int n_rows, int n_valid,
+              int k, int tiles_per_split) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  float* qs = smem;                                   // [kFq][kQpitch]
+  float* rs = qs + kFq * kQpitch;                     // [2][kFr][kRpitch]
+  float* dt = rs + 2 * kFr * kRpitch;                 // [kFq][kDpitch]
+  float* rsq = dt + kFq * kDpitch;                    // [kFr]
+  const int tx = threadIdx.x % kFside, ty = threadIdx.x / kFside;
+  const int q0 = blockIdx.x * kFq;
+  const int split = blockIdx.y;
+  const int n_tiles = (n_valid + kFr - 1) / kFr;
+  const int t_begin = split * tiles_per_split;
+  const int t_end = min(n_tiles, t_begin + tiles_per_split);
+  const int n_stages = (t_end - t_begin) * (kDim / kWindow);
+
+  // the block's queries (zero past n_q) and their norms, once
+  for (int i = threadIdx.x; i < kFq * kDim / 4; i += kFthreads) {
+    const int row = i / (kDim / 4), quad = i % (kDim / 4);
+    float* dst = qs + row * kQpitch + 4 * quad;
+    if (q0 + row < n_q)
+      cp_async16(dst, query + static_cast<int64_t>(q0 + row) * kDim
+                          + 4 * quad);
+    else
+      *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  const int my_q = threadIdx.x % kFq, half = threadIdx.x / kFq;
+  if (n_stages > 0) stage_rows(rows, t_begin * kFr, n_rows, 0, rs);
+  cp_async_commit();
+
+  float best_d[kMaxK];
+  int best_i[kMaxK];
+#pragma unroll
+  for (int s = 0; s < kMaxK; ++s) {
+    best_d[s] = kBig;
+    best_i[s] = -1;
+  }
+  float worst_d = kBig;
+  int worst_i = -1;
+  float acc[kFper][kFper];
+  float qsq_reg[kFper];
+
+  for (int st = 0; st < n_stages; ++st) {
+    const int tile = t_begin + st / (kDim / kWindow);
+    const int w = st % (kDim / kWindow);
+    const int r0 = tile * kFr;
+    if (st + 1 < n_stages) {
+      const int nt = t_begin + (st + 1) / (kDim / kWindow);
+      stage_rows(rows, nt * kFr, n_rows,
+                 ((st + 1) % (kDim / kWindow)) * kWindow,
+                 rs + ((st + 1) % 2) * kFr * kRpitch);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    if (w == 0) {
+#pragma unroll
+      for (int i = 0; i < kFper; ++i)
+#pragma unroll
+        for (int j = 0; j < kFper; ++j) acc[i][j] = 0.0f;
+    }
+    const float* rb = rs + (st % 2) * kFr * kRpitch;
+#pragma unroll 2
+    for (int kk = 0; kk < kWindow; kk += 4) {
+      float4 a[kFper], b[kFper];
+#pragma unroll
+      for (int i = 0; i < kFper; ++i)
+        a[i] = *reinterpret_cast<const float4*>(
+            qs + (ty + kFside * i) * kQpitch + w * kWindow + kk);
+#pragma unroll
+      for (int j = 0; j < kFper; ++j)
+        b[j] = *reinterpret_cast<const float4*>(
+            rb + (tx + kFside * j) * kRpitch + kk);
+#pragma unroll
+      for (int i = 0; i < kFper; ++i)
+#pragma unroll
+        for (int j = 0; j < kFper; ++j) {
+          acc[i][j] = __fmaf_rn(a[i].x, b[j].x, acc[i][j]);
+          acc[i][j] = __fmaf_rn(a[i].y, b[j].y, acc[i][j]);
+          acc[i][j] = __fmaf_rn(a[i].z, b[j].z, acc[i][j]);
+          acc[i][j] = __fmaf_rn(a[i].w, b[j].w, acc[i][j]);
+        }
+    }
+    if (w == kDim / kWindow - 1) {
+      // the tile's distances through shared memory to the scanning threads
+      if (threadIdx.x < kFr)
+        rsq[threadIdx.x] = r0 + threadIdx.x < n_rows
+                               ? norms[n_q + r0 + threadIdx.x] : 0.0f;
+#pragma unroll
+      for (int i = 0; i < kFper; ++i) {
+        const int qi = q0 + ty + kFside * i;
+        qsq_reg[i] = qi < n_q ? norms[qi] : 0.0f;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < kFper; ++i)
+#pragma unroll
+        for (int j = 0; j < kFper; ++j)
+          dt[(ty + kFside * i) * kDpitch + tx + kFside * j] =
+              distance(qsq_reg[i], rsq[tx + kFside * j], acc[i][j]);
+      __syncthreads();
+      const int c0 = half * (kFr / 2);
+      const int c_end = min(kFr / 2, n_valid - r0 - c0);
+      for (int c = 0; c < c_end; ++c) {
+        const float d = dt[my_q * kDpitch + c0 + c];
+        const int ri = r0 + c0 + c;
+        if (before(d, ri, worst_d, worst_i)) {
+          insert(best_d, best_i, k, d, ri);
+          last(best_d, best_i, k, &worst_d, &worst_i);
+        }
+      }
+    }
+    __syncthreads();
+  }
+  cp_async_wait<0>();
+  if (q0 + my_q < n_q) {
+    const int64_t list = (static_cast<int64_t>(2 * split + half) * n_q
+                          + q0 + my_q) * k;
+#pragma unroll
+    for (int s = 0; s < kMaxK; ++s)
+      if (s < k) {
+        part_d[list + s] = best_d[s];
+        part_i[list + s] = best_i[s];
+      }
+  }
+}
+
+// the k best of each query's n_lists lists, into (n_q, k) outputs
+__global__ void __launch_bounds__(128)
+l2_topk_merge(const float* __restrict__ part_d, const int* __restrict__ part_i,
+              float* __restrict__ out_d, int* __restrict__ out_i, int n_q,
+              int k, int n_lists) {
+  const int q = blockIdx.x * blockDim.x + threadIdx.x;
+  if (q >= n_q) return;
+  float d[kMaxK];
+  int ix[kMaxK];
+#pragma unroll
+  for (int s = 0; s < kMaxK; ++s) {
+    d[s] = kBig;
+    ix[s] = -1;
+  }
+  float wd = kBig;
+  int wi = -1;
+  for (int l = 0; l < n_lists; ++l) {
+    const int64_t base = (static_cast<int64_t>(l) * n_q + q) * k;
+    for (int s = 0; s < k; ++s) {
+      const float cd = part_d[base + s];
+      const int ci = part_i[base + s];
+      if (!before(cd, ci, wd, wi)) break;     // each list is sorted
+      insert(d, ix, k, cd, ci);
+      last(d, ix, k, &wd, &wi);
+    }
+  }
+#pragma unroll
+  for (int s = 0; s < kMaxK; ++s)
+    if (s < k) {
+      out_d[static_cast<int64_t>(q) * k + s] = d[s];
+      out_i[static_cast<int64_t>(q) * k + s] = ix[s];
+    }
+}
+
 }  // namespace
 
 // out (n_q, n_rows) float32 squared distances of query (n_q, 128) float32
@@ -243,5 +537,51 @@ extern "C" int tod_l2_distances(const void* query, const void* rows,
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The k (<= 8) nearest of rows [0, n_valid) of `rows` (n_rows, 128) float32
+// to each of `query`'s (n_q, 128) rows in the "chain" order, as l2_topk
+// orders them: out_d (n_q, k) float32, out_i (n_q, k) int32 (-1 with 1e9
+// where fewer rows are valid). Scratch, allocated by the caller: norms
+// (n_q + n_rows floats) and the splits' lists part_d / part_i (2 x n_split
+// x n_q x k each); `tiles_per_split` 128-row tiles a split. Three launches
+// on `stream`; returns the first cudaError_t; it neither allocates nor
+// synchronises.
+extern "C" int tod_l2_topk(const void* query, const void* rows, void* norms,
+                           void* part_d, void* part_i, void* out_d,
+                           void* out_i, int n_q, int n_rows, int n_valid,
+                           int k, int n_split, int tiles_per_split,
+                           void* stream) {
+  if (n_q <= 0) return 0;
+  if (k < 1 || k > kMaxK || n_split < 1 || n_valid > n_rows)
+    return static_cast<int>(cudaErrorInvalidValue);
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        l2_topk_sweep, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kFusedSmem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    configured = true;
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto* nr = static_cast<float*>(norms);
+  const int n_norms = n_q + n_rows;
+  norms_kernel<<<(n_norms + 255) / 256, 256, 0, s>>>(
+      static_cast<const float*>(query), n_q, static_cast<const float*>(rows),
+      n_rows, nr);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((n_q + kFq - 1) / kFq, n_split);
+  l2_topk_sweep<<<grid, kFthreads, kFusedSmem, s>>>(
+      static_cast<const float*>(query), static_cast<const float*>(rows), nr,
+      static_cast<float*>(part_d), static_cast<int*>(part_i), n_q, n_rows,
+      n_valid, k, tiles_per_split);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  l2_topk_merge<<<(n_q + 127) / 128, 128, 0, s>>>(
+      static_cast<const float*>(part_d), static_cast<const int*>(part_i),
+      static_cast<float*>(out_d), static_cast<int*>(out_i), n_q, k,
+      2 * n_split);
   return static_cast<int>(cudaGetLastError());
 }

@@ -16,10 +16,17 @@ time).
 The noise is the reference's: instance round ``i`` of object ``o`` draws
 from ``split(split(key, n_objects)[o], max_instances)[i]``
 (``ransac.ThreefryNoise`` with ``segmented=False``), all objects' draws of
-a round in one call (one launch of kernel N1 on a card). No step inside a
-round waits for the host: the histogram is a ``scatter_add_`` into 64
-bins, the 3x3 eigenvector is closed-form, the solves are closed-form or
-``solve_ex``. :func:`detect_frame_2d` reads one number set back before the
+a round in one call (one launch of kernel N1 on a card). Every step rounds
+alike on the CPU and the card: sums in fixed orders
+(``transforms.pairwise_sum``, three-term dots left to right), no library
+product or reduction of floats, XLA's ``log`` and the C library's
+``cosf``, ``sincosf`` and ``atan2f`` from ``ops/libm.py`` (kernels L1 and
+L4 on a card), correctly rounded roots,
+divisions by tensors (PyTorch's CUDA division by a Python number
+multiplies by its reciprocal), and P3P through kernel P1 or its plain
+twin. No step inside a round waits for the host: the histogram is a
+``scatter_add_`` into 64 bins, the 3x3 eigenvector is closed-form, the
+solves are explicit LUs (``pnp.lu_solve``). :func:`detect_frame_2d` reads one number set back before the
 rounds, which objects can be accepted at all.
 """
 
@@ -34,14 +41,15 @@ import numpy as np
 import torch
 
 from tod_tpu_torch.geometry.adjacency import (ObjectMatches,
-                                              count_unique_query_indices,
-                                              pairwise_sq_dists)
+                                              count_unique_query_indices)
 from tod_tpu_torch.geometry.detection import cluster_matches
 from tod_tpu_torch.geometry.pnp import gauss_newton_pose, p3p, skew
 from tod_tpu_torch.geometry.ransac import (ObjectDetections, ThreefryNoise,
                                            _rows, consistency_log_weights,
                                            sample_triples)
-from tod_tpu_torch.geometry.transforms import _det3
+from tod_tpu_torch.geometry.transforms import (_det3, cross3, dot3, matmul3,
+                                               pairwise_sum)
+from tod_tpu_torch.ops import libm
 from tod_tpu_torch.ops.fast import stable_topk
 from tod_tpu_torch.ops.image import fma_f32
 from tod_tpu_torch.utils.profiling import StageTimer
@@ -76,18 +84,33 @@ def bearings(query_xy: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
     x = (query_xy[..., 0] - K[0, 2]) / K[0, 0]
     y = (query_xy[..., 1] - K[1, 2]) / K[1, 1]
     rays = torch.stack([x, y, torch.ones_like(x)], dim=-1)
-    return rays / torch.sqrt((rays * rays).sum(-1, keepdim=True))
+    return rays / libm.sqrt_rn((x * x + y * y) + 1.0)[..., None]
+
+
+def _sq_dists(a: torch.Tensor) -> torch.Tensor:
+    """(..., M, D) -> (..., M, M) squared distances ``|a|^2 + |b|^2 - 2
+    a.b`` as the compiled reference's ``adjacency.pairwise_sq_dists``
+    rounds them (read off by trying orders against ``jax.jit``): the
+    squares and the dot each one fused multiply-add chain over D in order
+    (:func:`fma_f32`), the same bits on every device."""
+    cols = a.unbind(-1)
+    sq = cols[0] * cols[0]
+    dot = cols[0][..., :, None] * cols[0][..., None, :]
+    for c in cols[1:]:
+        sq = fma_f32(c, c, sq)
+        dot = fma_f32(c[..., :, None], c[..., None, :], dot)
+    d = sq[..., :, None] + sq[..., None, :] - 2.0 * dot
+    return torch.clamp_min(d, 0.0)
 
 
 def pair_geometry(m: ObjectMatches
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Per object, every pair's squared pixel distance, squared model
     distance and log scale ratio ``log(dpix / dmodel)``: (A, M, M) each."""
-    xy0 = torch.cat([m.query_xy, torch.zeros_like(m.query_xy[..., :1])], -1)
-    dpix2 = pairwise_sq_dists(xy0)
-    dtrain2 = pairwise_sq_dists(m.train_pts)
-    log_r = 0.5 * (torch.log(torch.clamp_min(dpix2, 1e-12))
-                   - torch.log(torch.clamp_min(dtrain2, 1e-12)))
+    dpix2 = _sq_dists(m.query_xy)
+    dtrain2 = _sq_dists(m.train_pts)
+    log_r = 0.5 * (libm.log_xla(torch.clamp_min(dpix2, 1e-12))
+                   - libm.log_xla(torch.clamp_min(dtrain2, 1e-12)))
     return dpix2, dtrain2, log_r
 
 
@@ -96,7 +119,9 @@ def scale_range(K: torch.Tensor, cfg: Pnp2dConfig
     """The histogram's range ``(log(f / z_max), log(f / z_min))``, f the
     mean focal length of ``K``."""
     f = 0.5 * (K[0, 0] + K[1, 1])
-    return torch.log(f / cfg.z_max), torch.log(f / cfg.z_min)
+    z = torch.stack([torch.full((), v, dtype=f.dtype, device=f.device)
+                     for v in (cfg.z_max, cfg.z_min)])
+    return libm.log_xla(f / z).unbind()
 
 
 def scale_histogram(log_r: torch.Tensor, in_range: torch.Tensor,
@@ -184,8 +209,8 @@ def truncated_sse(R, T, K, m: ObjectMatches, valid: torch.Tensor,
     err2, front = reprojection_error(R, T, K, m.train_pts, m.query_xy)
     cap = torch.full((), 4.0 * thr2, dtype=err2.dtype, device=err2.device)
     err2 = torch.where(front, err2, cap)
-    return torch.where(valid[:, None, :], torch.minimum(err2, cap),
-                       0.0).sum(-1)
+    return pairwise_sum(torch.where(valid[:, None, :],
+                                    torch.minimum(err2, cap), 0.0), -1)
 
 
 def _sym3_smallest_vector(cov: torch.Tensor) -> torch.Tensor:
@@ -193,29 +218,33 @@ def _sym3_smallest_vector(cov: torch.Tensor) -> torch.Tensor:
     matrices, in closed form (no host wait, unlike ``torch.linalg.eigh`` on
     a card): the eigenvalue by the trigonometric solution of the
     characteristic cubic, the vector as the largest cross product of two
-    rows of ``cov - lambda I``. Computed in float64; the sign is
-    arbitrary, as an eigensolver's is."""
+    rows of ``cov - lambda I``. Computed in float64 but the angle, whose
+    ``arccos`` and ``cos`` are the C library's float32 ones
+    (``ops/libm.py``); the sign is arbitrary, as an eigensolver's is."""
     c = cov.to(torch.float64)
+    k = lambda v: torch.full((), v, dtype=c.dtype, device=c.device)  # noqa
     eye = torch.eye(3, dtype=c.dtype, device=c.device)
-    q = (c[..., 0, 0] + c[..., 1, 1] + c[..., 2, 2]) / 3.0
-    off = c[..., 0, 1] ** 2 + c[..., 0, 2] ** 2 + c[..., 1, 2] ** 2
-    p2 = ((c[..., 0, 0] - q) ** 2 + (c[..., 1, 1] - q) ** 2
-          + (c[..., 2, 2] - q) ** 2 + 2.0 * off)
-    p = torch.sqrt(p2 / 6.0)
+    q = ((c[..., 0, 0] + c[..., 1, 1]) + c[..., 2, 2]) / k(3.0)
+    off = (c[..., 0, 1] * c[..., 0, 1] + c[..., 0, 2] * c[..., 0, 2]) \
+        + c[..., 1, 2] * c[..., 1, 2]
+    e0, e1, e2 = (c[..., i, i] - q for i in range(3))
+    p2 = ((e0 * e0 + e1 * e1) + e2 * e2) + 2.0 * off
+    p = libm.sqrt_rn(p2 / k(6.0))
     safe_p = torch.where(p > 0, p, torch.ones_like(p))
     b = (c - q[..., None, None] * eye) / safe_p[..., None, None]
-    half_det = torch.clamp(_det3(b) / 2.0, -1.0, 1.0)
-    phi = torch.arccos(half_det) / 3.0
-    lam = q + 2.0 * p * torch.cos(phi + 2.0 * math.pi / 3.0)  # the smallest
+    half_det = torch.clamp(_det3(b) / 2.0, -1.0, 1.0).to(torch.float32)
+    phi = libm.acosf(half_det) / torch.full((), 3.0, device=c.device)
+    ang = phi + torch.full((), 2.0 * math.pi / 3.0, dtype=torch.float32,
+                           device=c.device)
+    lam = q + 2.0 * p * libm.cosf(ang).to(torch.float64)   # the smallest
     a = c - lam[..., None, None] * eye
     r0, r1, r2 = a[..., 0, :], a[..., 1, :], a[..., 2, :]
-    cands = torch.stack([torch.linalg.cross(r0, r1),
-                         torch.linalg.cross(r0, r2),
-                         torch.linalg.cross(r1, r2)], dim=-2)
-    norms = (cands * cands).sum(-1)
+    cands = torch.stack([cross3(r0, r1), cross3(r0, r2), cross3(r1, r2)],
+                        dim=-2)
+    norms = dot3(cands, cands)
     best = torch.argmax(norms, dim=-1)
     vec = torch.take_along_dim(cands, best[..., None, None], -2)[..., 0, :]
-    length = torch.sqrt(torch.take_along_dim(norms, best[..., None], -1))
+    length = libm.sqrt_rn(torch.take_along_dim(norms, best[..., None], -1))
     # an isotropic or rank-0 matrix: every direction is an eigenvector
     e0 = torch.zeros_like(vec)
     e0[..., 0] = 1.0
@@ -230,9 +259,10 @@ def model_normal(train_pts: torch.Tensor, valid: torch.Tensor
     points (the normal of a planar model), up to sign."""
     ctr = torch.where(valid[..., None], train_pts, 0.0)
     nvalid = torch.clamp_min(valid.sum(-1), 1)
-    mean = ctr.sum(1) / nvalid[:, None]
+    mean = pairwise_sum(ctr, 1) / nvalid[:, None]
     d = ctr - mean[:, None, :]
-    cov = torch.einsum("ami,amj->aij", d * valid[..., None], d)
+    cov = pairwise_sum((d * valid[..., None])[..., :, None] * d[..., None, :],
+                       1)
     return _sym3_smallest_vector(cov)
 
 
@@ -241,20 +271,23 @@ def mirror_poses(R: torch.Tensor, T: torch.Tensor, n_model: torch.Tensor
     """The planar two-fold ambiguity's other branch: the model normal
     reflected about the viewing ray (IPPE's second solution). ``R`` (A, H,
     3, 3), ``T`` (A, H, 3), ``n_model`` (A, 3). The result does not depend
-    on the normal's sign."""
-    n_c = torch.einsum("ahij,aj->ahi", R, n_model)
-    t_norm = torch.sqrt((T * T).sum(-1, keepdim=True))
+    on the normal's sign. Dots left to right, ``atan2f`` and ``sincosf``
+    from ``ops/libm.py``, ``ax @ ax`` and ``Q @ R`` by
+    ``transforms.matmul3``."""
+    n_c = dot3(R, n_model[:, None, None, :])
+    t_norm = libm.sqrt_rn(dot3(T, T))[..., None]
     v = T / torch.clamp_min(t_norm, 1e-9)
-    n_ref = 2.0 * (n_c * v).sum(-1, keepdim=True) * v - n_c
-    axis = torch.linalg.cross(n_c, n_ref)
-    s = torch.sqrt((axis * axis).sum(-1))
-    c = torch.clamp((n_c * n_ref).sum(-1), -1.0, 1.0)
+    n_ref = 2.0 * dot3(n_c, v)[..., None] * v - n_c
+    axis = cross3(n_c, n_ref)
+    s = libm.sqrt_rn(dot3(axis, axis))
+    c = torch.clamp(dot3(n_c, n_ref), -1.0, 1.0)
     ax = skew(axis / torch.clamp_min(s, 1e-9)[..., None])
-    ang = torch.atan2(s, c)[..., None, None]
+    sin, cos = libm.sincosf(libm.atan2f(s, c))
     eye = torch.eye(3, dtype=R.dtype, device=R.device)
-    Q = eye + torch.sin(ang) * ax + (1.0 - torch.cos(ang)) * (ax @ ax)
+    Q = eye + sin[..., None, None] * ax \
+        + (1.0 - cos[..., None, None]) * matmul3(ax, ax)
     Q = torch.where((s > 1e-6)[..., None, None], Q, eye)
-    return Q @ R, T
+    return matmul3(Q, R), T
 
 
 def _stages(timer: Optional[StageTimer], prefix: str):
@@ -265,28 +298,37 @@ def _stages(timer: Optional[StageTimer], prefix: str):
 
 
 def ransac_round_2d(gumbel: torch.Tensor, m: ObjectMatches, K: torch.Tensor,
-                    valid: torch.Tensor, cfg: Pnp2dConfig, stage=None):
+                    valid: torch.Tensor, cfg: Pnp2dConfig, stage=None,
+                    trace: Optional[dict] = None):
     """One P3P-RANSAC round for A objects. ``gumbel``: (A, 3, n_hypotheses,
     M), the round's draws. Returns ``(R (A,3,3), T (A,3), inliers (A,M),
     n_unique (A,), found (A,))``. ``stage(name)``, when given, is a context
-    around each step (graph, sampling, p3p, consensus, refinement)."""
+    around each step (graph, sampling, p3p, consensus, refinement);
+    ``trace``, when given, receives every stage's output by name (to hold
+    one device's round against another's)."""
     stage = stage or _stages(None, "")
+    keep = trace.update if trace is not None else (lambda **kw: None)
     thr2 = cfg.pixel_error ** 2
     with stage("graph"):
         dpix2, dtrain2, log_r = pair_geometry(m)
         lo, hi = scale_range(K, cfg)
-        adj, _ = sampling_graph(dpix2, dtrain2, log_r, valid, lo, hi)
+        adj, counts = sampling_graph(dpix2, dtrain2, log_r, valid, lo, hi)
+        keep(log_r=log_r, adj=adj, scale_counts=counts)
         del dpix2, dtrain2, log_r
         logw = consistency_log_weights(adj, valid)
     with stage("sampling"):
         (v1, v2, v3), samp_ok = sample_triples(gumbel, adj, valid, logw)
+        keep(logw=logw, triples=torch.stack([v1, v2, v3], -1),
+             samp_ok=samp_ok)
         del adj
     with stage("p3p"):
         idx3 = torch.stack([v1, v2, v3], dim=-1)        # (A, B, 3)
         b = idx3.shape[1]
         flat3 = idx3.flatten(1)
         sols = p3p(_rows(bearings(m.query_xy, K), flat3).unflatten(1, (b, 3)),
-                   _rows(m.train_pts, flat3).unflatten(1, (b, 3)))
+                   _rows(m.train_pts, flat3).unflatten(1, (b, 3)),
+                   trace)
+        keep(p3p_R=sols.R, p3p_T=sols.T, p3p_valid=sols.valid)
 
     with stage("consensus"):
         # reprojection consensus of every candidate pose, (A, B * 8, M)
@@ -299,6 +341,7 @@ def ransac_round_2d(gumbel: torch.Tensor, m: ObjectMatches, K: torch.Tensor,
         # their mirrored poses, each refined twice; the winner by truncated
         # SSE among the valid candidates within 85 % of the best count
         top_n, top = stable_topk(flat, N_REFINE)
+        keep(counts=flat, top_n=top_n, top=top)
         r_top, t_top = _rows(r_c, top), _rows(t_c, top)
         inl_top = _rows(inl, top)
         del inl
@@ -307,16 +350,17 @@ def ransac_round_2d(gumbel: torch.Tensor, m: ObjectMatches, K: torch.Tensor,
                                     model_normal(m.train_pts, valid))
         inl_mir = count_inliers(r_mir, t_mir, K, m, valid, thr2) \
             & seed_ok[..., None]
+        keep(mirror_R=r_mir, mirror_T=t_mir, mirror_inliers=inl_mir)
     with stage("refinement"):
         return _refine_and_choose(
             torch.cat([r_top, r_mir], 1), torch.cat([t_top, t_mir], 1),
             torch.cat([inl_top, inl_mir], 1),
-            torch.cat([seed_ok, seed_ok], 1), m, K, valid, cfg)
+            torch.cat([seed_ok, seed_ok], 1), m, K, valid, cfg, keep)
 
 
 def _refine_and_choose(r_all, t_all, inl_all, ok_all, m: ObjectMatches,
                        K: torch.Tensor, valid: torch.Tensor,
-                       cfg: Pnp2dConfig):
+                       cfg: Pnp2dConfig, keep=lambda **kw: None):
     """Two Gauss-Newton passes per candidate (kept if they lose no
     inliers), then the winner: the least truncated SSE among the valid
     candidates within 85 % of the best inlier count."""
@@ -335,6 +379,7 @@ def _refine_and_choose(r_all, t_all, inl_all, ok_all, m: ObjectMatches,
     t_ref = torch.where(better[..., None], t2, t_all)
     inl_ref = torch.where(better[..., None], inl2, inl_all) & ok_all[..., None]
     sse = truncated_sse(r_ref, t_ref, K, m, valid, thr2)
+    keep(refined_R=r_ref, refined_T=t_ref, refined_inliers=inl_ref, sse=sse)
 
     n_ref_in = inl_ref.sum(-1)                           # (A, 2 N_REFINE)
     n_best = n_ref_in.amax(-1, keepdim=True)

@@ -11,24 +11,55 @@ candidates), where the reference vmaps one sample.
 Conventions match the 3D path: poses are model -> camera, x_cam = R @ X + T;
 pixels are x = K @ x_cam (pinhole, no distortion).
 
-Host waits: none. The 3x3 Newton step of P3P is solved in closed form
-(cofactors), the 6x6 Gauss-Newton step with ``torch.linalg.solve_ex``
-without its error check, and the Gauss-Newton Jacobian is written out
-analytically (the reference differentiates its residual with
-``jax.jacfwd``; at ``delta = 0`` both are the same function).
+One set of bits on every device: the P3P distances are kernel P1
+(``csrc/p3p.cu``) on a card and :func:`p3p_distances_torch` on the CPU,
+the same float operations in the same order (the reference's expressions
+left to right; the side lengths as the compiled reference's FMA chain,
+every later stage unfused; glibc's ``powf`` and ``cosf`` and XLA's
+``arccos`` form from ``ops/libm.py``; a 3x3 LU with partial pivoting,
+:func:`lu_solve`); the Horn fit is ``kabsch(fixed=True)``. The refinement
+sums in fixed orders (``transforms.pairwise_sum``, three-term products as
+``transforms.mat_vec``), solves its 6x6 step with :func:`lu_solve` and
+takes ``sincosf`` from ``ops/libm.py``. The compiled reference also
+contracts multiply-adds in every fusion from the quartic's coefficients
+on (``tools/fit_p3p_order.py`` counts them) and solves through LAPACK;
+the port transcribes neither (ROADMAP queue C): its P3P equals the
+reference's through the sides and cosines and parts at the coefficients,
+agreeing candidate by candidate, not bit for bit
+(``tests/test_torch_pnp.py``). Host waits: none. The
+reference differentiates its residual with ``jax.jacfwd``; the port writes
+the Jacobian out (at ``delta = 0`` both are the same function).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from tod_tpu_torch.geometry.transforms import _adjugate_t3, _det3, kabsch
+from tod_tpu_torch import kernels
+from tod_tpu_torch.geometry.transforms import (dot3, kabsch, matmul3,
+                                               pairwise_sum)
+from tod_tpu_torch.ops import libm
+from tod_tpu_torch.ops.image import fma_f32
+
+
+def _c(value: float, like: torch.Tensor) -> torch.Tensor:
+    """A float32 constant on ``like``'s device. A tensor divisor keeps a
+    division true on a card (PyTorch's CUDA division by a Python number
+    multiplies by its reciprocal)."""
+    return torch.full((), value, dtype=torch.float32, device=like.device)
+
+
+def _sign(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.sign``: +-1, the zero itself, NaN for NaN (``torch.sign``
+    gives 0 for NaN)."""
+    return torch.where(x > 0, _c(1.0, x), torch.where(x < 0, _c(-1.0, x), x))
 
 
 def _cbrt(x: torch.Tensor) -> torch.Tensor:
-    return torch.sign(x) * torch.abs(x) ** (1.0 / 3.0)
+    return _sign(x) * libm.powf(torch.abs(x),
+                                torch.full_like(x, 1.0 / 3.0))
 
 
 def solve_quartic(c4, c3, c2, c1, c0, polish_iters: int = 6
@@ -39,46 +70,50 @@ def solve_quartic(c4, c3, c2, c1, c0, polish_iters: int = 6
     Ferrari: depress with x = y - c3/(4 c4); factor via the resolvent
     cubic's largest real root (Cardano, or its trigonometric form when the
     cubic has three real roots); Newton-polish each root on the original
-    quartic."""
+    quartic. Every operation in the reference's order, rounded on its own
+    (kernel P1 transcribes this function line by line)."""
+    def div(x, v):
+        return x / _c(v, x)
+
     a = c3 / c4
     b = c2 / c4
     c = c1 / c4
     d = c0 / c4
     # depressed quartic y^4 + p y^2 + q y + r
-    p = b - 3.0 * a * a / 8.0
-    q = c - a * b / 2.0 + a * a * a / 8.0
-    r = (d - a * c / 4.0 + a * a * b / 16.0
-         - 3.0 * a * a * a * a / 256.0)
+    p = b - div(3.0 * a * a, 8.0)
+    q = c - div(a * b, 2.0) + div(a * a * a, 8.0)
+    r = (d - div(a * c, 4.0) + div(a * a * b, 16.0)
+         - div(3.0 * a * a * a * a, 256.0))
 
     # resolvent cubic m^3 + A m^2 + B m + C = 0, Cardano
     A = p
-    B = p * p / 4.0 - r
-    C = -q * q / 8.0
-    Q = (3.0 * B - A * A) / 9.0
-    R = (9.0 * A * B - 27.0 * C - 2.0 * (A * (A * A))) / 54.0
+    B = div(p * p, 4.0) - r
+    C = div(-q * q, 8.0)
+    Q = div(3.0 * B - A * A, 9.0)
+    R = div(9.0 * A * B - 27.0 * C - 2.0 * (A * (A * A)), 54.0)
     Q3 = Q * (Q * Q)
     D = Q3 + R * R
-    sqrtD = torch.sqrt(torch.clamp_min(D, 0.0))
-    m_pos = _cbrt(R + sqrtD) + _cbrt(R - sqrtD) - A / 3.0
-    theta = torch.arccos(torch.clamp(
-        R / torch.sqrt(torch.clamp_min(-Q3, 1e-30)), -1.0, 1.0))
-    m_neg = 2.0 * torch.sqrt(torch.clamp_min(-Q, 0.0)) \
-        * torch.cos(theta / 3.0) - A / 3.0
+    sqrtD = libm.sqrt_rn(torch.clamp_min(D, 0.0))
+    m_pos = _cbrt(R + sqrtD) + _cbrt(R - sqrtD) - div(A, 3.0)
+    theta = libm.acosf(torch.clamp(
+        R / libm.sqrt_rn(torch.clamp_min(-Q3, 1e-30)), -1.0, 1.0))
+    m_neg = 2.0 * libm.sqrt_rn(torch.clamp_min(-Q, 0.0)) \
+        * libm.cosf(div(theta, 3.0)) - div(A, 3.0)
     m = torch.where(D >= 0, m_pos, m_neg)
     m = torch.clamp_min(m, 1e-12)
 
     # (y^2 + s y + t0)(y^2 - s y + t1), s = sqrt(2m)
-    s = torch.sqrt(2.0 * m)
-    t0 = p / 2.0 + m - q / (2.0 * s)
-    t1 = p / 2.0 + m + q / (2.0 * s)
+    s = libm.sqrt_rn(2.0 * m)
+    t0 = div(p, 2.0) + m - q / (2.0 * s)
+    t1 = div(p, 2.0) + m + q / (2.0 * s)
     d0 = s * s - 4.0 * t0
     d1 = s * s - 4.0 * t1
-    sq0 = torch.sqrt(torch.clamp_min(d0, 0.0))
-    sq1 = torch.sqrt(torch.clamp_min(d1, 0.0))
-    ys = torch.stack([(-s + sq0) / 2.0, (-s - sq0) / 2.0,
-                      (s + sq1) / 2.0, (s - sq1) / 2.0], dim=-1)
+    sq0 = libm.sqrt_rn(torch.clamp_min(d0, 0.0))
+    sq1 = libm.sqrt_rn(torch.clamp_min(d1, 0.0))
+    ys = torch.stack([div(-s + sq0, 2.0), div(-s - sq0, 2.0),
+                      div(s + sq1, 2.0), div(s - sq1, 2.0)], dim=-1)
     valid = torch.stack([d0 >= 0, d0 >= 0, d1 >= 0, d1 >= 0], dim=-1)
-    roots = ys - (a / 4.0)[..., None]
+    roots = ys - div(a, 4.0)[..., None]
 
     k4, k3, k2, k1, k0 = (x[..., None] for x in (c4, c3, c2, c1, c0))
     one = torch.ones((), dtype=roots.dtype, device=roots.device)
@@ -96,14 +131,57 @@ class P3PSolutions(NamedTuple):
 
 
 def _norm(x: torch.Tensor) -> torch.Tensor:
-    return torch.sqrt((x * x).sum(-1))
+    return libm.sqrt_rn(dot3(x, x))
 
 
-def _solve3(J: torch.Tensor, F: torch.Tensor) -> torch.Tensor:
-    """J^-1 F for (..., 3, 3) J and (..., 3) F by cofactors (no host wait);
-    a singular J gives non-finite entries, as an LU solve does."""
-    adj_t = _adjugate_t3(J)                      # inv(J)^T det(J)
-    return torch.einsum("...ji,...j->...i", adj_t, F) / _det3(J)[..., None]
+def _side(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``jnp.linalg.norm(u - v)`` of (..., 3) points as the compiled
+    reference reduces it: one FMA chain from the first square,
+    ``sqrt(fma(d2, d2, fma(d1, d1, d0 d0)))`` (its object code,
+    ``tools/fit_p3p_order.py``)."""
+    d = u - v
+    return libm.sqrt_rn(fma_f32(d[..., 2], d[..., 2], fma_f32(
+        d[..., 1], d[..., 1], d[..., 0] * d[..., 0])))
+
+
+def lu_solve(M: torch.Tensor, F: torch.Tensor) -> torch.Tensor:
+    """``M^-1 F`` for (..., n, n) ``M`` and (..., n) ``F`` by an LU with
+    partial pivoting in LAPACK ``getf2``'s order: per column the largest
+    magnitude pivots (the first on ties), the column below it is scaled by
+    the pivot's reciprocal, the rank-1 update follows; then the back
+    substitution by columns, dividing by the diagonal. Every step an
+    elementwise operation, rounded alike on every device; no host wait. A
+    singular ``M`` gives non-finite entries, as an LU solve does."""
+    n = M.shape[-1]
+    A = torch.cat([M, F[..., None]], -1)                  # (..., n, n + 1)
+    rows = torch.arange(n, device=M.device)
+    for k in range(n - 1):
+        # the first largest magnitude: strict comparisons in row order (a
+        # NaN pivot candidate never wins, a NaN in row k stays)
+        best = torch.abs(A[..., k, k])
+        piv = torch.full_like(best, k, dtype=torch.int64)
+        for i in range(k + 1, n):
+            mag = torch.abs(A[..., i, k])
+            more = mag > best
+            piv = torch.where(more, i, piv)
+            best = torch.where(more, mag, best)
+        perm = torch.where(rows == k, piv[..., None],
+                           torch.where(rows == piv[..., None], k, rows))
+        A = torch.take_along_dim(A, perm[..., None], -2)
+        rcp = 1.0 / A[..., k, k]
+        l = A[..., k + 1:, k] * rcp[..., None]             # (..., n-k-1)
+        A = torch.cat([A[..., :k + 1, :], torch.cat([
+            A[..., k + 1:, :k + 1],
+            A[..., k + 1:, k + 1:] - l[..., None] * A[..., k, None, k + 1:]],
+            -1)], -2)
+    g = A[..., n]
+    xs = [None] * n
+    for j in range(n - 1, -1, -1):
+        xs[j] = g[..., j] / A[..., j, j]
+        if j:
+            g = torch.cat([g[..., :j] - A[..., :j, j] * xs[j][..., None],
+                           g[..., j:]], -1)
+    return torch.stack(xs, -1)
 
 
 def _cosine_law(s: torch.Tensor, ca, cb, cg, a2, b2, c2) -> torch.Tensor:
@@ -115,27 +193,12 @@ def _cosine_law(s: torch.Tensor, ca, cb, cg, a2, b2, c2) -> torch.Tensor:
         s1 * s1 + s2 * s2 - 2 * s1 * s2 * cg - c2], dim=-1)
 
 
-def p3p(bearings: torch.Tensor, points: torch.Tensor) -> P3PSolutions:
-    """Grunert's P3P: ``bearings`` (..., 3, 3) unit camera-frame rays,
-    ``points`` (..., 3, 3) model-frame 3D points. Returns 8 candidate
-    poses per sample (4 quartic roots x 2 back-substitution branches;
-    duplicates and spurious candidates are masked by the post-polish
-    residual gate)."""
-    f1, f2, f3 = bearings[..., 0, :], bearings[..., 1, :], bearings[..., 2, :]
-    p1, p2, p3 = points[..., 0, :], points[..., 1, :], points[..., 2, :]
-
-    a = _norm(p2 - p3)                     # opposite P1
-    b = _norm(p1 - p3)                     # opposite P2
-    c = _norm(p1 - p2)                     # opposite P3
-    ca = (f2 * f3).sum(-1)                 # cosine of the angle facing a
-    cb = (f1 * f3).sum(-1)
-    cg = (f1 * f2).sum(-1)
-
-    a2, b2, c2 = a * a, b * b, c * c
-    # the quartic in v = s3/s1 with Ar = a^2/b^2, Br = c^2/b^2 (the
-    # resultant of the two ratio equations)
-    Ar = a2 / b2
-    Br = c2 / b2
+def quartic_coefficients(Ar, Br, ca, cb, cg) -> Tuple[torch.Tensor, ...]:
+    """P3P's quartic in v = s3/s1, ``(C4, C3, C2, C1, C0)``, from the side
+    ratios ``Ar`` = a^2/b^2, ``Br`` = c^2/b^2 and the cosines: the
+    reference's expressions left to right, every operation rounded on its
+    own (the compiled reference contracts multiply-adds here: P3P parts
+    from it at this stage, ROADMAP queue C)."""
     C4 = (Ar * Ar - 2 * Ar * Br - 2 * Ar + Br * Br
           - 4 * Br * ca * ca + 2 * Br + 1)
     C3 = (-4 * Ar * Ar * cb + 8 * Ar * Br * cb + 4 * Ar * ca * cg
@@ -150,6 +213,33 @@ def p3p(bearings: torch.Tensor, points: torch.Tensor) -> P3PSolutions:
           + 4 * Br * ca * cg + 4 * Br * cb - 4 * ca * cg)
     C0 = (Ar * Ar - 2 * Ar * Br - 4 * Ar * cg * cg + 2 * Ar
           + Br * Br - 2 * Br + 1)
+    return C4, C3, C2, C1, C0
+
+
+def p3p_distances_torch(bearings: torch.Tensor, points: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of kernel P1: for samples of ``bearings`` (..., 3,
+    3) unit camera-frame rays and ``points`` (..., 3, 3) model points, the
+    8 candidates' camera distances ``s`` (..., 8, 3) (4 quartic roots x 2
+    back-substitution branches, each polished by 8 Newton steps) and their
+    validity (..., 8): positive, finite, and solving the cosine-law system
+    within 1e-4 of the largest squared side."""
+    f1, f2, f3 = bearings[..., 0, :], bearings[..., 1, :], bearings[..., 2, :]
+    p1, p2, p3 = points[..., 0, :], points[..., 1, :], points[..., 2, :]
+
+    a = _side(p2, p3)                      # opposite P1
+    b = _side(p1, p3)                      # opposite P2
+    c = _side(p1, p2)                      # opposite P3
+    ca = dot3(f2, f3)                      # cosine of the angle facing a
+    cb = dot3(f1, f3)
+    cg = dot3(f1, f2)
+
+    a2, b2, c2 = a * a, b * b, c * c
+    # the quartic in v = s3/s1 with Ar = a^2/b^2, Br = c^2/b^2 (the
+    # resultant of the two ratio equations)
+    Ar = a2 / b2
+    Br = c2 / b2
+    C4, C3, C2, C1, C0 = quartic_coefficients(Ar, Br, ca, cb, cg)
 
     v, _ = solve_quartic(C4, C3, C2, C1, C0)            # (..., 4)
     ca, cb, cg = ca[..., None], cb[..., None], cg[..., None]
@@ -157,30 +247,29 @@ def p3p(bearings: torch.Tensor, points: torch.Tensor) -> P3PSolutions:
 
     # s1 from side b: s1^2 (1 + v^2 - 2 v cos_b) = b^2
     g = torch.clamp_min(1.0 + v * v - 2.0 * v * cb, 1e-12)
-    s1 = torch.sqrt(b2 / g)
+    s1 = libm.sqrt_rn(b2 / g)
     # u = s2/s1 from side c; both branches are candidates (8 in all)
     disc = torch.clamp_min(cg * cg - (1.0 - Br * g), 0.0)
-    sq = torch.sqrt(disc)
+    sq = libm.sqrt_rn(disc)
     u = torch.cat([cg + sq, cg - sq], dim=-1)           # (..., 8)
     v8 = torch.cat([v, v], dim=-1)
     s1 = torch.cat([s1, s1], dim=-1)
     s = torch.stack([s1, u * s1, v8 * s1], dim=-1)      # (..., 8, 3)
 
     # Newton on the distances against the cosine-law system
-    eye = 1e-9 * torch.eye(3, dtype=s.dtype, device=s.device)
     zero = torch.zeros((), dtype=s.dtype, device=s.device)
     for _ in range(8):
         s1_, s2_, s3_ = s[..., 0], s[..., 1], s[..., 2]
         F = _cosine_law(s, ca, cb, cg, a2, b2, c2)
-        z = torch.zeros_like(s1_)
+        d_ = torch.full_like(s1_, 1e-9)
         J = torch.stack([
-            torch.stack([z, 2 * s2_ - 2 * s3_ * ca,
+            torch.stack([d_, 2 * s2_ - 2 * s3_ * ca,
                          2 * s3_ - 2 * s2_ * ca], -1),
-            torch.stack([2 * s1_ - 2 * s3_ * cb, z,
+            torch.stack([2 * s1_ - 2 * s3_ * cb, d_,
                          2 * s3_ - 2 * s1_ * cb], -1),
             torch.stack([2 * s1_ - 2 * s2_ * cg,
-                         2 * s2_ - 2 * s1_ * cg, z], -1)], dim=-2) + eye
-        delta = _solve3(J, F)
+                         2 * s2_ - 2 * s1_ * cg, d_], -1)], dim=-2)
+        delta = lu_solve(J, F)
         fin = torch.isfinite(delta).all(-1, keepdim=True)
         s = s - torch.where(fin, delta, zero)
 
@@ -189,21 +278,86 @@ def p3p(bearings: torch.Tensor, points: torch.Tensor) -> P3PSolutions:
     scale = torch.maximum(torch.maximum(a2, b2), c2)
     solved = (torch.abs(res) < 1e-4 * scale[..., None]).all(-1)
     ok = (s > 0).all(-1) & solved & torch.isfinite(s).all(-1)
+    return s, ok
 
+
+def p3p_distances(bearings: torch.Tensor, points: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`p3p_distances_torch`'s ``(s (..., 8, 3), ok (..., 8))``:
+    kernel P1 on CUDA tensors (one launch, counted in
+    ``p3p_distances.launches``; a failed launch raises), the plain version
+    on CPU tensors."""
+    if bearings.dtype != torch.float32 or points.dtype != torch.float32:
+        raise TypeError(f"p3p takes float32, got {bearings.dtype}, "
+                        f"{points.dtype}")
+    if bearings.shape != points.shape or bearings.shape[-2:] != (3, 3) \
+            or bearings.device != points.device:
+        raise ValueError(f"p3p: bearings {tuple(bearings.shape)} on "
+                         f"{bearings.device}, points {tuple(points.shape)} "
+                         f"on {points.device}")
+    if bearings.device.type == "cpu":
+        return p3p_distances_torch(bearings, points)
+    if bearings.device.type != "cuda":
+        raise ValueError(f"no p3p path for {bearings.device}")
+    lead = bearings.shape[:-2]
+    s = torch.empty(lead + (8, 3), dtype=torch.float32,
+                    device=bearings.device)
+    ok = torch.empty(lead + (8,), dtype=torch.uint8, device=bearings.device)
+    n = s.numel() // 24
+    if n:
+        kernels.call("p3p", "tod_p3p",
+                     [bearings.contiguous().data_ptr(),
+                      points.contiguous().data_ptr(), s.data_ptr(),
+                      ok.data_ptr()], [n],
+                     torch.cuda.current_stream(bearings.device).cuda_stream)
+        p3p_distances.launches += 1
+    return s, ok.bool()
+
+
+p3p_distances.launches = 0
+
+
+def p3p(bearings: torch.Tensor, points: torch.Tensor,
+        trace: Optional[dict] = None) -> P3PSolutions:
+    """Grunert's P3P: ``bearings`` (..., 3, 3) unit camera-frame rays,
+    ``points`` (..., 3, 3) model-frame 3D points. Returns 8 candidate
+    poses per sample (4 quartic roots x 2 back-substitution branches;
+    duplicates and spurious candidates are masked by the post-polish
+    residual gate): :func:`p3p_distances`, then Horn's fit of the camera
+    points to the model points. ``trace``, when given, receives the
+    distances and their validity (``p3p_s``, ``p3p_ok``)."""
+    s, ok = p3p_distances(bearings, points)
+    if trace is not None:
+        trace.update(p3p_s=s, p3p_ok=ok)
     # camera-frame points -> Horn's absolute orientation to the model points
     f = bearings[..., None, :, :]                       # (..., 1, 3, 3)
     cam = s[..., :, :, None] * f                        # (..., 8, 3, 3)
     world = points[..., None, :, :].expand_as(cam)
     fit = kabsch(world, cam, torch.ones(cam.shape[:-1], dtype=cam.dtype,
-                                        device=cam.device))
+                                        device=cam.device), fixed=True)
     return P3PSolutions(R=fit.R, T=fit.T, valid=ok & fit.ok)
+
+
+def rotate(R: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
+    """``X @ R^T`` for (..., N, 3) points and (..., 3, 3) poses (leading
+    axes broadcast): each coordinate ``fma(x2, r2, fma(x1, r1, x0 r0))``
+    as the compiled reference's product (``detection2d.rotate_points``'
+    form, :func:`fma_f32`), the same on every device."""
+    Rr = R[..., None, :, :]
+    x0, x1, x2 = X[..., 0], X[..., 1], X[..., 2]
+    return torch.stack([
+        fma_f32(x2, Rr[..., j, 2], fma_f32(x1, Rr[..., j, 1],
+                                           x0 * Rr[..., j, 0]))
+        for j in range(3)], -1)
 
 
 def project(R: torch.Tensor, T: torch.Tensor, K: torch.Tensor,
             X: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Project model points ``X`` (..., N, 3) by poses (..., 3, 3) /
     (..., 3) (leading axes broadcast): ((..., N, 2) pixels, (..., N)
-    in-front mask)."""
+    in-front mask). Off the 2D path (its consensus is
+    ``detection2d.reprojection_error``), kept differentiable for the tests'
+    ``torch.func.jacfwd`` of the reference's residual: ``torch.matmul``."""
     cam = torch.matmul(X, R.transpose(-1, -2)) + T[..., None, :]
     z = cam[..., 2]
     zc = torch.where(torch.abs(z) > 1e-9, z,
@@ -223,12 +377,15 @@ def skew(w: torch.Tensor) -> torch.Tensor:
 
 
 def rodrigues(w: torch.Tensor) -> torch.Tensor:
-    """Exponential map of (..., 3) rotation vectors."""
+    """Exponential map of (..., 3) rotation vectors (``sincosf`` of the
+    angle, as the compiled reference calls it; ``kx @ kx`` by
+    :func:`matmul3`)."""
     th = _norm(w) + 1e-12
     kx = skew(w / th[..., None])
-    th = th[..., None, None]
+    sin, cos = libm.sincosf(th)
     eye = torch.eye(3, dtype=w.dtype, device=w.device)
-    return eye + torch.sin(th) * kx + (1.0 - torch.cos(th)) * (kx @ kx)
+    return eye + sin[..., None, None] * kx \
+        + (1.0 - cos[..., None, None]) * matmul3(kx, kx)
 
 
 def reprojection_jacobian(R: torch.Tensor, T: torch.Tensor, K: torch.Tensor,
@@ -239,7 +396,7 @@ def reprojection_jacobian(R: torch.Tensor, T: torch.Tensor, K: torch.Tensor,
     where the updated pose is ``(I + [omega]x + [omega]x^2 / 2) R`` and
     ``T + t`` (the reference's ``rot_smooth``). Returns ``(r (..., N, 2),
     J (..., N, 2, 6))``: row 0 the u residual, row 1 the v residual."""
-    y = torch.matmul(X, R.transpose(-1, -2))            # R X, (..., N, 3)
+    y = rotate(R, X)                                    # R X, (..., N, 3)
     cam = y + T[..., None, :]
     x_, y_, z = cam[..., 0], cam[..., 1], cam[..., 2]
     live = torch.abs(z) > 1e-9
@@ -263,29 +420,83 @@ def reprojection_jacobian(R: torch.Tensor, T: torch.Tensor, K: torch.Tensor,
     return r, torch.stack([ju, jv], dim=-2)
 
 
+# kernel P2's kMaxSharedBytes: a pose's rows in shared memory up to this
+GN_SHARED_BYTES = 224 * 1024
+
+
 def gauss_newton_pose(R0: torch.Tensor, T0: torch.Tensor, K: torch.Tensor,
                       X: torch.Tensor, uv: torch.Tensor, w: torch.Tensor,
                       iters: int = 5) -> Tuple[torch.Tensor, torch.Tensor]:
     """Refine poses by fixed-iteration Gauss-Newton on the weighted
     reprojection error. ``R0`` (..., 3, 3), ``T0`` (..., 3); ``X`` (..., N,
     3) model points, ``uv`` (..., N, 2) observed pixels, ``w`` (..., N)
-    weights (0 masks a row out), leading axes broadcast. Returns (R, T)."""
+    weights (0 masks a row out), leading axes broadcast. Returns (R, T):
+    kernel P2 (``csrc/gauss_newton.cu``, one launch a call, counted in
+    ``gauss_newton_pose.launches``; a failed launch raises) on CUDA
+    tensors, :func:`gauss_newton_pose_torch` on CPU tensors. P2 holds a
+    pose's rows in shared memory up to ``GN_SHARED_BYTES`` (72 bytes a
+    match), past that in a global scratch this wrapper allocates: any N."""
+    if R0.device.type == "cpu":
+        return gauss_newton_pose_torch(R0, T0, K, X, uv, w, iters)
+    if R0.device.type != "cuda":
+        raise ValueError(f"no Gauss-Newton path for {R0.device}")
+    n = X.shape[-2]
+    lead = torch.broadcast_shapes(R0.shape[:-2], T0.shape[:-1],
+                                  X.shape[:-2], uv.shape[:-2], w.shape[:-1])
+
+    def flat(t: torch.Tensor, tail) -> torch.Tensor:
+        return t.to(torch.float32).expand(lead + tail).reshape(
+            (-1,) + tail).contiguous()
+
+    r0, t0 = flat(R0, (3, 3)), flat(T0, (3,))
+    xs, us, ws = flat(X, (n, 3)), flat(uv, (n, 2)), flat(w, (n,))
+    R, T = torch.empty_like(r0), torch.empty_like(t0)
+    if r0.shape[0]:
+        k = K.to(device=R0.device, dtype=torch.float32).contiguous()
+        scratch = (torch.empty((r0.shape[0], 18 * n), dtype=torch.float32,
+                               device=R0.device)
+                   if 72 * n > GN_SHARED_BYTES else None)
+        kernels.call("gauss_newton", "tod_gauss_newton",
+                     [r0.data_ptr(), t0.data_ptr(), k.data_ptr(),
+                      xs.data_ptr(), us.data_ptr(), ws.data_ptr(),
+                      R.data_ptr(), T.data_ptr(),
+                      0 if scratch is None else scratch.data_ptr()],
+                     [r0.shape[0], n, iters],
+                     torch.cuda.current_stream(R0.device).cuda_stream)
+        gauss_newton_pose.launches += 1
+    return R.reshape(lead + (3, 3)), T.reshape(lead + (3,))
+
+
+gauss_newton_pose.launches = 0
+
+
+def gauss_newton_pose_torch(R0: torch.Tensor, T0: torch.Tensor,
+                            K: torch.Tensor, X: torch.Tensor,
+                            uv: torch.Tensor, w: torch.Tensor,
+                            iters: int = 5
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of kernel P2 (:func:`gauss_newton_pose`): ``J^T
+    J`` and ``J^T r`` sum their 2N rows in ``transforms.pairwise_sum``'s
+    order, the step is :func:`lu_solve`'s, and the update
+    :func:`matmul3`'s: the same bits on every device."""
     R, T = R0, T0
     eye6 = 1e-6 * torch.eye(6, dtype=R0.dtype, device=R0.device)
     zero = torch.zeros((), dtype=R0.dtype, device=R0.device)
     for _ in range(iters):
         r, J = reprojection_jacobian(R, T, K, X, uv, w)
         J = J.flatten(-3, -2)                            # (..., 2N, 6)
-        H = J.transpose(-1, -2) @ J + eye6
-        g = (J.transpose(-1, -2) @ r.flatten(-2)[..., None])[..., 0]
-        delta = -torch.linalg.solve_ex(H, g[..., None],
-                                       check_errors=False)[0][..., 0]
+        H = pairwise_sum(J[..., :, :, None] * J[..., :, None, :], -3) + eye6
+        g = pairwise_sum(J * r.flatten(-2)[..., None], -2)
+        delta = -lu_solve(H, g)
         ok = torch.isfinite(delta).all(-1, keepdim=True)
         delta = torch.where(ok, delta, zero)
-        R = rodrigues(delta[..., :3]) @ R
+        R = matmul3(rodrigues(delta[..., :3]), R)
         T = T + delta[..., 3:]
     return R, T
 
 
-__all__ = ["P3PSolutions", "gauss_newton_pose", "p3p", "project",
-           "reprojection_jacobian", "rodrigues", "skew", "solve_quartic"]
+__all__ = ["GN_SHARED_BYTES", "P3PSolutions", "gauss_newton_pose",
+           "gauss_newton_pose_torch", "lu_solve", "p3p", "p3p_distances",
+           "p3p_distances_torch", "project", "quartic_coefficients",
+           "reprojection_jacobian", "rodrigues", "rotate", "skew",
+           "solve_quartic"]

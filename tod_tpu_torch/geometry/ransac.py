@@ -23,6 +23,7 @@ from tod_tpu_torch.geometry.adjacency import (AdjacencyGraphs, ObjectMatches,
                                               invalidate_query_indices)
 from tod_tpu_torch.geometry.transforms import (RigidFit, apply_rt,
                                                invert_pose, kabsch, row_sum)
+from tod_tpu_torch.ops import libm
 from tod_tpu_torch.ops.fast import stable_topk
 from tod_tpu_torch.utils import prng
 
@@ -174,11 +175,15 @@ def consistency_log_weights(sample_adj: torch.Tensor,
     """log(1 + [A^3 1]_v): 3-path counts in the valid sample graph. The
     counts (up to M^3, past f32's 2^24 in a dense graph of a few hundred
     matches) are formed exactly in f64, whatever the product's order or
-    batch, then taken to f32 as the reference holds them."""
+    batch, then taken to f32 as the reference holds them, and through XLA's
+    ``log`` of ``1 + count`` (``libm.log_xla``): the reference's
+    ``jnp.log1p`` of a count compiles to that (held on 200,000 counts to
+    10^9, ``tests/test_torch_libm.py``), the same bits on every device."""
     a = (sample_adj & valid[..., :, None]
          & valid[..., None, :]).to(torch.float64)
     v = valid.to(torch.float64)[..., None]
-    return torch.log1p((a @ (a @ (a @ v)))[..., 0].to(torch.float32))
+    counts = (a @ (a @ (a @ v)))[..., 0].to(torch.float32)
+    return libm.log_xla(1.0 + counts)
 
 
 def _masked_weighted_argmax(g: torch.Tensor, mask: torch.Tensor,

@@ -14,6 +14,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from tod_tpu_torch.ops.image import fma_f32
+from tod_tpu_torch.ops.libm import sqrt_rn
 
 
 def _det3(m: torch.Tensor) -> torch.Tensor:
@@ -103,12 +104,57 @@ def quat_to_mat(q: torch.Tensor) -> torch.Tensor:
     ], -2)
 
 
-def horn_rotation(S: torch.Tensor, n_newton: int = 12
+def pairwise_sum(x: torch.Tensor, dim) -> torch.Tensor:
+    """``x.sum(dim)`` in one fixed order on every device: the two halves
+    added elementwise, an odd last row carried, until one row is left (each
+    an elementwise add, rounded alike on the CPU and the card). ``dim`` may
+    be a tuple of trailing dims, flattened first."""
+    if isinstance(dim, tuple):
+        first, last = (d % x.dim() for d in (dim[0], dim[-1]))
+        x, dim = x.flatten(first, last), first
+    x = x.movedim(dim, 0)
+    if x.shape[0] == 0:
+        return torch.zeros(x.shape[1:], dtype=x.dtype, device=x.device)
+    while x.shape[0] > 1:
+        half = x.shape[0] // 2
+        pair = x[:half] + x[half:2 * half]
+        x = torch.cat([pair, x[2 * half:]]) if x.shape[0] % 2 else pair
+    return x[0]
+
+
+def dot3(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """(..., 3) dot products as ``(u0 v0 + u1 v1) + u2 v2``, every
+    operation rounded, the same on every device."""
+    return (u[..., 0] * v[..., 0] + u[..., 1] * v[..., 1]) \
+        + u[..., 2] * v[..., 2]
+
+
+def cross3(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """(..., 3) cross products, each entry two products and a difference."""
+    return torch.stack([u[..., 1] * v[..., 2] - u[..., 2] * v[..., 1],
+                        u[..., 2] * v[..., 0] - u[..., 0] * v[..., 2],
+                        u[..., 0] * v[..., 1] - u[..., 1] * v[..., 0]], -1)
+
+
+def matmul3(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """``A @ B`` for (..., 3, 3) matrices, each entry ``(a0 b0 + a1 b1) +
+    a2 b2`` with every operation rounded (:func:`mat_vec`'s order), the
+    same on every device."""
+    return (A[..., :, 0:1] * B[..., 0:1, :] + A[..., :, 1:2] * B[..., 1:2, :]) \
+        + A[..., :, 2:3] * B[..., 2:3, :]
+
+
+def horn_rotation(S: torch.Tensor, n_newton: int = 12, fixed: bool = False
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Optimal rotation R (R q ~= t) from S = sum_i w_i q~_i t~_i^T by
     Horn's quaternion method: Newton from above on the largest root of the
     characteristic quartic, the eigenvector read off the adjugate of
-    (N - lambda I). Exact for rank-2 correlations. Returns (R, ok)."""
+    (N - lambda I). Exact for rank-2 correlations. Returns (R, ok).
+    ``fixed`` takes every sum in :func:`pairwise_sum`'s order and every
+    root correctly rounded (``ops/libm.py sqrt_rn``), so that the bits do
+    not depend on the device."""
+    total = pairwise_sum if fixed else (lambda x, d: x.sum(d))
+    sqrt = sqrt_rn if fixed else torch.sqrt
     Sxx, Sxy, Sxz = S[..., 0, 0], S[..., 0, 1], S[..., 0, 2]
     Syx, Syy, Syz = S[..., 1, 0], S[..., 1, 1], S[..., 1, 2]
     Szx, Szy, Szz = S[..., 2, 0], S[..., 2, 1], S[..., 2, 2]
@@ -118,10 +164,10 @@ def horn_rotation(S: torch.Tensor, n_newton: int = 12
         torch.stack([Szx - Sxz, Sxy + Syx, Syy - Sxx - Szz, Syz + Szy], -1),
         torch.stack([Sxy - Syx, Szx + Sxz, Syz + Szy, Szz - Sxx - Syy], -1),
     ], -2)
-    c2 = -2.0 * (S * S).sum((-2, -1))
+    c2 = -2.0 * total(S * S, (-2, -1))
     c1 = -8.0 * _det3(S)
     c0 = _det4(N)
-    lam = torch.sqrt((N * N).sum((-2, -1))) + 1e-30
+    lam = sqrt(total(N * N, (-2, -1))) + 1e-30
     tiny = torch.full((), 1e-30, dtype=S.dtype, device=S.device)
     for _ in range(n_newton):
         p = ((lam * lam + c2) * lam + c1) * lam + c0
@@ -129,12 +175,12 @@ def horn_rotation(S: torch.Tensor, n_newton: int = 12
         lam = lam - p / torch.where(torch.abs(dp) > 1e-30, dp, tiny)
     A = N - lam[..., None, None] * torch.eye(4, dtype=S.dtype, device=S.device)
     adj = _adjugate4(A)
-    col_norm_sq = (adj * adj).sum(-2)                       # (..., 4)
+    col_norm_sq = total(adj * adj, -2)                      # (..., 4)
     pick = torch.argmax(col_norm_sq, -1)
     v = torch.take_along_dim(adj, pick[..., None, None].expand(
         *pick.shape, 4, 1), -1)[..., 0]                      # (..., 4)
-    v_norm = torch.sqrt((v * v).sum(-1, keepdim=True))
-    norm_n = torch.sqrt((N * N).sum((-2, -1))) + 1e-30
+    v_norm = sqrt(total(v * v, -1))[..., None]
+    norm_n = sqrt(total(N * N, (-2, -1))) + 1e-30
     ok = (v_norm[..., 0] > 1e-12 * norm_n) & (lam > 0)
     q = v / torch.where(v_norm > 0, v_norm, torch.ones_like(v_norm))
     R = quat_to_mat(q)
@@ -164,31 +210,30 @@ def row_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
     independent of the other rows (the parity tests hold their results)."""
     if not x.is_cuda or x.shape[dim] < FIXED_ORDER_MIN:
         return x.sum(dim)
-    x = x.movedim(dim, 0)
-    while x.shape[0] > 1:
-        half = x.shape[0] // 2
-        pair = x[:half] + x[half:2 * half]
-        x = torch.cat([pair, x[2 * half:]]) if x.shape[0] % 2 else pair
-    return x[0]
+    return pairwise_sum(x, dim)
 
 
 def kabsch(query: torch.Tensor, training: torch.Tensor,
-           weights: torch.Tensor) -> RigidFit:
+           weights: torch.Tensor, fixed: bool = False) -> RigidFit:
     """Weighted rigid fit R @ query + T ~= training (Horn 1987).
     ``query``/``training``: (..., N, 3); ``weights``: (..., N) >= 0. The
-    sums over N go through :func:`row_sum`."""
+    sums over N go through :func:`row_sum`; with ``fixed`` every sum and
+    product goes through :func:`pairwise_sum` and :func:`mat_vec`'s order
+    on every device (P3P's candidate fits: the same bits on the CPU and the
+    card)."""
+    total = pairwise_sum if fixed else row_sum
     w = weights[..., None].to(torch.float32)
-    wsum = row_sum(w, -2) + 1e-30                 # (..., 1)
-    cq = row_sum(w * query, -2) / wsum            # (..., 3)
-    ct = row_sum(w * training, -2) / wsum
+    wsum = total(w, -2) + 1e-30                   # (..., 1)
+    cq = total(w * query, -2) / wsum              # (..., 3)
+    ct = total(w * training, -2) / wsum
     qc = (query - cq[..., None, :]) * w
     tc = training - ct[..., None, :]
-    if qc.is_cuda and qc.shape[-2] >= FIXED_ORDER_MIN:
-        S = row_sum(qc[..., :, None] * tc[..., None, :], -3)
+    if fixed or (qc.is_cuda and qc.shape[-2] >= FIXED_ORDER_MIN):
+        S = total(qc[..., :, None] * tc[..., None, :], -3)
     else:
         S = torch.einsum("...ni,...nj->...ij", qc, tc)
-    R, ok = horn_rotation(S)
-    T = ct - mat_vec(R, cq)
+    R, ok = horn_rotation(S, fixed=fixed)
+    T = ct - (dot3(R, cq[..., None, :]) if fixed else mat_vec(R, cq))
     enough = weights.to(torch.float32).sum(-1) >= 3.0
     return RigidFit(R=R, T=T, ok=ok & enough)
 
@@ -212,9 +257,7 @@ def mat_vec(R: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     library's product, which the parity tests hold to the reference."""
     if not R.is_cuda:
         return torch.einsum("...ij,...j->...i", R, v)
-    v = v[..., None, :]
-    return (R[..., 0] * v[..., 0] + R[..., 1] * v[..., 1]) \
-        + R[..., 2] * v[..., 2]
+    return dot3(R, v[..., None, :])
 
 
 def invert_pose(R: torch.Tensor, T: torch.Tensor

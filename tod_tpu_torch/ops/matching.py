@@ -219,6 +219,66 @@ def l2_distances(query: torch.Tensor, rows: torch.Tensor, n_valid: int,
 l2_distances.launches = 0
 
 
+L2_TOPK_MAX_K = 8        # the fused matcher's lists
+FUSED_SPLIT_BLOCKS = 8 * 132   # the sweep's target grid: ~8 blocks an SM
+
+
+def fused_splits(n_q: int, n_valid: int) -> Tuple[int, int]:
+    """``(n_split, tiles_per_split)`` of the fused matcher's sweep: the
+    valid rows' 128-row tiles cut into contiguous splits, so that query
+    tiles x splits is about :data:`FUSED_SPLIT_BLOCKS` (several waves of
+    one block an SM, a short tail)."""
+    tiles = max(1, -(-n_valid // 128))
+    q_tiles = max(1, -(-n_q // 128))
+    want = max(1, min(tiles, -(-FUSED_SPLIT_BLOCKS // q_tiles)))
+    per = -(-tiles // want)
+    return -(-tiles // per), per
+
+
+def l2_topk_fused(query: torch.Tensor, db: torch.Tensor, n_valid: int,
+                  k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`l2_topk` in the "chain" order over the whole DB at once:
+    kernel L3's fused matcher (``tod_l2_topk``: norms, split sweep, merge;
+    one call, counted in ``l2_topk_fused.launches``; a failed launch
+    raises) on CUDA tensors, its plain version :func:`_l2_topk_screened`
+    on CPU tensors. ``query`` (Q, 128) and ``db`` (N, 128) float32; rows
+    from ``n_valid`` on are padding; ``k`` at most 8."""
+    if query.dtype != torch.float32 or db.dtype != torch.float32 \
+            or query.dim() != 2 or db.dim() != 2 \
+            or query.shape[1] != L2_DIM or db.shape[1] != L2_DIM \
+            or query.device != db.device or not 1 <= k <= L2_TOPK_MAX_K:
+        raise ValueError(f"l2_topk_fused: query {tuple(query.shape)} "
+                         f"{query.dtype} on {query.device}, db "
+                         f"{tuple(db.shape)} {db.dtype} on {db.device}, k {k}")
+    n_valid = max(0, min(n_valid, db.shape[0]))
+    qn, dev = query.shape[0], query.device
+    if dev.type == "cpu":
+        return _l2_topk_screened(query, db, n_valid, k, "chain")
+    if dev.type != "cuda":
+        raise ValueError(f"no L2 matcher path for {dev}")
+    out_d = torch.full((qn, k), BIG_DIST, dtype=torch.float32, device=dev)
+    out_i = torch.full((qn, k), -1, dtype=torch.int32, device=dev)
+    if qn == 0 or n_valid == 0:
+        return out_d, out_i
+    query, db = query.contiguous(), db.contiguous()
+    n_split, per = fused_splits(qn, n_valid)
+    norms = torch.empty(qn + db.shape[0], dtype=torch.float32, device=dev)
+    part_d = torch.empty((2 * n_split, qn, k), dtype=torch.float32,
+                         device=dev)
+    part_i = torch.empty((2 * n_split, qn, k), dtype=torch.int32, device=dev)
+    kernels.call("l2_distances", "tod_l2_topk",
+                 [query.data_ptr(), db.data_ptr(), norms.data_ptr(),
+                  part_d.data_ptr(), part_i.data_ptr(), out_d.data_ptr(),
+                  out_i.data_ptr()],
+                 [qn, db.shape[0], n_valid, k, n_split, per],
+                 torch.cuda.current_stream(dev).cuda_stream)
+    l2_topk_fused.launches += 1
+    return out_d, out_i
+
+
+l2_topk_fused.launches = 0
+
+
 def l2_topk(query: torch.Tensor, db: torch.Tensor, n_db_valid: int,
             k: int = 5, chunk: int = 4096
             ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -226,17 +286,32 @@ def l2_topk(query: torch.Tensor, db: torch.Tensor, n_db_valid: int,
     ``(d_sq (Q, k) f32, idx (Q, k) i32)`` ascending, ties to the lower row,
     with :func:`hamming_topk`'s contract for ``db`` (N a multiple of
     ``chunk``) and its padding rows; every distance the compiled
-    reference's, bit for bit (:func:`l2_distances_torch`). On the card one
-    L3 tile a chunk; on the CPU :func:`_l2_topk_screened`."""
+    reference's, bit for bit (:func:`l2_distances_torch`). On the card the
+    "chain" order (more than one query at a chunk of 4,096, the SIFT
+    graph's case) is :func:`l2_topk_fused`; the other orders scan the
+    chunks with one L3 tile a chunk (:func:`l2_topk_chunked`). On the CPU
+    :func:`_l2_topk_screened`."""
     n = db.shape[0]
     if n % chunk != 0:
         raise ValueError(f"db rows {n} not a multiple of chunk {chunk}")
     dev = query.device
     q32 = query.to(torch.float32)
-    qn = query.shape[0]
-    kind = l2_order(qn, chunk)
+    kind = l2_order(query.shape[0], chunk)
     if dev.type == "cpu":
         return _l2_topk_screened(q32, db, min(n_db_valid, n), k, kind)
+    if kind == "chain" and k <= L2_TOPK_MAX_K:
+        return l2_topk_fused(q32, db.to(torch.float32), n_db_valid, k)
+    return l2_topk_chunked(q32, db, n_db_valid, k, chunk, kind)
+
+
+def l2_topk_chunked(q32: torch.Tensor, db: torch.Tensor, n_db_valid: int,
+                    k: int, chunk: int, kind: str
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`l2_topk` as a scan of the chunks: one :func:`l2_distances`
+    tile a chunk, :func:`stable_topk` of it, :func:`_merge_topk` into the
+    running best (the parent design of the fused matcher, and the path of
+    the orders it does not take)."""
+    n, qn, dev = db.shape[0], q32.shape[0], q32.device
     best_d = torch.full((qn, k), BIG_DIST, dtype=torch.float32, device=dev)
     best_i = torch.full((qn, k), -1, dtype=torch.int32, device=dev)
     for base in range(0, n, chunk):

@@ -1,0 +1,192 @@
+"""Time, on a card, the 2D-only path, the SIFT graph's matcher or the 2D
+refinement kernel of the tree at ``--root`` (default: this checkout), so
+that a parent commit and its change can be timed in turns in one call:
+
+- ``--what 2d``: the 2D-only path of conf/detection.ork on a depthless
+  smoke frame, split by ``utils/profiling.py StageTimer`` (CUDA events)
+  into its stages (clustering, and per round noise, graph, sampling, p3p,
+  consensus, refinement, summed over the rounds), ``--frames`` frames;
+- ``--what matcher``: the SIFT graph's matcher, ``ops/matching.py
+  l2_topk`` at phase 7e's shape (frame 0's 5000 SIFT descriptor slots
+  against the three SIFT smoke models' rows, k 5, chunk 4,096), CUDA
+  events over ``--frames`` calls;
+- ``--what p2``: the refinement alone, ``geometry/pnp.py
+  gauss_newton_pose`` (kernel P2 on the card) at ``chip_smoke.P2_SHAPE``
+  (a 2D chunk's refinement) and, where the tree's P2 takes it, at
+  ``P2_SCRATCH_SHAPE`` (rows past its shared memory), on seeded poses;
+  CUDA events over ``--frames`` calls each.
+
+Prints one JSON line: the medians in ms and each frame's values, with the
+card's name and power limit. Run it from a checkout with its fixtures
+(tests/data): ``python tools/time_2d_stages.py --what 2d --root DIR``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import functools
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+
+
+def card_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip().splitlines()
+    return out[0] if out else "unknown card"
+
+
+def time_2d(cs, root: str, frames: int) -> dict:
+    import torch
+
+    from tod_tpu_torch.pipeline import Scheduler, build_pipeline_from_ork
+    from tod_tpu_torch.utils.profiling import StageTimer
+
+    dev = torch.device("cuda", 0)
+    fx, model_ids, models = cs.load_fixture()
+    ax = np.load(cs.A13_FIXTURE)
+    ork = os.path.join(root, str(ax["ork"]))
+    per_frame = []
+    with tempfile.TemporaryDirectory() as tmp:
+        db_params = cs.write_catalog_db(tmp, model_ids, models)
+        dirs = cs.write_frames(os.path.join(tmp, "depthless"), fx, True)
+        p = build_pipeline_from_ork(ork, {
+            "source1": {"path": dirs, "loop": True},
+            "pipeline1": {"db": db_params, "device": str(dev)}})
+        s = Scheduler(p.plasm)
+        det = p.cells["pipeline1"]
+        for _ in range(2):
+            s.execute_iteration()                        # warm
+        for _ in range(frames):
+            s.execute_iteration()                        # this frame's inputs
+            gg = det.guess_generator
+            timer = StageTimer(dev)
+            gg.timer = timer
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            gg.process()
+            torch.cuda.synchronize()
+            host = (time.perf_counter() - t0) * 1e3
+            gg.timer = None
+            timer.report()
+            stages: dict = {"guess_host_ms": host}
+            for name, sec in timer.times.items():
+                kind = name.split(" ", 1)[1] if name.startswith("round") \
+                    else name
+                stages[kind] = stages.get(kind, 0.0) + sec * 1e3
+            per_frame.append(stages)
+    return per_frame
+
+
+def time_matcher(cs, frames: int) -> list:
+    import torch
+
+    from tod_tpu_torch.models.fused import prepare_frame
+    from tod_tpu_torch.ops import matching as tm
+    from tod_tpu_torch.ops import sift as tsift
+
+    dev = torch.device("cuda", 0)
+    fx = np.load(cs.FIXTURE)
+    gray = prepare_frame(fx["images"][0], fx["depths"][0], fx["K"], dev)[0]
+    _, desc = tsift.sift_detect_and_compute(gray, n_features=5000)
+    s_models = cs.load_fixture(cs.SIFT_FIXTURE)[2]
+    rows = np.concatenate([d for d, _ in s_models]).astype(np.float32) / 256
+    n_valid = len(rows)
+    rows = np.concatenate([rows, np.zeros(((-n_valid) % 4096, 128),
+                                          np.float32)])
+    db = torch.from_numpy(rows).to(dev)
+    for _ in range(2):
+        tm.l2_topk(desc, db, n_valid, k=5, chunk=4096)
+    out = []
+    for _ in range(frames):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        tm.l2_topk(desc, db, n_valid, k=5, chunk=4096)
+        end.record()
+        end.synchronize()
+        out.append({"l2_topk": start.elapsed_time(end)})
+    return out
+
+
+def time_p2(cs, frames: int) -> list:
+    import torch
+
+    from tod_tpu_torch.geometry import pnp
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(29)
+    K = torch.tensor([[525.0, 0, 319.5], [0, 525.0, 239.5], [0, 0, 1]])
+    cases = {"p2": cs.P2_SHAPE}
+    if hasattr(pnp, "GN_SHARED_BYTES"):
+        cases["p2_scratch"] = cs.P2_SCRATCH_SHAPE
+    calls = {}
+    for name, (n_obj, n_pose, n) in cases.items():
+        X = rng.uniform(-0.12, 0.12, (n_obj, 1, n, 3)).astype(np.float32)
+        X[..., 2] += 0.8
+        ang = rng.uniform(-0.03, 0.03, (n_obj * n_pose, 3))
+        R0 = np.stack([cs.cv_rodrigues(a) for a in ang]).reshape(
+            n_obj, n_pose, 3, 3).astype(np.float32)
+        T0 = rng.uniform(-0.01, 0.01, (n_obj, n_pose, 3)).astype(np.float32)
+        uv = X[..., :2] / X[..., 2:3] * 525.0 + np.float32([319.5, 239.5])
+        uv = uv + rng.normal(0, 0.5, uv.shape).astype(np.float32)
+        w = (rng.random((n_obj, n_pose, n)) > 0.2).astype(np.float32)
+        args = [torch.from_numpy(a).to(dev) for a in (R0, T0)] + [
+            K.to(dev)] + [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                          for a in (X, uv, w)]
+        calls[name] = functools.partial(pnp.gauss_newton_pose, *args)
+    out = []
+    for f in range(frames + 2):
+        row = {}
+        for name, call in calls.items():
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            call()
+            end.record()
+            end.synchronize()
+            row[name] = start.elapsed_time(end)
+        if f >= 2:                                       # after 2 warm
+            out.append(row)
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", default=os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    ap.add_argument("--what", choices=("2d", "matcher", "p2"), default="2d")
+    ap.add_argument("--frames", type=int, default=5)
+    args = ap.parse_args()
+    root = os.path.abspath(args.root)
+    sys.path.insert(0, root)
+    os.chdir(root)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("time_2d_stages: needs a CUDA device", file=sys.stderr)
+        return 1
+    import chip_smoke as cs
+    from tod_tpu_torch import kernels
+
+    kernels.build_all()
+    per_frame = {"2d": lambda: time_2d(cs, root, args.frames),
+                 "matcher": lambda: time_matcher(cs, args.frames),
+                 "p2": lambda: time_p2(cs, args.frames)}[args.what]()
+    keys = sorted({k for f in per_frame for k in f})
+    print(json.dumps({
+        "what": args.what, "root": root, "card": card_line(),
+        "median_ms": {k: float(np.median([f.get(k, 0.0) for f in per_frame]))
+                      for k in keys},
+        "frames_ms": per_frame}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
