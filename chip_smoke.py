@@ -419,6 +419,7 @@ A16_FIXTURE = os.path.join(DATA, "torch_a16_fixture.npz")
 LEGACY_FIXTURE = os.path.join(DATA, "torch_legacy_fixture.npz")
 JPEG_FIXTURE = os.path.join(DATA, "torch_jpeg_fixture.npz")
 SIZES_FIXTURE = os.path.join(DATA, "torch_sizes_fixture.npz")
+SMALL_SIZES_FIXTURE = os.path.join(DATA, "torch_small_sizes_fixture.npz")
 Q = 2048
 KERNEL_RUNS = 24       # CUDA-event timings of a kernel and its twin
 TWIN_RUNS = 3          # twin timings at 1000 objects (~0.1-2 s each)
@@ -469,7 +470,8 @@ P2_REPLACES = "tod_tpu/geometry/pnp.py:225-280"
 # of its two rows 108
 P2_OPS = 48 + 108
 P2_SHAPE = (32, 16, 1024)       # a 2D chunk's refinement: objects x poses x M
-P2_SCRATCH_SHAPE = (2, 8, 5000)  # rows past P2's shared memory (3,185 matches)
+P2_LARGE_SHAPE = (2, 8, 5000)    # a large N: six register levels, four stacked
+P2_ODD_SHAPE = (3, 5, 777)      # an odd N: carried rows at several levels
 # the reference's vmapped P3P up to the Horn fit: XLA's fusions and its
 # libm calls (not a Pallas kernel)
 P1_REPLACES = "tod_tpu/geometry/pnp.py:119-222"
@@ -642,7 +644,8 @@ def card_line() -> str:
 KERNEL_NAMES = re.compile(
     r"(tc_sweep_kernel|popc_probe_kernel|merge_kernel|"
     r"object_top1_l2_gathered_tc_kernel|object_top1_l2_tc_kernel|"
-    r"object_top1_gathered_tc_kernel|object_top1_tc_kernel|threefry_kernel)"
+    r"object_top1_gathered_tc_kernel|object_top1_tc_kernel|threefry_kernel|"
+    r"gauss_newton_kernel|libm_kernel|atan2f_kernel|p3p_kernel)"
     r"(I((?:L[ib]\d+E)+)E)?")
 
 
@@ -1775,12 +1778,13 @@ def check_p1(dev, card: str) -> tuple:
              3: lambda: libm.log_xla_torch(x.abs())}
     args = {0: (x_dev,), 1: (x_dev,), 2: (x_dev.abs(), y_dev),
             3: (x_dev.abs(),)}
-    times = {}
+    times, want_all = {}, {}
     for fn, name in enumerate(("cosf", "sincosf", "powf", "log")):
         got = libm.libm_f32(fn, *args[fn])
         t0 = time.perf_counter()
         want = plain[fn]()
         plain_fn_ms = (time.perf_counter() - t0) * 1e3
+        want_all[fn] = want if fn == 1 else (want,)
         for g, w in zip(*((got, want) if fn == 1 else ((got,), (want,)))):
             g = g.cpu()
             nan = torch.isnan(w)
@@ -1790,6 +1794,46 @@ def check_p1(dev, card: str) -> tuple:
                                      "version")
         times[name] = (cuda_ms(lambda: libm.libm_f32(fn, *args[fn]),
                                queued=True), plain_fn_ms)
+    # lengths that are no multiple of 4 and offset views: the float4 body
+    # with its scalar tail (aligned arrays), and the scalar path (an array
+    # offset by 1-3 floats)
+    n = x.numel()
+    views = ((0, n - 3, 0), (1, n - 2, 1), (3, n - 1, 3), (1, n - 1, 0),
+             (2, 7, 2), (0, 3, 0))
+    for fn, name in enumerate(("cosf", "sincosf", "powf", "log")):
+        for lo, hi, y_lo in views:
+            a = args[fn][0][lo:hi]
+            b = args[2][1][y_lo:y_lo + hi - lo] if fn == 2 else None
+            got = libm.libm_f32(fn, a, b)
+            want = tuple(w[lo:hi] for w in want_all[fn])   # y is one value
+            for g, w in zip(got if fn == 1 else (got,), want):
+                g = g.cpu()
+                nan = torch.isnan(w)
+                if not (torch.equal(torch.isnan(g), nan) and torch.equal(
+                        g[~nan].view(torch.int32), w[~nan].view(torch.int32))):
+                    raise AssertionError(f"L4 {name} differs from its plain "
+                                         f"version on x[{lo}:{hi}]")
+    log(f"kernels: L4 equal to its plain versions on views (x from, to, y "
+        f"from) {[(lo, hi, y_lo) for lo, hi, y_lo in views]}: lengths no "
+        "multiple of 4, offset by 1-3 floats, y at another offset")
+    # the 2D path's own sizes (launch-bound): each (function, floats) that
+    # one depthless frame's rounds launch, timed beside PyTorch's
+    sizes = l4_path_sizes(dev)
+    path_ms = {}
+    for fn, size in sizes:
+        name = ("cosf", "sincosf", "powf", "log")[fn]
+        reps = -(-size // n)
+        a = args[fn][0].repeat(reps)[:size]
+        b = args[2][1].repeat(reps)[:size] if fn == 2 else None
+        lib = {0: lambda: torch.cos(a), 1: lambda: (torch.sin(a),
+                                                    torch.cos(a)),
+               2: lambda: torch.pow(a, b), 3: lambda: torch.log(a)}[fn]
+        path_ms[f"{name} {size}"] = (
+            cuda_ms(lambda: libm.libm_f32(fn, a, b), queued=True),
+            cuda_ms(lib, queued=True))
+    log("kernels: L4 at the 2D path's sizes (one depthless frame's calls: "
+        "function floats: L4 / PyTorch ms on the device): " + ", ".join(
+            f"{k}: {a:.4f} / {b:.4f}" for k, (a, b) in path_ms.items()))
     # the library column: one PyTorch call a function (another rounding)
     library = {"cosf": lambda: torch.cos(x_dev),
                "sincosf": lambda: (torch.sin(x_dev), torch.cos(x_dev)),
@@ -1813,10 +1857,49 @@ def check_p1(dev, card: str) -> tuple:
               library_ms=lib_ms["powf"], plain_on="cpu",
               every_ms={k: a for k, (a, _) in times.items()},
               library_every_ms=lib_ms,
+              path_ms={k: a for k, (a, _) in path_ms.items()},
               shape=f"{n} floats (powf timed; every_ms: each function; "
               "library: torch.pow, cos, sin and cos, log, another "
               "rounding)")
     return p1, l4, check_p2(dev, card)
+
+
+def l4_path_sizes(dev) -> list:
+    """The distinct (function, floats) of kernel L4's calls in one depthless
+    frame of the 2D path (``conf/detection.ork`` over the smoke fixture's
+    frame 0 on ``dev``), in order of first call."""
+    import tempfile
+
+    from tod_tpu_torch.ops import libm
+    from tod_tpu_torch.pipeline import Scheduler, build_pipeline_from_ork
+
+    fx, model_ids, models = load_fixture()
+    ax = np.load(A13_FIXTURE)
+    sizes = []
+    names = ("cosf", "sincosf", "powf", "log_xla")
+    wrapped = {name: getattr(libm, name) for name in names}
+
+    def recorder(fn: int, name: str):
+        def call(x, *rest):
+            if (fn, x.numel()) not in sizes:
+                sizes.append((fn, x.numel()))
+            return wrapped[name](x, *rest)
+        return call
+
+    with tempfile.TemporaryDirectory() as tmp:
+        db_params = write_catalog_db(tmp, model_ids, models)
+        frames = write_frames(os.path.join(tmp, "depthless"), fx, True)
+        p = build_pipeline_from_ork(os.path.join(ROOT, str(ax["ork"])), {
+            "source1": {"path": frames, "loop": False},
+            "pipeline1": {"db": db_params, "device": str(dev)}})
+        try:
+            for fn, name in enumerate(names):
+                setattr(libm, name, recorder(fn, name))
+            Scheduler(p.plasm).execute_iteration()
+        finally:
+            for name, f in wrapped.items():
+                setattr(libm, name, f)
+    return sizes
 
 
 def check_p2(dev, card: str) -> dict:
@@ -1824,15 +1907,14 @@ def check_p2(dev, card: str) -> dict:
     plain version on the CPU, bit for bit, at a 2D chunk's shape
     (``P2_SHAPE``: objects x refined poses x matches; seeded poses near
     the truth, noisy pixels, a fifth of the rows weighted out, a few points
-    behind the camera), and at ``P2_SCRATCH_SHAPE``, whose rows pass
-    shared memory (``pnp.GN_SHARED_BYTES``) into the wrapper's global
-    scratch; each timed."""
+    behind the camera), at ``P2_LARGE_SHAPE`` (a large N: the same code
+    path) and at ``P2_ODD_SHAPE`` (an odd N); each timed."""
     from tod_tpu_torch.geometry import pnp
 
     rng = np.random.default_rng(29)
     K = torch.tensor([[525.0, 0, 319.5], [0, 525.0, 239.5], [0, 0, 1]])
     out = {}
-    for shape in (P2_SHAPE, P2_SCRATCH_SHAPE):
+    for shape in (P2_SHAPE, P2_LARGE_SHAPE, P2_ODD_SHAPE):
         n_obj, n_pose, n = shape
         X = torch.from_numpy(rng.uniform(-0.12, 0.12, (n_obj, 1, n, 3))
                              .astype(np.float32))
@@ -1863,26 +1945,27 @@ def check_p2(dev, card: str) -> dict:
         host = cuda_ms(lambda: pnp.gauss_newton_pose(*args))
         iters = 5
         ops_ms = P2_OPS * n_obj * n_pose * n * iters / F32_OPS_S * 1e3
+        # X and uv once an object, w once a pose, R and T in and out
         bytes_ms = (4 * n_obj * n_pose * n + 20 * n_obj * n
                     + 48 * 2 * n_obj * n_pose) / HBM_BYTES_S * 1e3
-        where = ("shared memory" if 72 * n <= pnp.GN_SHARED_BYTES
-                 else "a global scratch")
         log(f"kernels: P2 equal to gauss_newton_pose_torch bit for bit at "
-            f"{n_obj} x {n_pose} poses x {n} matches (rows in {where}), 5 "
-            f"iterations; {ms:.4f} ms median of {KERNEL_RUNS} on the device "
-            f"(the call with its host work {host:.4f} ms); plain version "
-            f"(CPU) {plain_ms:.1f} ms; bound {max(ops_ms, bytes_ms):.5f} ms; "
-            f"{card}")
+            f"{n_obj} x {n_pose} poses x {n} matches, 5 iterations; "
+            f"{ms:.4f} ms median of {KERNEL_RUNS} on the device (the call "
+            f"with its host work {host:.4f} ms); plain version (CPU) "
+            f"{plain_ms:.1f} ms; bound {max(ops_ms, bytes_ms):.5f} ms "
+            f"({100 * max(ops_ms, bytes_ms) / ms:.1f} %); {card}")
         out[shape] = dict(ms=ms, plain_ms=plain_ms,
                           bound_ms=max(ops_ms, bytes_ms),
                           bound_by="operations" if ops_ms >= bytes_ms
                           else "bytes", host_ms=host)
     n_obj, n_pose, n = P2_SHAPE
     return dict(max_abs_err=0.0, **out[P2_SHAPE], library_ms=None,
-                plain_on="cpu", scratch_ms=out[P2_SCRATCH_SHAPE]["ms"],
+                plain_on="cpu", large_ms=out[P2_LARGE_SHAPE]["ms"],
+                odd_ms=out[P2_ODD_SHAPE]["ms"],
                 shape=f"{n_obj} objects x {n_pose} poses x {n} matches, 5 "
-                "iterations (a 2D chunk's refinement); scratch_ms: "
-                + " x ".join(map(str, P2_SCRATCH_SHAPE)))
+                "iterations (a 2D chunk's refinement); large_ms: "
+                + " x ".join(map(str, P2_LARGE_SHAPE)) + "; odd_ms: "
+                + " x ".join(map(str, P2_ODD_SHAPE)))
 
 
 def cv_rodrigues(ax) -> np.ndarray:
@@ -4766,6 +4849,60 @@ def size_grid_phase(dev, card: str, sx, cfg) -> None:
             f"{np.median(lat):.2f} ms a frame over {SIZE_RUNS}; {card}")
 
 
+def size_small_phase(dev, card: str) -> None:
+    """13c: the small frame sizes (QQVGA and QCIF first) whose pyramids take
+    Eigen's depth splits and oneDNN's kernel tails: the card's 8-level
+    pyramid of each size's seeded frame, alone and in a batch of three,
+    and at QQVGA and QCIF the rendered frame's ORB keypoints at 3 and 6
+    levels, against tests/data/torch_small_sizes_fixture.npz
+    (tools/make_torch_small_sizes_fixture.py)."""
+    from tod_tpu_torch.models.fused import prepare_frame
+    from tod_tpu_torch.ops import image as timage
+    from tod_tpu_torch.ops import orb as torb
+    from tod_tpu_torch.utils import synthetic as syn
+    from tod_tpu_torch.utils.camera_sizes import (size_camera, size_scene,
+                                                  small_frame)
+
+    t0 = time.perf_counter()
+    zx = np.load(SMALL_SIZES_FIXTURE)
+    frames = json.loads(str(zx["frames_json"]))
+    for size, want in frames.items():
+        h, w = (int(v) for v in size.split("x"))
+        for k, levels in enumerate([want["levels"]] + want["batch3"]):
+            gray = torch.from_numpy(small_frame(h, w, max(k - 1, 0))).to(dev)
+            got = timage.build_pyramid(gray, SIZE_LEVELS, 1.2,
+                                       batch=1 if k == 0 else 3)
+            moved = [i for i, lv in enumerate(got)
+                     if digest(lv.cpu().numpy()) != levels[i]]
+            if moved:
+                raise AssertionError(
+                    f"sizes: {size} pyramid levels {moved} differ from the "
+                    "reference's" + ("" if k == 0 else
+                                     f" (frame {k - 1} of a batch of 3)"))
+    scenes = json.loads(str(zx["scenes_json"]))
+    n_valid = {}
+    for size, want in scenes.items():
+        h, w = (int(v) for v in size.split("x"))
+        image, depth = size_scene(syn, h, w)
+        if (digest(image), digest(depth)) != (want["image"], want["depth"]):
+            raise AssertionError(f"sizes: the {size} frame differs from the "
+                                 "reference's render")
+        gray = prepare_frame(image, depth, size_camera(h, w), dev)[0]
+        for n in (3, 6):
+            kps, desc = torb.orb_detect_and_compute(
+                gray, n_features=5000, n_levels=n, scale_factor=1.2)
+            same_digests({**{k: kind_digest(getattr(kps, k), k)
+                             for k in ("valid", "xy", "level")},
+                          "desc": kind_digest(desc, "desc")},
+                         want[f"orb{n}"], f"sizes: {size} ORB {n} levels")
+            n_valid[f"{size} {n}"] = want[f"orb{n}"]["n_valid"]
+    log(f"sizes: small frames {', '.join(frames)}: {SIZE_LEVELS} pyramid "
+        "levels bit for bit, alone and in a vmapped batch of 3; QQVGA and "
+        "QCIF rendered frames' ORB keypoints and descriptors in slot order "
+        f"at 3 and 6 levels (valid {n_valid}); "
+        f"{time.perf_counter() - t0:.1f} s; {card}")
+
+
 def size_main_phase(dev, card: str, fx, sx, cfg, launches: dict) -> None:
     """13b: the main path at 720x1280. Bench objects 0-2 rendered on the
     host (24 views each), trained on the card (B5's dedup, then 16x5),
@@ -4910,6 +5047,7 @@ def size_phases(dev, card: str, fx, launches: dict) -> None:
     sx = np.load(SIZES_FIXTURE)
     cfg = config(sx)
     size_grid_phase(dev, card, sx, cfg)
+    size_small_phase(dev, card)
     size_main_phase(dev, card, fx, sx, cfg, launches)
     log(f"sizes: phase 13 took {time.perf_counter() - phase_t0:.1f} s")
 
@@ -5243,13 +5381,14 @@ def main() -> int:
          "XLA's log (replaces XLA's libm calls and log: not a Pallas "
          "kernel)",
          "route": "cuda", "source": SOURCE_L1, "replaces": L4_REPLACES,
-         "launches": total(12), "design_pr": 19, **l4},
+         "launches": total(12), "design_pr": 20, **l4},
         {"name": "P2 the Gauss-Newton pose refinement, every iteration of "
-         "a call in one launch: residuals, Jacobian, the pairwise-summed "
-         "normal equations, the 6x6 LU, the Rodrigues update (replaces "
+         "a call in one launch: residuals, Jacobian, the normal equations "
+         "in one pairwise-sum tree (registers, shared memory, warp "
+         "shuffles), the 6x6 LU by a warp, the Rodrigues update (replaces "
          "XLA's fusions, jacfwd and LAPACK's solve: not a Pallas kernel)",
          "route": "cuda", "source": SOURCE_P2, "replaces": P2_REPLACES,
-         "launches": total(13), "design_pr": 19, **p2}]}))
+         "launches": total(13), "design_pr": 20, **p2}]}))
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

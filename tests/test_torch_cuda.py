@@ -1095,16 +1095,53 @@ def test_l4_libm_matches_plain_versions(fn):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("fn", [0, 1, 2, 3])
+def test_l4_views_match_plain_versions(fn):
+    """L4 on lengths that are no multiple of 4 and on offset views: aligned
+    arrays take the kernel's float4 body and a scalar tail, an array offset
+    by 1-3 floats its scalar path; bit for bit against the plain versions
+    (NaN as NaN)."""
+    from tod_tpu_torch.ops import libm
+
+    dev = _cuda()
+    rng = np.random.default_rng(10 + fn)
+    x = rng.standard_normal(4099) * 10.0 ** rng.uniform(-6, 6, 4099)
+    x = torch.from_numpy(np.abs(x).astype(np.float32) if fn in (2, 3)
+                         else x.astype(np.float32))
+    y = torch.from_numpy(rng.uniform(-3, 3, x.numel()).astype(np.float32))
+    plain = (lambda a, b: (libm.cosf_torch(a),),
+             lambda a, b: libm.sincosf_torch(a),
+             lambda a, b: (libm.powf_torch(a, b),),
+             lambda a, b: (libm.log_xla_torch(a),))[fn]
+    x_dev, y_dev = x.to(dev), y.to(dev)
+    for lo, hi, y_lo in ((0, 4099, 0), (1, 4099, 1), (2, 4097, 2),
+                         (3, 4098, 3), (1, 4000, 0), (0, 1, 0), (1, 3, 1),
+                         (3, 9, 3), (2, 2, 2)):
+        b = y[y_lo:y_lo + hi - lo]
+        got = libm.libm_f32(fn, x_dev[lo:hi],
+                            y_dev[y_lo:y_lo + hi - lo] if fn == 2 else None)
+        got = got if fn == 1 else (got,)
+        for g, w in zip(got, plain(x[lo:hi], b)):
+            g = g.cpu()
+            nan = torch.isnan(w)
+            assert torch.equal(torch.isnan(g), nan), (lo, hi, y_lo)
+            assert torch.equal(g[~nan].view(torch.int32),
+                               w[~nan].view(torch.int32)), (lo, hi, y_lo)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("n_obj, n_pose, n", [(1, 1, 1), (3, 4, 77),
                                                (2, 16, 1024), (1, 2, 3185),
-                                               (1, 2, 3186), (1, 2, 5000)])
+                                               (1, 2, 3186), (1, 2, 5000),
+                                               (3, 5, 777), (1, 2, 40001)])
 def test_p2_matches_plain_version(n_obj, n_pose, n):
-    """Kernel P2 (every Gauss-Newton iteration of a call in one launch)
-    against gauss_newton_pose_torch on the CPU: R and T bit for bit, with
-    rows weighted out, points behind the camera and an odd row count (the
-    pairwise sums' carried row); at the most matches whose rows fit in
-    shared memory (3185: 72 bytes a match, ``pnp.GN_SHARED_BYTES``), one
-    past it and 5000 (the rows in the wrapper's global scratch)."""
+    """Kernel P2 (every Gauss-Newton iteration of a call in one launch, one
+    reduction tree for the 27 sums) against gauss_newton_pose_torch on the
+    CPU: R and T bit for bit, with rows weighted out, points behind the
+    camera and odd row counts (the pairwise sums' carried rows at several
+    levels: 77, 777, 3185, 40001); 3186 and 5000 with five and six
+    register levels, 40001 with nine (seven on the per-thread stack). The
+    points and pixels are one an object."""
     from tod_tpu_torch.geometry import pnp
 
     dev = _cuda()
@@ -1127,4 +1164,39 @@ def test_p2_matches_plain_version(n_obj, n_pose, n):
     got = pnp.gauss_newton_pose(*(t.to(dev) for t in (R0, T0, K, X, uv, w)))
     assert pnp.gauss_newton_pose.launches == before + 1
     for g, wt in zip(got, want):
+        assert torch.equal(g.cpu().view(torch.int32), wt.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["per_pose", "one_for_all"])
+def test_p2_input_layouts(layout):
+    """P2 reads X and uv once an object: with a copy for every pose
+    (``per_pose``: the wrapper's poses-an-object is 1) and with one set for
+    every pose of the call (``one_for_all``: (N, 3) and (N, 2)), bit for bit
+    against the plain version."""
+    from tod_tpu_torch.geometry import pnp
+
+    dev = _cuda()
+    rng = np.random.default_rng(7)
+    n_obj, n_pose, n = 2, 3, 301
+    K = torch.tensor([[525.0, 0, 319.5], [0, 525.0, 239.5], [0, 0, 1]])
+    X = torch.from_numpy(rng.uniform(-0.12, 0.12, (n, 3)).astype(np.float32))
+    X[:, 2] += 0.8
+    uv = X[:, :2] / X[:, 2:3] * 525.0 + torch.tensor([319.5, 239.5])
+    uv = uv + torch.from_numpy(rng.normal(0, 0.5, uv.shape).astype(
+        np.float32))
+    if layout == "per_pose":
+        X = X.expand(n_obj, n_pose, n, 3).clone()
+        uv = uv.expand(n_obj, n_pose, n, 2).clone()
+    ang = torch.from_numpy(rng.uniform(-0.03, 0.03, (n_obj, n_pose, 3))
+                           .astype(np.float32))
+    R0 = pnp.rodrigues(ang)
+    T0 = torch.from_numpy(rng.uniform(-0.01, 0.01, (n_obj, n_pose, 3))
+                          .astype(np.float32))
+    w = torch.from_numpy((rng.random((n_obj, n_pose, n)) > 0.2)
+                         .astype(np.float32))
+    want = pnp.gauss_newton_pose_torch(R0, T0, K, X, uv, w)
+    got = pnp.gauss_newton_pose(*(t.to(dev) for t in (R0, T0, K, X, uv, w)))
+    for g, wt in zip(got, want):
+        assert g.shape == wt.shape
         assert torch.equal(g.cpu().view(torch.int32), wt.view(torch.int32))

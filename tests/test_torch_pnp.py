@@ -310,14 +310,23 @@ def test_p3p_distances_twin_is_p3ps_first_stage():
 
 
 def test_p2_shared_limit_matches_the_kernel():
-    """``pnp.GN_SHARED_BYTES`` (past it the wrapper hands kernel P2 a
-    global scratch) is the kernel's ``kMaxSharedBytes``, and within the
-    card's 227 KB of shared memory a block."""
+    """Kernel P2 holds nothing of size N in shared memory (no dynamic
+    shared memory, no global scratch): its fixed arrays, the two shared
+    levels' halves of 27 sums, the pose and the level sizes, fit the
+    card's 48 KB of static shared memory a block; the reduction model of
+    tests/test_torch_p2_tree.py runs its thread count."""
     import re
     from pathlib import Path
 
+    import test_torch_p2_tree as tree
+
     src = (Path(tp.__file__).parents[1] / "csrc" / "gauss_newton.cu"
            ).read_text()
-    a, b = re.search(r"kMaxSharedBytes = (\d+) \* (\d+);", src).groups()
-    assert int(a) * int(b) == tp.GN_SHARED_BYTES < 227 * 1024
-    assert 72 * 3185 <= tp.GN_SHARED_BYTES < 72 * 3186
+    assert "extern __shared__" not in src and "scratch" not in src
+    const = {k: int(v) for k, v in re.findall(
+        r"constexpr int (k\w+) = (\d+);", src)}
+    assert const["kThreads"] == tree.THREADS and const["kSums"] == 27
+    slots = const["kThreads"] // 2
+    shared = 4 * (2 * 12 + const["kMaxLevels"] + 2 * 27 * slots)
+    assert "kSlots = kThreads / 2" in src and shared < 48 * 1024
+    assert not hasattr(tp, "GN_SHARED_BYTES")

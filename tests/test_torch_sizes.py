@@ -36,7 +36,7 @@ from tod_tpu_torch.ops import image as timage
 from tod_tpu_torch.ops import orb as torb
 from tod_tpu_torch.ops import sift as tsift
 from tod_tpu_torch.utils import synthetic as tsyn
-from tod_tpu_torch.utils.camera_sizes import GRID, size_scene
+from tod_tpu_torch.utils.camera_sizes import GRID, SMALL, size_scene
 from test_torch_sift import assert_same_descriptors
 
 torch.set_num_threads(1)
@@ -143,14 +143,18 @@ def test_short_column_product_is_a_known_gap():
     assert timage.gemm_order(160, 45, False, rows=51)[0] == "lanes"
 
 
-@pytest.mark.parametrize("hw", [(120, 160), (60, 80)])
+@pytest.mark.parametrize("hw", [(120, 160), (60, 80), (176, 144),
+                                (160, 120)])
 def test_vmapped_pyramid_folds_the_batch(hw):
     """The reference vmapped over a batch of 3 images (as its trainer is
     over the views) folds the batch into each column product's rows, so a
     level of 50 rows or fewer whose 3 x rows are more sums as a taller
     level's; ``build_pyramid(batch=3)`` follows it at every level of the
     8 (at 120x160, taken one image at a time, level 7 differed in 635
-    pixels; at 60x80, levels 1 and 3-7)."""
+    pixels; at 60x80, levels 1 and 3-7). The portrait frames (QCIF 176x144,
+    QQVGA 160x120) fold it into the free dimension of both transposed
+    products, which moves Eigen's split of their depth (ops/image.py
+    eigen_order)."""
     rng = np.random.default_rng(5)
     grays = (rng.random((3,) + hw) * 255).astype(np.float32)
     ref = jax.jit(jax.vmap(lambda g: jimage.build_pyramid(g, 8, SCALE)))(
@@ -167,24 +171,13 @@ def test_vmapped_pyramid_folds_the_batch(hw):
 # whose every level the port reproduces: a sample of the 11 of the 20 frame
 # sizes of tools/fit_sift_order.py --short
 SHORT_FRAMES = [(60, 80), (96, 128), (90, 160), (180, 240), (180, 320)]
-# The other 9 (ROADMAP queue C): frame -> {level of the 8-level pyramid:
-# pixels that differ from the compiled reference's} on the survey's seeded
-# frame. Their row products of depth 100-176 are cut where XLA's dot splits
-# the depth (144 -> 120 at width 176: at depth 96), and the column products
-# of the portrait frames (taken first there, as the reference's einsum
-# path takes them when the output is narrower than tall) at widths 100-144
-# follow orders no rule here reproduces.
-SMALL_FRAME_GAPS = {
-    (144, 176): {1: 37, 2: 22, 3: 27, 4: 27, 5: 12},
-    (135, 240): {2: 16, 3: 38, 4: 36, 5: 26, 6: 21},
-    (150, 200): {3: 10, 4: 18, 5: 19, 6: 23},
-    (100, 100): {1: 67},
-    (160, 120): {1: 2316, 2: 2145, 3: 1773, 5: 932, 6: 631, 7: 473},
-    (176, 144): {1: 37, 2: 2771, 3: 2200, 4: 1735, 5: 14, 6: 857, 7: 616},
-    (120, 213): {2: 89},
-    (150, 267): {1: 79, 3: 51, 5: 68, 6: 23, 7: 32},
-    (166, 221): {2: 118, 5: 80, 6: 13, 7: 15},
-}
+# The other 9 of the survey (utils/camera_sizes.py SMALL), among them the
+# QQVGA (160x120) and QCIF (176x144) sensor formats: their pyramids take
+# Eigen's split of a product's depth or oneDNN's kernel tails (ops/image.py
+# depth_shard, eigen_order, _tap_groups). SMALL_FRAME_GAPS holds what
+# differs from the compiled reference (frame -> {level of the 8-level
+# pyramid: pixels}): nothing.
+SMALL_FRAME_GAPS = {}
 
 
 def _small_frame_levels(hw, n_levels):
@@ -209,14 +202,53 @@ def test_short_levels_match_compiled_reference(hw):
                                           f"level {level}")
 
 
-@pytest.mark.parametrize("hw", sorted(SMALL_FRAME_GAPS))
+@pytest.mark.parametrize("hw", sorted(SMALL))
 def test_small_frame_pyramids_known_gaps(hw):
-    """The surveyed small frames whose pyramids the port does not yet
-    reproduce: exactly the levels of ``SMALL_FRAME_GAPS`` differ, each in
-    its stated number of pixels, and every other level is bit for bit."""
+    """The surveyed small frames whose pyramids take the depth splits and
+    the kernels' tails: exactly the levels of ``SMALL_FRAME_GAPS`` differ
+    (none), each in its stated number of pixels, and every other level of
+    the 8-level pyramid is bit for bit; the 3-level pyramid too."""
     unequal = {level: int((a != b).sum()) for level, (a, b)
                in enumerate(_small_frame_levels(hw, max(LEVELS)))}
-    assert {k: v for k, v in unequal.items() if v} == SMALL_FRAME_GAPS[hw]
+    assert {k: v for k, v in unequal.items() if v} \
+        == SMALL_FRAME_GAPS.get(hw, {})
+    for level, (a, b) in enumerate(_small_frame_levels(hw, min(LEVELS))):
+        np.testing.assert_array_equal(a, b, f"{hw} 3 levels, level {level}")
+
+
+@pytest.mark.parametrize("hw", [(160, 120), (176, 144)])
+def test_small_sizes_fixture_holds_the_port(hw):
+    """tests/data/torch_small_sizes_fixture.npz (the reference's digests,
+    tools/make_torch_small_sizes_fixture.py; chip_smoke.py phase 13c holds
+    the card to it) against the port on the CPU: every small frame's
+    levels alone and in a batch of three, and at QQVGA and QCIF the
+    rendered frame and its ORB keypoints at 3 and 6 levels."""
+    import json
+    from pathlib import Path
+
+    from tod_tpu_torch.utils.camera_sizes import digest, small_frame
+
+    zx = np.load(Path(__file__).parent / "data"
+                 / "torch_small_sizes_fixture.npz")
+    frames = json.loads(str(zx["frames_json"]))
+    assert sorted(frames) == sorted(f"{h}x{w}" for h, w in SMALL)
+    want = frames[f"{hw[0]}x{hw[1]}"]
+    for k, levels in enumerate([want["levels"]] + want["batch3"]):
+        got = timage.build_pyramid(torch.from_numpy(small_frame(
+            *hw, max(k - 1, 0))), 8, SCALE, batch=1 if k == 0 else 3)
+        assert [digest(a.numpy()) for a in got] == levels, k
+    scene = json.loads(str(zx["scenes_json"]))[f"{hw[0]}x{hw[1]}"]
+    image, depth = _scene(tsyn, *hw)
+    assert (digest(image), digest(depth)) == (scene["image"], scene["depth"])
+    gray = timage.rgb_to_gray(torch.from_numpy(np.ascontiguousarray(image)))
+    for n in (3, 6):
+        kps, desc = torb.orb_detect_and_compute(
+            gray, n_features=5000, n_levels=n, scale_factor=SCALE)
+        got = {k: digest(getattr(kps, k).numpy(), k)
+               for k in ("valid", "xy", "level")}
+        got["desc"] = digest(desc.numpy(), "desc")
+        got["n_valid"] = int(kps.valid.sum())
+        assert got == scene[f"orb{n}"], n
 
 
 @pytest.mark.parametrize("hw, n_levels", ORB_CASES)

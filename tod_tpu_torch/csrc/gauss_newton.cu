@@ -13,16 +13,25 @@
 // step by pnp.lu_solve's LU; sincosf and the roots correctly rounded), so
 // both devices give the same bits.
 //
-// Design: one block a pose, all `iters` iterations in one launch. Each
-// thread computes its matches' residual and Jacobian rows into shared
-// memory (72 bytes a match; past kMaxSharedBytes, into the caller's global
-// scratch instead: the same template, instantiated for each space); the
-// 21 entries of J^T J (the matrix is symmetric: J_k J_l and J_l J_k round
-// alike) and the 6 of J^T r are each reduced by the pairwise halving in a
-// double buffer; one thread solves, updates the pose, and the
-// block reads it back. The PyTorch version launches ~350 kernels an
-// iteration; this one, per call, one. Bound: the float rate at ~100
-// operations a row and iteration, far below the launch it replaces.
+// Design: one block a pose, all `iters` iterations in one launch, and one
+// reduction tree for the 27 sums (J^T J's 21 upper entries, J^T r's 6),
+// whose grouping is pairwise_sum's (IEEE addition commutes exactly, so only
+// the grouping sets the bits). Its levels, from the 2N rows up:
+// - register levels: thread t owns the level-L node t, where L is the
+//   first level of at most kThreads nodes, and sums its subtree depth
+//   first, a level-1 node at a time from its two rows: their residuals
+//   and Jacobians computed in registers from the pose and the matches (no
+//   Jacobian is stored), the pending left subtree of level 1 in registers,
+//   of higher levels on a small per-thread stack (local memory; none up to
+//   4 kThreads rows);
+// - shared levels: while more than 32 nodes are left, the right half's
+//   nodes go through shared memory to the left half's threads (an odd last
+//   node to the middle), one barrier a level for all 27 sums;
+// - warp levels: the last 32 or fewer in warp 0 by __shfl_down_sync.
+// Nothing of size N sits in shared memory, so one code path serves any N.
+// Then lane 0 solves, updates the pose, and the block reads it back. The
+// points and pixels are read once an object (`per_object` poses share
+// them), not copied to every pose.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -32,10 +41,10 @@
 namespace {
 
 constexpr int kThreads = 256;
-// the rows of a pose held in dynamic shared memory, at most (72 bytes a
-// match: 12 Jacobian entries, 2 residuals, 4 reduction slots); below the
-// card's 227 KB a block, with room for the static arrays
-constexpr int kMaxSharedBytes = 224 * 1024;
+constexpr int kSums = 27;             // J^T J's 21 upper entries, J^T r's 6
+constexpr int kMaxLevels = 16;        // register levels: up to 2^16 kThreads rows
+constexpr int kStack = kMaxLevels - 2;  // the pending subtrees past level 1
+constexpr int kSlots = kThreads / 2;  // a shared level's right half at most
 
 __device__ __forceinline__ float fa(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ float fs(float a, float b) { return __fsub_rn(a, b); }
@@ -53,171 +62,249 @@ __device__ __forceinline__ void matmul3(const float A[3][3],
                    fm(A[i][2], B[2][j]));
 }
 
-// pnp.lu_solve for n = 6 on the augmented [H | g]
-__device__ void lu_solve6(float A[6][7], float x[6]) {
-#pragma unroll 1
+// pnp.lu_solve for n = 6 on the augmented [H | g] by warp 0: lane i < 6
+// holds row i, and each step's operations are the serial LU's (the first
+// largest pivot, the row swap, l = a_ik (1 / a_kk), a_ij - l a_kj), done
+// by every lane below the pivot at once; x (every lane) is the solution
+__device__ __forceinline__ void lu_solve6_warp(float row[7], int lane,
+                                               float x[6]) {
+  constexpr unsigned kAll = 0xffffffffu;
+#pragma unroll
   for (int k = 0; k < 5; ++k) {
+    const float mag = fabsf(row[k]);
     int piv = k;
-    float best = fabsf(A[k][k]);
+    float best = __shfl_sync(kAll, mag, k);
+#pragma unroll
     for (int i = k + 1; i < 6; ++i) {
-      const float mag = fabsf(A[i][k]);
-      if (mag > best) {
+      const float m = __shfl_sync(kAll, mag, i);
+      if (m > best) {
         piv = i;
-        best = mag;
+        best = m;
       }
     }
-    if (piv != k) {
-      for (int j = 0; j < 7; ++j) {
-        const float t = A[k][j];
-        A[k][j] = A[piv][j];
-        A[piv][j] = t;
-      }
+    float prow[7];                        // row piv, which becomes row k
+#pragma unroll
+    for (int j = 0; j < 7; ++j) {
+      prow[j] = __shfl_sync(kAll, row[j], piv);
+      const float from_k = __shfl_sync(kAll, row[j], k);
+      if (lane == k) row[j] = prow[j];
+      else if (lane == piv) row[j] = from_k;
     }
-    const float rcp = fd(1.0f, A[k][k]);
-    for (int i = k + 1; i < 6; ++i) {
-      const float l = fm(A[i][k], rcp);
-      for (int j = k + 1; j < 7; ++j) A[i][j] = fs(A[i][j], fm(l, A[k][j]));
+    const float rcp = fd(1.0f, prow[k]);
+    if (lane > k && lane < 6) {
+      const float l = fm(row[k], rcp);
+#pragma unroll
+      for (int j = k + 1; j < 7; ++j) row[j] = fs(row[j], fm(l, prow[j]));
     }
   }
-  float g[6];
-  for (int i = 0; i < 6; ++i) g[i] = A[i][6];
+  float g = row[6];
+#pragma unroll
   for (int j = 5; j >= 0; --j) {
-    x[j] = fd(g[j], A[j][j]);
-    for (int i = 0; i < j; ++i) g[i] = fs(g[i], fm(A[i][j], x[j]));
+    x[j] = fd(__shfl_sync(kAll, g, j), __shfl_sync(kAll, row[j], j));
+    if (lane < j) g = fs(g, fm(row[j], x[j]));
   }
 }
 
-// the pairwise sum of buf[0, n) (transforms.pairwise_sum); `tmp` holds as
-// many floats; the result in whichever buffer the last step wrote
-__device__ __forceinline__ float pairwise(float* buf, float* tmp, int n) {
-  float* src = buf;
-  float* dst = tmp;
-  while (n > 1) {
-    const int half = n / 2;
-    for (int i = threadIdx.x; i < half; i += blockDim.x)
-      dst[i] = fa(src[i], src[i + half]);
-    if ((n & 1) && threadIdx.x == 0) dst[half] = src[n - 1];
-    __syncthreads();
-    n = half + (n & 1);
-    float* t = src;
-    src = dst;
-    dst = t;
-  }
-  const float out = src[0];
-  __syncthreads();
-  return out;
+// Row r of 2n (match r / 2, its u row if r is even, else its v row) at
+// pose (R, T): its Jacobian J and weighted residual, as
+// reprojection_jacobian writes them out
+__device__ __forceinline__ void jacobian_row(
+    const float R[3][3], const float T[3], float fx, float fy, float cx,
+    float cy, const float* __restrict__ Xo, const float* __restrict__ uvo,
+    const float* __restrict__ wp, int r, float J[6], float* res) {
+  const int m = r >> 1;
+  const bool v_row = r & 1;
+  const float x0 = __ldg(Xo + 3 * m), x1 = __ldg(Xo + 3 * m + 1),
+              x2 = __ldg(Xo + 3 * m + 2);
+  float y[3];
+#pragma unroll
+  for (int j = 0; j < 3; ++j)
+    y[j] = __fmaf_rn(x2, R[j][2], __fmaf_rn(x1, R[j][1], fm(x0, R[j][0])));
+  const float xc = fa(y[0], T[0]), yc = fa(y[1], T[1]), z = fa(y[2], T[2]);
+  const bool live = fabsf(z) > 1e-9f;
+  const float zc = live ? z : 1e-9f;
+  const float wm = __ldg(wp + m);
+  // the u row's (fx, cx, x) or the v row's (fy, cy, y)
+  const float f = v_row ? fy : fx, c0 = v_row ? cy : cx, q = v_row ? yc : xc;
+  *res = fm(fs(fa(fd(fm(f, q), zc), c0), __ldg(uvo + r)), wm);
+  const float dz = live ? 1.0f : 0.0f;
+  const float zz = fm(zc, zc);
+  const float a = fm(fd(f, zc), wm);                    // a, or b
+  const float c = fm(fm(fd(fm(-f, q), zz), dz), wm);    // c, or d
+  // ju = (c y1, a y2 - c y0, -a y1, a, 0, c);
+  // jv = (d y1 - b y2, -d y0, b y0, 0, b, d)
+  const float cy1 = fm(c, y[1]), ay2 = fm(a, y[2]);
+  J[0] = v_row ? fs(cy1, ay2) : cy1;
+  J[1] = v_row ? fm(-c, y[0]) : fs(ay2, fm(c, y[0]));
+  J[2] = v_row ? fm(a, y[0]) : fm(-a, y[1]);
+  J[3] = v_row ? 0.0f : a;
+  J[4] = v_row ? a : 0.0f;
+  J[5] = c;
 }
 
-// kGlobal: the rows in `scratch` (global memory), else in dynamic shared
-// memory; a template parameter, so that the shared instantiation's loads
-// and stores stay shared-memory instructions
-template <bool kGlobal>
-__global__ void __launch_bounds__(kThreads)
+// A level-1 node's 27 sums, J_k J_l (k <= l) then J_k res, from its rows
+// `left` (if `has_left`) and `right`: p_left + p_right, or p_right; into
+// out, or (`add`) added to it (one rounding each)
+__device__ __forceinline__ void node_sums(const float Ja[6], float ra,
+                                          const float Jb[6], float rb,
+                                          bool has_left, bool add,
+                                          float out[kSums]) {
+  int e = 0;
+#pragma unroll
+  for (int k = 0; k < 6; ++k)
+#pragma unroll
+    for (int l = k; l < 6; ++l, ++e) {
+      const float pb = fm(Jb[k], Jb[l]);
+      const float v = has_left ? fa(fm(Ja[k], Ja[l]), pb) : pb;
+      out[e] = add ? fa(out[e], v) : v;
+    }
+#pragma unroll
+  for (int k = 0; k < 6; ++k) {
+    const float pb = fm(Jb[k], rb);
+    const float v = has_left ? fa(fm(Ja[k], ra), pb) : pb;
+    out[21 + k] = add ? fa(out[21 + k], v) : v;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 2)
 gauss_newton_kernel(const float* __restrict__ R0, const float* __restrict__ T0,
                     const float* __restrict__ K, const float* __restrict__ X,
                     const float* __restrict__ uv, const float* __restrict__ w,
                     float* __restrict__ R_out, float* __restrict__ T_out,
-                    float* __restrict__ scratch, int n, int iters) {
-  extern __shared__ float smem[];
-  const int rows = 2 * n;
-  // 18 n floats a pose: shared memory, or the pose's slice of `scratch`
-  float* jac = kGlobal ? scratch + static_cast<int64_t>(blockIdx.x) * 18 * n
-                       : smem;       // [rows][6]
-  float* res = jac + rows * 6;        // [rows]
-  float* buf = res + rows;            // [rows]
-  float* tmp = buf + rows;            // [rows]
-  __shared__ float pose[12];          // R row-major, then T
-  __shared__ float sums[27];          // J^T J's 21 upper entries, J^T r's 6
+                    int n, int per_object, int iters) {
+  __shared__ float pose[2][12];         // R row-major, then T; by parity
+  __shared__ int halves[kMaxLevels];    // the register levels' half sizes
+  __shared__ float slots[2][kSums][kSlots];
   const int p = blockIdx.x;
-  const float* Xp = X + static_cast<int64_t>(p) * n * 3;
-  const float* uvp = uv + static_cast<int64_t>(p) * n * 2;
+  const int t = threadIdx.x;
+  const int64_t o = p / per_object;
+  const float* Xo = X + o * n * 3;
+  const float* uvo = uv + o * n * 2;
   const float* wp = w + static_cast<int64_t>(p) * n;
-  if (threadIdx.x < 9) pose[threadIdx.x] = R0[p * 9 + threadIdx.x];
-  else if (threadIdx.x < 12) pose[threadIdx.x] = T0[p * 3 + threadIdx.x - 9];
   const float fx = K[0], cx = K[2], fy = K[4], cy = K[5];
+  // the tree's levels: n_0 = 2n rows, n_{k+1} = n_k - n_k / 2
+  int levels = 0, nodes = 2 * n;
+  while (nodes > kThreads) {
+    if (t == 0) halves[levels] = nodes / 2;
+    nodes -= nodes / 2;
+    ++levels;
+  }
+  if (t < 9) pose[0][t] = R0[p * 9 + t];
+  else if (t < 12) pose[0][t] = T0[p * 3 + t - 9];
   __syncthreads();
+  float P1[kSums];                      // the pending subtree of level 1
+  float stack[kStack][kSums];           // and of levels 2, 3, ...
   for (int it = 0; it < iters; ++it) {
     float R[3][3], T[3];
 #pragma unroll
-    for (int i = 0; i < 9; ++i) R[i / 3][i % 3] = pose[i];
+    for (int i = 0; i < 9; ++i) R[i / 3][i % 3] = pose[it & 1][i];
 #pragma unroll
-    for (int i = 0; i < 3; ++i) T[i] = pose[9 + i];
-    for (int m = threadIdx.x; m < n; m += blockDim.x) {
-      const float x0 = Xp[3 * m], x1 = Xp[3 * m + 1], x2 = Xp[3 * m + 2];
-      float y[3];
+    for (int i = 0; i < 3; ++i) T[i] = pose[it & 1][9 + i];
+    // register levels: node t of level `levels` from its level-1 nodes
+    // depth first, each from its two rows at once; bit k - 1 of `path`
+    // takes the right child (+ halves[k]) at level k + 1, k >= 1
+    if (t < nodes) {
+      float Ja[6] = {}, Jb[6], ra = 0.0f, rb;
+      if (levels == 0) {                // node t is row t
+        jacobian_row(R, T, fx, fy, cx, cy, Xo, uvo, wp, t, Jb, &rb);
+        node_sums(Jb, rb, Jb, rb, false, false, P1);
+      }
+#pragma unroll 1
+      for (int path = 0; path < (levels ? 1 << (levels - 1) : 0); ++path) {
+        int node = t;
+        bool ok = true;
+        for (int k = levels - 1; k >= 1; --k) {
+          if ((path >> (k - 1)) & 1) node += halves[k];
+          else ok = ok && node < halves[k];
+        }
+        if (!ok) continue;            // a carried node has no left child
+        // the level-1 node `node`: rows node (if below halves[0]) and
+        // node + halves[0]; added to its left sibling if it has one
+        const bool has_left = node < halves[0];
+        if (has_left)
+          jacobian_row(R, T, fx, fy, cx, cy, Xo, uvo, wp, node, Ja, &ra);
+        jacobian_row(R, T, fx, fy, cx, cy, Xo, uvo, wp, node + halves[0], Jb,
+                     &rb);
+        const bool right1 = levels > 1 && (path & 1);
+        node_sums(Ja, ra, Jb, rb, has_left,
+                  right1 && node - halves[1] < halves[1], P1);
+        if (!right1) continue;        // P1 waits for its right sibling
+        // P1 is a level-2 node; up the levels while it is a right child
+        node -= halves[1];
+        for (int k = 2; k < levels; ++k) {
+          if (!((path >> (k - 1)) & 1)) {
 #pragma unroll
-      for (int j = 0; j < 3; ++j)
-        y[j] = __fmaf_rn(x2, R[j][2], __fmaf_rn(x1, R[j][1], fm(x0, R[j][0])));
-      const float xc = fa(y[0], T[0]), yc = fa(y[1], T[1]),
-                  z = fa(y[2], T[2]);
-      const bool live = fabsf(z) > 1e-9f;
-      const float zc = live ? z : 1e-9f;
-      const float wm = wp[m];
-      const float u = fa(fd(fm(fx, xc), zc), cx);
-      const float v = fa(fd(fm(fy, yc), zc), cy);
-      res[2 * m] = fm(fs(u, uvp[2 * m]), wm);
-      res[2 * m + 1] = fm(fs(v, uvp[2 * m + 1]), wm);
-      const float dz = live ? 1.0f : 0.0f;
-      const float a = fm(fd(fx, zc), wm);
-      const float b = fm(fd(fy, zc), wm);
-      const float zz = fm(zc, zc);
-      const float c = fm(fm(fd(fm(-fx, xc), zz), dz), wm);
-      const float d = fm(fm(fd(fm(-fy, yc), zz), dz), wm);
-      float* ju = jac + 2 * m * 6;
-      float* jv = ju + 6;
-      ju[0] = fm(c, y[1]);
-      ju[1] = fs(fm(a, y[2]), fm(c, y[0]));
-      ju[2] = fm(-a, y[1]);
-      ju[3] = a;
-      ju[4] = 0.0f;
-      ju[5] = c;
-      jv[0] = fs(fm(d, y[1]), fm(b, y[2]));
-      jv[1] = fm(-d, y[0]);
-      jv[2] = fm(b, y[0]);
-      jv[3] = 0.0f;
-      jv[4] = b;
-      jv[5] = d;
-    }
-    __syncthreads();
-    int q = 0;
-    for (int k = 0; k < 6; ++k) {
-      for (int l = k; l < 6; ++l) {
-        for (int r = threadIdx.x; r < rows; r += blockDim.x)
-          buf[r] = fm(jac[r * 6 + k], jac[r * 6 + l]);
-        __syncthreads();
-        const float s = pairwise(buf, tmp, rows);
-        if (threadIdx.x == 0) sums[q] = s;
-        ++q;
+            for (int e = 0; e < kSums; ++e) stack[k - 2][e] = P1[e];
+            break;
+          }
+          node -= halves[k];
+          if (node < halves[k]) {
+#pragma unroll
+            for (int e = 0; e < kSums; ++e)
+              P1[e] = fa(stack[k - 2][e], P1[e]);
+          }
+        }
       }
     }
-    for (int k = 0; k < 6; ++k) {
-      for (int r = threadIdx.x; r < rows; r += blockDim.x)
-        buf[r] = fm(jac[r * 6 + k], res[r]);
+    // shared levels: nodes [half, n) to the threads below half
+    int n_left = nodes;
+    for (int b = 0; n_left > 32; b ^= 1) {
+      const int half = n_left / 2;
+      if (t >= half && t < n_left) {
+#pragma unroll
+        for (int e = 0; e < kSums; ++e) slots[b][e][t - half] = P1[e];
+      }
       __syncthreads();
-      const float s = pairwise(buf, tmp, rows);
-      if (threadIdx.x == 0) sums[21 + k] = s;
+      if (t < half) {
+#pragma unroll
+        for (int e = 0; e < kSums; ++e) P1[e] = fa(P1[e], slots[b][e][t]);
+      } else if (t == half && (n_left & 1)) {
+#pragma unroll
+        for (int e = 0; e < kSums; ++e) P1[e] = slots[b][e][half];
+      }
+      n_left -= half;
     }
-    if (threadIdx.x == 0) {
-      float A[6][7];
-      int qq = 0;
-      for (int k = 0; k < 6; ++k)
-        for (int l = k; l < 6; ++l) {
-          A[k][l] = sums[qq];
-          A[l][k] = sums[qq];
-          ++qq;
+    if (t < 32) {
+      // warp levels: lane i + half to lane i, an odd last lane to the middle
+      while (n_left > 1) {
+        const int half = n_left / 2;
+#pragma unroll
+        for (int e = 0; e < kSums; ++e) {
+          const float q = __shfl_down_sync(0xffffffffu, P1[e], half);
+          P1[e] = t < half ? fa(P1[e], q) : q;
         }
+        n_left -= half;
+      }
+    }
+    float delta[6];
+    if (t < 32) {
+      // H = J^T J + 1e-6 I and g = J^T r from lane 0's sums, lane i's row
+      // of [H | g] in registers (the loops unrolled)
+      float row[7] = {};
+      int e = 0;
+#pragma unroll
       for (int k = 0; k < 6; ++k)
-        for (int l = 0; l < 6; ++l)
-          A[k][l] = fa(A[k][l], k == l ? 1e-6f : 0.0f);
-      for (int k = 0; k < 6; ++k) A[k][6] = sums[21 + k];
-      float delta[6];
-      lu_solve6(A, delta);
+#pragma unroll
+        for (int l = k; l < 6; ++l, ++e) {
+          const float h = fa(__shfl_sync(0xffffffffu, P1[e], 0),
+                             k == l ? 1e-6f : 0.0f);
+          if (t == k) row[l] = h;
+          if (t == l) row[k] = h;
+        }
+#pragma unroll
+      for (int k = 0; k < 6; ++k) {
+        const float g = __shfl_sync(0xffffffffu, P1[21 + k], 0);
+        if (t == k) row[6] = g;
+      }
+      lu_solve6_warp(row, t, delta);
       bool ok = true;
       for (int k = 0; k < 6; ++k) {
         delta[k] = -delta[k];
         ok = ok && isfinite(delta[k]);
       }
       for (int k = 0; k < 6; ++k) delta[k] = ok ? delta[k] : 0.0f;
+    }
+    if (t == 0) {
       // rodrigues(delta[:3]) @ R, T + delta[3:]
       const float th = fa(__fsqrt_rn(fa(fa(fm(delta[0], delta[0]),
                                            fm(delta[1], delta[1])),
@@ -236,45 +323,42 @@ gauss_newton_kernel(const float* __restrict__ R0, const float* __restrict__ T0,
           Q[i][j] = fa(fa(i == j ? 1.0f : 0.0f, fm(sn, kx[i][j])),
                        fm(omc, kk[i][j]));
       matmul3(Q, R, Rn);
-      for (int i = 0; i < 9; ++i) pose[i] = Rn[i / 3][i % 3];
-      for (int i = 0; i < 3; ++i) pose[9 + i] = fa(T[i], delta[3 + i]);
+      for (int i = 0; i < 9; ++i) pose[(it + 1) & 1][i] = Rn[i / 3][i % 3];
+      for (int i = 0; i < 3; ++i)
+        pose[(it + 1) & 1][9 + i] = fa(T[i], delta[3 + i]);
     }
     __syncthreads();
   }
-  if (threadIdx.x < 9) R_out[p * 9 + threadIdx.x] = pose[threadIdx.x];
-  else if (threadIdx.x < 12) T_out[p * 3 + threadIdx.x - 9] = pose[threadIdx.x];
+  if (t < 9) R_out[p * 9 + t] = pose[iters & 1][t];
+  else if (t < 12) T_out[p * 3 + t - 9] = pose[iters & 1][t];
 }
 
 }  // namespace
 
 // Refine n_poses poses by `iters` Gauss-Newton steps: R0 (n_poses, 3, 3),
-// T0 (n_poses, 3), K (3, 3), and per pose X (n, 3), uv (n, 2), w (n), all
-// float32 and contiguous, into R_out / T_out. `scratch` is null, or
-// n_poses x 18 n floats of global memory for the rows (needed where 72 n
-// bytes pass kMaxSharedBytes). Launches on `stream` and returns
-// cudaGetLastError(); it neither allocates nor synchronises.
+// T0 (n_poses, 3), K (3, 3), w (n_poses, n), and per object (each
+// `per_object` consecutive poses share one) X (n, 3), uv (n, 2), all
+// float32 and contiguous, into R_out / T_out. Any n >= 1. Launches on
+// `stream` and returns cudaGetLastError(); it neither allocates nor
+// synchronises.
 extern "C" int tod_gauss_newton(const void* R0, const void* T0, const void* K,
                                 const void* X, const void* uv, const void* w,
-                                void* R_out, void* T_out, void* scratch,
-                                int n_poses, int n, int iters, void* stream) {
+                                void* R_out, void* T_out, int n_poses, int n,
+                                int per_object, int iters, void* stream) {
   if (n_poses <= 0) return 0;
-  const int64_t bytes = static_cast<int64_t>(n) * 18 * 4;
-  if (n < 1 || (!scratch && bytes > kMaxSharedBytes))
+  int levels = 0;
+  for (int64_t nodes = 2 * static_cast<int64_t>(n); nodes > kThreads;
+       nodes -= nodes / 2)
+    ++levels;
+  if (n < 1 || per_object < 1 || n_poses % per_object || iters < 0
+      || levels > kMaxLevels || 2 * static_cast<int64_t>(n) > INT32_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = scratch ? 0 : static_cast<int>(bytes);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        gauss_newton_kernel<false>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  auto kernel = scratch ? gauss_newton_kernel<true>
-                        : gauss_newton_kernel<false>;
-  kernel<<<n_poses, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  gauss_newton_kernel<<<n_poses, kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(R0), static_cast<const float*>(T0),
       static_cast<const float*>(K), static_cast<const float*>(X),
       static_cast<const float*>(uv), static_cast<const float*>(w),
-      static_cast<float*>(R_out), static_cast<float*>(T_out),
-      static_cast<float*>(scratch), n, iters);
+      static_cast<float*>(R_out), static_cast<float*>(T_out), n, per_object,
+      iters);
   return static_cast<int>(cudaGetLastError());
 }

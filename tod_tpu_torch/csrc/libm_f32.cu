@@ -15,10 +15,20 @@
 // operations a second at 67 TFLOP/s FMA-equivalent).
 //
 // tod_libm_f32 (kernel L4) evaluates glibc's FMA builds of cosf, sincosf and
-// powf and XLA's inline log (libm_f32.cuh) elementwise, the same design: the 2D-only path's
+// powf and XLA's inline log (libm_f32.cuh) elementwise: the 2D-only path's
 // elementwise transcendentals outside the P3P kernel (the mirror's and the
-// refinement's rotations, the eigen-solve's cosine, the log-ratios), whose
-// reference calls the C library by name. Plain versions: ops/libm.py.
+// refinement's rotations, the eigen-solve's cosine, the log-ratios) and the
+// log-weights of every RANSAC path, whose reference calls the C library by
+// name. Plain versions: ops/libm.py. Design: one instantiation a function
+// (a template parameter, so no branch on it in the loop); where every
+// array is 16-byte aligned a thread takes four elements by 16-byte loads
+// and stores (the last 1-3 elements one at a time), else one; a block of
+// 256 threads for each 256 such steps (a grid capped at one wave of the
+// card took 10 % longer at the 2D path's largest call, 14.7 M floats, and
+// tied elsewhere). The tables that a thread indexes by its argument
+// (powf's, and sincosf's for |x| >= 120) are read through the read-only
+// cache, where a warp's distinct indices cost one transaction a line, not
+// one each as in the constant cache (libm_f32.cuh).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -41,23 +51,79 @@ atan2f_kernel(const float* __restrict__ y, const float* __restrict__ x,
 
 // fn 0: out = cosf(x); 1: out = sinf(x), out2 = cosf(x) (sincosf); 2: out
 // = powf(x, y); 3: out = XLA's log(x)
-__global__ void __launch_bounds__(kThreads)
-libm_kernel(int fn, const float* __restrict__ x, const float* __restrict__ y,
-            float* __restrict__ out, float* __restrict__ out2, int64_t n) {
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x
-                   + threadIdx.x; i < n; i += stride) {
-    const float v = __ldg(x + i);
-    if (fn == 0) {
-      out[i] = tod_libm::cosf_libm(v);
-    } else if (fn == 1) {
-      tod_libm::sincosf_libm(v, out + i, out2 + i);
-    } else if (fn == 2) {
-      out[i] = tod_libm::powf_libm(v, __ldg(y + i));
-    } else {
-      out[i] = tod_libm::log_xla(v);
-    }
+template <int kFn>
+__device__ __forceinline__ void libm_one(float v, float w, float* o,
+                                         float* o2) {
+  if (kFn == 0) {
+    *o = tod_libm::cosf_libm(v);
+  } else if (kFn == 1) {
+    tod_libm::sincosf_libm(v, o, o2);
+  } else if (kFn == 2) {
+    *o = tod_libm::powf_libm(v, w);
+  } else {
+    *o = tod_libm::log_xla(v);
   }
+}
+
+template <int kFn>
+__device__ __forceinline__ void libm_at(const float* __restrict__ x,
+                                        const float* __restrict__ y,
+                                        float* __restrict__ out,
+                                        float* __restrict__ out2, int64_t i) {
+  float o, o2;
+  libm_one<kFn>(__ldg(x + i), kFn == 2 ? __ldg(y + i) : 0.0f, &o, &o2);
+  out[i] = o;
+  if (kFn == 1) out2[i] = o2;
+}
+
+// Unless `vec`, every element one at a time. Else (every array 16-byte
+// aligned) the first 4 nv elements in float4s, the last (fewer than 4) one
+// at a time by the first threads
+template <int kFn>
+__global__ void __launch_bounds__(kThreads)
+libm_kernel(const float* __restrict__ x, const float* __restrict__ y,
+            float* __restrict__ out, float* __restrict__ out2, int64_t n,
+            bool vec) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  const int64_t gid = static_cast<int64_t>(blockIdx.x) * blockDim.x
+                      + threadIdx.x;
+  if (!vec) {
+    for (int64_t i = gid; i < n; i += stride)
+      libm_at<kFn>(x, y, out, out2, i);
+    return;
+  }
+  const int64_t nv = n / 4;
+  const float4* x4 = reinterpret_cast<const float4*>(x);
+  const float4* y4 = reinterpret_cast<const float4*>(y);
+  float4* o4 = reinterpret_cast<float4*>(out);
+  float4* p4 = reinterpret_cast<float4*>(out2);
+  for (int64_t v = gid; v < nv; v += stride) {
+    const float4 a = __ldg(x4 + v);
+    const float4 b = kFn == 2 ? __ldg(y4 + v) : make_float4(0, 0, 0, 0);
+    float4 o, o2;
+    libm_one<kFn>(a.x, b.x, &o.x, &o2.x);
+    libm_one<kFn>(a.y, b.y, &o.y, &o2.y);
+    libm_one<kFn>(a.z, b.z, &o.z, &o2.z);
+    libm_one<kFn>(a.w, b.w, &o.w, &o2.w);
+    o4[v] = o;
+    if (kFn == 1) p4[v] = o2;
+  }
+  if (gid < n - 4 * nv) libm_at<kFn>(x, y, out, out2, 4 * nv + gid);
+}
+
+template <int kFn>
+int launch_libm(const float* x, const float* y, float* out, float* out2,
+                int64_t n, cudaStream_t stream) {
+  // the vector path when every array is 16-byte aligned
+  const auto aligned = [](const void* p) {
+    return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+  };
+  const bool vec = aligned(x) && aligned(out) && (kFn != 2 || aligned(y))
+                   && (kFn != 1 || aligned(out2));
+  const int64_t work = vec ? (n / 4 > 4 ? n / 4 : 4) : n;  // >= the tail
+  const int blocks = static_cast<int>((work + kThreads - 1) / kThreads);
+  libm_kernel<kFn><<<blocks, kThreads, 0, stream>>>(x, y, out, out2, n, vec);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -76,15 +142,22 @@ extern "C" int tod_atan2f(const void* y, const void* x, void* out, int n,
 }
 
 // The function `fn` (above) of x[i] (and y[i]) for i < n, float32, into out
-// (and out2). Launches on `stream` and returns cudaGetLastError().
+// (and out2); any 4-byte aligned pointers. Launches on
+// `stream` and returns cudaGetLastError(); it neither allocates nor
+// synchronises.
 extern "C" int tod_libm_f32(const void* x, const void* y, void* out,
                             void* out2, int fn, int n, void* stream) {
   if (n <= 0) return 0;
-  if (fn < 0 || fn > 3) return static_cast<int>(cudaErrorInvalidValue);
-  const int blocks = (n + kThreads - 1) / kThreads < 132 * 32
-                         ? (n + kThreads - 1) / kThreads : 132 * 32;
-  libm_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      fn, static_cast<const float*>(x), static_cast<const float*>(y),
-      static_cast<float*>(out), static_cast<float*>(out2), n);
-  return static_cast<int>(cudaGetLastError());
+  const float* xf = static_cast<const float*>(x);
+  const float* yf = static_cast<const float*>(y);
+  float* of = static_cast<float*>(out);
+  float* o2 = static_cast<float*>(out2);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (fn) {
+    case 0: return launch_libm<0>(xf, yf, of, o2, n, s);
+    case 1: return launch_libm<1>(xf, yf, of, o2, n, s);
+    case 2: return launch_libm<2>(xf, yf, of, o2, n, s);
+    case 3: return launch_libm<3>(xf, yf, of, o2, n, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

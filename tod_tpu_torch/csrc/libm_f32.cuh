@@ -147,13 +147,17 @@ __device__ __forceinline__ double dfma(double a, double b, double c) {
 }
 
 // __sincosf_table[0]: the cosine's c0..c4 and the sine's s1..s3 (table 1
-// negates c0..c4); __inv_pio4; pi / 2^62
+// negates c0..c4), read at indices that every thread shares: constant
+// memory; __inv_pio4, read at an index of the argument's bits: global
+// memory through the read-only cache (__ldg), where a warp's divergent
+// indices cost one transaction a line and not one a distinct address, as
+// in the constant cache; pi / 2^62
 __device__ __constant__ double kCosC[5] = {
     0x1.0000000000000p+0, -0x1.ffffffd0c621cp-2, 0x1.55553e1068f19p-5,
     -0x1.6c087e89a359dp-10, 0x1.99343027bf8c3p-16};
 __device__ __constant__ double kSinS[3] = {
     -0x1.555545995a603p-3, 0x1.1107605230bc4p-7, -0x1.994eb3774cf24p-13};
-__device__ __constant__ uint32_t kInvPio4[24] = {
+__device__ const uint32_t kInvPio4[24] = {
     0xa2, 0xa2f9, 0xa2f983, 0xa2f9836e, 0xf9836e4e, 0x836e4e44, 0x6e4e4415,
     0x4e441529, 0x441529fc, 0x1529fc27, 0x29fc2757, 0xfc2757d1, 0x2757d1f5,
     0x57d1f534, 0xd1f534dd, 0xf534ddc0, 0x34ddc0db, 0xddc0db62, 0xc0db6295,
@@ -189,9 +193,9 @@ __device__ __forceinline__ double reduce_large(uint32_t xi, int* np) {
   const uint32_t* arr = &kInvPio4[(xi >> 26) & 15];
   const int shift = (xi >> 23) & 7;
   xi = ((xi & 0x7fffff) | 0x800000) << shift;
-  uint64_t res0 = xi * arr[0];
-  const uint64_t res1 = static_cast<uint64_t>(xi) * arr[4];
-  const uint64_t res2 = static_cast<uint64_t>(xi) * arr[8];
+  uint64_t res0 = xi * __ldg(arr);
+  const uint64_t res1 = static_cast<uint64_t>(xi) * __ldg(arr + 4);
+  const uint64_t res2 = static_cast<uint64_t>(xi) * __ldg(arr + 8);
   res0 = (res2 >> 32) | (res0 << 32);
   res0 += res1;
   const uint64_t n = (res0 + (1ULL << 61)) >> 62;
@@ -246,22 +250,29 @@ __device__ inline float cosf_libm(float y) {
   return c;
 }
 
-// __powf_log2_data (invc, logc), the polynomials, __exp2f_data
-__device__ __constant__ double kPowInvc[16] = {
-    0x1.661ec79f8f3bep+0, 0x1.571ed4aaf883dp+0, 0x1.49539f0f010b0p+0,
-    0x1.3c995b0b80385p+0, 0x1.30d190c8864a5p+0, 0x1.25e227b0b8ea0p+0,
-    0x1.1bb4a4a1a343fp+0, 0x1.12358f08ae5bap+0, 0x1.0953f419900a7p+0,
-    0x1.0000000000000p+0, 0x1.e608cfd9a47acp-1, 0x1.ca4b31f026aa0p-1,
-    0x1.b2036576afce6p-1, 0x1.9c2d163a1aa2dp-1, 0x1.886e6037841edp-1,
-    0x1.767dcf5534862p-1};
-__device__ __constant__ double kPowLogc[16] = {
-    -0x1.efec65b963019p-2, -0x1.b0b6832d4fca4p-2, -0x1.7418b0a1fb77bp-2,
-    -0x1.39de91a6dcf7bp-2, -0x1.01d9bf3f2b631p-2, -0x1.97c1d1b3b7af0p-3,
-    -0x1.2f9e393af3c9fp-3, -0x1.960cbbf788d5cp-4, -0x1.a6f9db6475fcep-5,
-    0x0.0p+0, 0x1.338ca9f24f53dp-4, 0x1.476a9543891bap-3,
-    0x1.e840b4ac4e4d2p-3, 0x1.40645f0c6651cp-2, 0x1.88e9c2c1b9ff8p-2,
-    0x1.ce0a44eb17bccp-2};
-__device__ __constant__ uint64_t kExp2fT[32] = {
+// __powf_log2_data's (invc, logc) pairs and __exp2f_data's table, read at
+// indices of the argument's bits (a warp's 32 threads up to 16 and 32
+// distinct entries): global memory through the read-only cache, 256 bytes
+// each, a pair in one 16-byte load; the polynomials, read at indices every
+// thread shares, in constant memory
+__device__ const double2 kPowLog2[16] = {
+    {0x1.661ec79f8f3bep+0, -0x1.efec65b963019p-2},
+    {0x1.571ed4aaf883dp+0, -0x1.b0b6832d4fca4p-2},
+    {0x1.49539f0f010b0p+0, -0x1.7418b0a1fb77bp-2},
+    {0x1.3c995b0b80385p+0, -0x1.39de91a6dcf7bp-2},
+    {0x1.30d190c8864a5p+0, -0x1.01d9bf3f2b631p-2},
+    {0x1.25e227b0b8ea0p+0, -0x1.97c1d1b3b7af0p-3},
+    {0x1.1bb4a4a1a343fp+0, -0x1.2f9e393af3c9fp-3},
+    {0x1.12358f08ae5bap+0, -0x1.960cbbf788d5cp-4},
+    {0x1.0953f419900a7p+0, -0x1.a6f9db6475fcep-5},
+    {0x1.0000000000000p+0, 0x0.0p+0},
+    {0x1.e608cfd9a47acp-1, 0x1.338ca9f24f53dp-4},
+    {0x1.ca4b31f026aa0p-1, 0x1.476a9543891bap-3},
+    {0x1.b2036576afce6p-1, 0x1.e840b4ac4e4d2p-3},
+    {0x1.9c2d163a1aa2dp-1, 0x1.40645f0c6651cp-2},
+    {0x1.886e6037841edp-1, 0x1.88e9c2c1b9ff8p-2},
+    {0x1.767dcf5534862p-1, 0x1.ce0a44eb17bccp-2}};
+__device__ const unsigned long long kExp2fT[32] = {
     0x3ff0000000000000ULL, 0x3fefd9b0d3158574ULL, 0x3fefb5586cf9890fULL,
     0x3fef9301d0125b51ULL, 0x3fef72b83c7d517bULL, 0x3fef54873168b9aaULL,
     0x3fef387a6e756238ULL, 0x3fef1e9df51fdee1ULL, 0x3fef06fe0a31b715ULL,
@@ -331,8 +342,9 @@ __device__ inline float powf_libm(float x, float y) {
   const uint32_t iz = ix - top;
   const int k = static_cast<int32_t>(top) >> 23;
   const double z = static_cast<double>(__int_as_float(static_cast<int>(iz)));
-  const double r = dfma(z, kPowInvc[i], -1.0);
-  const double y0 = dadd(__int2double_rn(k), kPowLogc[i]);
+  const double2 c = __ldg(&kPowLog2[i]);
+  const double r = dfma(z, c.x, -1.0);
+  const double y0 = dadd(__int2double_rn(k), c.y);
   const double r2 = dmul(r, r);
   const double ya = dfma(r, kPowA[0], kPowA[1]);
   const double p = dfma(r, kPowA[2], kPowA[3]);
@@ -352,7 +364,7 @@ __device__ inline float powf_libm(float x, float y) {
   const uint64_t ki = static_cast<uint64_t>(__double_as_longlong(kd));
   kd = dsub(kd, kExp2Shift);
   const double rr = dsub(ylogx, kd);
-  uint64_t t = kExp2fT[ki % 32];
+  uint64_t t = __ldg(&kExp2fT[ki % 32]);
   t += (ki + sign_bias) << 47;
   const double s = __longlong_as_double(static_cast<long long>(t));
   const double zz = dfma(rr, kExp2C[0], kExp2C[1]);

@@ -33,6 +33,7 @@ the Jacobian out (at ``delta = 0`` both are the same function).
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -420,8 +421,19 @@ def reprojection_jacobian(R: torch.Tensor, T: torch.Tensor, K: torch.Tensor,
     return r, torch.stack([ju, jv], dim=-2)
 
 
-# kernel P2's kMaxSharedBytes: a pose's rows in shared memory up to this
-GN_SHARED_BYTES = 224 * 1024
+def _per_object(lead: tuple, *ts: Tuple[torch.Tensor, tuple]):
+    """The (..., N, c) tensors ``ts`` (each with its tail ``(N, c)``) as
+    contiguous float32 rows once an object, and the poses an object: the
+    trailing leading axes of ``lead`` over which every tensor of ``ts``
+    has size 1 are the poses that share an object's rows."""
+    batches = [(1,) * (len(lead) + len(tail) - t.dim()) + tuple(t.shape[
+        :t.dim() - len(tail)]) for t, tail in ts]
+    k = max(max((i + 1 for i, b in enumerate(batch) if b != 1), default=0)
+            for batch in batches)
+    rows = [t.to(torch.float32).reshape(batch[:k] + tail).expand(
+        lead[:k] + tail).reshape((-1,) + tail).contiguous()
+        for (t, tail), batch in zip(ts, batches)]
+    return rows, math.prod(lead[k:])
 
 
 def gauss_newton_pose(R0: torch.Tensor, T0: torch.Tensor, K: torch.Tensor,
@@ -433,9 +445,9 @@ def gauss_newton_pose(R0: torch.Tensor, T0: torch.Tensor, K: torch.Tensor,
     weights (0 masks a row out), leading axes broadcast. Returns (R, T):
     kernel P2 (``csrc/gauss_newton.cu``, one launch a call, counted in
     ``gauss_newton_pose.launches``; a failed launch raises) on CUDA
-    tensors, :func:`gauss_newton_pose_torch` on CPU tensors. P2 holds a
-    pose's rows in shared memory up to ``GN_SHARED_BYTES`` (72 bytes a
-    match), past that in a global scratch this wrapper allocates: any N."""
+    tensors, :func:`gauss_newton_pose_torch` on CPU tensors. P2 takes any
+    N, and reads ``X`` and ``uv`` once an object: the poses that share
+    them (where their leading axes are 1) are not given copies."""
     if R0.device.type == "cpu":
         return gauss_newton_pose_torch(R0, T0, K, X, uv, w, iters)
     if R0.device.type != "cuda":
@@ -448,20 +460,17 @@ def gauss_newton_pose(R0: torch.Tensor, T0: torch.Tensor, K: torch.Tensor,
         return t.to(torch.float32).expand(lead + tail).reshape(
             (-1,) + tail).contiguous()
 
-    r0, t0 = flat(R0, (3, 3)), flat(T0, (3,))
-    xs, us, ws = flat(X, (n, 3)), flat(uv, (n, 2)), flat(w, (n,))
+    r0, t0, ws = flat(R0, (3, 3)), flat(T0, (3,)), flat(w, (n,))
+    (xs, us), per_object = _per_object(tuple(lead), (X, (n, 3)),
+                                       (uv, (n, 2)))
     R, T = torch.empty_like(r0), torch.empty_like(t0)
     if r0.shape[0]:
         k = K.to(device=R0.device, dtype=torch.float32).contiguous()
-        scratch = (torch.empty((r0.shape[0], 18 * n), dtype=torch.float32,
-                               device=R0.device)
-                   if 72 * n > GN_SHARED_BYTES else None)
         kernels.call("gauss_newton", "tod_gauss_newton",
                      [r0.data_ptr(), t0.data_ptr(), k.data_ptr(),
                       xs.data_ptr(), us.data_ptr(), ws.data_ptr(),
-                      R.data_ptr(), T.data_ptr(),
-                      0 if scratch is None else scratch.data_ptr()],
-                     [r0.shape[0], n, iters],
+                      R.data_ptr(), T.data_ptr()],
+                     [r0.shape[0], n, per_object, iters],
                      torch.cuda.current_stream(R0.device).cuda_stream)
         gauss_newton_pose.launches += 1
     return R.reshape(lead + (3, 3)), T.reshape(lead + (3,))
@@ -495,7 +504,7 @@ def gauss_newton_pose_torch(R0: torch.Tensor, T0: torch.Tensor,
     return R, T
 
 
-__all__ = ["GN_SHARED_BYTES", "P3PSolutions", "gauss_newton_pose",
+__all__ = ["P3PSolutions", "gauss_newton_pose",
            "gauss_newton_pose_torch", "lu_solve", "p3p", "p3p_distances",
            "p3p_distances_torch", "project", "quartic_coefficients",
            "reprojection_jacobian", "rodrigues", "rotate", "skew",

@@ -198,27 +198,29 @@ def resize_weights(in_size: int, out_size: int) -> np.ndarray:
 # - "chain": one fused multiply-add chain a block of ``block`` depths, the
 #   blocks' sums added in order;
 # - "parity": in each block of ``block`` depths, one chain over the even and
-#   one over the odd depths of its first (block // 8 * 8), added, then the
-#   rest of the block chained on; the blocks added in order;
-# - "lanes": four chains over k mod 4, then (k0 + k1) + (k2 + k3).
+#   one over the odd depths, added; the blocks added in order; an odd depth's
+#   last product, rounded, added last;
+# - "lanes": four chains over k mod 4 up to the depth's last multiple of
+#   4, then (k0 + k1) + (k2 + k3); the 1-3 products past it, each rounded,
+#   summed in order and added last.
 # The row product (the weights on the right, XLA's rows pass) chains:
 # Eigen's multi-threaded blocking caps a depth block at 320, and the
 # contraction kernel cuts the depth into equal slices, rounded up to 8
-# (_row_slice). The column product (the weights on the left) runs one
-# oneDNN call over the whole depth, whose kernel follows the product's
-# rows (the resize's output columns) in 16-row steps: ((cols - 1) // 16)
-# mod 4 picks lanes, parity, lanes, chain (_COLUMN_KERNELS); chain blocks
-# are 512 deep and parity blocks 1024. Both were read off the compiled
-# reference (tools/fit_resize_order.py): at every product of the grid
-# above and of 120x160, 360x640, 540x960, 600x800, 600x1024, 768x1024 and
-# 1200x1600 (3 and 8 levels), the row rule at every depth from 322 to 474
-# in steps of 8, the column rule at every width from 80 to 271 at depths
-# 320, 336, 480 and 640. The column product of a level of 50 image rows or
-# fewer runs another kernel: one chain over the whole depth, whatever its
-# width (tools/fit_sift_order.py --short, 20 frame sizes from 48x64 to
-# 180x320 at 3 and 8 levels: every such product wherever the level's row
-# product matched; the small frames it does not match are in ROADMAP
-# queue C).
+# (_row_slice), unless Eigen splits the depth (eigen_order). The column
+# product (the weights on the left) runs one oneDNN call over the whole
+# depth, whose kernel follows the product's rows (the resize's output
+# columns) in 16-row steps: ((cols - 1) // 16) mod 4 picks lanes, parity,
+# lanes, chain (_COLUMN_KERNELS); chain blocks are 512 deep and parity
+# blocks 1024. Both were read off the compiled reference
+# (tools/fit_resize_order.py): at every product of the grid above and of
+# 120x160, 360x640, 540x960, 600x800, 600x1024, 768x1024 and 1200x1600 (3
+# and 8 levels), the row rule at every depth from 322 to 474 in steps of
+# 8, the column rule at every width from 80 to 271 at depths 320, 336, 480
+# and 640; the kernels' tails at depths that are no multiple of 4
+# (tools/fit_pyramid_shards.py, on dense random products). The column
+# product of a level of 50 image rows or fewer runs another kernel: one
+# chain over the whole depth, whatever its width (tools/fit_sift_order.py
+# --short, 20 frame sizes from 48x64 to 180x320 at 3 and 8 levels).
 _COLUMN_KERNELS = ("lanes", "parity", "lanes", "chain")
 _BLOCK = {"chain": 512, "parity": 1024}
 _SHORT_ROWS = 50
@@ -254,14 +256,109 @@ def _row_slice(depth: int) -> int:
     return -(-(depth // slices) // 8) * 8
 
 
+# Eigen's thread-pool contraction (TensorContractionThreadPool.h
+# evalProductImpl, which XLA's CPU dot runs) splits a product over its depth
+# when its cost model gives the depth more threads than the outputs: the
+# depth in blocks of max(96, ceil(depth / threads) rounded up to 8), each
+# block's partial sum in a buffer of its own, the buffers added to the
+# first in order. The constants are the reference's build and host: Eigen
+# for AVX without FMA (8-float packets; gebp's mr 16, nr 4), 8 intra-op
+# threads (any pool of 6 or more decides alike at the pyramid's sizes),
+# 48 KiB of L1d and 2 MiB of L2; TSL's oneDNN blocking (its M unroll 48, N
+# unroll 24, M scaled by 1.5).
+_THREADS, _PACKET, _MR, _NR = 8, 8, 16, 4
+_L1, _L2 = 48 * 1024, 2 * 1024 * 1024
+_BYTE_CYCLES = 11 / 64        # Eigen's TensorCostModel: a byte from L2
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _blocking(k: int, m: int, n: int, by_col: bool) -> Tuple[int, int, int]:
+    """(kc, mc, nc) of TSL's TensorContractionBlocking for oneDNN at 2
+    threads: Eigen's computeProductBlockingSizes (its multi-threaded
+    branch), then oneDNN's unrolls and equal k-slices."""
+    def eigen(k, m, n):
+        k_cache = max(8, min((_L1 - _MR * _NR * 4) // (4 * (_MR + _NR)), 320))
+        if k_cache < k:
+            k = k_cache - k_cache % 8
+        n_cache = (_L2 - _L1) // (_NR * 4 * k)
+        per = _cdiv(n, 2)
+        n = n_cache - n_cache % _NR if n_cache <= per \
+            else min(n, per + _NR - 1 - (per + _NR - 1) % _NR)
+        per = _cdiv(m, 2)
+        return k, min(m, per + _MR - 1 - (per + _MR - 1) % _MR), n
+    if by_col:
+        kc, mc, nc = eigen(k, m, n)
+    else:
+        kc, nc, mc = eigen(k, n, m)
+    mc = min(m, _cdiv(int(mc * 1.5), 48) * 48)
+    nc = min(n, _cdiv(nc, 24) * 24)
+    slices = max(1, _cdiv(k, kc))
+    return min(k, _cdiv(k // slices, 8) * 8), mc, nc
+
+
+def _bandwidth(short: bool, bk: int) -> float:
+    """Eigen's computeBandwidth without FMA: cycles a multiply-add."""
+    return 4.0 if bk == 1 else 2.0 if short else 1.0
+
+
+def depth_shard(m: int, n: int, k: int) -> int:
+    """The depth block in which Eigen's thread pool splits an (m x k) by (k
+    x n) product (column-major: m is the output's fastest dimension), or 0
+    where it does not split the depth (see ``_THREADS``)."""
+    # the threads over the outputs: shardByCol at 2 threads, the blocking,
+    # contractionCost and TensorCostModel::numThreads
+    by_col = not ((m // 2 >= _NR and (n // 2 < _NR or (
+        n // 2 < 4 * _NR and n % (2 * _NR) != 0
+        and (m % (2 * _NR) == 0 or m // n >= 6))))
+        or (n // 2 < 16 * _NR and m > n * 32))
+    bk, bm, bn = _blocking(k, m, n, by_col)
+    per_out = (bk * _bandwidth(bm < _NR or bn < _MR, bk) / _PACKET
+               + 4 * _BYTE_CYCLES
+               + 4 * _BYTE_CYCLES * (bk / m if by_col else bk / n))
+    threads = min(_THREADS, max(1, int((m * n * per_out - 1e5) / 1e5 + 0.9)))
+    # the threads over the depth: numThreadsInnerDim
+    per_k = (_bandwidth(n < _NR or m < _MR, k) * m * n / _PACKET
+             + 4 * _BYTE_CYCLES + 4 * n * _BYTE_CYCLES)
+    total = k * per_k
+    reduce = m * n * (3 * _BYTE_CYCLES + 1 / _PACKET)
+    by_k, best = 1, total
+    for t in range(2, _THREADS + 1, 2):
+        cost = total / t + 1e5 + t * (reduce + 3000)
+        if cost < best:
+            by_k, best = t, cost
+    # shardByInnerDim (the L3 bound on the buffers never binds here)
+    if n == 1 or by_k < 2 or by_k < threads or k // by_k < 2 * _NR:
+        return 0
+    if not (max(m, n) // threads < _NR or (k // by_k > 8 * _NR and (
+            min(m, n) < 2 * _NR or by_k > threads))):
+        return 0
+    return min(k, max(12 * _PACKET, _cdiv(_cdiv(k, by_k), 8) * 8))
+
+
+def eigen_order(depth: int, m: int, n: int) -> Tuple[str, int]:
+    """The summation order of a product that XLA's CPU dot hands to Eigen's
+    thread pool with a transposed operand (the resize's row product, and
+    both products where the columns go first), of an (n, m) output: one
+    multiply-add chain a depth block, the blocks added in order. The blocks
+    are :func:`_row_slice`'s, or where Eigen splits the depth
+    (:func:`depth_shard`) its blocks, each one chain (no split block is
+    deeper than 320 at any frame of 48 to 2,200 rows and columns). An
+    output's taps span two blocks at most, so the order in which Eigen adds
+    the blocks' buffers does not move its bits."""
+    return "chain", depth_shard(m, n, depth) or _row_slice(depth)
+
+
 def gemm_order(depth: int, cols: int, rows_pass: bool,
                rows: int = 0) -> Tuple[str, int]:
     """(kind, block) of the summation order of a product of depth ``depth``
     into ``cols`` outputs (see ``_COLUMN_KERNELS``): a resize's row product
-    (``rows_pass``), or a column product, a resize's or the SIFT
-    contraction's, of ``rows`` rows (0: more than 50). A column product of
-    50 rows or fewer is one chain; of more rows, see
-    :func:`_column_kernel`."""
+    (``rows_pass``; unsplit, see :func:`eigen_order`), or a column
+    product, a resize's or the SIFT contraction's, of ``rows`` rows (0:
+    more than 50). A column product of 50 rows or fewer is one chain; of
+    more rows, see :func:`_column_kernel`."""
     if rows_pass:
         return "chain", _row_slice(depth)
     if 0 < rows <= _SHORT_ROWS:
@@ -274,16 +371,14 @@ def _tap_groups(in_size: int, taps: np.ndarray, kind: str, block: int
                 ) -> np.ndarray:
     """Group of each tap (ascending depths) of one output: the chain it is
     summed in. "chain": its block, counted from the output's first;
-    "parity": 3 per block (even, odd, rest); "lanes": k mod 4."""
+    "parity": 3 per block (even, odd, and an odd depth's last tap);
+    "lanes": k mod 4, and 4 past the depth's last multiple of 4."""
     if kind == "lanes":
-        return taps % 4
+        return np.where(taps < in_size & ~3, taps % 4, 4)
     first = taps[0] // block
     if kind == "chain":
         return taps // block - first
-    start = taps // block * block
-    peeled = np.minimum(block, in_size - start) & ~7
-    rel = taps - start
-    cls = np.where(rel < peeled, rel % 2, 2)
+    cls = np.where(taps < in_size & ~1, taps % 2, 2)     # blocks are even
     return 3 * (taps // block - first) + cls
 
 
@@ -301,7 +396,7 @@ def _tap_tables(in_size: int, out_size: int, order: Tuple[str, int],
         taps = np.nonzero(w[:, o])[0]
         g = _tap_groups(in_size, taps, kind, block) if len(taps) else taps
         groups.append((taps, g))
-    n_groups = max([4 if kind == "lanes" else 1]
+    n_groups = max([5 if kind == "lanes" else 1]
                    + [int(g.max()) + 1 for t, g in groups if len(t)])
     if kind == "parity":
         n_groups = -(-n_groups // 3) * 3
@@ -328,20 +423,34 @@ def _chain(x: torch.Tensor, idx: torch.Tensor, wt: torch.Tensor,
     return acc
 
 
+def _products_sum(x: torch.Tensor, idx: torch.Tensor, wt: torch.Tensor,
+                  steps: int) -> torch.Tensor:
+    """``sum_t w_t x[idx_t]`` over a table's first ``steps`` taps, each
+    product rounded, added in order (a kernel's tail past its unroll)."""
+    acc = x[idx[..., 0]] * wt[..., 0, None].to(torch.float32)
+    for t in range(1, steps):
+        acc = acc + x[idx[..., t]] * wt[..., t, None].to(torch.float32)
+    return acc
+
+
 def _resize_rows(x: torch.Tensor, out_size: int,
                  order: Tuple[str, int]) -> torch.Tensor:
     """``W^T @ x`` for the (in, out) resize weights of x's first axis,
     summed in the reference's ``order`` (:func:`gemm_order`). A group's
     chain runs only as many steps as its outputs have taps, so a group
-    that no output reaches (the parity rest when the depth is a multiple
-    of 8 under the block) costs nothing."""
+    that no output reaches (a kernel's tail when the depth is a multiple of
+    its unroll) costs nothing."""
     idx, wt, steps = _tap_tables(x.shape[0], out_size, order, x.device)
     zero = torch.zeros((out_size, x.shape[1]), dtype=torch.float32,
                        device=x.device)
     kind = order[0]
     if kind == "lanes":
-        lane = _chain(x, idx, wt, zero.expand(4, -1, -1), max(steps))
-        return (lane[0] + lane[1]) + (lane[2] + lane[3])
+        lane = _chain(x, idx[:4], wt[:4], zero.expand(4, -1, -1),
+                      max(steps[:4]))
+        out = (lane[0] + lane[1]) + (lane[2] + lane[3])
+        if steps[4]:
+            out = out + _products_sum(x, idx[4], wt[4], steps[4])
+        return out
     if kind == "chain":
         part = _chain(x, idx, wt, zero.expand(idx.shape[0], -1, -1),
                       max(steps))
@@ -353,9 +462,11 @@ def _resize_rows(x: torch.Tensor, out_size: int,
     for b in range(0, idx.shape[0], 3):
         even_odd = _chain(x, idx[b:b + 2], wt[b:b + 2],
                           zero.expand(2, -1, -1), max(steps[b:b + 2]))
-        acc = _chain(x, idx[b + 2], wt[b + 2], even_odd[0] + even_odd[1],
-                     steps[b + 2])
+        acc = even_odd[0] + even_odd[1]
         out = acc if out is None else out + acc
+    for b in range(2, idx.shape[0], 3):
+        if steps[b]:
+            out = out + _products_sum(x, idx[b], wt[b], steps[b])
     return out
 
 
@@ -366,17 +477,21 @@ def resize_bilinear(image: torch.Tensor, out_hw: Tuple[int, int],
     when downsampling): rows first, then columns, or columns first where
     the output is narrower than tall (the path the reference's one
     ``jnp.einsum`` takes, the cheaper), each a banded product summed as
-    the compiled reference sums it (:func:`gemm_order`) when it resizes
-    ``batch`` such images in one vmapped program (XLA folds the batch into
-    the column product's rows; 1 for one image)."""
+    the compiled reference sums it when it resizes ``batch`` such images in
+    one vmapped program (XLA folds the batch into each product's free
+    dimension; 1 for one image). XLA's CPU dot runs the column product
+    that follows the rows as a plain product (:func:`gemm_order`'s
+    kernels) and the others, which have a transposed operand, through
+    Eigen's thread pool (:func:`eigen_order`, given each product's output:
+    its columns, the fastest, then its rows)."""
     x = image.to(torch.float32)
     (h, w), (oh, ow) = x.shape, out_hw
     if oh != h and ow != w and ow < oh:
-        x = _resize_rows(x.T, ow, gemm_order(w, ow, False,
-                                             rows=batch * h)).T
-        return _resize_rows(x, oh, gemm_order(h, oh, True))
+        # dot(W_w, x) into (ow, h), then dot(W_h, that) into (oh, ow)
+        x = _resize_rows(x.T, ow, eigen_order(w, batch * h, ow)).T
+        return _resize_rows(x, oh, eigen_order(h, batch * ow, oh))
     if oh != h:
-        x = _resize_rows(x, oh, gemm_order(h, oh, True))
+        x = _resize_rows(x, oh, eigen_order(h, batch * w, oh))  # (oh, w)
     if ow != w:
         x = _resize_rows(x.T, ow, gemm_order(w, ow, False,
                                              rows=batch * oh)).T

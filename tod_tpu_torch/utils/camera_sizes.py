@@ -10,7 +10,11 @@ pixels.
 
 The sizes are those of the cameras the reference's users run: 320x240 and
 1280x1024 (Kinect v1, Xtion), 848x480 and 1280x720 (RealSense D4xx),
-1920x1080 (Kinect v2), and VGA.
+1920x1080 (Kinect v2), and VGA; and the small frames whose pyramids take
+Eigen's depth splits and oneDNN's kernel tails (``SMALL``: QQVGA 160x120,
+QCIF 176x144 of time-of-flight cameras such as the SwissRanger SR4000, and
+seven other sizes of 100 to 267 columns; tools/make_torch_small_sizes_
+fixture.py, chip_smoke.py phase 13c).
 """
 
 from __future__ import annotations
@@ -26,6 +30,11 @@ GRID = ((240, 320), (480, 640), (480, 848), (720, 1280), (960, 1280),
 HW720 = (720, 1280)
 K720 = np.array([[1050.0, 0.0, 639.5], [0.0, 1050.0, 359.5],
                  [0.0, 0.0, 1.0]])
+# small frames (rows, columns): QQVGA and QCIF first, then the other sizes
+# whose pyramids split a product's depth or end a kernel in a tail
+SMALL = ((160, 120), (176, 144), (144, 176), (135, 240), (150, 200),
+         (100, 100), (120, 213), (150, 267), (166, 221))
+SMALL_SCENES = SMALL[:2]       # rendered and run through ORB as well
 # each array as the digest reads it, whatever dtype a package keeps it in
 KINDS = {"valid": bool, "ok": bool, "xy": np.float32, "qp": np.float32,
          "level": np.int32, "desc": np.uint8, "dsc": np.uint8}
@@ -76,6 +85,13 @@ def bench_scenes(syn, objects, n_scenes: int, hw=(480, 640), K=None):
     return [syn.compose_scene(trio, poses, hw=hw,
                               K=syn.DEFAULT_K if K is None else K)
             for trio, poses in bench_placements(syn, objects, n_scenes)]
+
+
+def small_frame(h: int, w: int, k: int = 0) -> np.ndarray:
+    """A seeded random gray frame of (h, w) in [0, 255) (the k-th of a
+    batch), float32."""
+    rng = np.random.default_rng(h * 1000 + w + 7919 * k)
+    return (rng.random((h, w)) * 255).astype(np.float32)
 
 
 def size_scene(syn, h: int, w: int):
