@@ -46,18 +46,28 @@ any failure raises, exits non-zero and prints no ``ok`` line:
             and torch.rand (a yardstick: Philox, not the function); its
             bound from the instructions of its compiled code by pipe
             (cuobjdump -sass).
-3g.         the features' kernels at the SIFT main path's level-0 shape
-            (frame 0, 5000 features: 1978 keypoints x 1369 pixels): L1
-            (csrc/libm_f32.cu, the host libm's atan2f) on those gradients,
-            10^6 random pairs and the special values, and L2
-            (csrc/sift_descriptor.cu, the fused SIFT descriptor: from the
-            level image to the normalised 128 floats) at K = 1978, at each
-            summation order of the contraction and at the trainer's batch
-            of 12, both against their plain versions on the CPU bit for
-            bit; L1 timed at the level's keypoint angles (its main-path
-            shape) and at the gradients, L2 beside its plain chain on the
-            card, the chain's producers (gradients and soft bins, with L1),
-            torch.atan2 / torch.einsum, and their bounds.
+3g.         the features' kernels: L1 (csrc/orientation.cu, the keypoint
+            orientation fused from the level image: its integral images,
+            then the moments at the keypoints and glibc's atan2f; two
+            kernels a call) at every level of frame 0's ORB, SIFT and
+            training features, at 720p's level 0 and at keypoints on every
+            border, against its plain version on the CPU bit for bit;
+            timed at each ORB level and at 720p's level 0 (each kernel's
+            device time from the profiler)
+            beside the parent's route on the card (the dense moments, ~760
+            launches a level, and L1e) and F.conv2d + torch.atan2. At the
+            SIFT main path's level-0 shape (frame 0, 5000 features: 1978
+            keypoints x 1369 pixels): L1e (csrc/libm_f32.cu, the host
+            libm's atan2f elementwise) on those gradients, 10^6 random
+            pairs and the special values, and L2 (csrc/sift_descriptor.cu,
+            the fused SIFT descriptor: from the level image to the
+            normalised 128 floats) at K = 1978, at each summation order of
+            the contraction and at the trainer's batch of 12, both against
+            their plain versions on the CPU bit for bit; L1e timed at the
+            level's keypoint count and at the gradients, L2 beside its
+            plain chain on the card, the chain's producers (gradients and
+            soft bins, with L1e), torch.atan2 / torch.einsum, and their
+            bounds.
 3h.         kernel L3 (csrc/l2_distances.cu, the L2 matcher's distance tile
             in the compiled reference's order) against its plain tile bit
             for bit at 7e's shape (frame 0's 5000 SIFT descriptors x the
@@ -69,13 +79,17 @@ any failure raises, exits non-zero and prints no ``ok`` line:
             loop and its CPU path, distances and rows bit for bit, at 7e's
             shape, a cut DB, ties, 1, 7, 513 and 16,384 queries; timed
             beside the loop's parts and torch.matmul + torch.topk.
-3i.         kernel P1 (csrc/p3p.cu) against its plain version on the CPU
-            bit for bit on 16,384 seeded samples; L4 (csrc/libm_f32.cu:
-            glibc's cosf, sincosf, powf and XLA's log) on 10^6 floats,
-            the special values and the 2D path's ranges, timed beside
-            torch.cos, sin, pow and log (the library column: another
-            rounding); P2 (csrc/gauss_newton.cu) at a 2D chunk's shape and
-            past its shared memory (the rows in a global scratch).
+3i.         kernel P1 (csrc/p3p.cu, a group of 4 lanes a sample) against
+            its plain version on the CPU bit for bit (NaN where NaN) on
+            16,384, 8,192 and 8,191 seeded samples with degenerate ones
+            (collinear and repeated points, repeated, zero and NaN rays),
+            timed, with ptxas's registers, frame and spills; L4
+            (csrc/libm_f32.cu: glibc's cosf, sincosf, powf and XLA's log)
+            on 10^6 floats, the special values and the 2D path's ranges,
+            timed beside torch.cos, sin, pow and log (the library column:
+            another rounding); P2 (csrc/gauss_newton.cu) at a 2D chunk's
+            shape and past its shared memory (the rows in a global
+            scratch).
 4. main     FusedDetector at the bench's operating point on the 100-object
             smoke catalog, frames of tests/data/torch_smoke_fixture.npz
             through prepare_frame -> detect; the compaction stage's
@@ -447,12 +461,18 @@ T1_REPLACES = "tools/bench_dot_iso.py:29"
 # jax.random.gumbel in _masked_gumbel_argmax and _masked_weighted_argmax:
 # XLA's fused threefry, not a Pallas kernel
 N1_REPLACES = "tod_tpu/geometry/ransac.py:127,136"
-SOURCE_L1 = "tod_tpu_torch/csrc/libm_f32.cu"
+SOURCE_L1 = "tod_tpu_torch/csrc/orientation.cu"
+SOURCE_LIBM = "tod_tpu_torch/csrc/libm_f32.cu"
 SOURCE_SIFT = "tod_tpu_torch/csrc/sift_descriptor.cu"
 SOURCE_L3 = "tod_tpu_torch/csrc/l2_distances.cu"
-# XLA's atan2, which calls the host libm's atan2f (not a Pallas kernel):
-# the keypoint and the gradient orientations
-L1_REPLACES = "tod_tpu/ops/orb.py:163,tod_tpu/ops/sift.py:105"
+# the keypoint orientation: XLA's cumsums, shifted differences and fused
+# multiply-adds of the dense moments and its call of the host libm's atan2f
+# (not a Pallas kernel)
+L1_REPLACES = "tod_tpu/ops/orb.py:112-163"
+# XLA's atan2 (a call of the host libm's atan2f) left on the card: the 2D
+# path's mirror (the reference's arccos form too; the gradients' orientations
+# run in L2)
+L1E_REPLACES = "tod_tpu/geometry/detection2d.py:183"
 # the reference's SIFT descriptor from the patches to the normalisation:
 # XLA's fusions, the libm atan2f call and the tables' dot (not a Pallas
 # kernel)
@@ -500,6 +520,9 @@ L3_K = 5                        # the graph's knnMatch(k=5)
 # sheet, 67 TFLOP/s)
 L1_OPS = 33
 F32_OPS_S = 67e12
+# float32 operations of L1's two moments at a keypoint: 30 differences, a
+# product and 29 FMAs (2 each) a moment
+L1_MOMENT_OPS = 2 * (30 + 1 + 2 * 29)
 # float32 operations of L2 at a tapped pixel besides atan2f's: the two
 # differences, the sum of squares and its root (3), the relative angle and
 # its remainder (3), floor, frac and the two weights (4)
@@ -645,15 +668,16 @@ KERNEL_NAMES = re.compile(
     r"(tc_sweep_kernel|popc_probe_kernel|merge_kernel|"
     r"object_top1_l2_gathered_tc_kernel|object_top1_l2_tc_kernel|"
     r"object_top1_gathered_tc_kernel|object_top1_tc_kernel|threefry_kernel|"
-    r"gauss_newton_kernel|libm_kernel|atan2f_kernel|p3p_kernel)"
+    r"gauss_newton_kernel|libm_kernel|atan2f_kernel|p3p_kernel|"
+    r"integral_kernel|angles_kernel)"
     r"(I((?:L[ib]\d+E)+)E)?")
 
 
-def log_ptxas(name: str, report: str) -> None:
-    """One line per kernel of ``nvcc -Xptxas -v``'s report: its registers,
-    shared memory and spills, the kernel named with its template
-    arguments (B5/T1: route, mode, k)."""
-    entry = None
+def ptxas_entries(report: str) -> list:
+    """(kernel, figures) of each registers or spills line of ``nvcc -Xptxas
+    -v``'s report, the kernel named with its template arguments (B5/T1:
+    route, mode, k)."""
+    entry, out = None, []
     for line in report.splitlines():
         found = re.search(r"Compiling entry function '([^']+)'", line)
         if found:
@@ -662,7 +686,15 @@ def log_ptxas(name: str, report: str) -> None:
                 kernel.group(1) + "<" + ",".join(
                     re.findall(r"L[ib](\d+)E", kernel.group(3) or "")) + ">")
         elif entry and ("registers" in line or "spill" in line):
-            log(f"ptxas: {name}: {entry}: {line.split(':', 1)[-1].strip()}")
+            out.append((entry, line.split(":", 1)[-1].strip()))
+    return out
+
+
+def log_ptxas(name: str, report: str) -> None:
+    """One line per kernel of ``nvcc -Xptxas -v``'s report: its registers,
+    shared memory and spills (:func:`ptxas_entries`)."""
+    for entry, figures in ptxas_entries(report):
+        log(f"ptxas: {name}: {entry}: {figures}")
 
 
 def cuda_ms(fn, runs: int = KERNEL_RUNS, warmup: int = 2,
@@ -879,13 +911,16 @@ def full_range_case_l2(n_q: int, device):
                              device=device), torch.from_numpy(q).to(device)
 
 
-def int_mm_ms(q, sdb) -> float:
+def int_mm_ms(q, sdb, objects=None) -> float:
     """Milliseconds of ``torch._int_mm`` over the (Q, 128) x (128, rows)
-    int8 product of ``q`` against ``sdb``'s real rows, in row chunks of
-    INT_MM_ROWS (the int32 product of all rows would not fit): a yardstick
-    for B3's product alone, not a library call of the same function."""
-    real = torch.cat([sdb.rows[s:s + n] for s, n in
-                      zip(sdb.starts_host, sdb.rows_host) if n])
+    int8 product of ``q`` against ``sdb``'s real rows (of ``objects`` only,
+    where given: B4's slab), in row chunks of INT_MM_ROWS (the int32
+    product of all rows would not fit): a yardstick for B3's or B4's
+    product alone, not a library call of the same function."""
+    pick = range(len(sdb.rows_host)) if objects is None else objects
+    real = torch.cat([sdb.rows[sdb.starts_host[o]:sdb.starts_host[o]
+                               + sdb.rows_host[o]] for o in pick
+                      if sdb.rows_host[o]])
     real = torch.cat([real, real.new_zeros(((-real.shape[0]) % 8, 128))])
     chunks = [real[s:s + INT_MM_ROWS] for s in range(0, real.shape[0],
                                                       INT_MM_ROWS)]
@@ -1086,12 +1121,14 @@ def check_frame(f: int, found, fx, ref=None, image=None,
 
 
 def wrappers():
-    """The kernel wrappers, B1..B5, T1, N1, L1, L2, L3 (the fused matcher),
-    L3t (its distance tile), P1, L4 (libm's cosf / sincosf / powf, XLA's
-    log) and P2 (the Gauss-Newton refinement)."""
+    """The kernel wrappers, B1..B5, T1, N1, L1 (the fused keypoint
+    orientation), L2, L3 (the fused matcher), L3t (its distance tile), P1,
+    L4 (libm's cosf / sincosf / powf, XLA's log), P2 (the Gauss-Newton
+    refinement) and L1e (the elementwise atan2f)."""
     from tod_tpu_torch.geometry import pnp
     from tod_tpu_torch.ops import hamming as ham
     from tod_tpu_torch.ops import libm
+    from tod_tpu_torch.ops import orb
     from tod_tpu_torch.ops import matching
     from tod_tpu_torch.ops import segmented as seg
     from tod_tpu_torch.ops import segmented_l2 as l2
@@ -1100,15 +1137,15 @@ def wrappers():
 
     return (seg.object_top1, seg.object_top1_gathered, l2.object_top1_l2,
             l2.object_top1_l2_gathered, ham.hamming_topk_fused,
-            ham.hamming_probe, prng.gumbel, libm.atan2f,
+            ham.hamming_probe, prng.gumbel, orb.orb_angles,
             sift.sift_descriptors, matching.l2_topk_fused,
             matching.l2_distances, pnp.p3p_distances, libm.libm_f32,
-            pnp.gauss_newton_pose)
+            pnp.gauss_newton_pose, libm.atan2f)
 
 
 # the names of :func:`wrappers`' kernels, in the order of :func:`read_counts`
 COUNTED_KERNELS = [f"B{i + 1}" for i in range(5)] + [
-    "T1", "N1", "L1", "L2", "L3", "L3t", "P1", "L4", "P2"]
+    "T1", "N1", "L1", "L2", "L3", "L3t", "P1", "L4", "P2", "L1e"]
 N_MATCH_NOISE = 7          # B1..B5, T1 and N1: the counts before L1-L4
 
 
@@ -1119,7 +1156,7 @@ def reset_counts() -> None:
 
 def read_counts():
     """Launches of (B1, B2, B3, B4, B5, T1, N1, L1, L2, L3, L3t, P1, L4,
-    P2) since :func:`reset_counts`."""
+    P2, L1e) since :func:`reset_counts`."""
     return tuple(fn.launches for fn in wrappers())
 
 
@@ -1130,21 +1167,21 @@ def matcher_counts(counts) -> list:
 
 def check_feature_counts(what: str, n_frames: int, counts,
                          sift: bool, l3: bool = False) -> None:
-    """The path's features went through L1 (the keypoint orientations) and,
-    with SIFT, L2 (the fused descriptor): a positive multiple of the frames
-    each, one of each a level on a SIFT path (L1 = L2: no separate launch
-    for the gradients' orientations), and no L2 without SIFT; L3 (the
-    fused L2 matcher) one a frame where ``l3``, else none; L4 (XLA's log
-    of the RANSAC weights) the same number of times on every frame; never
-    L3's tile (the orders the graph does not take), P1 or P2 (the 2D
-    path's)."""
-    l1, l2, l3_n, l3t, p1, l4, p2 = counts[N_MATCH_NOISE:]
+    """The path's features went through L1 (the fused keypoint
+    orientation) and, with SIFT, L2 (the fused descriptor): a positive
+    multiple of the frames each, one of each a level on a SIFT path (L1 =
+    L2: no separate launch for the gradients' orientations), and no L2
+    without SIFT; L3 (the fused L2 matcher) one a frame where ``l3``, else
+    none; L4 (XLA's log of the RANSAC weights) the same number of times on
+    every frame; never L3's tile (the orders the graph does not take), P1,
+    P2 or L1e (the 2D path's)."""
+    l1, l2, l3_n, l3t, p1, l4, p2, l1e = counts[N_MATCH_NOISE:]
     if l1 < n_frames or l1 % n_frames or (l2 != l1 if sift else l2) or (
             l3_n != n_frames if l3 else l3_n) or l3t or p1 or l4 % n_frames \
-            or p2:
+            or p2 or l1e:
         raise AssertionError(f"{what}: launches L1 {l1}, L2 {l2}, L3 {l3_n}, "
-                             f"L3t {l3t}, P1 {p1}, L4 {l4}, P2 {p2} for "
-                             f"{n_frames} frames")
+                             f"L3t {l3t}, P1 {p1}, L4 {l4}, P2 {p2}, L1e "
+                             f"{l1e} for {n_frames} frames")
 
 
 def check_launches(what: str, n_frames: int, counts, full: int,
@@ -1438,13 +1475,197 @@ def sift_level0(gray: torch.Tensor):
     return seen[0]
 
 
+def orientation_levels(gray: torch.Tensor, plans=None) -> list:
+    """(what, level image, xy) of every call of ``keypoint_angles`` in the
+    features of ``gray`` for each (what, detect, n_features) of ``plans``:
+    by default the ORB and the SIFT features at the bench's point (5000
+    features, 3 levels) and the trainer's ORB (600 features)."""
+    from tod_tpu_torch.ops import orb as torb
+    from tod_tpu_torch.ops import sift as tsift
+
+    plans = plans or (("ORB", torb.orb_detect_and_compute, 5000),
+                      ("SIFT", tsift.sift_detect_and_compute, 5000),
+                      ("train ORB", torb.orb_detect_and_compute, 600))
+    seen, original = [], torb.keypoint_angles
+
+    def record(img, xy):
+        seen.append((img.clone(), xy.clone()))
+        return original(img, xy)
+
+    out = []
+    torb.keypoint_angles = record
+    try:
+        for what, detect, n in plans:
+            seen.clear()
+            detect(gray, n_features=n)
+            out += [(f"{what} level {i}", img, xy)
+                    for i, (img, xy) in enumerate(seen)]
+    finally:
+        torb.keypoint_angles = original
+    return out
+
+
+def moment_kernels(dev) -> torch.Tensor:
+    """(2, 1, 31, 31) float32: the 31x31 circular patch weighted by dx (m10)
+    and by dy (m01), for F.conv2d (the library yardstick)."""
+    from tod_tpu_torch.ops import orb as torb
+
+    r = torb.HALF_PATCH
+    widths = torb._circle_half_widths()
+    d = np.arange(-r, r + 1)
+    inside = np.abs(d[None, :]) <= widths[:, None]       # (dy, dx)
+    k10 = np.where(inside, d[None, :], 0)
+    k01 = np.where(inside, d[:, None], 0)
+    return torch.from_numpy(np.stack([k10, k01])[:, None].astype(
+        np.float32)).to(dev)
+
+
+def check_orientation(dev, card: str, gray: torch.Tensor) -> dict:
+    """Phase 3g, L1: the fused keypoint orientation (csrc/orientation.cu)
+    against its plain version on the CPU, bit for bit, at every level of
+    ``gray``'s ORB, SIFT and training features, at 720p's level 0 and at
+    keypoints on every border; timed at each ORB level of the VGA frame
+    and at 720p's level 0 (its two kernels' device time, each kernel's
+    from the profiler), beside the parent's
+    route on the card (the dense moments, gathered, then L1e's atan2f: its
+    device operations and time) and F.conv2d with the two moment kernels +
+    torch.atan2 (the library yardstick: another rounding). Returns the
+    ``kernels`` entry's measured fields."""
+    import torch.nn.functional as F
+    from tod_tpu_torch.ops import libm
+    from tod_tpu_torch.ops import orb as torb
+
+    def plain(img, xy):
+        m10, m01 = torb.keypoint_moments_torch(img.cpu(), xy.cpu())
+        return libm.atan2f_torch(m01, m10)
+
+    def same(got, want, what):
+        if not torch.equal(got.cpu().view(torch.int32),
+                           want.view(torch.int32)):
+            bad = int((got.cpu().view(torch.int32)
+                       != want.view(torch.int32)).sum())
+            raise AssertionError(f"L1 at {what}: {bad} of {want.numel()} "
+                                 "angles differ from the plain version")
+
+    big = F.interpolate(gray[None, None], size=(720, 1280), mode="bilinear",
+                        align_corners=False)[0, 0].contiguous()
+    levels = orientation_levels(gray) + orientation_levels(
+        big, (("720p", torb.orb_detect_and_compute, 5000),))[:1]
+    h, w = gray.shape
+    rng = np.random.default_rng(21)
+    edge = np.stack([rng.integers(0, w, 400), rng.integers(0, h, 400)], -1)
+    edge[:8] = [(0, 0), (w - 1, h - 1), (0, h - 1), (w - 1, 0), (w // 2, 0),
+                (w // 2, h - 1), (0, h // 2), (w - 1, h // 2)]
+    levels.append(("border keypoints", gray, torch.from_numpy(
+        edge.astype(np.int32)).to(dev)))
+    for what, img, xy in levels:
+        same(torb.orb_angles(img, xy), plain(img, xy), what)
+    log(f"kernels: L1 (fused orientation) equal to keypoint_moments_torch + "
+        f"atan2f_torch bit for bit at "
+        + ", ".join(f"{what} {tuple(img.shape)} K={len(xy)}"
+                    for what, img, xy in levels))
+
+    weights = moment_kernels(dev)
+    timed = [lv for lv in levels if lv[0].startswith("ORB level")] + [
+        lv for lv in levels if lv[0] == "720p level 0"]
+    rows = {}
+    for what, img, xy in timed:
+        k = len(xy)
+        hh, ww = img.shape
+        row = {"ms": cuda_ms(lambda: torb.orb_angles(img, xy), queued=True)}
+        row["host_ms"] = cuda_ms(lambda: torb.orb_angles(img, xy))
+        ops, busy, _ = device_profile(lambda: torb.orb_angles(img, xy))
+        split = kernel_device_ms(lambda: torb.orb_angles(img, xy))
+        x, y = xy[:, 0].long(), xy[:, 1].long()
+
+        def parent_route():
+            m10, m01 = torb.orientation_moments(img)
+            return libm.atan2f(m01[y, x].contiguous(),
+                               m10[y, x].contiguous())
+
+        same(parent_route(), plain(img, xy), f"{what} (the parent's route)")
+        p_ops, p_busy, _ = device_profile(parent_route)
+        row["parent_ms"] = cuda_ms(parent_route, runs=8)
+
+        def library():
+            m = F.conv2d(img[None, None], weights,
+                         padding=torb.HALF_PATCH)[0]
+            return torch.atan2(m[1, y, x], m[0, y, x])
+
+        row["library_ms"] = cuda_ms(library, queued=True)
+        row["plain_ms"] = cuda_ms(lambda: libm.atan2f_torch(
+            *torb.keypoint_moments_torch(img, xy)[::-1]), runs=TWIN_RUNS,
+            warmup=1)
+        # the function's bytes: the level read once, each keypoint's xy
+        # read and angle written; its operations: both integral images'
+        # sums and the moments' chains and atan2f at each keypoint. Beside
+        # it, the design's traffic: both integral images also written and
+        # read back once (intermediates, which fit in the L2 cache)
+        n_bytes = 4 * hh * ww + 12 * k
+        design_bytes = n_bytes + 2 * 4 * ((hh + 1) * ww + hh * (ww + 1))
+        n_ops = 2 * 2 * ((hh + 1) * ww + hh * (ww + 1)) \
+            + k * (L1_MOMENT_OPS + L1_OPS)
+        b_ms, o_ms = n_bytes / HBM_BYTES_S * 1e3, n_ops / F32_OPS_S * 1e3
+        row.update(bound_ms=max(b_ms, o_ms),
+                   bound_by="bytes" if b_ms >= o_ms else "operations",
+                   design_bytes_ms=design_bytes / HBM_BYTES_S * 1e3,
+                   device_ops=ops, busy_ms=busy, kernels_ms=split,
+                   parent_device_ops=p_ops, parent_busy_ms=p_busy, k=k,
+                   shape=f"{hh}x{ww}")
+        rows[what] = row
+        log(f"kernels: L1 at {what} ({hh}x{ww}, K = {k}): "
+            f"{row['ms']:.4f} ms on the device ({ops} device operations, "
+            f"{busy:.4f} ms busy: "
+            + ", ".join(f"{n} {t:.4f}" for n, t in split.items()) + "; "
+            f"the call with its host work {row['host_ms']:.4f}); the "
+            f"parent's route (dense moments + L1e) {row['parent_ms']:.4f} ms, "
+            f"{p_ops} device operations, {p_busy:.4f} ms busy; plain "
+            f"version on the card {row['plain_ms']:.3f} ms; "
+            f"F.conv2d + torch.atan2 (library; another rounding) "
+            f"{row['library_ms']:.4f} ms; bound {row['bound_ms']:.6f} ms "
+            f"by {row['bound_by']} (the design's traffic, the integral "
+            f"images written and read back: {row['design_bytes_ms']:.6f} "
+            f"ms); {card}")
+    main = rows["ORB level 0"]
+    return dict(max_abs_err=0.0, ms=main["ms"], plain_ms=main["plain_ms"],
+                bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+                library_ms=main["library_ms"], host_ms=main["host_ms"],
+                parent_ms=main["parent_ms"],
+                parent_device_ops=main["parent_device_ops"],
+                design_bytes_ms=main["design_bytes_ms"], levels=rows,
+                shape=f"frame 0's ORB / SIFT level 0, {main['shape']}, K = "
+                f"{main['k']} (levels: each ORB level and 720p's level 0; "
+                "library: F.conv2d + torch.atan2, another rounding)")
+
+
+def kernel_device_ms(fn) -> dict:
+    """{kernel name: device ms} of ``fn()``'s CUDA kernels under
+    torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
+                 ) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            name = re.sub(r"^(?:void )?(?:\(anonymous namespace\)::)?", "",
+                          e.name).split("(")[0].split("<")[0]
+            out[name] = out.get(name, 0.0) + e.time_range.elapsed_us() / 1e3
+    return out
+
+
 def check_features(dev, card: str, gray: torch.Tensor):
-    """Phase 3g: kernels L1 and L2 against their plain versions on the CPU
-    at the SIFT main path's level-0 shape of ``gray`` (L1 also on random
-    pairs and the special values, L2 also in each summation order and at
-    the trainer's batch), bit for bit; then timed beside the plain
-    versions and one PyTorch call each. Returns their ``kernels`` entries'
-    measured fields."""
+    """Phase 3g: kernel L1 (the fused keypoint orientation,
+    :func:`check_orientation`), L1e (the elementwise atan2f) and L2 against
+    their plain versions on the CPU at the SIFT main path's level-0 shape
+    of ``gray`` (L1e also on random pairs and the special values, L2 also
+    in each summation order and at the trainer's batch), bit for bit; then
+    timed beside the plain versions and one PyTorch call each. Returns
+    their ``kernels`` entries' measured fields."""
     from tod_tpu_torch.ops import libm
     from tod_tpu_torch.ops import sift as tsift
     from tod_tpu_torch.ops.orb import angle_bins
@@ -1458,6 +1679,7 @@ def check_features(dev, card: str, gray: torch.Tensor):
             raise AssertionError(f"{what}: the kernel differs from its "
                                  "plain version")
 
+    l1 = check_orientation(dev, card, gray)
     blurred, xy, angle = sift_level0(gray)
     gx, gy = tsift.gradients(blurred, xy)
     rng = np.random.default_rng(3)
@@ -1470,9 +1692,9 @@ def check_features(dev, card: str, gray: torch.Tensor):
                            device=dev)
     sy, sx = (a.reshape(-1) for a in torch.meshgrid(special, special,
                                                      indexing="ij"))
-    for y, x, what in ((gy, gx, "L1 at the SIFT gradients"),
-                       (ry, rx, f"L1 on {L1_PAIRS} random pairs"),
-                       (sy, sx, "L1 at the special values")):
+    for y, x, what in ((gy, gx, "L1e at the SIFT gradients"),
+                       (ry, rx, f"L1e on {L1_PAIRS} random pairs"),
+                       (sy, sx, "L1e at the special values")):
         same_bits(libm.atan2f(y, x), libm.atan2f_torch(y.cpu(), x.cpu()),
                   what)
     k_count = len(xy)
@@ -1486,14 +1708,14 @@ def check_features(dev, card: str, gray: torch.Tensor):
         kind = tsift.contraction_order(k, batch)[0]
         orders[kind] = orders.get(kind, 0) + 1
         same_bits(got, want, f"L2 at K = {k}, batch {batch}")
-    log(f"kernels: L1 equal to atan2f_torch bit for bit at frame 0's SIFT "
+    log(f"kernels: L1e equal to atan2f_torch bit for bit at frame 0's SIFT "
         f"level-0 gradients ({gy.numel()} pairs), {L1_PAIRS} random pairs "
         f"and {sy.numel()} special-value pairs; L2 (the fused descriptor) "
         f"equal to sift_describe_torch on the CPU bit for bit at K = 1 to "
         f"{k_count} in the orders {orders}")
 
-    # L1 on its main path: the keypoint angles, one launch a level of
-    # k_count (the gradient at each keypoint stands in for its moments)
+    # L1e at its former main-path shape, a level's keypoints (the gradient at
+    # each keypoint stands in for its moments), and at the gradients
     mid = tsift.PATCH_R                   # a patch's centre
     ay, ax = gy[:, mid, mid].contiguous(), gx[:, mid, mid].contiguous()
     # the kernels' device time (queued: the wrapper's host work hidden
@@ -1506,13 +1728,13 @@ def check_features(dev, card: str, gray: torch.Tensor):
     l1_grad_ms = cuda_ms(lambda: libm.atan2f(gy, gx), queued=True)
     l1_bytes_ms = 12 * k_count / HBM_BYTES_S * 1e3
     l1_ops_ms = L1_OPS * k_count / F32_OPS_S * 1e3
-    log(f"kernels: L1 {l1_ms:.4f} ms median of {KERNEL_RUNS} on the device "
-        f"at {k_count} pairs (a level's keypoint angles: launch-bound; the "
-        f"call with its host work {l1_host:.4f} ms); plain "
-        f"{l1_plain:.4f} ms; torch.atan2 (library; not the function) "
-        f"{l1_lib:.4f} ms; bound {max(l1_bytes_ms, l1_ops_ms):.6f} ms; at "
-        f"the {n} gradient pairs (PR 17's shape) {l1_grad_ms:.4f} ms "
-        f"({n / l1_grad_ms / 1e6:.1f} G pairs/s); {card}")
+    log(f"kernels: L1e {l1_ms:.4f} ms median of {KERNEL_RUNS} on the device "
+        f"at {k_count} pairs (launch-bound; the call with its host work "
+        f"{l1_host:.4f} ms); plain {l1_plain:.4f} ms; torch.atan2 (library; "
+        f"not the function) {l1_lib:.4f} ms; bound "
+        f"{max(l1_bytes_ms, l1_ops_ms):.6f} ms; at the {n} gradient pairs "
+        f"(its first shape) {l1_grad_ms:.4f} ms ({n / l1_grad_ms / 1e6:.1f} G "
+        f"pairs/s); {card}")
 
     l2_ms = cuda_ms(lambda: tsift.sift_descriptors(blurred, xy, angle),
                     queued=True)
@@ -1561,20 +1783,22 @@ def check_features(dev, card: str, gray: torch.Tensor):
         f"the call with its host work {l2_host:.4f} ms); at K = "
         f"{2 * k_count} (the keypoints twice, bit for bit) {l2_ms2:.4f} ms, "
         f"{l2_ms2 / l2_ms:.2f}x; the plain chain on the card {l2_plain:.3f} ms and its producers (patches, "
-        f"gradients, soft bins with L1) {producers_ms:.3f} ms, median of "
+        f"gradients, soft bins with L1e) {producers_ms:.3f} ms, median of "
         f"{TWIN_RUNS}; torch.einsum over every angle bin (library) "
         f"{l2_lib:.4f} ms; bound {max(l2_bytes_ms, l2_ops_ms):.4f} ms "
         f"({l2_bytes} bytes {l2_bytes_ms:.4f} ms, {fmas} FMAs, {pixels} "
         f"tapped pixels and the norms {l2_ops_ms:.4f} ms; the design's "
         f"{design_bytes} bytes, whole patches and a block's tables, "
         f"{design_bytes / HBM_BYTES_S * 1e3:.4f} ms); {card}")
-    return (dict(max_abs_err=0.0, ms=l1_ms, plain_ms=l1_plain,
+    return (l1,
+            dict(max_abs_err=0.0, ms=l1_ms, plain_ms=l1_plain,
                  bound_ms=max(l1_bytes_ms, l1_ops_ms),
                  bound_by="bytes" if l1_bytes_ms >= l1_ops_ms
                  else "operations", library_ms=l1_lib,
                  host_ms=l1_host, gradients_ms=l1_grad_ms,
-                 shape=f"{k_count} pairs (frame 0's SIFT level-0 keypoint "
-                 f"angles; gradients_ms: its {n} gradients)"),
+                 shape=f"{k_count} pairs (its former main-path shape: frame "
+                 f"0's SIFT level-0 keypoint angles; gradients_ms: its {n} "
+                 f"gradients)"),
             dict(max_abs_err=0.0, ms=l2_ms, plain_ms=l2_plain,
                  bound_ms=max(l2_bytes_ms, l2_ops_ms),
                  bound_by="bytes" if l2_bytes_ms >= l2_ops_ms
@@ -1701,38 +1925,16 @@ def check_l3(dev, card: str, gray: torch.Tensor):
 
 def check_p1(dev, card: str) -> tuple:
     """Phase 3i: kernel P1 against its plain version (on the CPU) bit for
-    bit on seeded P3P samples (the tests' well-posed generator and random
-    triples), and L4 (glibc's cosf, sincosf, powf; XLA's log) against theirs on
-    ``LIBM_N`` random floats, the special values and the ranges the 2D path
-    reaches; each timed. Returns the ``kernels`` entries' fields of P1 and
-    L4."""
+    bit on seeded P3P samples (:func:`p3p_samples`: well-posed and random
+    triples; then :func:`p3p_degenerate`'s), and L4 (glibc's cosf,
+    sincosf, powf; XLA's log) against theirs on ``LIBM_N`` random floats,
+    the special values and the ranges the 2D path reaches; each timed.
+    Returns the ``kernels`` entries' fields of P1 and L4."""
     from tod_tpu_torch.geometry import pnp
     from tod_tpu_torch.ops import libm
 
     rng = np.random.default_rng(19)
-    K = np.array([[525.0, 0, 319.5], [0, 525.0, 239.5], [0, 0, 1]])
-    bear, pts = [], []
-    for i in range(P1_SAMPLES):
-        if i % 2:          # a well-posed sample: a pose, 3 points, rays
-            ax = rng.uniform(-0.4, 0.4, 3)
-            th = np.linalg.norm(ax)
-            k = ax / th
-            kx = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]],
-                           [-k[1], k[0], 0]])
-            R = np.eye(3) + np.sin(th) * kx + (1 - np.cos(th)) * kx @ kx
-            T = np.array([*rng.uniform(-0.15, 0.15, 2), 0.9])
-            X = rng.uniform(-0.12, 0.12, (3, 3))
-            X[:, 2] *= 0.1
-            uv = (X @ R.T + T) @ K.T
-            b = np.concatenate([(uv[:, :2] / uv[:, 2:3] - K[:2, 2])
-                                / np.diag(K)[:2], np.ones((3, 1))], 1)
-        else:              # random rays and points
-            b = rng.standard_normal((3, 3)) + [0, 0, 3]
-            X = rng.standard_normal((3, 3)) * 0.2
-        bear.append(b / np.linalg.norm(b, axis=1, keepdims=True))
-        pts.append(X)
-    bear = torch.from_numpy(np.asarray(bear, np.float32))
-    pts = torch.from_numpy(np.asarray(pts, np.float32))
+    bear, pts = (torch.from_numpy(a) for a in p3p_samples(rng, P1_SAMPLES))
     b_dev, p_dev = bear.to(dev), pts.to(dev)
     s, ok = pnp.p3p_distances(b_dev, p_dev)
     t0 = time.perf_counter()
@@ -1743,6 +1945,32 @@ def check_p1(dev, card: str) -> tuple:
         bad = (s.cpu().view(torch.int32) != s_w.view(torch.int32)).any(-1)
         raise AssertionError(f"P1 differs from its plain version on "
                              f"{int(bad.sum())} of {bad.numel()} candidates")
+    # degenerate samples at the 2D path's chunk sizes and an odd count (a
+    # grid ending inside a block)
+    from tod_tpu_torch import kernels
+
+    def same_nan(got, want):
+        got = got.cpu()
+        nan = torch.isnan(want)
+        return torch.equal(torch.isnan(got), nan) and torch.equal(
+            got[~nan].view(torch.int32), want[~nan].view(torch.int32))
+
+    deg_b, deg_p = p3p_degenerate(bear.numpy(), pts.numpy())
+    for n in (P1_SAMPLES, P1_SAMPLES // 2, P1_SAMPLES // 2 - 1):
+        want_s, want_ok = pnp.p3p_distances_torch(deg_b[:n], deg_p[:n])
+        got_s, got_ok = pnp.p3p_distances(deg_b[:n].to(dev),
+                                          deg_p[:n].to(dev))
+        if not (same_nan(got_s, want_s)
+                and torch.equal(got_ok.cpu(), want_ok)):
+            raise AssertionError(f"P1 differs from its plain version on {n} "
+                                 "samples with degenerate ones")
+    ptxas = [f"{e}: {f}" for e, f in ptxas_entries(
+        kernels.build_log.get("p3p", "")) if e.startswith("p3p_kernel")]
+    log(f"kernels: P1 equal to p3p_distances_torch bit for bit (NaN where "
+        f"NaN) on {P1_SAMPLES}, {P1_SAMPLES // 2} and {P1_SAMPLES // 2 - 1} "
+        f"samples with a degenerate one every 7 (collinear, repeated points, "
+        f"repeated, zero and NaN rays); ptxas "
+        f"{ptxas or 'not built in this run'}; {card}")
     p1_ms = cuda_ms(lambda: pnp.p3p_distances(b_dev, p_dev), queued=True)
     p1_host = cuda_ms(lambda: pnp.p3p_distances(b_dev, p_dev))
     ops_ms = P1_OPS * P1_SAMPLES / F32_OPS_S * 1e3
@@ -1758,6 +1986,7 @@ def check_p1(dev, card: str) -> tuple:
               bound_ms=max(ops_ms, bytes_ms),
               bound_by="operations" if ops_ms >= bytes_ms else "bytes",
               library_ms=None, host_ms=p1_host, plain_on="cpu",
+              ptxas=ptxas,
               shape=f"{P1_SAMPLES} samples (a 2D chunk: 32 objects x 512 "
               "hypotheses)")
 
@@ -1862,6 +2091,57 @@ def check_p1(dev, card: str) -> tuple:
               "library: torch.pow, cos, sin and cos, log, another "
               "rounding)")
     return p1, l4, check_p2(dev, card)
+
+
+def p3p_samples(rng: np.random.Generator, n: int) -> tuple:
+    """``n`` float32 P3P samples (bearings (n, 3, 3), points (n, 3, 3)) from
+    ``rng``: odd ones well posed (a pose, three points near a plane, their
+    rays through a VGA camera), even ones random rays and points."""
+    K = np.array([[525.0, 0, 319.5], [0, 525.0, 239.5], [0, 0, 1]])
+    bear, pts = [], []
+    for i in range(n):
+        if i % 2:          # a well-posed sample: a pose, 3 points, rays
+            ax = rng.uniform(-0.4, 0.4, 3)
+            th = np.linalg.norm(ax)
+            k = ax / th
+            kx = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]],
+                           [-k[1], k[0], 0]])
+            R = np.eye(3) + np.sin(th) * kx + (1 - np.cos(th)) * kx @ kx
+            T = np.array([*rng.uniform(-0.15, 0.15, 2), 0.9])
+            X = rng.uniform(-0.12, 0.12, (3, 3))
+            X[:, 2] *= 0.1
+            uv = (X @ R.T + T) @ K.T
+            b = np.concatenate([(uv[:, :2] / uv[:, 2:3] - K[:2, 2])
+                                / np.diag(K)[:2], np.ones((3, 1))], 1)
+        else:              # random rays and points
+            b = rng.standard_normal((3, 3)) + [0, 0, 3]
+            X = rng.standard_normal((3, 3)) * 0.2
+        bear.append(b / np.linalg.norm(b, axis=1, keepdims=True))
+        pts.append(X)
+    return np.asarray(bear, np.float32), np.asarray(pts, np.float32)
+
+
+def p3p_degenerate(bear: np.ndarray, pts: np.ndarray) -> tuple:
+    """Copies of P3P samples with a degenerate one every 7: collinear
+    points, a repeated point, a repeated ray, a NaN ray, a zero ray, all
+    points at one place, in turn."""
+    bear, pts = bear.copy(), pts.copy()
+    line = np.linspace(-0.1, 0.1, 3)[:, None] * np.array([1.0, 0.5, 0.2])
+    for i in range(0, len(bear), 7):
+        kind = (i // 7) % 6
+        if kind == 0:
+            pts[i] = line
+        elif kind == 1:
+            pts[i, 1] = pts[i, 0]
+        elif kind == 2:
+            bear[i, 2] = bear[i, 1]
+        elif kind == 3:
+            bear[i, 0] = np.nan
+        elif kind == 4:
+            bear[i, 1] = 0.0
+        else:
+            pts[i] = pts[i, 0]
+    return torch.from_numpy(bear), torch.from_numpy(pts)
 
 
 def l4_path_sizes(dev) -> list:
@@ -2139,11 +2419,13 @@ def sift_phases(dev, card: str, fx, frames, launches: dict):
     coarse_pairs = q_c.shape[0] * sum(cdb.rows_host)
     sweep_ms = cuda_ms(lambda: l2.object_top1_l2_sq(q_main, ldb), runs=8)
     sweep_pairs = Q * sum(ldb.rows_host)
+    b4_mm_ms = int_mm_ms(q_main, ldb, sel_t.tolist())
     log(f"kernels: B4 {b4_ms:.3f} ms median of {KERNEL_RUNS} "
         f"({b4_pairs / b4_ms / 1e6:.1f} G pairs/s); twin {b4_plain_ms:.3f} "
         f"ms median of {TWIN_RUNS}; bound {b4_bound[0]:.3f} ms by "
         f"{b4_bound[1]}; Q={Q} x {B2_SLOTS} slots ({b4_pairs // Q} rows); "
-        f"{card}")
+        f"yardstick torch._int_mm on the slab's int8 product alone: "
+        f"{b4_mm_ms:.3f} ms; {card}")
     log(f"kernels: coarse B3 {coarse_ms:.3f} ms "
         f"({coarse_pairs / coarse_ms / 1e6:.1f} G pairs/s) at "
         f"Q={q_c.shape[0]} x {sum(cdb.rows_host)} rows; full-sweep B3 "
@@ -2222,7 +2504,8 @@ def sift_phases(dev, card: str, fx, frames, launches: dict):
                  bound_ms=b3_bound[0], bound_by=b3_bound[1],
                  int_mm_ms=mm_ms),
             dict(max_abs_err=b4_err, ms=b4_ms, plain_ms=b4_plain_ms,
-                 bound_ms=b4_bound[0], bound_by=b4_bound[1]))
+                 bound_ms=b4_bound[0], bound_by=b4_bound[1],
+                 int_mm_ms=b4_mm_ms))
 
 
 def check_b5(q, words, n_valid: int, k: int, radius, what: str,
@@ -3517,12 +3800,15 @@ def a13_phases(dev, card: str, fx, launches: dict) -> dict:
             raise AssertionError(f"a13: launches {list(launches['9a'])}, "
                                  f"expected one B5 a frame and {rounds} N1 "
                                  "(one a round)")
-        l3_n, l3t, p1_n, l4_n, p2_n = launches["9a"][N_MATCH_NOISE + 2:]
+        l3_n, l3t, p1_n, l4_n, p2_n, l1e_n = \
+            launches["9a"][N_MATCH_NOISE + 2:]
         if l3_n or l3t or p1_n < n_frames * rounds or l4_n < p1_n \
-                or p2_n != 2 * p1_n:
+                or p2_n != 2 * p1_n or l1e_n < p1_n:
             raise AssertionError(f"a13: launches {list(launches['9a'])}, "
                                  "expected P1 at least once a round, L4 "
-                                 "more often, P2 twice a P1, no L3")
+                                 "more often, P2 twice a P1, L1e (the "
+                                 "mirror's atan2f) at least once a P1, no "
+                                 "L3")
         key = prng.prng_key(int(gg.params["seed"]))
         differ = []
         for f, res in enumerate(results):
@@ -5179,8 +5465,9 @@ def main() -> int:
     frames = [det.prepare_frame(fx["images"][f], fx["depths"][f], fx["K"])
               for f in range(len(fx["images"]))]
 
-    # ---- 3g. L1 and L2, the features' kernels, against their plain versions
-    l1, l2 = check_features(dev, card, frames[0][0])
+    # ---- 3g. L1, L1e and L2, the features' kernels, against their plain
+    # versions
+    l1, l1e, l2 = check_features(dev, card, frames[0][0])
     # ---- 3h. L3, the L2 matcher's distance tile, against its plain tile
     l3, l3t = check_l3(dev, card, frames[0][0])
     # ---- 3i. P1 and L4, the 2D path's kernels, against their plain versions
@@ -5349,11 +5636,19 @@ def main() -> int:
          "yardstick": "torch.rand at the same shape (Philox: not the same "
          "function)", "design_pr": 8,
          **{**n1, "max_abs_err": max([n1["max_abs_err"], *NOISE_ERR])}},
-        {"name": "L1 the host libm's float32 atan2f (replaces XLA's atan2, "
-         "a libm call: not a Pallas kernel)", "route": "cuda",
-         "source": SOURCE_L1, "replaces": L1_REPLACES,
-         "launches": total(7),
-         **l1},
+        {"name": "L1 the keypoint orientation fused from the level image: "
+         "the integral images in the compiled cumsum's order, the moments "
+         "at the keypoints in its FMA order, glibc's atan2f; two kernels a "
+         "call (redesigned; before: the dense moments, ~760 launches a "
+         "level, then the elementwise atan2f, L1e) (replaces XLA's "
+         "cumsums, fusions and libm call: not a Pallas kernel)",
+         "route": "cuda", "source": SOURCE_L1, "replaces": L1_REPLACES,
+         "launches": total(7), "design_pr": 21, **l1},
+        {"name": "L1e the host libm's float32 atan2f elementwise (L1's "
+         "first design, kept for the 2D path's mirror) (replaces XLA's "
+         "atan2, a libm call: not a Pallas kernel)", "route": "cuda",
+         "source": SOURCE_LIBM, "replaces": L1E_REPLACES,
+         "launches": total(14), "design_pr": 17, **l1e},
         {"name": "L2 fused SIFT descriptor: patches, gradients, atan2f, soft "
          "bins, the tables' contraction in the reference's summation order "
          "and Lowe's normalisation (replaces XLA's fusions, libm call and "
@@ -5373,14 +5668,17 @@ def main() -> int:
          "launches": total(10), "design_pr": 18, **l3t},
         {"name": "P1 Grunert's P3P up to the Horn fit: sides, quartic, "
          "Ferrari with glibc's powf and cosf, Newton polishes, the 3x3 "
-         "Newton steps, the gate (replaces XLA's fusions and libm calls: "
-         "not a Pallas kernel)", "route": "cuda", "source": SOURCE_P1,
-         "replaces": P1_REPLACES, "launches": total(11), "design_pr": 19,
+         "Newton steps, the gate; a group of 4 lanes a sample, one root "
+         "and both its branches a lane (redesigned; before: a thread a "
+         "sample) (replaces "
+         "XLA's fusions and libm calls: not a Pallas kernel)",
+         "route": "cuda", "source": SOURCE_P1,
+         "replaces": P1_REPLACES, "launches": total(11), "design_pr": 21,
          **p1},
         {"name": "L4 glibc's FMA builds of cosf, sincosf and powf, and "
          "XLA's log (replaces XLA's libm calls and log: not a Pallas "
          "kernel)",
-         "route": "cuda", "source": SOURCE_L1, "replaces": L4_REPLACES,
+         "route": "cuda", "source": SOURCE_LIBM, "replaces": L4_REPLACES,
          "launches": total(12), "design_pr": 20, **l4},
         {"name": "P2 the Gauss-Newton pose refinement, every iteration of "
          "a call in one launch: residuals, Jacobian, the normal equations "

@@ -1019,27 +1019,13 @@ def test_l3_fused_refuses_what_it_cannot_take():
 
 
 def _p3p_samples(rng, n):
-    """Half well-posed samples (a pose, three points, their rays), half
-    random rays and points."""
-    K = np.array([[525.0, 0, 319.5], [0, 525.0, 239.5], [0, 0, 1]])
-    bear, pts = [], []
-    for i in range(n):
-        if i % 2:
-            R = np.linalg.qr(rng.standard_normal((3, 3)) * 0.1
-                             + np.eye(3))[0]
-            R *= np.sign(np.linalg.det(R))
-            T = np.array([*rng.uniform(-0.15, 0.15, 2), 0.9])
-            X = rng.uniform(-0.12, 0.12, (3, 3))
-            uv = (X @ R.T + T) @ K.T
-            b = np.concatenate([(uv[:, :2] / uv[:, 2:3] - K[:2, 2])
-                                / np.diag(K)[:2], np.ones((3, 1))], 1)
-        else:
-            b = rng.standard_normal((3, 3)) + [0, 0, 3]
-            X = rng.standard_normal((3, 3)) * 0.2
-        bear.append(b / np.linalg.norm(b, axis=1, keepdims=True))
-        pts.append(X)
-    return (torch.from_numpy(np.asarray(bear, np.float32)),
-            torch.from_numpy(np.asarray(pts, np.float32)))
+    """``n`` samples of chip_smoke.py's generator (phase 3i's): half
+    well-posed (a pose, three points, their rays), half random rays and
+    points."""
+    import chip_smoke
+
+    return tuple(torch.from_numpy(a)
+                 for a in chip_smoke.p3p_samples(rng, n))
 
 
 @pytest.mark.cuda
@@ -1200,3 +1186,85 @@ def test_p2_input_layouts(layout):
     for g, wt in zip(got, want):
         assert g.shape == wt.shape
         assert torch.equal(g.cpu().view(torch.int32), wt.view(torch.int32))
+
+
+# ---- L1 fused from the level image; P1 in groups of 4 lanes ----------------
+
+
+def _orientation_case(h: int, w: int, seed: int):
+    """A float32 level image and 400 int32 keypoints anywhere in it, the
+    corners and borders first (the dense moments' zero padding)."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    img = np.clip(110 + 60 * np.sin(xx / 7.0) * np.cos(yy / 11.0)
+                  + rng.normal(0, 12, (h, w)), 0, 255).astype(np.float32)
+    xy = np.stack([rng.integers(0, w, 400), rng.integers(0, h, 400)], -1)
+    xy[:8] = [(0, 0), (w - 1, h - 1), (0, h - 1), (w - 1, 0), (w // 2, 0),
+              (w // 2, h - 1), (0, h // 2), (w - 1, h // 2)]
+    return torch.from_numpy(img), torch.from_numpy(xy.astype(np.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h, w", [(480, 640), (400, 533), (333, 444),
+                                  (720, 1280), (15, 17), (16, 31),
+                                  (255, 32), (1, 1)])
+@pytest.mark.parametrize("transposed", [False, True])
+def test_l1_orientation_matches_plain_version(h, w, transposed):
+    """Kernel L1 (tod_orb_angles: the integral images, then the moments at
+    the keypoints and atan2f) against keypoint_moments_torch + atan2f_torch
+    on the CPU, bit for bit, on a row-major and a column-major image (the
+    pyramid's levels past 0); one launch (two kernels) a call."""
+    from tod_tpu_torch.ops import libm
+    from tod_tpu_torch.ops import orb as torb
+
+    dev = _cuda()
+    img, xy = _orientation_case(h, w, h + w)
+    if transposed:
+        img = img.t().contiguous().t()
+    m10, m01 = torb.keypoint_moments_torch(img, xy)
+    want = libm.atan2f_torch(m01, m10)
+    before = torb.orb_angles.launches
+    got = torb.keypoint_angles(img.to(dev), xy.to(dev)).cpu()
+    assert torb.orb_angles.launches == before + 1
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_l1_orientation_refuses_what_it_cannot_take():
+    from tod_tpu_torch.ops import orb as torb
+
+    dev = _cuda()
+    img, xy = (a.to(dev) for a in _orientation_case(40, 50, 1))
+    assert torb.orb_angles(img, xy[:0]).shape == (0,)
+    for bad in ((img[0], xy), (img, xy[:, :1]), (img, xy.cpu())):
+        with pytest.raises(ValueError):
+            torb.orb_angles(*bad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [16384, 8192, 8191, 17])
+def test_p1_lane_groups_match_plain_version(n):
+    """P1 (a group of 4 lanes a sample, a root each) against
+    p3p_distances_torch on the CPU, every distance and validity bit for bit
+    (NaN where NaN), at the 2D path's chunk sizes, an odd count (a grid
+    ending inside a block) and degenerate samples (chip_smoke.py
+    p3p_degenerate: collinear points, a repeated point, a repeated ray, NaN
+    and zero bearings, all points at one place); one launch a call."""
+    import chip_smoke
+    from tod_tpu_torch.geometry import pnp
+
+    dev = _cuda()
+    bear, pts = chip_smoke.p3p_degenerate(*(a.numpy() for a in _p3p_samples(
+        np.random.default_rng(n + 4), n)))
+    want_s, want_ok = pnp.p3p_distances_torch(bear, pts)
+
+    def same(got, want):          # bit for bit, NaN where NaN
+        got = got.cpu()
+        nan = torch.isnan(want)
+        return torch.equal(torch.isnan(got), nan) and torch.equal(
+            got[~nan].view(torch.int32), want[~nan].view(torch.int32))
+
+    before = pnp.p3p_distances.launches
+    got = pnp.p3p_distances(bear.to(dev), pts.to(dev))
+    assert pnp.p3p_distances.launches == before + 1
+    assert same(got[0], want_s) and torch.equal(got[1].cpu(), want_ok)

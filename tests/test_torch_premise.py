@@ -1,0 +1,116 @@
+"""The premise of the port's pyramid rules (``tod_tpu_torch/ops/image.py``:
+Eigen's depth splits and oneDNN's kernels, as the reference's compiled
+programs run them): this host has the reference host's CPU flags, L1d and
+L2 sizes and at least the thread pool that decides alike. On another host
+the reference's own pyramid follows another blocking, so every parity
+test of features, models and detections would fail as a bare bit
+mismatch; this test fails first and names the cause.
+
+It only reads: ``/proc/cpuinfo``, ``/sys/devices/system/cpu/cpu0/cache``
+and the process's CPU affinity.
+"""
+
+import os
+import sys
+from pathlib import Path
+
+import pytest
+
+from tod_tpu_torch.ops import image as timage
+
+CACHE = Path("/sys/devices/system/cpu/cpu0/cache")
+TOOLS = ("tools/fit_resize_order.py", "tools/fit_sift_order.py",
+         "tools/fit_pyramid_shards.py")
+
+
+def read_flags() -> set:
+    """The CPU flags of the first processor in ``/proc/cpuinfo``."""
+    for line in Path("/proc/cpuinfo").read_text().splitlines():
+        if line.startswith("flags"):
+            return set(line.split(":", 1)[1].split())
+    return set()
+
+
+def _size(text: str) -> int:
+    text = text.strip()
+    scale = {"K": 1024, "M": 1024 ** 2, "G": 1024 ** 3}.get(text[-1:], 1)
+    return int(text.rstrip("KMG")) * scale
+
+
+def read_caches() -> dict:
+    """{"L1d": bytes, "L2": bytes} of cpu0's data and unified caches."""
+    found = {}
+    for index in sorted(CACHE.glob("index*")):
+        level = (index / "level").read_text().strip()
+        kind = (index / "type").read_text().strip()
+        if kind in ("Data", "Unified") and level in ("1", "2"):
+            found["L1d" if level == "1" else "L2"] = _size(
+                (index / "size").read_text())
+    return found
+
+
+def read_threads() -> int:
+    return len(os.sched_getaffinity(0))
+
+
+def premise_failures(flags: set, caches: dict, threads: int) -> list:
+    """Each premise of ``ops/image.py``'s constants this host breaks."""
+    failed = [f"CPU flag {flag} missing from /proc/cpuinfo"
+              for flag in timage._HOST_FLAGS if flag not in flags]
+    for name, want in (("L1d", timage._L1), ("L2", timage._L2)):
+        if caches.get(name) != want:
+            failed.append(f"{name} cache {caches.get(name)} bytes, the rules "
+                          f"take {want}")
+    if threads < timage._POOL_ALIKE:
+        failed.append(f"{threads} CPUs in this process's affinity, fewer "
+                      f"than the {timage._POOL_ALIKE} whose thread pool "
+                      "decides alike")
+    return failed
+
+
+def premise_message(failed: list) -> str:
+    return ("this host is not the pyramid rules' premise: "
+            + "; ".join(failed)
+            + ". On it the reference's pyramid follows another blocking "
+            "(Eigen's depth splits and oneDNN's kernels are chosen by the "
+            "host), so the port's pyramid bits no longer match it. Rerun "
+            "with the JAX package on this host: " + ", ".join(TOOLS)
+            + " (JAX_PLATFORMS=cpu), and refit ops/image.py's rules.")
+
+
+def check_premise(flags: set, caches: dict, threads: int) -> None:
+    failed = premise_failures(flags, caches, threads)
+    if failed:
+        pytest.fail(premise_message(failed), pytrace=False)
+
+
+def test_host_is_the_pyramids_premise():
+    check_premise(read_flags(), read_caches(), read_threads())
+
+
+@pytest.mark.parametrize("flags, caches, threads, named", [
+    ({"fma"}, {"L1d": 48 * 1024, "L2": 2 << 20}, 8, "avx512f"),
+    ({"avx512f", "fma"}, {"L1d": 32 * 1024, "L2": 2 << 20}, 8, "L1d"),
+    ({"avx512f", "fma"}, {"L1d": 48 * 1024, "L2": 1 << 20}, 8, "L2"),
+    ({"avx512f", "fma"}, {"L1d": 48 * 1024, "L2": 2 << 20}, 4, "4 CPUs")])
+def test_premise_failure_names_its_cause(monkeypatch, flags, caches, threads,
+                                         named):
+    """The failing branch, forced through the readers: one message naming
+    the premise, the blocking it moves and the tools to rerun."""
+    module = sys.modules[__name__]
+    monkeypatch.setattr(module, "read_flags", lambda: flags)
+    monkeypatch.setattr(module, "read_caches", lambda: caches)
+    monkeypatch.setattr(module, "read_threads", lambda: threads)
+    with pytest.raises(pytest.fail.Exception) as failure:
+        test_host_is_the_pyramids_premise()
+    text = str(failure.value)
+    assert named in text and "another blocking" in text
+    assert all(tool in text for tool in TOOLS)
+
+
+def test_readers_parse_this_host():
+    """The readers return what the premise needs: flags, both cache sizes
+    in bytes and a positive CPU count."""
+    assert read_flags() and read_threads() >= 1
+    assert set(read_caches()) == {"L1d", "L2"}
+    assert _size("48K") == 48 * 1024 and _size("2048K") == 2 << 20

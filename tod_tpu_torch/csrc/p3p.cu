@@ -26,11 +26,18 @@
 // tod_tpu_torch/geometry/pnp.py p3p_distances_torch: the CPU path, the
 // same operations in the same order, so both devices give the same bits.
 //
-// Design: one thread a sample, its 3 bearings and 3 points in registers,
-// its 4 roots and 8 candidates in turn (~2,000 float operations and four
-// libm calls a sample against 72 bytes read and 104 written: the float
-// rate bounds it, but at the 2D path's 8,192 samples a chunk the launch
-// and the serial chain of one thread do).
+// Design: a group of 4 lanes a sample, each lane one root and both its
+// branches (slot = branch * 4 + root). Every lane of a group computes the
+// sample's shared prefix itself (the sides, cosines, quartic coefficients
+// and Ferrari's solution: the same operations in the same order, so the
+// same bits, and no divergence within the group), then polishes its own
+// root alone (the six Newton polishes of the four roots never mix them)
+// and runs its two candidates' eight 3x3 Newton steps, the gate and the
+// output slots. A warp then holds 8 samples; at the 2D path's 8,192-16,384
+// samples a call is 33-66 k threads, against one serial chain of ~6,300
+// float operations a thread before. The 3x3 solve pivots by selects on
+// register values (no row indexed at run time), so nothing lives in local
+// memory but the libm's indexed tables.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -40,6 +47,7 @@
 namespace {
 
 constexpr int kThreads = 128;
+constexpr int kLanes = 4;          // lanes a sample: a root each
 
 __device__ __forceinline__ float fa(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ float fs(float a, float b) { return __fsub_rn(a, b); }
@@ -67,8 +75,11 @@ __device__ __forceinline__ float cbrt_ref(float x) {   // sign(x) |x|^(1/3)
 }
 __device__ __forceinline__ bool is_fin(float x) { return isfinite(x); }
 
-__device__ void solve_quartic(float c4, float c3, float c2, float c1,
-                              float c0, float roots[4]) {
+// Root j (0-3) of c4 x^4 + ... + c0 by Ferrari's method after its six
+// Newton polishes: the port's solve_quartic restricted to one root (the
+// polishes update each root from itself alone).
+__device__ float quartic_root(float c4, float c3, float c2, float c1,
+                              float c0, int j) {
   const float a = fd(c3, c4);
   const float b = fd(c2, c4);
   const float c = fd(c1, c4);
@@ -96,66 +107,66 @@ __device__ void solve_quartic(float c4, float c3, float c2, float c1,
   float m = D >= 0.0f ? m_pos : m_neg;
   m = maxc(m, 1e-12f);
   const float s = fsq(fm(2.0f, m));
-  const float t0 = fs(fa(fd(p, 2.0f), m), fd(q, fm(2.0f, s)));
-  const float t1 = fa(fa(fd(p, 2.0f), m), fd(q, fm(2.0f, s)));
-  const float d0 = fs(fm(s, s), fm(4.0f, t0));
-  const float d1 = fs(fm(s, s), fm(4.0f, t1));
-  const float sq0 = fsq(maxc(d0, 0.0f));
-  const float sq1 = fsq(maxc(d1, 0.0f));
-  const float shift = fd(a, 4.0f);
-  roots[0] = fs(fd(fa(-s, sq0), 2.0f), shift);
-  roots[1] = fs(fd(fs(-s, sq0), 2.0f), shift);
-  roots[2] = fs(fd(fa(s, sq1), 2.0f), shift);
-  roots[3] = fs(fd(fs(s, sq1), 2.0f), shift);
+  // roots 0, 1 from t0 = (p / 2 + m) - q / 2s, roots 2, 3 from t1 = ... +
+  const float half = fa(fd(p, 2.0f), m), lean = fd(q, fm(2.0f, s));
+  const float t = j < 2 ? fs(half, lean) : fa(half, lean);
+  const float dd = fs(fm(s, s), fm(4.0f, t));
+  const float sq = fsq(maxc(dd, 0.0f));
+  const float base = j < 2 ? -s : s;
+  float x = fs(fd((j & 1) ? fs(base, sq) : fa(base, sq), 2.0f), fd(a, 4.0f));
   for (int it = 0; it < 6; ++it) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float x = roots[j];
-      const float f = fa(fm(fa(fm(fa(fm(fa(fm(c4, x), c3), x), c2), x), c1), x),
-                         c0);
-      const float fp = fa(fm(fa(fm(fa(fm(fm(4.0f, c4), x), fm(3.0f, c3)), x),
-                               fm(2.0f, c2)), x), c1);
-      roots[j] = fs(x, fd(f, fabsf(fp) > 1e-12f ? fp : 1.0f));
-    }
+    const float f = fa(fm(fa(fm(fa(fm(fa(fm(c4, x), c3), x), c2), x), c1), x),
+                       c0);
+    const float fp = fa(fm(fa(fm(fa(fm(fm(4.0f, c4), x), fm(3.0f, c3)), x),
+                             fm(2.0f, c2)), x), c1);
+    x = fs(x, fd(f, fabsf(fp) > 1e-12f ? fp : 1.0f));
   }
+  return x;
 }
 
-// J delta = F for the Newton step, LU with partial pivoting
-__device__ void solve3(float J[3][3], float F[3], float x[3]) {
+// A 3-vector row of registers, swapped by selects
+struct Row3 {
+  float x, y, z;
+};
+
+__device__ __forceinline__ Row3 pick(bool c, Row3 a, Row3 b) {
+  return {c ? a.x : b.x, c ? a.y : b.y, c ? a.z : b.z};
+}
+
+// J delta = F for the Newton step, LU with partial pivoting (getf2's
+// order); the pivots' row swaps are selects, so every value stays in a
+// register
+__device__ __forceinline__ void solve3(Row3 j0, Row3 j1, Row3 j2, float f0,
+                                       float f1, float f2, float x[3]) {
   int p = 0;
-  float best = fabsf(J[0][0]);
-  if (fabsf(J[1][0]) > best) { p = 1; best = fabsf(J[1][0]); }
-  if (fabsf(J[2][0]) > best) p = 2;
-  if (p != 0) {
-#pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      const float t = J[0][k]; J[0][k] = J[p][k]; J[p][k] = t;
-    }
-    const float t = F[0]; F[0] = F[p]; F[p] = t;
-  }
-  const float rcp = fd(1.0f, J[0][0]);
-  float l1 = fm(J[1][0], rcp);
-  float l2 = fm(J[2][0], rcp);
-  J[1][1] = fs(J[1][1], fm(l1, J[0][1]));
-  J[1][2] = fs(J[1][2], fm(l1, J[0][2]));
-  J[2][1] = fs(J[2][1], fm(l2, J[0][1]));
-  J[2][2] = fs(J[2][2], fm(l2, J[0][2]));
-  if (fabsf(J[2][1]) > fabsf(J[1][1])) {
-#pragma unroll
-    for (int k = 1; k < 3; ++k) {
-      const float t = J[1][k]; J[1][k] = J[2][k]; J[2][k] = t;
-    }
-    float t = l1; l1 = l2; l2 = t;
-    t = F[1]; F[1] = F[2]; F[2] = t;
-  }
-  const float rcp1 = fd(1.0f, J[1][1]);
-  const float l21 = fm(J[2][1], rcp1);
-  J[2][2] = fs(J[2][2], fm(l21, J[1][2]));
-  const float y1 = fs(F[1], fm(l1, F[0]));
-  const float y2 = fs(fs(F[2], fm(l2, F[0])), fm(l21, y1));
-  x[2] = fd(y2, J[2][2]);
-  x[1] = fd(fs(y1, fm(J[1][2], x[2])), J[1][1]);
-  x[0] = fd(fs(fs(F[0], fm(J[0][2], x[2])), fm(J[0][1], x[1])), J[0][0]);
+  float best = fabsf(j0.x);
+  if (fabsf(j1.x) > best) { p = 1; best = fabsf(j1.x); }
+  if (fabsf(j2.x) > best) p = 2;
+  const Row3 r0 = pick(p == 1, j1, pick(p == 2, j2, j0));
+  Row3 r1 = pick(p == 1, j0, j1);
+  Row3 r2 = pick(p == 2, j0, j2);
+  const float g0 = p == 1 ? f1 : (p == 2 ? f2 : f0);
+  float g1 = p == 1 ? f0 : f1;
+  float g2 = p == 2 ? f0 : f2;
+  const float rcp = fd(1.0f, r0.x);
+  float l1 = fm(r1.x, rcp);
+  float l2 = fm(r2.x, rcp);
+  r1.y = fs(r1.y, fm(l1, r0.y));
+  r1.z = fs(r1.z, fm(l1, r0.z));
+  r2.y = fs(r2.y, fm(l2, r0.y));
+  r2.z = fs(r2.z, fm(l2, r0.z));
+  const bool sw = fabsf(r2.y) > fabsf(r1.y);
+  const Row3 u1 = pick(sw, r2, r1), u2 = pick(sw, r1, r2);
+  const float k1 = sw ? l2 : l1, k2 = sw ? l1 : l2;
+  const float h1 = sw ? g2 : g1, h2 = sw ? g1 : g2;
+  const float rcp1 = fd(1.0f, u1.y);
+  const float l21 = fm(u2.y, rcp1);
+  const float u22 = fs(u2.z, fm(l21, u1.z));
+  const float y1 = fs(h1, fm(k1, g0));
+  const float y2 = fs(fs(h2, fm(k2, g0)), fm(l21, y1));
+  x[2] = fd(y2, u22);
+  x[1] = fd(fs(y1, fm(u1.z, x[2])), u1.y);
+  x[0] = fd(fs(fs(g0, fm(r0.z, x[2])), fm(r0.y, x[1])), r0.x);
 }
 
 __device__ __forceinline__ void cosine_law(const float s[3], float ca,
@@ -179,11 +190,53 @@ __device__ __forceinline__ float dist3(const float* u, const float* v) {
   return fsq(__fmaf_rn(d[2], d[2], __fmaf_rn(d[1], d[1], fm(d[0], d[0]))));
 }
 
+// One candidate (root v, branch br) from its first distance s1: eight
+// Newton steps on the cosine-law system, the gate, its output slot
+__device__ __forceinline__ void candidate(float v, float s1, float sq, int br,
+                                          float ca, float cb, float cg,
+                                          float a2, float b2, float c2,
+                                          float gate, float* o,
+                                          uint8_t* ok_out) {
+  const float u = br == 0 ? fa(cg, sq) : fs(cg, sq);
+  float s[3] = {s1, fm(u, s1), fm(v, s1)};
+#pragma unroll 1
+  for (int it = 0; it < 8; ++it) {
+    float F[3];
+    cosine_law(s, ca, cb, cg, a2, b2, c2, F);
+    const Row3 j0 = {1e-9f, fs(fm(2.0f, s[1]), fm(fm(2.0f, s[2]), ca)),
+                     fs(fm(2.0f, s[2]), fm(fm(2.0f, s[1]), ca))};
+    const Row3 j1 = {fs(fm(2.0f, s[0]), fm(fm(2.0f, s[2]), cb)), 1e-9f,
+                     fs(fm(2.0f, s[2]), fm(fm(2.0f, s[0]), cb))};
+    const Row3 j2 = {fs(fm(2.0f, s[0]), fm(fm(2.0f, s[1]), cg)),
+                     fs(fm(2.0f, s[1]), fm(fm(2.0f, s[0]), cg)), 1e-9f};
+    float delta[3];
+    solve3(j0, j1, j2, F[0], F[1], F[2], delta);
+    if (is_fin(delta[0]) && is_fin(delta[1]) && is_fin(delta[2])) {
+      s[0] = fs(s[0], delta[0]);
+      s[1] = fs(s[1], delta[1]);
+      s[2] = fs(s[2], delta[2]);
+    }
+  }
+  float res[3];
+  cosine_law(s, ca, cb, cg, a2, b2, c2, res);
+  const bool solved = fabsf(res[0]) < gate && fabsf(res[1]) < gate
+      && fabsf(res[2]) < gate;
+  const bool ok = s[0] > 0.0f && s[1] > 0.0f && s[2] > 0.0f && solved
+      && is_fin(s[0]) && is_fin(s[1]) && is_fin(s[2]);
+  o[0] = s[0];
+  o[1] = s[1];
+  o[2] = s[2];
+  *ok_out = ok ? 1 : 0;
+}
+
 __global__ void __launch_bounds__(kThreads)
 p3p_kernel(const float* __restrict__ bear, const float* __restrict__ pts,
            float* __restrict__ s_out, uint8_t* __restrict__ ok_out, int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t t = static_cast<int64_t>(blockIdx.x) * kThreads
+                    + threadIdx.x;
+  const int64_t i = t / kLanes;          // the sample; a group never cut
   if (i >= n) return;
+  const int j = static_cast<int>(t % kLanes);   // the lane's root
   float f[9], P[9];
 #pragma unroll
   for (int k = 0; k < 9; ++k) {
@@ -204,53 +257,18 @@ p3p_kernel(const float* __restrict__ bear, const float* __restrict__ pts,
   const float C2 = fs(fa(fa(fs(fs(fa(fa(fs(fs(fs(fs(fa(fm(fm(fm(fm(4.0f, Ar), Ar), cb), cb), fm(fm(2.0f, Ar), Ar)), fm(fm(fm(fm(8.0f, Ar), Br), cb), cb)), fm(fm(4.0f, Ar), Br)), fm(fm(fm(fm(8.0f, Ar), ca), cb), cg)), fm(fm(fm(4.0f, Ar), cg), cg)), fm(fm(fm(fm(4.0f, Br), Br), cb), cb)), fm(fm(2.0f, Br), Br)), fm(fm(fm(4.0f, Br), ca), ca)), fm(fm(fm(fm(8.0f, Br), ca), cb), cg)), fm(fm(4.0f, ca), ca)), fm(fm(4.0f, cg), cg)), 2.0f);
   const float C1 = fs(fa(fa(fs(fs(fa(fa(fa(fm(fm(fm(-4.0f, Ar), Ar), cb), fm(fm(fm(8.0f, Ar), Br), cb)), fm(fm(fm(4.0f, Ar), ca), cg)), fm(fm(fm(fm(8.0f, Ar), cb), cg), cg)), fm(fm(4.0f, Ar), cb)), fm(fm(fm(4.0f, Br), Br), cb)), fm(fm(fm(4.0f, Br), ca), cg)), fm(fm(4.0f, Br), cb)), fm(fm(4.0f, ca), cg));
   const float C0 = fa(fs(fa(fa(fs(fs(fm(Ar, Ar), fm(fm(2.0f, Ar), Br)), fm(fm(fm(4.0f, Ar), cg), cg)), fm(2.0f, Ar)), fm(Br, Br)), fm(2.0f, Br)), 1.0f);
-  float v[4];
-  solve_quartic(C4, C3, C2, C1, C0, v);
+  const float v = quartic_root(C4, C3, C2, C1, C0, j);
   const float scale = maxnan(maxnan(a2, b2), c2);
   const float gate = fm(1e-4f, scale);
+  const float gv = maxc(fs(fa(1.0f, fm(v, v)), fm(fm(2.0f, v), cb)), 1e-12f);
+  const float s1 = fsq(fd(b2, gv));
+  const float disc = maxc(fs(fm(cg, cg), fs(1.0f, fm(Br, gv))), 0.0f);
+  const float sq = fsq(disc);
 #pragma unroll 1
-  for (int j = 0; j < 4; ++j) {
-    const float g = maxc(fs(fa(1.0f, fm(v[j], v[j])), fm(fm(2.0f, v[j]), cb)),
-                         1e-12f);
-    const float s1 = fsq(fd(b2, g));
-    const float disc = maxc(fs(fm(cg, cg), fs(1.0f, fm(Br, g))), 0.0f);
-    const float sq = fsq(disc);
-#pragma unroll 1
-    for (int br = 0; br < 2; ++br) {
-      const float u = br == 0 ? fa(cg, sq) : fs(cg, sq);
-      float s[3] = {s1, fm(u, s1), fm(v[j], s1)};
-#pragma unroll 1
-      for (int it = 0; it < 8; ++it) {
-        float F[3];
-        cosine_law(s, ca, cb, cg, a2, b2, c2, F);
-        float J[3][3] = {
-            {1e-9f, fs(fm(2.0f, s[1]), fm(fm(2.0f, s[2]), ca)),
-             fs(fm(2.0f, s[2]), fm(fm(2.0f, s[1]), ca))},
-            {fs(fm(2.0f, s[0]), fm(fm(2.0f, s[2]), cb)), 1e-9f,
-             fs(fm(2.0f, s[2]), fm(fm(2.0f, s[0]), cb))},
-            {fs(fm(2.0f, s[0]), fm(fm(2.0f, s[1]), cg)),
-             fs(fm(2.0f, s[1]), fm(fm(2.0f, s[0]), cg)), 1e-9f}};
-        float delta[3];
-        solve3(J, F, delta);
-        if (is_fin(delta[0]) && is_fin(delta[1]) && is_fin(delta[2])) {
-          s[0] = fs(s[0], delta[0]);
-          s[1] = fs(s[1], delta[1]);
-          s[2] = fs(s[2], delta[2]);
-        }
-      }
-      float res[3];
-      cosine_law(s, ca, cb, cg, a2, b2, c2, res);
-      const bool solved = fabsf(res[0]) < gate && fabsf(res[1]) < gate
-          && fabsf(res[2]) < gate;
-      const bool ok = s[0] > 0.0f && s[1] > 0.0f && s[2] > 0.0f && solved
-          && is_fin(s[0]) && is_fin(s[1]) && is_fin(s[2]);
-      const int slot = br * 4 + j;
-      float* o = s_out + (static_cast<int64_t>(i) * 8 + slot) * 3;
-      o[0] = s[0];
-      o[1] = s[1];
-      o[2] = s[2];
-      ok_out[static_cast<int64_t>(i) * 8 + slot] = ok ? 1 : 0;
-    }
+  for (int br = 0; br < 2; ++br) {
+    const int64_t slot = i * 8 + br * 4 + j;
+    candidate(v, s1, sq, br, ca, cb, cg, a2, b2, c2, gate, s_out + slot * 3,
+              ok_out + slot);
   }
 }
 
@@ -263,8 +281,9 @@ p3p_kernel(const float* __restrict__ bear, const float* __restrict__ pts,
 extern "C" int tod_p3p(const void* bearings, const void* points,
                        void* s_out, void* ok_out, int n, void* stream) {
   if (n <= 0) return 0;
-  p3p_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
-               static_cast<cudaStream_t>(stream)>>>(
+  const int64_t threads = static_cast<int64_t>(n) * kLanes;
+  const int blocks = static_cast<int>((threads + kThreads - 1) / kThreads);
+  p3p_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(bearings), static_cast<const float*>(points),
       static_cast<float*>(s_out), static_cast<uint8_t*>(ok_out), n);
   return static_cast<int>(cudaGetLastError());

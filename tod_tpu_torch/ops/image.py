@@ -268,6 +268,11 @@ def _row_slice(depth: int) -> int:
 # unroll 24, M scaled by 1.5).
 _THREADS, _PACKET, _MR, _NR = 8, 8, 16, 4
 _L1, _L2 = 48 * 1024, 2 * 1024 * 1024
+# The host these rules were read on (tests/test_torch_premise.py holds a
+# host to it): the CPU flags its oneDNN kernels and XLA's code take, and
+# the least pool that decides alike
+_HOST_FLAGS = ("avx512f", "fma")
+_POOL_ALIKE = 6
 _BYTE_CYCLES = 11 / 64        # Eigen's TensorCostModel: a byte from L2
 
 

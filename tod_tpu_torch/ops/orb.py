@@ -17,12 +17,13 @@ from typing import Callable, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from tod_tpu_torch import kernels
 from tod_tpu_torch.ops.fast import (fast_score, features_per_level,
                                     harris_response, select_topk_keypoints,
                                     subpixel_offsets)
 from tod_tpu_torch.ops.image import (build_pyramid, fma_f32,
                                      gaussian_blur, resize_nearest)
-from tod_tpu_torch.ops.libm import atan2f
+from tod_tpu_torch.ops.libm import atan2f_torch
 from tod_tpu_torch.ops.matching import pack_bits
 
 HALF_PATCH = 15          # orientation patch radius (cv::ORB half_patch_size)
@@ -118,6 +119,19 @@ def scan_sum(x: torch.Tensor) -> torch.Tensor:
     return (prefix + offsets[:, None]).reshape(m * 16, *x.shape[1:])[:n]
 
 
+def _integral_images(img: torch.Tensor, pad: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The orientation's integral images by :func:`scan_sum`, zero-padded
+    by ``pad`` on every side: ``v`` down the columns of the image with a
+    zero first row ((H+1) x W before the padding), ``hc`` along its rows
+    with a zero first column (H x (W+1))."""
+    x = img.to(torch.float32)
+    zpad = torch.nn.functional.pad
+    v = zpad(scan_sum(zpad(x, (0, 0, 1, 0))), (pad, pad, pad, pad))
+    hc = zpad(scan_sum(zpad(x, (1, 0, 0, 0)).T).T, (pad, pad, pad, pad))
+    return v, hc
+
+
 def orientation_moments(img: torch.Tensor
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dense (m10, m01) intensity-centroid moment maps of the 31x31 circular
@@ -127,11 +141,8 @@ def orientation_moments(img: torch.Tensor
     then ``fma(d, t, acc)`` term by term (the two moments side by side)."""
     widths = _circle_half_widths()
     h, w = img.shape
-    x = img.to(torch.float32)
     pad = HALF_PATCH + 1
-    zpad = torch.nn.functional.pad
-    v = zpad(scan_sum(zpad(x, (0, 0, 1, 0))), (pad, pad, pad, pad))
-    hc = zpad(scan_sum(zpad(x, (1, 0, 0, 0)).T).T, (pad, pad, pad, pad))
+    v, hc = _integral_images(img, pad)
 
     def vslice(arr, dy, dx):
         return arr[pad + dy:pad + dy + h, pad + dx:pad + dx + w]
@@ -150,12 +161,71 @@ def orientation_moments(img: torch.Tensor
     return acc[0], acc[1]
 
 
+def keypoint_moments_torch(img: torch.Tensor, xy: torch.Tensor
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`orientation_moments` at integer keypoint coords ``xy`` (K, 2)
+    alone, bit for bit: the same integral images and zero padding, the 60
+    differences a keypoint gathered, the same fused chain over (2, K). The
+    plain version of kernel L1 (``csrc/orientation.cu``)."""
+    widths = _circle_half_widths()
+    pad = HALF_PATCH + 1
+    v, hc = _integral_images(img, pad)
+    d = np.array([d for d in range(-HALF_PATCH, HALF_PATCH + 1) if d])
+    hw = widths[d + HALF_PATCH]
+    d_t = torch.as_tensor(d, device=img.device)
+    hw_t = torch.as_tensor(hw, device=img.device)
+    x = xy[:, 0].long()[:, None] + pad                    # (K, 1)
+    y = xy[:, 1].long()[:, None] + pad
+    col_sum = v[y + hw_t + 1, x + d_t] - v[y - hw_t, x + d_t]   # (K, 30)
+    row_sum = hc[y + d_t, x + hw_t + 1] - hc[y + d_t, x - hw_t]
+    t = torch.stack([col_sum, row_sum])                   # (2, K, 30)
+    acc = fma_f32(t[..., 0], float(d[0]), t[..., 1] * float(d[1]))
+    for i in range(2, len(d)):
+        acc = fma_f32(t[..., i], float(d[i]), acc)
+    return acc[0], acc[1]
+
+
+def orb_angles(img: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
+    """Kernel L1 (``csrc/orientation.cu tod_orb_angles``) on a CUDA level
+    image: the angles of :func:`keypoint_angles` at ``xy``, fused from the
+    image of any strides (its integral images, then the moments at the
+    keypoints and ``atan2f``: two kernels, one call, counted in
+    ``orb_angles.launches``; a failed launch raises)."""
+    if img.dim() != 2 or xy.dim() != 2 or xy.shape[-1] != 2:
+        raise ValueError(f"orb_angles: image {tuple(img.shape)}, xy "
+                         f"{tuple(xy.shape)}")
+    if img.device.type != "cuda" or xy.device != img.device:
+        raise ValueError(f"orb_angles: image on {img.device}, xy on "
+                         f"{xy.device}; the kernel takes CUDA tensors")
+    img = img.to(torch.float32)     # any strides: a level may be transposed
+    xy = xy.to(torch.int32).contiguous()
+    h, w = img.shape
+    k = xy.shape[0]
+    out = torch.empty(k, dtype=torch.float32, device=img.device)
+    if k:
+        v = torch.empty((h + 1, w), dtype=torch.float32, device=img.device)
+        hc = torch.empty((h, w + 1), dtype=torch.float32, device=img.device)
+        kernels.call("orientation", "tod_orb_angles",
+                     [img.data_ptr(), xy.data_ptr(), v.data_ptr(),
+                      hc.data_ptr(), out.data_ptr()],
+                     [h, w, *img.stride(), k],
+                     torch.cuda.current_stream(img.device).cuda_stream)
+        orb_angles.launches += 1
+    return out
+
+
+orb_angles.launches = 0
+
+
 def keypoint_angles(img: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
     """Orientation at integer keypoint coords: atan2(m01, m10), as the host
-    libm's ``atan2f`` rounds it (``ops/libm.py``, kernel L1 on the card)."""
-    m10, m01 = orientation_moments(img)
-    x, y = xy[:, 0].long(), xy[:, 1].long()
-    return atan2f(m01[y, x].contiguous(), m10[y, x].contiguous())
+    libm's ``atan2f`` rounds it: kernel L1 (:func:`orb_angles`) on a CUDA
+    tensor, :func:`keypoint_moments_torch` and ``atan2f_torch`` on a CPU
+    tensor."""
+    if img.device.type == "cpu":
+        m10, m01 = keypoint_moments_torch(img, xy)
+        return atan2f_torch(m01, m10)
+    return orb_angles(img, xy)
 
 
 # The bin rule's divisor 2 pi / 32 as the compiled reference applies it: XLA

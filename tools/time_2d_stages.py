@@ -1,6 +1,7 @@
-"""Time, on a card, the 2D-only path, the SIFT graph's matcher or the 2D
-refinement kernel of the tree at ``--root`` (default: this checkout), so
-that a parent commit and its change can be timed in turns in one call:
+"""Time, on a card, the 2D-only path, the SIFT graph's matcher, the P3P or
+the 2D refinement kernel of the tree at ``--root`` (default: this
+checkout), so that a parent commit and its change can be timed in turns
+in one call:
 
 - ``--what 2d``: the 2D-only path of conf/detection.ork on a depthless
   smoke frame, split by ``utils/profiling.py StageTimer`` (CUDA events)
@@ -10,6 +11,12 @@ that a parent commit and its change can be timed in turns in one call:
   l2_topk`` at phase 7e's shape (frame 0's 5000 SIFT descriptor slots
   against the three SIFT smoke models' rows, k 5, chunk 4,096), CUDA
   events over ``--frames`` calls;
+- ``--what p1``: the P3P alone, ``geometry/pnp.py p3p_distances`` (kernel
+  P1 on the card) on phase 3i's samples (``chip_smoke.p3p_samples`` at
+  seed 19 and ``P1_SAMPLES``, from this checkout's ``chip_smoke.py``
+  whatever ``--root`` names), CUDA events over ``--frames`` calls:
+  ``p1`` around the call (its host work included) and ``p1_device`` with
+  each call queued behind a device sleep;
 - ``--what p2``: the refinement alone, ``geometry/pnp.py
   gauss_newton_pose`` (kernel P2 on the card) at ``chip_smoke.P2_SHAPE``
   (a 2D chunk's refinement) and, where the tree's P2 takes it, at
@@ -25,6 +32,7 @@ from __future__ import annotations
 
 import argparse
 import functools
+import importlib.util
 import json
 import os
 import subprocess
@@ -157,11 +165,51 @@ def time_p2(cs, frames: int) -> list:
     return out
 
 
+def own_chip_smoke():
+    """This checkout's ``chip_smoke.py``, whichever tree ``--root`` names:
+    the samples of phase 3i come from it, so a parent is timed on them too.
+    """
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke_own", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def time_p1(frames: int) -> list:
+    import torch
+
+    from tod_tpu_torch.geometry import pnp
+
+    own = own_chip_smoke()
+    dev = torch.device("cuda", 0)
+    b, p = (torch.from_numpy(a).to(dev) for a in own.p3p_samples(
+        np.random.default_rng(19), own.P1_SAMPLES))
+    out = []
+    for f in range(frames + 2):
+        row = {}
+        for name, queued in (("p1", False), ("p1_device", True)):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            if queued:
+                torch.cuda._sleep(2_000_000)     # ~1 ms: hides the host
+            start.record()
+            pnp.p3p_distances(b, p)
+            end.record()
+            end.synchronize()
+            row[name] = start.elapsed_time(end)
+        if f >= 2:                                       # after 2 warm
+            out.append(row)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
-    ap.add_argument("--what", choices=("2d", "matcher", "p2"), default="2d")
+    ap.add_argument("--what", choices=("2d", "matcher", "p1", "p2"),
+                    default="2d")
     ap.add_argument("--frames", type=int, default=5)
     args = ap.parse_args()
     root = os.path.abspath(args.root)
@@ -178,6 +226,7 @@ def main() -> int:
     kernels.build_all()
     per_frame = {"2d": lambda: time_2d(cs, root, args.frames),
                  "matcher": lambda: time_matcher(cs, args.frames),
+                 "p1": lambda: time_p1(args.frames),
                  "p2": lambda: time_p2(cs, args.frames)}[args.what]()
     keys = sorted({k for f in per_frame for k in f})
     print(json.dumps({

@@ -3,7 +3,7 @@
 frame size, for one checkout of the port.
 
     python3 tools/time_features_stage.py [--root DIR] [--label NAME]
-        [--frames 480x640,720x1280] [--runs 20]
+        [--frames 480x640,720x1280] [--runs 20] [--train RUNS]
 
 Imports ``tod_tpu_torch`` from ``--root`` (default this checkout), so that
 two versions are compared on one card by running this once a checkout in
@@ -15,8 +15,13 @@ power limit, the median and range of host ms over ``--runs`` calls (each
 synchronised, after 3 warm-up calls) of ``build_pyramid`` (the operating
 point's levels and scale) and of ``stage_features_compact`` (the bench's
 operating point, tests/data/torch_sizes_fixture.npz ``config_json``), and
-the device operations of one call of each under torch.profiler. Needs a
-CUDA device; imports no JAX.
+the device operations of one call of each under torch.profiler, and the
+same of the keypoint orientation alone (``ops/orb.py keypoint_angles`` at
+every level of one features call, with that call's keypoints).
+``--train RUNS`` also times ``cells/trainer.py train_views`` on object 0's
+60 views of tests/data/torch_train_fixture.npz (ORB, 600 features: the
+bench's training) over RUNS runs and prints ms a view. Needs a CUDA
+device; imports no JAX.
 """
 
 from __future__ import annotations
@@ -68,6 +73,7 @@ def main() -> int:
     ap.add_argument("--label", default="this checkout")
     ap.add_argument("--frames", default="480x640,720x1280")
     ap.add_argument("--runs", type=int, default=20)
+    ap.add_argument("--train", type=int, default=0)
     args = ap.parse_args()
 
     import torch
@@ -80,6 +86,7 @@ def main() -> int:
     from tod_tpu_torch.convert import config_from_dict
     from tod_tpu_torch.models.fused import (prepare_frame,
                                             stage_features_compact)
+    from tod_tpu_torch.ops import orb
     from tod_tpu_torch.ops.image import build_pyramid
     from tod_tpu_torch.utils import synthetic as syn
 
@@ -96,11 +103,20 @@ def main() -> int:
         image, depth = sizes.size_scene(syn, h, w)
         gray, depth_t, K_t = prepare_frame(image, depth,
                                            sizes.size_camera(h, w), dev)
+        levels, original = [], orb.keypoint_angles
+        orb.keypoint_angles = lambda img, xy: (levels.append((img, xy)),
+                                               original(img, xy))[1]
+        try:
+            stage_features_compact(gray, depth_t, K_t, cfg)
+        finally:
+            orb.keypoint_angles = original
         calls = {
             "pyramid": lambda: build_pyramid(gray, cfg.n_levels,
                                              cfg.scale_factor),
             "features": lambda: stage_features_compact(gray, depth_t, K_t,
-                                                       cfg)}
+                                                       cfg),
+            "angles": lambda: [orb.keypoint_angles(img, xy)
+                               for img, xy in levels]}
         row = {"label": args.label, "frame": frame, "card": card,
                "runs": args.runs}
         for name, fn in calls.items():
@@ -109,6 +125,21 @@ def main() -> int:
             row[f"{name}_ms_range"] = [min(ms), max(ms)]
             row[f"{name}_device_ops"] = device_ops(torch, fn)
         print(json.dumps(row), flush=True)
+    if args.train:
+        from tod_tpu_torch.cells.trainer import feature_settings, train_views
+        from tod_tpu_torch.types import fixture_observations
+
+        tx = np.load(os.path.join(HERE, "tests", "data",
+                                  "torch_train_fixture.npz"))
+        views = fixture_observations(tx, 0)
+        settings = feature_settings({"type": "ORB", "n_features": 600})
+        fn = lambda: train_views(views, settings, dev)  # noqa: E731
+        ms = [synced_ms(torch, fn) for _ in range(1 + args.train)][1:]
+        print(json.dumps({"label": args.label, "card": card,
+                          "train_views": len(views), "runs": args.train,
+                          "train_ms_a_view": float(np.median(ms))
+                          / len(views),
+                          "train_ms": ms}), flush=True)
     return 0
 
 
