@@ -90,6 +90,14 @@ any failure raises, exits non-zero and prints no ``ok`` line:
             another rounding); P2 (csrc/gauss_newton.cu) at a 2D chunk's
             shape and past its shared memory (the rows in a global
             scratch).
+3j.         kernels M1 and M2 (csrc/mirror.cu: the 2D path's mirror pose
+            and model normal, a thread a pose or matrix) against their
+            plain versions on the CPU bit for bit at a chunk's 32 objects
+            x 8 poses and a tail of 5, with the edge cases (no turn, s at
+            1e-6, T = 0, a NaN pose; isotropic, rank-0 and rank-1
+            covariances); timed beside their plain versions on the card
+            (the parent's chain of launches) and the CPU, M2 beside
+            torch.linalg.eigh.
 4. main     FusedDetector at the bench's operating point on the 100-object
             smoke catalog, frames of tests/data/torch_smoke_fixture.npz
             through prepare_frame -> detect; the compaction stage's
@@ -381,7 +389,14 @@ tests/data/torch_jpeg_fixture.npz (tools/make_torch_jpeg_fixture.py):
             through ``cli ingest`` into tools/ingest_frames.py's frames;
             the first through conf/detection.ork (B5, N1): its MatchSet
             equal to the reference graph's, the reference's accepts at its
-            poses; a legacy CouchDB with obj000's three views as JPEG
+            poses; the same for the progressive files cut short that
+            libjpeg block-smooths (tests/data/torch_jpeg_smoothing_
+            fixture.npz, tools/make_torch_jpeg_smoothing_fixture.py: every
+            cut of every sampling and gray, two subsets that are not
+            prefixes, scene 0 cut after 1 and 9 of its 10 scans, and a
+            recording of the scenes cut after 9 scans through ``cli
+            ingest`` and conf/detection.ork to the reference's MatchSet and
+            accepts); a legacy CouchDB with obj000's three views as JPEG
             attachments trained through conf/training.ork (B5) to the
             model the reference trains from cv2's pixels.
 12b. render the bench's objects 0-2 rendered on the host by
@@ -432,6 +447,8 @@ A13_FIXTURE = os.path.join(DATA, "torch_a13_fixture.npz")
 A16_FIXTURE = os.path.join(DATA, "torch_a16_fixture.npz")
 LEGACY_FIXTURE = os.path.join(DATA, "torch_legacy_fixture.npz")
 JPEG_FIXTURE = os.path.join(DATA, "torch_jpeg_fixture.npz")
+JPEG_SMOOTHING_FIXTURE = os.path.join(DATA,
+                                      "torch_jpeg_smoothing_fixture.npz")
 SIZES_FIXTURE = os.path.join(DATA, "torch_sizes_fixture.npz")
 SMALL_SIZES_FIXTURE = os.path.join(DATA, "torch_small_sizes_fixture.npz")
 Q = 2048
@@ -469,10 +486,28 @@ SOURCE_L3 = "tod_tpu_torch/csrc/l2_distances.cu"
 # multiply-adds of the dense moments and its call of the host libm's atan2f
 # (not a Pallas kernel)
 L1_REPLACES = "tod_tpu/ops/orb.py:112-163"
-# XLA's atan2 (a call of the host libm's atan2f) left on the card: the 2D
-# path's mirror (the reference's arccos form too; the gradients' orientations
-# run in L2)
+# XLA's atan2 (a call of the host libm's atan2f): the 2D path's mirror and
+# the reference's arccos form, both run inside M1 and M2 since their
+# redesign (the gradients' orientations run in L2)
 L1E_REPLACES = "tod_tpu/geometry/detection2d.py:183"
+SOURCE_MIRROR = "tod_tpu_torch/csrc/mirror.cu"
+# the reference's mirror branch (XLA's fusions of the dots, the cross
+# product, the libm atan2f / sinf / cosf calls and the two 3x3 products) and
+# its eigh of the model points' covariance (not Pallas kernels)
+M1_REPLACES = "tod_tpu/geometry/detection2d.py:172-186"
+M2_REPLACES = "tod_tpu/geometry/detection2d.py:164-169"
+# operations of M1 a pose, counted from its source: float32 outside the
+# libm calls (the normal's and T's dots, the reflection, the cross product,
+# the clamps and divisions, ax ax, Q and Q R) 190 plus atan2f's L1_OPS; in
+# float64 sincosf's LIBM_OPS
+M1_F32_OPS = 190
+# operations of M2 a matrix: float64 (the mean and spread, b, its
+# determinant, lambda, a, the three cross products and their norms, the
+# normalisation) 124 plus cosf's LIBM_OPS; float32 the arccos's 4 and
+# atan2f's L1_OPS, the angle's 2
+M2_F64_OPS = 124
+M2_F32_OPS = 6
+MIRROR_SHAPES = ((32, 8), (5, 8))   # a 2D chunk's objects x N_REFINE; a tail
 # the reference's SIFT descriptor from the patches to the normalisation:
 # XLA's fusions, the libm atan2f call and the tables' dot (not a Pallas
 # kernel)
@@ -1124,7 +1159,9 @@ def wrappers():
     """The kernel wrappers, B1..B5, T1, N1, L1 (the fused keypoint
     orientation), L2, L3 (the fused matcher), L3t (its distance tile), P1,
     L4 (libm's cosf / sincosf / powf, XLA's log), P2 (the Gauss-Newton
-    refinement) and L1e (the elementwise atan2f)."""
+    refinement), L1e (the elementwise atan2f), M1 (the 2D path's mirror)
+    and M2 (its model normal)."""
+    from tod_tpu_torch.geometry import detection2d as td
     from tod_tpu_torch.geometry import pnp
     from tod_tpu_torch.ops import hamming as ham
     from tod_tpu_torch.ops import libm
@@ -1140,12 +1177,13 @@ def wrappers():
             ham.hamming_probe, prng.gumbel, orb.orb_angles,
             sift.sift_descriptors, matching.l2_topk_fused,
             matching.l2_distances, pnp.p3p_distances, libm.libm_f32,
-            pnp.gauss_newton_pose, libm.atan2f)
+            pnp.gauss_newton_pose, libm.atan2f, td.mirror_poses,
+            td.sym3_smallest_vector)
 
 
 # the names of :func:`wrappers`' kernels, in the order of :func:`read_counts`
 COUNTED_KERNELS = [f"B{i + 1}" for i in range(5)] + [
-    "T1", "N1", "L1", "L2", "L3", "L3t", "P1", "L4", "P2", "L1e"]
+    "T1", "N1", "L1", "L2", "L3", "L3t", "P1", "L4", "P2", "L1e", "M1", "M2"]
 N_MATCH_NOISE = 7          # B1..B5, T1 and N1: the counts before L1-L4
 
 
@@ -1156,7 +1194,7 @@ def reset_counts() -> None:
 
 def read_counts():
     """Launches of (B1, B2, B3, B4, B5, T1, N1, L1, L2, L3, L3t, P1, L4,
-    P2, L1e) since :func:`reset_counts`."""
+    P2, L1e, M1, M2) since :func:`reset_counts`."""
     return tuple(fn.launches for fn in wrappers())
 
 
@@ -1174,14 +1212,15 @@ def check_feature_counts(what: str, n_frames: int, counts,
     without SIFT; L3 (the fused L2 matcher) one a frame where ``l3``, else
     none; L4 (XLA's log of the RANSAC weights) the same number of times on
     every frame; never L3's tile (the orders the graph does not take), P1,
-    P2 or L1e (the 2D path's)."""
-    l1, l2, l3_n, l3t, p1, l4, p2, l1e = counts[N_MATCH_NOISE:]
+    P2, M1 or M2 (the 2D path's), or L1e (on no path)."""
+    l1, l2, l3_n, l3t, p1, l4, p2, l1e, m1, m2 = counts[N_MATCH_NOISE:]
     if l1 < n_frames or l1 % n_frames or (l2 != l1 if sift else l2) or (
             l3_n != n_frames if l3 else l3_n) or l3t or p1 or l4 % n_frames \
-            or p2 or l1e:
+            or p2 or l1e or m1 or m2:
         raise AssertionError(f"{what}: launches L1 {l1}, L2 {l2}, L3 {l3_n}, "
                              f"L3t {l3t}, P1 {p1}, L4 {l4}, P2 {p2}, L1e "
-                             f"{l1e} for {n_frames} frames")
+                             f"{l1e}, M1 {m1}, M2 {m2} for {n_frames} "
+                             "frames")
 
 
 def check_launches(what: str, n_frames: int, counts, full: int,
@@ -2246,6 +2285,123 @@ def check_p2(dev, card: str) -> dict:
                 "iterations (a 2D chunk's refinement); large_ms: "
                 + " x ".join(map(str, P2_LARGE_SHAPE)) + "; odd_ms: "
                 + " x ".join(map(str, P2_ODD_SHAPE)))
+
+
+def mirror_cases(rng: np.random.Generator, n_obj: int, n_pose: int
+                 ) -> tuple:
+    """Float32 inputs of M1 and M2 at a 2D chunk's shape: ``R`` (n_obj,
+    n_pose, 3, 3) rotations near a camera's view of an object, ``T`` in
+    front of it, an object's normal ``n`` (n_obj, 3), and ``cov`` (n_obj,
+    3, 3) covariances of near-planar model points; with the edge cases:
+    the normal along the viewing ray (``s = 0``, no turn), ``s`` just past
+    and under 1e-6, ``T = 0``, a NaN pose, and an isotropic, a rank-0 and a
+    rank-1 covariance."""
+    ang = rng.uniform(-0.6, 0.6, (n_obj, n_pose, 3))
+    R = np.stack([np.stack([cv_rodrigues(a) for a in row]) for row in ang])
+    T = np.concatenate([rng.uniform(-0.2, 0.2, (n_obj, n_pose, 2)),
+                        rng.uniform(0.5, 1.5, (n_obj, n_pose, 1))], -1)
+    n = rng.standard_normal((n_obj, 3))
+    n /= np.linalg.norm(n, axis=1, keepdims=True)
+    R[0, 0], T[0, 0], n[0] = np.eye(3), [0, 0, 1], [0, 0, 1]   # s = 0
+    R[0, 1], T[0, 1] = np.eye(3), [0, 0, 0]                    # T = 0
+    R[0, 2] = np.eye(3)                                        # s ~ 1e-6
+    T[0, 2] = [2e-6, 0, 1]
+    R[0, 3] = np.eye(3)
+    T[0, 3] = [4e-7, 0, 1]
+    R[0, 4, 0, 0] = np.nan
+    pts = rng.uniform(-0.1, 0.1, (n_obj, 64, 3)) * [1, 1, 0.05]
+    d = pts - pts.mean(1, keepdims=True)
+    cov = np.einsum("oki,okj->oij", d, d)
+    cov[1] = np.eye(3) * 0.25                                  # isotropic
+    cov[2] = 0.0                                               # rank 0
+    cov[3] = np.outer([1, 2, 3], [1, 2, 3]) * 1e-3             # rank 1
+    return tuple(torch.from_numpy(np.ascontiguousarray(a, np.float32))
+                 for a in (R, T, n, cov))
+
+
+def check_mirror(dev, card: str) -> tuple:
+    """Phase 3j: kernels M1 (the 2D path's mirror) and M2 (its model
+    normal, csrc/mirror.cu) against their plain versions on the CPU, bit
+    for bit (NaN where NaN), at ``MIRROR_SHAPES`` with the edge cases of
+    :func:`mirror_cases`; each timed on the device and with its host work,
+    beside its plain version on the card (the parent's chain of tensor
+    ops, with L1e's atan2f and L4's sincosf / cosf) and on the CPU, M2
+    beside torch.linalg.eigh (the library column: another algorithm)."""
+    from tod_tpu_torch.geometry import detection2d as td
+
+    def same(got, want):
+        got = got.cpu()
+        nan = torch.isnan(want)
+        return torch.equal(torch.isnan(got), nan) and torch.equal(
+            got[~nan].view(torch.int32), want[~nan].view(torch.int32))
+
+    rng = np.random.default_rng(37)
+    out = {}
+    for shape in MIRROR_SHAPES:
+        R, T, n, cov = mirror_cases(rng, *shape)
+        want_r, want_t = td.mirror_poses(R, T, n)
+        want_n = td.sym3_smallest_vector(cov)
+        args = [x.to(dev) for x in (R, T, n)]
+        cov_d = cov.to(dev)
+        m1_before, m2_before = (td.mirror_poses.launches,
+                                td.sym3_smallest_vector.launches)
+        got_r, got_t = td.mirror_poses(*args)
+        got_n = td.sym3_smallest_vector(cov_d)
+        if (td.mirror_poses.launches, td.sym3_smallest_vector.launches) \
+                != (m1_before + 1, m2_before + 1):
+            raise AssertionError("M1 / M2: not one launch a call")
+        for got, want, what in ((got_r, want_r, "M1 R"),
+                                (got_t, want_t, "M1 T"),
+                                (got_n, want_n, "M2")):
+            if not same(got, want):
+                raise AssertionError(f"{what} differs from its plain version "
+                                     f"at {shape}")
+        if shape != MIRROR_SHAPES[0]:
+            continue
+        n_pose, n_obj = shape[0] * shape[1], shape[0]
+        for name, call, plain, on_cpu, library, ops_ms, n_bytes in (
+                ("M1", lambda: td.mirror_poses(*args),
+                 lambda: td.mirror_poses_torch(*args),
+                 lambda: td.mirror_poses(R, T, n), None,
+                 n_pose * ((M1_F32_OPS + L1_OPS) / F32_OPS_S
+                           + LIBM_OPS / F64_OPS_S) * 1e3,
+                 n_pose * 96 + n_obj * 12),
+                ("M2", lambda: td.sym3_smallest_vector(cov_d),
+                 lambda: td.sym3_smallest_vector_torch(cov_d),
+                 lambda: td.sym3_smallest_vector(cov),
+                 lambda: torch.linalg.eigh(cov_d),
+                 n_obj * ((M2_F32_OPS + L1_OPS) / F32_OPS_S
+                          + (M2_F64_OPS + LIBM_OPS) / F64_OPS_S) * 1e3,
+                 n_obj * 48)):
+            ms = cuda_ms(call, queued=True)
+            host = cuda_ms(call)
+            plain_ms = cuda_ms(plain)
+            t0 = time.perf_counter()
+            for _ in range(TWIN_RUNS):
+                on_cpu()
+            cpu_ms = (time.perf_counter() - t0) * 1e3 / TWIN_RUNS
+            lib_ms = cuda_ms(library) if library else None
+            bytes_ms = n_bytes / HBM_BYTES_S * 1e3
+            bound_ms = max(ops_ms, bytes_ms)
+            log(f"kernels: {name} equal to its plain version bit for bit at "
+                f"{' and '.join(map(str, MIRROR_SHAPES))} with the edge "
+                f"cases; at {shape}: {ms:.4f} ms median of {KERNEL_RUNS} on "
+                f"the device (the call with its host work {host:.4f} ms); "
+                f"the plain version on the card (the parent's chain) "
+                f"{plain_ms:.4f} ms, on the CPU {cpu_ms:.3f} ms; "
+                + (f"torch.linalg.eigh {lib_ms:.4f} ms; " if lib_ms else "")
+                + f"bound {bound_ms:.7f} ms by "
+                f"{'operations' if ops_ms >= bytes_ms else 'bytes'}; {card}")
+            out[name] = dict(
+                max_abs_err=0.0, ms=ms, host_ms=host, plain_ms=plain_ms,
+                plain_on="cuda (the parent's chain of tensor ops with L1e "
+                "and L4)", plain_cpu_ms=cpu_ms, bound_ms=bound_ms,
+                bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+                library_ms=lib_ms,
+                shape=(f"{shape[0]} objects x {shape[1]} poses (a 2D "
+                       "chunk's mirrors)" if name == "M1" else
+                       f"{shape[0]} covariances (a 2D chunk's normals)"))
+    return out["M1"], out["M2"]
 
 
 def cv_rodrigues(ax) -> np.ndarray:
@@ -3800,15 +3956,17 @@ def a13_phases(dev, card: str, fx, launches: dict) -> dict:
             raise AssertionError(f"a13: launches {list(launches['9a'])}, "
                                  f"expected one B5 a frame and {rounds} N1 "
                                  "(one a round)")
-        l3_n, l3t, p1_n, l4_n, p2_n, l1e_n = \
+        l3_n, l3t, p1_n, l4_n, p2_n, l1e_n, m1_n, m2_n = \
             launches["9a"][N_MATCH_NOISE + 2:]
         if l3_n or l3t or p1_n < n_frames * rounds or l4_n < p1_n \
-                or p2_n != 2 * p1_n or l1e_n < p1_n:
+                or p2_n != 2 * p1_n or l1e_n or m1_n != p1_n \
+                or m2_n != p1_n:
             raise AssertionError(f"a13: launches {list(launches['9a'])}, "
                                  "expected P1 at least once a round, L4 "
-                                 "more often, P2 twice a P1, L1e (the "
-                                 "mirror's atan2f) at least once a P1, no "
-                                 "L3")
+                                 "more often, P2 twice a P1, M1 (the "
+                                 "mirror) and M2 (the model normal) once a "
+                                 "P1, no L1e (their atan2f runs inside "
+                                 "them), no L3")
         key = prng.prng_key(int(gg.params["seed"]))
         differ = []
         for f, res in enumerate(results):
@@ -4820,18 +4978,13 @@ def blobs_of(data: np.ndarray, offsets: np.ndarray):
     return [data[a:b].tobytes() for a, b in zip(offsets[:-1], offsets[1:])]
 
 
-def jpeg_phases(dev, card: str, fx, jx, launches: dict) -> None:
-    """Phase 12a: the JPEG decoder against cv2's pixels, ``cli ingest`` of
-    a JPEG recording, its frame through conf/detection.ork, and training
-    from JPEG attachments of a legacy CouchDB."""
-    import shutil
-    import tempfile
-
-    from tod_tpu_torch import cli
-    from tod_tpu_torch.db import ObjectDbParameters, load_models_for_objects
+def jpeg_cases(jx, card: str, what: str) -> None:
+    """Every JPEG case of ``jx`` (``case_names``, ``case_blob``) decoded by
+    utils/jpeg.py equal to cv2's pixels (arrays, or SHA-256 digests for the
+    480 x 640 ones) under IMREAD_UNCHANGED and IMREAD_COLOR; the 480 x 640
+    decodes timed on the host."""
     from tod_tpu_torch.utils.jpeg import decode_jpeg
 
-    model_ids, models = load_fixture()[1:]
     names = [str(n) for n in jx["case_names"]]
     vga = []
     for i, (name, data) in enumerate(zip(names, blobs_of(
@@ -4841,67 +4994,100 @@ def jpeg_phases(dev, card: str, fx, jx, launches: dict) -> None:
             px = decode_jpeg(data, color=color)
             ms = (time.perf_counter() - t0) * 1e3
             if f"case{i}_{key}" in jx.files:
-                same_array(px, jx[f"case{i}_{key}"], f"jpeg: {name} ({key})")
+                same_array(px, jx[f"case{i}_{key}"], f"{what}: {name} ({key})")
             elif digest(px) != str(jx[f"case{i}_{key}_sha"]):
-                raise AssertionError(f"jpeg: {name} ({key}) differs from "
+                raise AssertionError(f"{what}: {name} ({key}) differs from "
                                      "cv2's pixels")
             else:
                 vga.append(f"{name} ({key}) {ms:.0f} ms")
-    log(f"jpeg: {len(names)} files decoded equal to cv2's pixels under "
+    log(f"{what}: {len(names)} files decoded equal to cv2's pixels under "
         f"IMREAD_UNCHANGED and IMREAD_COLOR; host decode of a 480x640 "
         f"frame: {'; '.join(vga)}; {card}")
 
-    with tempfile.TemporaryDirectory() as tmp:
-        src = os.path.join(tmp, "rec")
-        os.makedirs(src)
-        n_rec = sum(1 for k in jx.files if k.startswith("rec_color"))
-        for f in range(n_rec):
-            for name, key in ((f"color_{f:04d}.jpg", f"rec_color{f}"),
-                              (f"depth_{f:04d}.png", f"rec_depth{f}")):
-                with open(os.path.join(src, name), "wb") as fh:
-                    fh.write(jx[key].tobytes())
-        frames_dir = os.path.join(tmp, "frames")
-        t0 = time.perf_counter()
-        _, text = quiet(cli.main, ["ingest", "--format", "pairs",
-                                   "--rgb-glob", "color_*.jpg",
-                                   "--depth-glob", "depth_*.png", src,
-                                   frames_dir])
-        ingest_s = time.perf_counter() - t0
-        got = {}
-        for name in sorted(os.listdir(frames_dir)):
-            with np.load(os.path.join(frames_dir, name)) as z:
-                got[name] = {k: digest(z[k]) for k in sorted(z.files)}
-        if got != json.loads(str(jx["rec_frames_json"])):
-            raise AssertionError("ingest: the frames differ from "
-                                 "tools/ingest_frames.py's")
-        log(f"ingest: {text.strip()}: a {n_rec}-frame pairs recording (JPEG "
-            f"colour, PNG depth) in {ingest_s:.2f} s on the host; every "
-            "array equal to tools/ingest_frames.py's (cv2)")
 
-        one = os.path.join(tmp, "one")
-        os.makedirs(one)
-        first = sorted(os.listdir(frames_dir))[0]
-        shutil.copy(os.path.join(frames_dir, first), one)
-        npy = write_catalog_db(tmp, model_ids, models)
-        reset_counts()
-        res, pipeline, _ = run_graph("conf/detection.ork", {
-            "source1": {"path": one, "loop": False},
-            "pipeline1": {"db": npy, "device": str(dev)}})
-        launches["12a-detect"] = read_counts()
-        check_launches("jpeg-detect", 1, launches["12a-detect"], full=4)
-        m = pipeline.cells["pipeline1"].descriptor_matcher.outputs["matches"]
-        want = json.loads(str(jx["rec_match_json"]))
-        for name, sha in want.items():
-            if digest(getattr(m, name)) != sha:
-                raise AssertionError(f"jpeg-detect: MatchSet {name} differs "
-                                     "from the reference graph's")
-        ref = {k[len("rec_"):]: jx[k] for k in jx.files
-               if k.startswith("rec_ref_")}
-        check_frame(0, res[0], fx, ref, image=0, what="jpeg-detect")
-        log(f"jpeg-detect: conf/detection.ork over the ingested JPEG frame: "
-            f"MatchSet ({int(m.valid.sum())} in radius) equal to the "
-            "reference graph's; its accepts at the reference's poses")
-        del pipeline, m
+def jpeg_recording(dev, fx, jx, tmp: str, what: str, launches: dict
+                   ) -> None:
+    """``jx``'s two-frame "pairs" recording (``rec_color{f}`` JPEG,
+    ``rec_depth{f}`` PNG) through ``cli ingest`` into tools/ingest_frames.py's
+    frames (``rec_frames_json``), the first through conf/detection.ork on
+    ``dev`` (B5, N1): its MatchSet equal to the reference graph's
+    (``rec_match_json``), the reference's accepts (``rec_ref_*``) at its
+    poses. Launches under ``launches[what + "-detect"]``."""
+    import shutil
+
+    from tod_tpu_torch import cli
+
+    model_ids, models = load_fixture()[1:]
+    src = os.path.join(tmp, "rec")
+    os.makedirs(src)
+    n_rec = sum(1 for k in jx.files if k.startswith("rec_color"))
+    for f in range(n_rec):
+        for name, key in ((f"color_{f:04d}.jpg", f"rec_color{f}"),
+                          (f"depth_{f:04d}.png", f"rec_depth{f}")):
+            with open(os.path.join(src, name), "wb") as fh:
+                fh.write(jx[key].tobytes())
+    frames_dir = os.path.join(tmp, "frames")
+    t0 = time.perf_counter()
+    _, text = quiet(cli.main, ["ingest", "--format", "pairs",
+                               "--rgb-glob", "color_*.jpg",
+                               "--depth-glob", "depth_*.png", src,
+                               frames_dir])
+    ingest_s = time.perf_counter() - t0
+    got = {}
+    for name in sorted(os.listdir(frames_dir)):
+        with np.load(os.path.join(frames_dir, name)) as z:
+            got[name] = {k: digest(z[k]) for k in sorted(z.files)}
+    if got != json.loads(str(jx["rec_frames_json"])):
+        raise AssertionError(f"{what}-ingest: the frames differ from "
+                             "tools/ingest_frames.py's")
+    log(f"{what}-ingest: {text.strip()}: a {n_rec}-frame pairs recording "
+        f"(JPEG colour, PNG depth) in {ingest_s:.2f} s on the host; every "
+        "array equal to tools/ingest_frames.py's (cv2)")
+
+    one = os.path.join(tmp, "one")
+    os.makedirs(one)
+    first = sorted(os.listdir(frames_dir))[0]
+    shutil.copy(os.path.join(frames_dir, first), one)
+    npy = write_catalog_db(tmp, model_ids, models)
+    reset_counts()
+    res, pipeline, _ = run_graph("conf/detection.ork", {
+        "source1": {"path": one, "loop": False},
+        "pipeline1": {"db": npy, "device": str(dev)}})
+    key = f"{what}-detect"
+    launches[key] = read_counts()
+    check_launches(key, 1, launches[key], full=4)
+    m = pipeline.cells["pipeline1"].descriptor_matcher.outputs["matches"]
+    want = json.loads(str(jx["rec_match_json"]))
+    for name, sha in want.items():
+        if digest(getattr(m, name)) != sha:
+            raise AssertionError(f"{key}: MatchSet {name} differs from the "
+                                 "reference graph's")
+    ref = {k[len("rec_"):]: jx[k] for k in jx.files
+           if k.startswith("rec_ref_")}
+    check_frame(0, res[0], fx, ref, image=0, what=key)
+    log(f"{key}: conf/detection.ork over the ingested JPEG frame: MatchSet "
+        f"({int(m.valid.sum())} in radius) equal to the reference graph's; "
+        "its accepts at the reference's poses")
+
+
+def jpeg_phases(dev, card: str, fx, jx, launches: dict) -> None:
+    """Phase 12a: the JPEG decoder against cv2's pixels, ``cli ingest`` of
+    a JPEG recording, its frame through conf/detection.ork, the same for
+    progressive files cut short, which libjpeg block-smooths
+    (tests/data/torch_jpeg_smoothing_fixture.npz), and training from JPEG
+    attachments of a legacy CouchDB."""
+    import tempfile
+
+    from tod_tpu_torch.db import ObjectDbParameters, load_models_for_objects
+
+    jpeg_cases(jx, card, "jpeg")
+    smooth = np.load(JPEG_SMOOTHING_FIXTURE)
+    jpeg_cases(smooth, card, "jpeg-smoothing")
+    with tempfile.TemporaryDirectory() as tmp:
+        jpeg_recording(dev, fx, jx, os.path.join(tmp, "full"), "12a",
+                       launches)
+        jpeg_recording(dev, fx, smooth, os.path.join(tmp, "cut"),
+                       "12a-smoothing", launches)
 
         lx = np.load(LEGACY_FIXTURE)
         oid = str(lx["object_id"])
@@ -5472,6 +5658,8 @@ def main() -> int:
     l3, l3t = check_l3(dev, card, frames[0][0])
     # ---- 3i. P1 and L4, the 2D path's kernels, against their plain versions
     p1, l4, p2 = check_p1(dev, card)
+    # ---- 3j. M1 and M2, the 2D path's mirror and model normal
+    m1, m2 = check_mirror(dev, card)
     compacted = [stage_features_compact(*frame, cfg) for frame in frames]
     for f, port in enumerate(compacted):
         missing = compaction_mismatches(port, fx, f)
@@ -5645,8 +5833,9 @@ def main() -> int:
          "route": "cuda", "source": SOURCE_L1, "replaces": L1_REPLACES,
          "launches": total(7), "design_pr": 21, **l1},
         {"name": "L1e the host libm's float32 atan2f elementwise (L1's "
-         "first design, kept for the 2D path's mirror) (replaces XLA's "
-         "atan2, a libm call: not a Pallas kernel)", "route": "cuda",
+         "first design; the 2D path's mirror and arccos took it until M1 "
+         "and M2, which run it inside) (replaces XLA's atan2, a libm call: "
+         "not a Pallas kernel)", "route": "cuda",
          "source": SOURCE_LIBM, "replaces": L1E_REPLACES,
          "launches": total(14), "design_pr": 17, **l1e},
         {"name": "L2 fused SIFT descriptor: patches, gradients, atan2f, soft "
@@ -5686,7 +5875,19 @@ def main() -> int:
          "shuffles), the 6x6 LU by a warp, the Rodrigues update (replaces "
          "XLA's fusions, jacfwd and LAPACK's solve: not a Pallas kernel)",
          "route": "cuda", "source": SOURCE_P2, "replaces": P2_REPLACES,
-         "launches": total(13), "design_pr": 20, **p2}]}))
+         "launches": total(13), "design_pr": 20, **p2},
+        {"name": "M1 the 2D path's mirror pose: the model normal reflected "
+         "about the viewing ray, glibc's atan2f and sincosf, the turn and "
+         "Q R, a thread a pose (replaces XLA's fusions and libm calls: not "
+         "a Pallas kernel)", "route": "cuda", "source": SOURCE_MIRROR,
+         "replaces": M1_REPLACES, "launches": total(15), "design_pr": 22,
+         **m1},
+        {"name": "M2 the 2D path's model normal: the smallest eigenvector "
+         "of a 3x3 covariance by the characteristic cubic in float64 with "
+         "XLA's arccos and glibc's cosf, a thread a matrix (replaces "
+         "jnp.linalg.eigh: not a Pallas kernel)", "route": "cuda",
+         "source": SOURCE_MIRROR, "replaces": M2_REPLACES,
+         "launches": total(16), "design_pr": 22, **m2}]}))
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,9 +7,9 @@ range, all-zero and all-one descriptors, ties across fragments, lanes,
 tiles and splits); and the threefry noise kernel N1 against its twins on
 the card and the same draws on the CPU; L1 (the host libm's atan2f), L2
 (the fused SIFT descriptor), L3 (the fused L2 matcher and its distance
-tile), P1 (P3P) and L4 (glibc's cosf, sincosf, powf; XLA's log) against
-their plain versions, bit for bit; and the 2D path on the card against the
-CPU, bit for bit.
+tile), P1 (P3P), L4 (glibc's cosf, sincosf, powf; XLA's log), M1 and M2
+(the 2D path's mirror and model normal) against their plain versions, bit
+for bit; and the 2D path on the card against the CPU, bit for bit.
 
 Every test here is marked ``cuda`` and skips without a GPU. The file needs
 neither JAX nor the JAX package, so it also runs on a machine that has
@@ -1268,3 +1268,61 @@ def test_p1_lane_groups_match_plain_version(n):
     got = pnp.p3p_distances(bear.to(dev), pts.to(dev))
     assert pnp.p3p_distances.launches == before + 1
     assert same(got[0], want_s) and torch.equal(got[1].cpu(), want_ok)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_obj, n_pose", [(32, 8), (5, 8), (1, 1), (3, 2)])
+def test_m1_m2_match_plain_versions(n_obj, n_pose):
+    """M1 (the 2D path's mirror) and M2 (its model normal) against
+    mirror_poses_torch and sym3_smallest_vector_torch on the CPU, bit for
+    bit (NaN where NaN), at a chunk's shape, a tail and small shapes, with
+    chip_smoke.py mirror_cases' edge cases (no turn, s at 1e-6, T = 0, a
+    NaN pose; isotropic, rank-0 and rank-1 covariances); one launch a
+    call each."""
+    import chip_smoke
+    from tod_tpu_torch.geometry import detection2d as td
+
+    dev = _cuda()
+    R, T, n, cov = chip_smoke.mirror_cases(
+        np.random.default_rng(n_obj * 10 + n_pose), max(n_obj, 4),
+        max(n_pose, 5))
+    R, T = R[:n_obj, :n_pose].contiguous(), T[:n_obj, :n_pose].contiguous()
+    n, cov = n[:n_obj], cov[:n_obj]
+    want_r, want_t = td.mirror_poses_torch(R, T, n)
+    want_n = td.sym3_smallest_vector_torch(cov)
+
+    def same(got, want):
+        got = got.cpu()
+        nan = torch.isnan(want)
+        return torch.equal(torch.isnan(got), nan) and torch.equal(
+            got[~nan].view(torch.int32), want[~nan].view(torch.int32))
+
+    before = (td.mirror_poses.launches, td.sym3_smallest_vector.launches)
+    got_r, got_t = td.mirror_poses(R.to(dev), T.to(dev), n.to(dev))
+    got_n = td.sym3_smallest_vector(cov.to(dev))
+    assert (td.mirror_poses.launches, td.sym3_smallest_vector.launches) \
+        == (before[0] + 1, before[1] + 1)
+    assert same(got_r, want_r) and same(got_t, want_t)
+    assert same(got_n, want_n)
+
+
+@pytest.mark.cuda
+def test_m1_m2_take_views_and_refuse_other_dtypes():
+    """Non-contiguous inputs (the 2D path gathers its top poses) give the
+    contiguous inputs' bits; float64 is refused."""
+    import chip_smoke
+    from tod_tpu_torch.geometry import detection2d as td
+
+    dev = _cuda()
+    R, T, n, cov = (x.to(dev) for x in chip_smoke.mirror_cases(
+        np.random.default_rng(3), 8, 6))
+    got = td.mirror_poses(R[:, 1::2], T[:, 1::2], n)
+    want = td.mirror_poses(R[:, 1::2].contiguous(), T[:, 1::2].contiguous(),
+                           n)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(td.sym3_smallest_vector(cov[::2]),
+                       td.sym3_smallest_vector(cov[::2].contiguous()))
+    with pytest.raises(ValueError):
+        td.mirror_poses(R.double(), T, n)
+    with pytest.raises(ValueError):
+        td.sym3_smallest_vector(cov.double())

@@ -20,8 +20,9 @@ a round in one call (one launch of kernel N1 on a card). Every step rounds
 alike on the CPU and the card: sums in fixed orders
 (``transforms.pairwise_sum``, three-term dots left to right), no library
 product or reduction of floats, XLA's ``log`` and the C library's
-``cosf``, ``sincosf`` and ``atan2f`` from ``ops/libm.py`` (kernels L1 and
-L4 on a card), correctly rounded roots,
+``cosf``, ``sincosf`` and ``atan2f`` from ``ops/libm.py`` (kernel L4 on a
+card, and inside kernels M1 and M2, the mirror and the model normal, one
+launch a call each), correctly rounded roots,
 divisions by tensors (PyTorch's CUDA division by a Python number
 multiplies by its reciprocal), and P3P through kernel P1 or its plain
 twin. No step inside a round waits for the host: the histogram is a
@@ -40,6 +41,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from tod_tpu_torch import kernels
 from tod_tpu_torch.geometry.adjacency import (ObjectMatches,
                                               count_unique_query_indices)
 from tod_tpu_torch.geometry.detection import cluster_matches
@@ -213,8 +215,8 @@ def truncated_sse(R, T, K, m: ObjectMatches, valid: torch.Tensor,
                                     torch.minimum(err2, cap), 0.0), -1)
 
 
-def _sym3_smallest_vector(cov: torch.Tensor) -> torch.Tensor:
-    """Unit eigenvector of the smallest eigenvalue of symmetric (..., 3, 3)
+def sym3_smallest_vector_torch(cov: torch.Tensor) -> torch.Tensor:
+    """The plain version of kernel M2. Unit eigenvector of the smallest eigenvalue of symmetric (..., 3, 3)
     matrices, in closed form (no host wait, unlike ``torch.linalg.eigh`` on
     a card): the eigenvalue by the trigonometric solution of the
     characteristic cubic, the vector as the largest cross product of two
@@ -253,6 +255,31 @@ def _sym3_smallest_vector(cov: torch.Tensor) -> torch.Tensor:
     return vec.to(cov.dtype)
 
 
+def sym3_smallest_vector(cov: torch.Tensor) -> torch.Tensor:
+    """:func:`sym3_smallest_vector_torch` of float32 (..., 3, 3) matrices:
+    kernel M2 (``csrc/mirror.cu tod_sym3_smallest``, a thread a matrix) on
+    a CUDA tensor, one launch counted in ``sym3_smallest_vector.launches``
+    (a failed launch raises); the plain version on a CPU tensor."""
+    if cov.dtype != torch.float32 or cov.shape[-2:] != (3, 3):
+        raise ValueError(f"sym3_smallest_vector takes float32 (..., 3, 3), "
+                         f"got {cov.dtype} {tuple(cov.shape)}")
+    if cov.device.type == "cpu":
+        return sym3_smallest_vector_torch(cov)
+    if cov.device.type != "cuda":
+        raise ValueError(f"no sym3_smallest_vector path for {cov.device}")
+    cov = cov.contiguous()
+    out = torch.empty(cov.shape[:-1], dtype=cov.dtype, device=cov.device)
+    if out.numel():
+        kernels.call("mirror", "tod_sym3_smallest",
+                     [cov.data_ptr(), out.data_ptr()], [out.numel() // 3],
+                     torch.cuda.current_stream(cov.device).cuda_stream)
+        sym3_smallest_vector.launches += 1
+    return out
+
+
+sym3_smallest_vector.launches = 0
+
+
 def model_normal(train_pts: torch.Tensor, valid: torch.Tensor
                  ) -> torch.Tensor:
     """(A, 3) smallest-variance direction of each object's valid model
@@ -263,12 +290,13 @@ def model_normal(train_pts: torch.Tensor, valid: torch.Tensor
     d = ctr - mean[:, None, :]
     cov = pairwise_sum((d * valid[..., None])[..., :, None] * d[..., None, :],
                        1)
-    return _sym3_smallest_vector(cov)
+    return sym3_smallest_vector(cov)
 
 
-def mirror_poses(R: torch.Tensor, T: torch.Tensor, n_model: torch.Tensor
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The planar two-fold ambiguity's other branch: the model normal
+def mirror_poses_torch(R: torch.Tensor, T: torch.Tensor,
+                       n_model: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of kernel M1. The planar two-fold ambiguity's other branch: the model normal
     reflected about the viewing ray (IPPE's second solution). ``R`` (A, H,
     3, 3), ``T`` (A, H, 3), ``n_model`` (A, 3). The result does not depend
     on the normal's sign. Dots left to right, ``atan2f`` and ``sincosf``
@@ -288,6 +316,40 @@ def mirror_poses(R: torch.Tensor, T: torch.Tensor, n_model: torch.Tensor
         + (1.0 - cos[..., None, None]) * matmul3(ax, ax)
     Q = torch.where((s > 1e-6)[..., None, None], Q, eye)
     return matmul3(Q, R), T
+
+
+def mirror_poses(R: torch.Tensor, T: torch.Tensor, n_model: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`mirror_poses_torch` of float32 ``R`` (A, H, 3, 3), ``T`` (A,
+    H, 3) and ``n_model`` (A, 3): kernel M1 (``csrc/mirror.cu
+    tod_mirror_poses``, a thread a pose) on CUDA tensors, one launch
+    counted in ``mirror_poses.launches`` (a failed launch raises); the
+    plain version on CPU tensors."""
+    if R.dim() != 4 or R.shape[2:] != (3, 3) or T.shape != R.shape[:3] \
+            or n_model.shape != (R.shape[0], 3) or any(
+                x.dtype != torch.float32 for x in (R, T, n_model)) \
+            or not R.device == T.device == n_model.device:
+        raise ValueError(f"mirror_poses: R {tuple(R.shape)} {R.dtype} on "
+                         f"{R.device}, T {tuple(T.shape)} {T.dtype} on "
+                         f"{T.device}, n_model {tuple(n_model.shape)} "
+                         f"{n_model.dtype} on {n_model.device}")
+    if R.device.type == "cpu":
+        return mirror_poses_torch(R, T, n_model)
+    if R.device.type != "cuda":
+        raise ValueError(f"no mirror_poses path for {R.device}")
+    n_a, n_h = R.shape[:2]
+    R, T, n_model = R.contiguous(), T.contiguous(), n_model.contiguous()
+    r_out, t_out = torch.empty_like(R), torch.empty_like(T)
+    if n_a * n_h:
+        kernels.call("mirror", "tod_mirror_poses",
+                     [R.data_ptr(), T.data_ptr(), n_model.data_ptr(),
+                      r_out.data_ptr(), t_out.data_ptr()], [n_a * n_h, n_h],
+                     torch.cuda.current_stream(R.device).cuda_stream)
+        mirror_poses.launches += 1
+    return r_out, t_out
+
+
+mirror_poses.launches = 0
 
 
 def _stages(timer: Optional[StageTimer], prefix: str):
@@ -526,7 +588,8 @@ __all__ = ["LOG_SCALE_GATE", "MIN_TRAIN_SEP", "N_BINS", "N_REFINE",
            "OBJECT_CHUNK",
            "PIXEL_SEP_SQ", "Pnp2dConfig", "bearings", "count_inliers",
            "detect_frame_2d", "detect_object_instances_2d",
-           "invalidate_keypoints", "mirror_poses",
+           "invalidate_keypoints", "mirror_poses", "mirror_poses_torch",
            "model_normal", "pair_geometry", "ransac_round_2d",
            "reprojection_error", "rotate_points", "sampling_graph",
-           "scale_histogram", "scale_range", "truncated_sse"]
+           "scale_histogram", "scale_range", "sym3_smallest_vector",
+           "sym3_smallest_vector_torch", "truncated_sse"]

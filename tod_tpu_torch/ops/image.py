@@ -27,11 +27,11 @@ def rgb_to_gray(image: torch.Tensor) -> torch.Tensor:
     return 0.299 * r + 0.587 * g + 0.114 * b
 
 
-def fma_f32(a: torch.Tensor, b, c: torch.Tensor) -> torch.Tensor:
-    """f32 ``a * b + c`` rounded once, as a fused multiply-add, on any
-    device: the product is exact in f64, the f64 sum is rounded to odd (an
-    inexact sum with an even last bit moves one ulp toward its TwoSum
-    error), and rounding that to f32 is then correct."""
+def _fma_f32_odd(a: torch.Tensor, b, c: torch.Tensor) -> torch.Tensor:
+    """:func:`fma_f32` by rounding to odd, branch-free on any device: the
+    product is exact in f64, the f64 sum is rounded to odd (an inexact sum
+    with an even last bit moves one ulp toward its TwoSum error), and
+    rounding that to f32 is then correct."""
     if isinstance(b, torch.Tensor):
         b = b.to(torch.float64)
     p = a.to(torch.float64) * b
@@ -43,6 +43,36 @@ def fma_f32(a: torch.Tensor, b, c: torch.Tensor) -> torch.Tensor:
     step = torch.where((err != 0) & ((bits & 1) == 0),
                        torch.where((err > 0) == (s > 0), 1, -1), 0)
     return (bits + step).view(torch.float64).to(torch.float32)
+
+
+_F64_TIE = 1 << 28          # f64 significand bits below f32's: a half ulp
+_F64_LOW = (1 << 29) - 1
+
+
+def fma_f32(a: torch.Tensor, b, c: torch.Tensor) -> torch.Tensor:
+    """f32 ``a * b + c`` rounded once, as a fused multiply-add, on any
+    device. On a CUDA tensor, :func:`_fma_f32_odd` (no host wait). On a
+    CPU tensor the f64 sum ``s`` of the exact product and ``c`` rounds
+    to f32 as the exact sum does unless ``s`` is an f32 half-way point
+    (every f32 value and half-way point is an f64 value, and rounding is
+    monotonic): only those elements, and those outside the f32 normal
+    range, take :func:`_fma_f32_odd`; the same bits at half the cost."""
+    if a.device.type != "cpu":
+        return _fma_f32_odd(a, b, c)
+    b64 = b.to(torch.float64) if isinstance(b, torch.Tensor) else b
+    s = a.to(torch.float64) * b64 + c.to(torch.float64)
+    bits = s.view(torch.int64)
+    exp = (bits >> 52) & 0x7FF
+    # 897..1150: 2^-126 <= |s| < 2^128; an exact zero sum is exact
+    slow = ((bits & _F64_LOW) == _F64_TIE) | (exp > 1150) \
+        | ((exp < 897) & (s != 0))
+    out = s.to(torch.float32)
+    if bool(slow.any()):
+        at = slow.nonzero(as_tuple=True)
+        pick = lambda x: torch.broadcast_to(x, s.shape)[at]  # noqa: E731
+        out[at] = _fma_f32_odd(pick(a), pick(b64) if isinstance(
+            b64, torch.Tensor) else b64, pick(c))
+    return out
 
 
 def rgb_to_gray_fused(image: torch.Tensor) -> torch.Tensor:

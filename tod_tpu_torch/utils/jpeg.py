@@ -16,14 +16,16 @@ follows libjpeg-turbo's own code paths so that every pixel is the same:
   replication, box filters for other integral factors (and for a
   component two samples wide or less);
 - ``jdcolor.c``'s fixed-point YCbCr->RGB tables (``SCALEBITS`` 16), or
-  none for an Adobe ``transform=0`` (or ``R``,``G``,``B`` ids) file.
+  none for an Adobe ``transform=0`` (or ``R``,``G``,``B`` ids) file;
+- ``jdcoefct.c``'s block smoothing (``decompress_smooth_data``, the 5x5
+  window of libjpeg-turbo 2.1 on) of a progressive file whose low
+  coefficients are not all refined: one whose last scans are missing.
 
-A progressive file whose low coefficients are not all refined would be
-block-smoothed by libjpeg (``decompress_smooth_data``); this module
-raises :class:`JpegError` for it, as for arithmetic coding (SOF9-11),
+This module raises :class:`JpegError` for arithmetic coding (SOF9-11),
 lossless and hierarchical frames, 12-bit samples, 2- and 4-component
-(CMYK/YCCK) images, and a stream that ends before its scans do (libjpeg
-pads such a stream with zeros and warns).
+(CMYK/YCCK) images, and a stream that ends before its scans do or
+without its EOI marker (libjpeg pads such a stream with zeros and warns,
+and cv2 5.0 then returns None).
 """
 
 from __future__ import annotations
@@ -452,12 +454,12 @@ def _idct_1d(x, shift: int):
         tmp13 - t0, tmp12 - t1, tmp11 - t2, tmp10 - t3)]
 
 
-def _idct_plane(c: _Component) -> np.ndarray:
-    """The component's samples: every block dequantised and inverse
-    transformed (pass 1 down the columns, pass 2 along the rows), then
-    range-limited, cropped to the component's size."""
-    coef = np.asarray(c.coef, np.int64).reshape(-1, 8, 8)
-    coef = coef * c.quant.reshape(1, 8, 8)
+def _idct_plane(c: _Component, coef: np.ndarray) -> np.ndarray:
+    """The component's samples from its (rows, columns, 64) coefficients:
+    every block dequantised and inverse transformed (pass 1 down the
+    columns, pass 2 along the rows), then range-limited, cropped to the
+    component's size."""
+    coef = coef.reshape(-1, 8, 8) * c.quant.reshape(1, 8, 8)
     ws = np.stack(_idct_1d([coef[:, k, :] for k in range(8)], 11), 1)
     out = np.stack(_idct_1d([ws[:, :, k] for k in range(8)], 18), 2)
     out = out & 1023                      # RANGE_MASK, then the table
@@ -572,19 +574,142 @@ def _color_transform(frame: _Frame, jfif: bool,
     return "rgb" if ids == [82, 71, 66] else "ycc"
 
 
-def _smoothing_needed(frame: _Frame) -> bool:
-    """libjpeg-turbo's ``smoothing_ok``: would it block-smooth this
-    progressive image (some of coefficients 1-9 not fully refined)?"""
+# -- jdcoefct.c block smoothing --------------------------------------------------
+
+# natural positions of zigzag coefficients 0-9: SAVED_COEFS
+_SAVED = (0, 1, 8, 16, 9, 2, 3, 10, 17, 24)
+
+
+def _smoothing_ok(frame: _Frame) -> bool:
+    """libjpeg-turbo's ``smoothing_ok``: does it block-smooth this image?
+    Only a progressive one whose every component has nonzero quantisers at
+    coefficients 0-9 and some DC bits, and some component of which has one
+    of coefficients 1-9 not fully refined. A complete file is not."""
+    if not frame.progressive:
+        return False
     useful = False
     for c in frame.comps:
-        q = c.quant.reshape(-1)
-        if any(q[i] == 0 for i in (0, 1, 8, 16, 9, 2, 3, 10, 17, 24)):
-            return False
-        if c.bits[0] < 0:
+        if any(c.quant[i] == 0 for i in _SAVED) or c.bits[0] < 0:
             return False
         if any(c.bits[k] != 0 for k in range(1, 10)):   # zigzag order
             useful = True
     return useful
+
+
+def _row_window(frame: _Frame, c: _Component) -> np.ndarray:
+    """(block rows, 5): the rows ``decompress_smooth_data`` reads as the
+    two above, the block's own and the two below. It tests the edges with
+    ``image_block_row = iMCU row * block_rows + block row`` against
+    ``block_rows * total_iMCU_rows``, where ``block_rows`` is the current
+    iMCU row's count, so a short last iMCU row shifts its tests: with two
+    iMCU rows and one block row in the last, that row's second row above
+    is its first. A row below past the image within the MCU grid is read
+    as the file's dummy blocks."""
+    v, total = c.v, frame.mcuy
+    n = -(-c.dh // 8)                               # height_in_blocks
+    out = np.empty((n, 5), np.int64)
+    for row in range(n):
+        imcu, br = divmod(row, v)
+        rows = v if imcu < total - 1 else (n % v or v)
+        at, count = imcu * rows + br, rows * total
+        prev = row - 1 if at > 0 else row
+        nxt = row + 1 if at < count - 1 else row
+        out[row] = (row - 2 if at > 1 else prev, prev, row, nxt,
+                    row + 2 if at < count - 2 else nxt)
+    return out
+
+
+def _col_window(n: int) -> np.ndarray:
+    """(block columns, 5): the columns of the 5x5 window, two to the left,
+    the block's own and two to the right, each clamped to the component's
+    blocks (``width_in_blocks``, not the MCU grid). Settled by cv2: a
+    reading of the sliding DC registers that keeps column 0 in the fifth
+    at two columns wide disagrees with its pixels there."""
+    return np.clip(np.arange(n)[:, None] + np.arange(-2, 3), 0, n - 1)
+
+
+# Each estimate's weights over the 5x5 DC window (rows down, columns
+# across; DC01..DC25 in the C source), with DC interpolation (no AC
+# coefficient seen yet) and without: zigzag coefficient -> (with, without).
+_AC_WEIGHTS = {
+    1: ([[-1, -1, 0, 1, 1], [-3, 13, 0, -13, 3], [-3, 38, 0, -38, 3],
+         [-3, 13, 0, -13, 3], [-1, -1, 0, 1, 1]],
+        [[0] * 5, [0] * 5, [-7, 50, 0, -50, 7], [0] * 5, [0] * 5]),
+    2: ([[-1, -3, -3, -3, -1], [-1, 13, 38, 13, -1], [0] * 5,
+         [1, -13, -38, -13, 1], [1, 3, 3, 3, 1]],
+        [[0, 0, -7, 0, 0], [0, 0, 50, 0, 0], [0] * 5, [0, 0, -50, 0, 0],
+         [0, 0, 7, 0, 0]]),
+    3: ([[0, 0, 1, 0, 0], [0, 2, 7, 2, 0], [0, -5, -14, -5, 0],
+         [0, 2, 7, 2, 0], [0, 0, 1, 0, 0]],
+        [[0, 0, -1, 0, 0], [0, 0, 13, 0, 0], [0, 0, -24, 0, 0],
+         [0, 0, 13, 0, 0], [0, 0, -1, 0, 0]]),
+    4: ([[-1, 0, 0, 0, 1], [0, 9, 0, -9, 0], [0] * 5, [0, -9, 0, 9, 0],
+         [1, 0, 0, 0, -1]],
+        [[0, -1, 0, 1, 0], [-1, 10, 0, -10, 1], [0] * 5,
+         [1, -10, 0, 10, -1], [0, 1, 0, -1, 0]]),
+    5: ([[0] * 5, [0, 2, -5, 2, 0], [1, 7, -14, 7, 1], [0, 2, -5, 2, 0],
+         [0] * 5],
+        [[0] * 5, [0] * 5, [-1, 13, -24, 13, -1], [0] * 5, [0] * 5]),
+    6: ([[0] * 5, [0, 1, 0, -1, 0], [0, 2, 0, -2, 0], [0, 1, 0, -1, 0],
+         [0] * 5], None),
+    7: ([[0] * 5, [0, 1, -3, 1, 0], [0] * 5, [0, -1, 3, -1, 0], [0] * 5],
+        None),
+    8: ([[0] * 5, [0, 1, 0, -1, 0], [0, -3, 0, 3, 0], [0, 1, 0, -1, 0],
+         [0] * 5], None),
+    9: ([[0] * 5, [0, 1, 2, 1, 0], [0] * 5, [0, -1, -2, -1, 0], [0] * 5],
+        None),
+}
+_DC_WEIGHTS = [[-2, -6, -8, -6, -2], [-6, 6, 42, 6, -6],
+               [-8, 42, 152, 42, -8], [-6, 6, 42, 6, -6],
+               [-2, -6, -8, -6, -2]]
+
+
+def _estimate(num: np.ndarray, q: int, al: int) -> np.ndarray:
+    """``((q << 7) + |num|) / (q << 8)`` with the sign of ``num``, its
+    magnitude capped at ``2^al - 1`` where ``al > 0``."""
+    pred = ((q << 7) + np.abs(num)) // (q << 8)
+    if al > 0:
+        pred = np.minimum(pred, (1 << al) - 1)
+    return np.where(num >= 0, pred, -pred)
+
+
+def _smooth(frame: _Frame, c: _Component, coef: np.ndarray) -> np.ndarray:
+    """``decompress_smooth_data`` over the component's blocks ((rows,
+    columns, 64) coefficients of the MCU grid, the estimates made in the
+    image's blocks only): every one of zigzag coefficients 1-9 that is
+    zero and not fully refined estimated from the 5x5 window of the
+    blocks' DC values; and where no such coefficient has been seen yet,
+    the DC too, and 1-9 by the DC-interpolation weights. The bits are the
+    ones latched at the end of the stream. libjpeg-turbo (2.1 on) also
+    latches each component's bits as they stood before its last scan, but
+    reads them only in the iMCU rows past ``last_good_iMCU_row``, the rows
+    a scan cut short did not reach; such a stream is refused here (cv2
+    returns None for it), so every row takes the final bits, which cv2's
+    pixels confirm on every prefix and subset of its scans."""
+    bits = c.bits[:10]
+    change_dc = all(b == -1 for b in bits[1:])
+    q = [int(c.quant[i]) for i in _SAVED]
+    n_rows, n_cols = -(-c.dh // 8), -(-c.dw // 8)
+    dc = coef[:, :, 0]
+    win = dc[_row_window(frame, c)[:, None, :, None],
+             _col_window(n_cols)[None, :, None, :]]    # (rows, cols, 5, 5)
+    out = coef.copy()
+    blocks = out[:n_rows, :n_cols]
+    for k in range(1, 10):
+        with_dc, without = _AC_WEIGHTS[k]
+        weights = with_dc if change_dc else without
+        if bits[k] == 0 or weights is None:
+            continue
+        pos = _SAVED[k]
+        num = q[0] * np.einsum("rcij,ij->rc", win, np.asarray(weights))
+        est = _estimate(num, q[k], bits[k])
+        blocks[..., pos] = np.where(blocks[..., pos] == 0, est,
+                                    blocks[..., pos])
+    if change_dc:
+        num = q[0] * np.einsum("rcij,ij->rc", win, np.asarray(_DC_WEIGHTS))
+        blocks[..., 0] = _estimate(num, q[0], 0)
+    # JCOEF is 16 bits
+    return ((out + 32768) & 0xFFFF) - 32768
 
 
 def decode_jpeg(data: bytes, color: bool = False) -> np.ndarray:
@@ -609,10 +734,10 @@ def decode_jpeg(data: bytes, color: bool = False) -> np.ndarray:
             pos += 1                      # libjpeg skips junk (warns)
         while pos < n and data[pos] == 0xFF:
             pos += 1
-        if pos >= n:
-            if scanned:
-                break                     # no EOI: libjpeg warns only
-            raise JpegError("JPEG stream ends before its image data")
+        if pos >= n:                      # cv2 returns None without EOI
+            raise JpegError("JPEG stream ends before its EOI marker"
+                            if scanned else
+                            "JPEG stream ends before its image data")
         marker = data[pos]
         pos += 1
         if marker == 0xD9:                # EOI
@@ -675,10 +800,13 @@ def decode_jpeg(data: bytes, color: bool = False) -> np.ndarray:
     for c in frame.comps:
         if c.quant is None:
             raise JpegError("component was never scanned")
-    if frame.progressive and _smoothing_needed(frame):
-        raise JpegError("progressive JPEG with unrefined coefficients "
-                        "(libjpeg would block-smooth it): not supported")
-    planes = [_upsample(frame, c, _idct_plane(c)) for c in frame.comps]
+    smooth = _smoothing_ok(frame)
+    planes = []
+    for c in frame.comps:
+        coef = np.asarray(c.coef, np.int64).reshape(c.bh, c.bw, 64)
+        if smooth:
+            coef = _smooth(frame, c, coef)
+        planes.append(_upsample(frame, c, _idct_plane(c, coef)))
     if len(planes) == 1:
         img = planes[0]
         if color:

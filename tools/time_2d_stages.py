@@ -6,7 +6,9 @@ in one call:
 - ``--what 2d``: the 2D-only path of conf/detection.ork on a depthless
   smoke frame, split by ``utils/profiling.py StageTimer`` (CUDA events)
   into its stages (clustering, and per round noise, graph, sampling, p3p,
-  consensus, refinement, summed over the rounds), ``--frames`` frames;
+  consensus, refinement, summed over the rounds), ``--frames`` frames,
+  each followed by a graph frame under torch.profiler (``device_ops``,
+  ``device_busy_ms``: chip_smoke.py ``device_profile``, as phase 9b);
 - ``--what matcher``: the SIFT graph's matcher, ``ops/matching.py
   l2_topk`` at phase 7e's shape (frame 0's 5000 SIFT descriptor slots
   against the three SIFT smoke models' rows, k 5, chunk 4,096), CUDA
@@ -88,6 +90,10 @@ def time_2d(cs, root: str, frames: int) -> dict:
                 kind = name.split(" ", 1)[1] if name.startswith("round") \
                     else name
                 stages[kind] = stages.get(kind, 0.0) + sec * 1e3
+            # the next frame whole (graph included) under torch.profiler
+            ops, busy, wall = cs.device_profile(s.execute_iteration)
+            stages.update(device_ops=ops, device_busy_ms=busy,
+                          profiled_frame_ms=wall)
             per_frame.append(stages)
     return per_frame
 
