@@ -451,6 +451,7 @@ JPEG_SMOOTHING_FIXTURE = os.path.join(DATA,
                                       "torch_jpeg_smoothing_fixture.npz")
 SIZES_FIXTURE = os.path.join(DATA, "torch_sizes_fixture.npz")
 SMALL_SIZES_FIXTURE = os.path.join(DATA, "torch_small_sizes_fixture.npz")
+P3P_FIXTURE = os.path.join(DATA, "torch_p3p_fixture.npz")
 Q = 2048
 KERNEL_RUNS = 24       # CUDA-event timings of a kernel and its twin
 TWIN_RUNS = 3          # twin timings at 1000 objects (~0.1-2 s each)
@@ -501,12 +502,15 @@ M2_REPLACES = "tod_tpu/geometry/detection2d.py:164-169"
 # the clamps and divisions, ax ax, Q and Q R) 190 plus atan2f's L1_OPS; in
 # float64 sincosf's LIBM_OPS
 M1_F32_OPS = 190
-# operations of M2 a matrix: float64 (the mean and spread, b, its
-# determinant, lambda, a, the three cross products and their norms, the
-# normalisation) 124 plus cosf's LIBM_OPS; float32 the arccos's 4 and
-# atan2f's L1_OPS, the angle's 2
-M2_F64_OPS = 124
-M2_F32_OPS = 6
+# float32 operations of M2 (LAPACK's ssyevd at n = 3, csrc/mirror.cu), counted
+# from its source: a matrix's fixed part (the symmetrisation, the norm and
+# scaling tests, ssytd2's reflector and update, sorm2r) 90; each plane
+# rotation (slartg) 14, each 2x2 eigensystem (slaev2) 30, each column
+# pair a rotation mixes 18; the data decide how many (m2_operations)
+M2_FIXED_OPS = 90
+M2_LARTG_OPS = 14
+M2_LAEV2_OPS = 30
+M2_ROTATE_OPS = 18
 MIRROR_SHAPES = ((32, 8), (5, 8))   # a 2D chunk's objects x N_REFINE; a tail
 # the reference's SIFT descriptor from the patches to the normalisation:
 # XLA's fusions, the libm atan2f call and the tables' dot (not a Pallas
@@ -2221,18 +2225,14 @@ def l4_path_sizes(dev) -> list:
     return sizes
 
 
-def check_p2(dev, card: str) -> dict:
-    """Phase 3i: kernel P2 (the fused Gauss-Newton refinement) against its
-    plain version on the CPU, bit for bit, at a 2D chunk's shape
-    (``P2_SHAPE``: objects x refined poses x matches; seeded poses near
-    the truth, noisy pixels, a fifth of the rows weighted out, a few points
-    behind the camera), at ``P2_LARGE_SHAPE`` (a large N: the same code
-    path) and at ``P2_ODD_SHAPE`` (an odd N); each timed."""
-    from tod_tpu_torch.geometry import pnp
-
-    rng = np.random.default_rng(29)
+def p2_cases(seed: int = 29):
+    """Kernel P2's inputs at ``P2_SHAPE``, ``P2_LARGE_SHAPE`` and
+    ``P2_ODD_SHAPE`` in turn, from one generator: (shape, (R0 (o, p, 3,
+    3), T0 (o, p, 3), K, X (o, 1, n, 3), uv (o, 1, n, 2), w (o, p, n)))
+    float32 tensors: poses near the truth, noisy pixels, a fifth of the
+    rows weighted out, a few points behind the camera."""
+    rng = np.random.default_rng(seed)
     K = torch.tensor([[525.0, 0, 319.5], [0, 525.0, 239.5], [0, 0, 1]])
-    out = {}
     for shape in (P2_SHAPE, P2_LARGE_SHAPE, P2_ODD_SHAPE):
         n_obj, n_pose, n = shape
         X = torch.from_numpy(rng.uniform(-0.12, 0.12, (n_obj, 1, n, 3))
@@ -2250,7 +2250,23 @@ def check_p2(dev, card: str) -> dict:
             np.float32))
         w = torch.from_numpy((rng.random((n_obj, n_pose, n)) > 0.2)
                              .astype(np.float32))
-        args = [t.to(dev) for t in (R0, T0, K, X, uv, w)]
+        yield shape, (R0, T0, K, X, uv, w)
+
+
+def check_p2(dev, card: str) -> dict:
+    """Phase 3i: kernel P2 (the fused Gauss-Newton refinement) against its
+    plain version on the CPU, bit for bit, at a 2D chunk's shape
+    (``P2_SHAPE``: objects x refined poses x matches; seeded poses near
+    the truth, noisy pixels, a fifth of the rows weighted out, a few points
+    behind the camera), at ``P2_LARGE_SHAPE`` (a large N: the same code
+    path) and at ``P2_ODD_SHAPE`` (an odd N); each timed."""
+    from tod_tpu_torch.geometry import pnp
+
+    out = {}
+    for shape, host_args in p2_cases():
+        n_obj, n_pose, n = shape
+        R0, T0, K, X, uv, w = host_args
+        args = [t.to(dev) for t in host_args]
         R, T = pnp.gauss_newton_pose(*args)
         t0 = time.perf_counter()
         R_w, T_w = pnp.gauss_newton_pose_torch(R0, T0, K, X, uv, w)
@@ -2367,19 +2383,20 @@ def check_mirror(dev, card: str) -> tuple:
                            + LIBM_OPS / F64_OPS_S) * 1e3,
                  n_pose * 96 + n_obj * 12),
                 ("M2", lambda: td.sym3_smallest_vector(cov_d),
-                 lambda: td.sym3_smallest_vector_torch(cov_d),
+                 None,
                  lambda: td.sym3_smallest_vector(cov),
                  lambda: torch.linalg.eigh(cov_d),
-                 n_obj * ((M2_F32_OPS + L1_OPS) / F32_OPS_S
-                          + (M2_F64_OPS + LIBM_OPS) / F64_OPS_S) * 1e3,
+                 m2_operations(cov) / F32_OPS_S * 1e3,
                  n_obj * 48)):
             ms = cuda_ms(call, queued=True)
             host = cuda_ms(call)
-            plain_ms = cuda_ms(plain)
             t0 = time.perf_counter()
             for _ in range(TWIN_RUNS):
                 on_cpu()
             cpu_ms = (time.perf_counter() - t0) * 1e3 / TWIN_RUNS
+            # M2's plain version is LAPACK's scalar code, a matrix at a
+            # time on the host (geometry/lapack.py syevd3)
+            plain_ms = cuda_ms(plain) if plain else cpu_ms
             lib_ms = cuda_ms(library) if library else None
             bytes_ms = n_bytes / HBM_BYTES_S * 1e3
             bound_ms = max(ops_ms, bytes_ms)
@@ -2387,21 +2404,133 @@ def check_mirror(dev, card: str) -> tuple:
                 f"{' and '.join(map(str, MIRROR_SHAPES))} with the edge "
                 f"cases; at {shape}: {ms:.4f} ms median of {KERNEL_RUNS} on "
                 f"the device (the call with its host work {host:.4f} ms); "
-                f"the plain version on the card (the parent's chain) "
-                f"{plain_ms:.4f} ms, on the CPU {cpu_ms:.3f} ms; "
+                + (f"the plain version on the card (the parent's chain) "
+                   f"{plain_ms:.4f} ms, " if plain else "the plain version ")
+                + f"on the CPU {cpu_ms:.3f} ms; "
                 + (f"torch.linalg.eigh {lib_ms:.4f} ms; " if lib_ms else "")
                 + f"bound {bound_ms:.7f} ms by "
                 f"{'operations' if ops_ms >= bytes_ms else 'bytes'}; {card}")
             out[name] = dict(
                 max_abs_err=0.0, ms=ms, host_ms=host, plain_ms=plain_ms,
                 plain_on="cuda (the parent's chain of tensor ops with L1e "
-                "and L4)", plain_cpu_ms=cpu_ms, bound_ms=bound_ms,
+                "and L4)" if plain else "cpu (LAPACK's scalar ssyevd)",
+                plain_cpu_ms=cpu_ms, bound_ms=bound_ms,
                 bound_by="operations" if ops_ms >= bytes_ms else "bytes",
                 library_ms=lib_ms,
                 shape=(f"{shape[0]} objects x {shape[1]} poses (a 2D "
                        "chunk's mirrors)" if name == "M1" else
                        f"{shape[0]} covariances (a 2D chunk's normals)"))
     return out["M1"], out["M2"]
+
+
+def m2_operations(cov: torch.Tensor) -> int:
+    """Kernel M2's float32 operations on these matrices: ssyevd's fixed part
+    each, plus the rotations, 2x2 eigensystems and column mixes that this
+    data's QL/QR iterations take (counted by running the plain version)."""
+    from tod_tpu_torch.geometry import lapack
+
+    counts = Counter()
+    wrapped = {k: getattr(lapack, k) for k in ("_lartg", "_laev2", "_rotate")}
+
+    def counting(name):
+        def call(*args):
+            counts[name] += len(args[2]) if name == "_rotate" else 1
+            return wrapped[name](*args)
+        return call
+
+    try:
+        for k in wrapped:
+            setattr(lapack, k, counting(k))
+        lapack.smallest_eigenvector_torch(cov.cpu())
+    finally:
+        for k, f in wrapped.items():
+            setattr(lapack, k, f)
+    return (M2_FIXED_OPS * len(cov.reshape(-1, 9))
+            + M2_LARTG_OPS * counts["_lartg"]
+            + M2_LAEV2_OPS * counts["_laev2"]
+            + M2_ROTATE_OPS * counts["_rotate"])
+
+
+def check_lapack(dev, card: str) -> dict:
+    """Phase 3k: the card against the reference's own outputs
+    (``P3P_FIXTURE``, tools/make_torch_p3p_fixture.py). LAPACK's LU of
+    kernels P1 and P2 (csrc/lapack_lu.cuh, through p3p.cu's check entry
+    ``tod_lu_solve``) at n = 3 and 6, and kernel M2's normals, bit for bit
+    (NaN where NaN): it raises otherwise. P1 (with the port's Horn fit)
+    and P2 are counted against the reference's candidates and poses
+    (ROADMAP queue C: their fusions are not all transcribed yet). Returns
+    each kernel's ``fixture`` note."""
+    import hashlib
+
+    from tod_tpu_torch import kernels
+    from tod_tpu_torch.geometry import detection2d as td
+    from tod_tpu_torch.geometry import pnp
+
+    fx = np.load(P3P_FIXTURE)
+
+    def same(got, want) -> np.ndarray:
+        got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+        return (got.view(np.int32) == want.view(np.int32)) | (
+            np.isnan(got) & np.isnan(want))
+
+    notes = {}
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for n in (3, 6):
+        M = torch.from_numpy(fx[f"lu{n}_M"]).to(dev).contiguous()
+        F = torch.from_numpy(fx[f"lu{n}_F"]).to(dev).contiguous()
+        x = torch.empty_like(F)
+        kernels.call("p3p", "tod_lu_solve",
+                     [M.data_ptr(), F.data_ptr(), x.data_ptr()],
+                     [len(M), n], stream)
+        hit = same(x.cpu(), fx[f"lu{n}_x"]).all(1)
+        if not hit.all():
+            raise AssertionError(f"the card's {n}x{n} LU differs from "
+                                 f"jnp.linalg.solve on {int((~hit).sum())} "
+                                 f"of {len(hit)} systems")
+        notes[f"lu{n}"] = len(hit)
+    normal = td.sym3_smallest_vector(torch.from_numpy(fx["cov"]).to(dev))
+    hit = same(normal.cpu(), fx["normal"]).all(1)
+    if not hit.all():
+        raise AssertionError(f"M2 differs from jnp.linalg.eigh's column 0 "
+                             f"on {int((~hit).sum())} of {len(hit)} "
+                             "covariances")
+    head = len(fx["p3p_valid_head"])
+    bear, pts = p3p_samples(np.random.default_rng(int(fx["p3p_seed"])),
+                            int(fx["p3p_n"]))
+    if hashlib.sha256(np.concatenate([bear, pts]).tobytes()).hexdigest() \
+            != str(fx["p3p_in_sha256"]):
+        raise AssertionError("p3p_samples no longer gives the fixture's "
+                             "inputs")
+    sols = pnp.p3p(torch.from_numpy(bear[:head]).to(dev),
+                   torch.from_numpy(pts[:head]).to(dev))
+    valid = fx["p3p_valid_head"]
+    p3p_equal = (same(sols.R.cpu(), fx["p3p_R_head"]).all((-1, -2))
+                 & same(sols.T.cpu(), fx["p3p_T_head"]).all(-1)
+                 & (sols.valid.cpu().numpy() == valid))
+    p2_equal = []
+    for k, (shape, host) in enumerate(p2_cases()):
+        if k == len(fx["p2_shapes"]):
+            break
+        R, T = pnp.gauss_newton_pose(*[t.to(dev) for t in host])
+        eq = (same(R[0].cpu(), fx[f"p2_R_head{k}"]).all((-1, -2))
+              & same(T[0].cpu(), fx[f"p2_T_head{k}"]).all(-1))
+        p2_equal.append((shape, int(eq.sum()), len(eq)))
+    log(f"kernels: 3k against the reference's outputs (torch_p3p_fixture): "
+        f"the card's LU = jnp.linalg.solve bit for bit on {notes['lu3']} "
+        f"3x3 and {notes['lu6']} 6x6 systems; M2 = jnp.linalg.eigh's "
+        f"column 0 (sign too) on {len(hit)} covariances; P1 + the Horn fit: "
+        f"{int(p3p_equal.sum())} of {p3p_equal.size} candidates of "
+        f"{head} samples the reference's bits ({int(p3p_equal[valid].sum())}"
+        f" of {int(valid.sum())} valid ones); P2: "
+        + ", ".join(f"{a} of {b} poses at {' x '.join(map(str, s))}"
+                    for s, a, b in p2_equal)
+        + f" the reference's bits (ROADMAP queue C); {card}")
+    return dict(
+        P1=f"LU {notes['lu3']} systems bit for bit; P3P "
+           f"{int(p3p_equal.sum())} of {p3p_equal.size} candidates",
+        P2=f"LU {notes['lu6']} systems bit for bit; poses "
+           + ", ".join(f"{a} of {b}" for _, a, b in p2_equal),
+        M2=f"{len(hit)} normals bit for bit")
 
 
 def cv_rodrigues(ax) -> np.ndarray:
@@ -5660,6 +5789,10 @@ def main() -> int:
     p1, l4, p2 = check_p1(dev, card)
     # ---- 3j. M1 and M2, the 2D path's mirror and model normal
     m1, m2 = check_mirror(dev, card)
+    # ---- 3k. P1's and P2's LU and M2 against the reference's own outputs
+    fixture_notes = check_lapack(dev, card)
+    for entry, name in ((p1, "P1"), (p2, "P2"), (m2, "M2")):
+        entry["fixture"] = fixture_notes[name]
     compacted = [stage_features_compact(*frame, cfg) for frame in frames]
     for f, port in enumerate(compacted):
         missing = compaction_mismatches(port, fx, f)
@@ -5872,8 +6005,9 @@ def main() -> int:
         {"name": "P2 the Gauss-Newton pose refinement, every iteration of "
          "a call in one launch: residuals, Jacobian, the normal equations "
          "in one pairwise-sum tree (registers, shared memory, warp "
-         "shuffles), the 6x6 LU by a warp, the Rodrigues update (replaces "
-         "XLA's fusions, jacfwd and LAPACK's solve: not a Pallas kernel)",
+         "shuffles), LAPACK's 6x6 LU by one thread, the Rodrigues update "
+         "(replaces XLA's fusions, jacfwd and LAPACK's solve: not a Pallas "
+         "kernel)",
          "route": "cuda", "source": SOURCE_P2, "replaces": P2_REPLACES,
          "launches": total(13), "design_pr": 20, **p2},
         {"name": "M1 the 2D path's mirror pose: the model normal reflected "
@@ -5883,11 +6017,11 @@ def main() -> int:
          "replaces": M1_REPLACES, "launches": total(15), "design_pr": 22,
          **m1},
         {"name": "M2 the 2D path's model normal: the smallest eigenvector "
-         "of a 3x3 covariance by the characteristic cubic in float64 with "
-         "XLA's arccos and glibc's cosf, a thread a matrix (replaces "
-         "jnp.linalg.eigh: not a Pallas kernel)", "route": "cuda",
+         "of a 3x3 covariance by LAPACK's ssyevd (redesigned; before: the "
+         "characteristic cubic's closed form), a thread a matrix "
+         "(replaces jnp.linalg.eigh: not a Pallas kernel)", "route": "cuda",
          "source": SOURCE_MIRROR, "replaces": M2_REPLACES,
-         "launches": total(16), "design_pr": 22, **m2}]}))
+         "launches": total(16), "design_pr": 23, **m2}]}))
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -18,6 +18,8 @@ only torch; there, skip the repository's conftest (which sets up JAX):
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -1326,3 +1328,64 @@ def test_m1_m2_take_views_and_refuse_other_dtypes():
         td.mirror_poses(R.double(), T, n)
     with pytest.raises(ValueError):
         td.sym3_smallest_vector(cov.double())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [3, 6])
+def test_lapack_lu_on_the_card_is_jnp_linalg_solve(n):
+    """csrc/lapack_lu.cuh (the LU of kernels P1 and P2) through p3p.cu's
+    check entry tod_lu_solve: the reference's jnp.linalg.solve bits on
+    tests/data/torch_p3p_fixture.npz's systems (ties, singular ones, a
+    zero leading entry; J^T J + 1e-6 I at n = 6), and lu_solve's on the
+    CPU."""
+    from tod_tpu_torch import kernels
+    from tod_tpu_torch.geometry import lapack
+
+    dev = _cuda()
+    fx = np.load(os.path.join(os.path.dirname(__file__), "data",
+                              "torch_p3p_fixture.npz"))
+    M = torch.from_numpy(fx[f"lu{n}_M"])
+    F = torch.from_numpy(fx[f"lu{n}_F"])
+    # held by name while the kernel runs (a temporary's memory is reused)
+    M_dev, F_dev = M.to(dev).contiguous(), F.to(dev).contiguous()
+    x = torch.empty_like(F_dev)
+    kernels.call("p3p", "tod_lu_solve",
+                 [M_dev.data_ptr(), F_dev.data_ptr(), x.data_ptr()],
+                 [len(M), n], torch.cuda.current_stream(dev).cuda_stream)
+    got = x.cpu().numpy()
+    for want in (fx[f"lu{n}_x"], lapack.lu_solve(M, F).numpy()):
+        assert ((got.view(np.int32) == want.view(np.int32))
+                | (np.isnan(got) & np.isnan(want))).all()
+
+
+@pytest.mark.cuda
+def test_m2_on_the_card_is_jnp_linalg_eigh():
+    """Kernel M2 (LAPACK's ssyevd at n = 3): jnp.linalg.eigh's column 0,
+    sign included, on tests/data/torch_p3p_fixture.npz's covariances
+    (chip_smoke.mirror_cases', planar ones, and six scales across both of
+    ssyevd's scaling branches)."""
+    from tod_tpu_torch.geometry import detection2d as td
+
+    dev = _cuda()
+    fx = np.load(os.path.join(os.path.dirname(__file__), "data",
+                              "torch_p3p_fixture.npz"))
+    got = td.sym3_smallest_vector(torch.from_numpy(fx["cov"]).to(dev))
+    assert (got.cpu().numpy().view(np.int32)
+            == fx["normal"].view(np.int32)).all()
+
+
+@pytest.mark.cuda
+def test_p1_takes_views():
+    """Strided bearings and points (every other sample of a larger batch,
+    copied to contiguous rows by the wrapper) give the contiguous inputs'
+    distances and validity bit for bit: the wrapper holds both copies
+    until the launch."""
+    from tod_tpu_torch.geometry import pnp
+
+    dev = _cuda()
+    bear, pts = (a.to(dev) for a in _p3p_samples(np.random.default_rng(41),
+                                                 2048))
+    want = pnp.p3p_distances(bear[::2].contiguous(), pts[::2].contiguous())
+    got = pnp.p3p_distances(bear[::2], pts[::2])
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+    assert torch.equal(got[1], want[1])

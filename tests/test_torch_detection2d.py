@@ -17,8 +17,10 @@ Contracts:
   invalidation; the unique-inlier counts;
 - float: pair geometry within ``DPIX2_ATOL``, ``DTRAIN2_ATOL``,
   ``LOG_R_ATOL`` and ``GEOM_RTOL``; Gumbel values within ``2^-22 + 2 ulp`` (test_torch_prng.py);
-  the model normal against ``eigh``'s smallest eigenvector up to sign
-  within ``NORMAL_ATOL``, and the mirrored pose the same for both signs;
+  the model normal of the reference's covariance equal to ``eigh``'s
+  smallest eigenvector bit for bit (sign too), of the port's own
+  covariance up to sign within ``NORMAL_ATOL``, and the mirrored pose the
+  same for both signs;
   mirrored poses within ``POSE_ATOL``;
 - whole: ``ransac_round_2d`` and ``detect_frame_2d`` give the reference's
   found / accepted flags and unique-inlier counts exactly on this scene,
@@ -326,9 +328,24 @@ def _ref_normal(pts, valid):
     return jnp.linalg.eigh(cov)[1][:, 0]
 
 
+@jax.jit
+def _ref_cov(pts, valid):
+    """The covariance the reference's eigh takes (detection2d.py:164-168)."""
+    ctr = jnp.where(valid[:, None], pts, 0.0)
+    mean = ctr.sum(0) / jnp.maximum(valid.sum(), 1)
+    return ((ctr - mean) * valid[:, None]).T @ (ctr - mean)
+
+
 def test_mirror_matches_reference_up_to_the_normal_sign(stores):
     ref, got = stores
     n_ref = _np(jax.vmap(_ref_normal)(ref.train_pts, ref.valid))
+    # the normal of the reference's covariance: eigh's bits (kernel M2's
+    # plain version is LAPACK's ssyevd, geometry/lapack.py), sign too
+    cov = torch.from_numpy(_np(jax.vmap(_ref_cov)(ref.train_pts, ref.valid)))
+    np.testing.assert_array_equal(
+        td.sym3_smallest_vector(cov).numpy().view(np.int32),
+        n_ref.view(np.int32))
+    # the port's own covariance (fixed pairwise sums) rounds otherwise
     n = td.model_normal(got.train_pts, got.valid)
     dots = np.abs((n.numpy() * n_ref).sum(-1))
     np.testing.assert_allclose(dots, 1.0, atol=NORMAL_ATOL)

@@ -4,11 +4,12 @@ against ``jax.jit`` of the reference (tod_tpu/geometry/pnp.py) on the CPU.
 Contracts (f32; the port's P3P and refinement round alike on the CPU and
 the card: the C library's ``powf``, ``cosf``, ``sincosf`` and ``atan2f``
 transcribed, XLA's ``arccos`` form, correctly rounded roots, fixed sums
-and an explicit LU. The compiled reference also contracts multiply-adds
-inside its fusions and solves through LAPACK (``sgetrf``/``strsm``); the
-port transcribes the contractions of the side lengths only (read off the
-object code by ``tools/fit_p3p_order.py``), so every later stage here is
-a float stage, and
+and LAPACK's LU as the reference host runs it, bit for bit
+(``geometry/lapack.py``). The compiled reference also contracts
+multiply-adds inside its fusions; the port transcribes the contractions
+of the side lengths and of the normalised quartic coefficients only (read
+off by ``tools/fit_p3p_order.py`` and ``tools/fit_p3p_fusions.py``), so
+every later stage here is a float stage, and
 ``test_p3p_parts_from_the_reference_at_the_coefficients`` names where the
 bits part, ROADMAP queue C):
 
@@ -236,13 +237,14 @@ def test_p3p_parts_from_the_reference_at_the_coefficients():
     """Where the port's P3P and the compiled reference's part. Not at the
     inputs: the side lengths (the reference's reduce, one FMA chain in its
     object code, which ``pnp._side`` transcribes) and the cosines (its dot,
-    left-to-right sums) are its bits, every one. The quartic's normalised
-    coefficients (``C3/C4 .. C0/C4``, the reference's expressions jitted)
-    are not: XLA's fusions contract multiply-adds there, which
-    ``pnp.quartic_coefficients`` does not (read, and reproduced for
-    ``C0/C4`` by LLVM's contraction rule, in ``tools/fit_p3p_order.py``);
-    from there no candidate keeps the reference's bits (ROADMAP queue C).
-    The candidates still agree within 1 mm (``test_p3p_matches_reference``)."""
+    left-to-right sums) are its bits, every one; and no longer at the
+    quartic's normalised coefficients (``C3/C4 .. C0/C4``, four fusions
+    with LLVM's contractions, read off by ``tools/fit_p3p_fusions.py``):
+    ``pnp.quartic_normalized`` gives their bits on 2,000 samples, where the
+    unfused ``pnp.quartic_coefficients`` does not. The bits part after
+    them, at Ferrari's resolvent (ROADMAP queue C): no valid candidate
+    keeps the reference's bits yet. The candidates still agree within 1 mm
+    (``test_p3p_matches_reference``)."""
     import fit_p3p_order as fit
 
     rng = np.random.default_rng(0)
@@ -264,15 +266,22 @@ def test_p3p_parts_from_the_reference_at_the_coefficients():
     assert all(fit.off(g, w) for g, w in zip(coef, want_coef))
     np.testing.assert_array_equal(c0_rule.view(np.int32),
                                   want_coef[3].view(np.int32))
+    a, b, c, ca, cb, cg = (torch.from_numpy(np.array(x)) for x in sides)
+    normalized = tp.quartic_normalized((a * a) / (b * b), (c * c) / (b * b),
+                                       ca, cb, cg)
+    for g, w in zip(normalized, want_coef):
+        np.testing.assert_array_equal(g.numpy().view(np.int32),
+                                      w.view(np.int32))
 
 
 @pytest.mark.parametrize("n", [3, 6])
 def test_lu_solve_against_jnp_linalg_solve(n):
     """The explicit LU (the P3P Newton step's 3x3, the refinement's 6x6
     normal equations) against ``jnp.linalg.solve`` (LAPACK's ``sgetrf``
-    and ``strsm`` through XLA): the same solutions to f32 accuracy on
-    well-conditioned systems, partial pivoting (a zero leading entry), and
-    non-finite entries for a singular system, as an LU solve gives."""
+    and ``strsm`` through XLA): the same bits on well-conditioned systems,
+    with partial pivoting (a zero leading entry), and non-finite entries
+    for a singular system, as an LU solve gives (tests/test_torch_lapack.py
+    holds the edge cases)."""
     rng = np.random.default_rng(n)
     J = rng.standard_normal((500, 4 * n, n)).astype(np.float32)
     M = (np.einsum("bki,bkj->bij", J, J) + np.eye(n)).astype(np.float32)
@@ -281,7 +290,7 @@ def test_lu_solve_against_jnp_linalg_solve(n):
     want = np.asarray(jax.jit(jax.vmap(
         lambda a, b: jnp.linalg.solve(a, b[:, None])[:, 0]))(M, F))
     got = tp.lu_solve(torch.from_numpy(M), torch.from_numpy(F)).numpy()
-    np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-5)
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
     singular = np.ones((1, n, n), np.float32)
     out = tp.lu_solve(torch.from_numpy(singular), torch.ones((1, n)))
     assert not torch.isfinite(out).all()

@@ -114,3 +114,48 @@ def test_readers_parse_this_host():
     assert read_flags() and read_threads() >= 1
     assert set(read_caches()) == {"L1d", "L2"}
     assert _size("48K") == 48 * 1024 and _size("2048K") == 2 << 20
+
+
+# The premise of the port's LAPACK readings (geometry/lapack.py lu_solve and
+# syevd3, kernels P1, P2, M2): jnp.linalg.solve and eigh run scipy's OpenBLAS,
+# whose BLAS kernels (and so whose rounding) depend on its version and on
+# the core it selects for this CPU.
+OPENBLAS = ("0.3.30", "SkylakeX")
+LAPACK_TOOL = "tools/fit_lapack_order.py"
+
+
+def read_openblas():
+    """(version, core) of the OpenBLAS that scipy's LAPACK loads, as
+    threadpoolctl reports it (None if none is loaded)."""
+    import scipy.linalg.lapack  # noqa: F401  loads scipy's OpenBLAS
+    from threadpoolctl import threadpool_info
+    for lib in threadpool_info():
+        if lib.get("internal_api") == "openblas" \
+                and "scipy" in Path(lib["filepath"]).parent.name:
+            return lib.get("version"), lib.get("architecture")
+    return None
+
+
+def lapack_premise_message(found) -> str:
+    return (f"scipy's OpenBLAS is {found}, not {OPENBLAS}: the reference's "
+            "jnp.linalg.solve and eigh round as this library's BLAS kernels "
+            "do, so the port's LU and eigenvector no longer match them. "
+            f"Rerun JAX_PLATFORMS=cpu python {LAPACK_TOOL} on this host and "
+            "refit geometry/lapack.py.")
+
+
+def test_host_is_the_lapack_premise():
+    found = read_openblas()
+    if found != OPENBLAS:
+        pytest.fail(lapack_premise_message(found), pytrace=False)
+
+
+@pytest.mark.parametrize("found", [("0.3.27", "SkylakeX"),
+                                   ("0.3.30", "Haswell"), None])
+def test_lapack_premise_failure_names_its_cause(monkeypatch, found):
+    module = sys.modules[__name__]
+    monkeypatch.setattr(module, "read_openblas", lambda: found)
+    with pytest.raises(pytest.fail.Exception) as failure:
+        test_host_is_the_lapack_premise()
+    assert LAPACK_TOOL in str(failure.value)
+    assert str(found) in str(failure.value)

@@ -10,7 +10,8 @@
 // (the rotation as fma(x2, r2, fma(x1, r1, x0 r0)), the Jacobian written
 // out, the sums over the 2N rows in transforms.pairwise_sum's order: the
 // halves added elementwise, an odd last row carried to the end; the 6x6
-// step by pnp.lu_solve's LU; sincosf and the roots correctly rounded), so
+// step by pnp.lu_solve's LU, LAPACK's as jnp.linalg.solve runs it on the
+// reference host (lapack_lu.cuh); sincosf and the roots correctly rounded), so
 // both devices give the same bits.
 //
 // Design: one block a pose, all `iters` iterations in one launch, and one
@@ -29,13 +30,16 @@
 //   node to the middle), one barrier a level for all 27 sums;
 // - warp levels: the last 32 or fewer in warp 0 by __shfl_down_sync.
 // Nothing of size N sits in shared memory, so one code path serves any N.
-// Then lane 0 solves, updates the pose, and the block reads it back. The
+// Then thread 0 solves the 6x6 step alone in LAPACK's order (lapack_lu.cuh:
+// its left-looking LU has no row-parallel form that keeps the bits),
+// updates the pose, and the block reads it back. The
 // points and pixels are read once an object (`per_object` poses share
 // them), not copied to every pose.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "lapack_lu.cuh"
 #include "libm_f32.cuh"
 
 namespace {
@@ -60,49 +64,6 @@ __device__ __forceinline__ void matmul3(const float A[3][3],
     for (int j = 0; j < 3; ++j)
       C[i][j] = fa(fa(fm(A[i][0], B[0][j]), fm(A[i][1], B[1][j])),
                    fm(A[i][2], B[2][j]));
-}
-
-// pnp.lu_solve for n = 6 on the augmented [H | g] by warp 0: lane i < 6
-// holds row i, and each step's operations are the serial LU's (the first
-// largest pivot, the row swap, l = a_ik (1 / a_kk), a_ij - l a_kj), done
-// by every lane below the pivot at once; x (every lane) is the solution
-__device__ __forceinline__ void lu_solve6_warp(float row[7], int lane,
-                                               float x[6]) {
-  constexpr unsigned kAll = 0xffffffffu;
-#pragma unroll
-  for (int k = 0; k < 5; ++k) {
-    const float mag = fabsf(row[k]);
-    int piv = k;
-    float best = __shfl_sync(kAll, mag, k);
-#pragma unroll
-    for (int i = k + 1; i < 6; ++i) {
-      const float m = __shfl_sync(kAll, mag, i);
-      if (m > best) {
-        piv = i;
-        best = m;
-      }
-    }
-    float prow[7];                        // row piv, which becomes row k
-#pragma unroll
-    for (int j = 0; j < 7; ++j) {
-      prow[j] = __shfl_sync(kAll, row[j], piv);
-      const float from_k = __shfl_sync(kAll, row[j], k);
-      if (lane == k) row[j] = prow[j];
-      else if (lane == piv) row[j] = from_k;
-    }
-    const float rcp = fd(1.0f, prow[k]);
-    if (lane > k && lane < 6) {
-      const float l = fm(row[k], rcp);
-#pragma unroll
-      for (int j = k + 1; j < 7; ++j) row[j] = fs(row[j], fm(l, prow[j]));
-    }
-  }
-  float g = row[6];
-#pragma unroll
-  for (int j = 5; j >= 0; --j) {
-    x[j] = fd(__shfl_sync(kAll, g, j), __shfl_sync(kAll, row[j], j));
-    if (lane < j) g = fs(g, fm(row[j], x[j]));
-  }
 }
 
 // Row r of 2n (match r / 2, its u row if r is even, else its v row) at
@@ -277,26 +238,21 @@ gauss_newton_kernel(const float* __restrict__ R0, const float* __restrict__ T0,
       }
     }
     float delta[6];
-    if (t < 32) {
-      // H = J^T J + 1e-6 I and g = J^T r from lane 0's sums, lane i's row
-      // of [H | g] in registers (the loops unrolled)
-      float row[7] = {};
+    if (t == 0) {
+      // H = J^T J + 1e-6 I and g = J^T r from the sums, solved by this
+      // lane alone in LAPACK's order (lapack_lu.cuh)
+      float H[6][6];
       int e = 0;
 #pragma unroll
       for (int k = 0; k < 6; ++k)
 #pragma unroll
         for (int l = k; l < 6; ++l, ++e) {
-          const float h = fa(__shfl_sync(0xffffffffu, P1[e], 0),
-                             k == l ? 1e-6f : 0.0f);
-          if (t == k) row[l] = h;
-          if (t == l) row[k] = h;
+          H[k][l] = fa(P1[e], k == l ? 1e-6f : 0.0f);
+          H[l][k] = H[k][l];
         }
 #pragma unroll
-      for (int k = 0; k < 6; ++k) {
-        const float g = __shfl_sync(0xffffffffu, P1[21 + k], 0);
-        if (t == k) row[6] = g;
-      }
-      lu_solve6_warp(row, t, delta);
+      for (int k = 0; k < 6; ++k) delta[k] = P1[21 + k];
+      tod_lapack::lu_solve<6>(H, delta);
       bool ok = true;
       for (int k = 0; k < 6; ++k) {
         delta[k] = -delta[k];

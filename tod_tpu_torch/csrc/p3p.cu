@@ -16,14 +16,16 @@
 // reference's Python expressions (left to right, integer powers as jax
 // expands them, A ** 3 = A * (A * A)). The side lengths are the compiled
 // reference's FMA chain, read off its object code
-// (tools/fit_p3p_order.py); every later stage is unfused, though XLA's CPU
-// backend contracts multiply-adds in its fusions from the quartic's
-// coefficients on (ROADMAP queue C: P3P parts from the reference there). The libm calls are glibc 2.36's FMA builds (libm_f32.cuh). The
-// 3x3 solve is an LU with partial pivoting in LAPACK getf2's order (the
-// column scaled by the pivot's reciprocal, rank-1 updates applied to the
-// right-hand side as well, then the back substitution by columns dividing
-// by the diagonal: pnp.py lu_solve). The plain version is
-// tod_tpu_torch/geometry/pnp.py p3p_distances_torch: the CPU path, the
+// (tools/fit_p3p_order.py), and so are the normalised coefficients
+// C3/C4 .. C0/C4 (four fusions, read off by tools/fit_p3p_fusions.py); the
+// 3x3 Newton solve is LAPACK's, as jnp.linalg.solve runs it on the
+// reference host (lapack_lu.cuh, tools/fit_lapack_order.py). Ferrari's
+// resolvent, the roots' polishes and the Newton steps' residuals and
+// Jacobian are unfused here, though XLA's CPU backend contracts
+// multiply-adds in those fusions too (ROADMAP queue C: P3P parts from the
+// reference at the resolvent). The
+// libm calls are glibc 2.36's FMA builds (libm_f32.cuh). The plain version
+// is tod_tpu_torch/geometry/pnp.py p3p_distances_torch: the CPU path, the
 // same operations in the same order, so both devices give the same bits.
 //
 // Design: a group of 4 lanes a sample, each lane one root and both its
@@ -42,6 +44,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "lapack_lu.cuh"
 #include "libm_f32.cuh"
 
 namespace {
@@ -77,13 +80,11 @@ __device__ __forceinline__ bool is_fin(float x) { return isfinite(x); }
 
 // Root j (0-3) of c4 x^4 + ... + c0 by Ferrari's method after its six
 // Newton polishes: the port's solve_quartic restricted to one root (the
-// polishes update each root from itself alone).
+// polishes update each root from itself alone), from the normalised
+// coefficients a = c3 / c4, b, c, d as quartic_normalized computes them.
 __device__ float quartic_root(float c4, float c3, float c2, float c1,
-                              float c0, int j) {
-  const float a = fd(c3, c4);
-  const float b = fd(c2, c4);
-  const float c = fd(c1, c4);
-  const float d = fd(c0, c4);
+                              float c0, float a, float b, float c, float d,
+                              int j) {
   const float p = fs(b, fd(fm(fm(3.0f, a), a), 8.0f));
   const float q = fa(fs(c, fd(fm(a, b), 2.0f)), fd(fm(fm(a, a), a), 8.0f));
   const float r = fs(fa(fs(d, fd(fm(a, c), 4.0f)), fd(fm(fm(a, a), b), 16.0f)),
@@ -124,51 +125,6 @@ __device__ float quartic_root(float c4, float c3, float c2, float c1,
   return x;
 }
 
-// A 3-vector row of registers, swapped by selects
-struct Row3 {
-  float x, y, z;
-};
-
-__device__ __forceinline__ Row3 pick(bool c, Row3 a, Row3 b) {
-  return {c ? a.x : b.x, c ? a.y : b.y, c ? a.z : b.z};
-}
-
-// J delta = F for the Newton step, LU with partial pivoting (getf2's
-// order); the pivots' row swaps are selects, so every value stays in a
-// register
-__device__ __forceinline__ void solve3(Row3 j0, Row3 j1, Row3 j2, float f0,
-                                       float f1, float f2, float x[3]) {
-  int p = 0;
-  float best = fabsf(j0.x);
-  if (fabsf(j1.x) > best) { p = 1; best = fabsf(j1.x); }
-  if (fabsf(j2.x) > best) p = 2;
-  const Row3 r0 = pick(p == 1, j1, pick(p == 2, j2, j0));
-  Row3 r1 = pick(p == 1, j0, j1);
-  Row3 r2 = pick(p == 2, j0, j2);
-  const float g0 = p == 1 ? f1 : (p == 2 ? f2 : f0);
-  float g1 = p == 1 ? f0 : f1;
-  float g2 = p == 2 ? f0 : f2;
-  const float rcp = fd(1.0f, r0.x);
-  float l1 = fm(r1.x, rcp);
-  float l2 = fm(r2.x, rcp);
-  r1.y = fs(r1.y, fm(l1, r0.y));
-  r1.z = fs(r1.z, fm(l1, r0.z));
-  r2.y = fs(r2.y, fm(l2, r0.y));
-  r2.z = fs(r2.z, fm(l2, r0.z));
-  const bool sw = fabsf(r2.y) > fabsf(r1.y);
-  const Row3 u1 = pick(sw, r2, r1), u2 = pick(sw, r1, r2);
-  const float k1 = sw ? l2 : l1, k2 = sw ? l1 : l2;
-  const float h1 = sw ? g2 : g1, h2 = sw ? g1 : g2;
-  const float rcp1 = fd(1.0f, u1.y);
-  const float l21 = fm(u2.y, rcp1);
-  const float u22 = fs(u2.z, fm(l21, u1.z));
-  const float y1 = fs(h1, fm(k1, g0));
-  const float y2 = fs(fs(h2, fm(k2, g0)), fm(l21, y1));
-  x[2] = fd(y2, u22);
-  x[1] = fd(fs(y1, fm(u1.z, x[2])), u1.y);
-  x[0] = fd(fs(fs(g0, fm(r0.z, x[2])), fm(r0.y, x[1])), r0.x);
-}
-
 __device__ __forceinline__ void cosine_law(const float s[3], float ca,
                                            float cb, float cg, float a2,
                                            float b2, float c2, float F[3]) {
@@ -203,14 +159,15 @@ __device__ __forceinline__ void candidate(float v, float s1, float sq, int br,
   for (int it = 0; it < 8; ++it) {
     float F[3];
     cosine_law(s, ca, cb, cg, a2, b2, c2, F);
-    const Row3 j0 = {1e-9f, fs(fm(2.0f, s[1]), fm(fm(2.0f, s[2]), ca)),
-                     fs(fm(2.0f, s[2]), fm(fm(2.0f, s[1]), ca))};
-    const Row3 j1 = {fs(fm(2.0f, s[0]), fm(fm(2.0f, s[2]), cb)), 1e-9f,
-                     fs(fm(2.0f, s[2]), fm(fm(2.0f, s[0]), cb))};
-    const Row3 j2 = {fs(fm(2.0f, s[0]), fm(fm(2.0f, s[1]), cg)),
-                     fs(fm(2.0f, s[1]), fm(fm(2.0f, s[0]), cg)), 1e-9f};
-    float delta[3];
-    solve3(j0, j1, j2, F[0], F[1], F[2], delta);
+    float J[3][3] = {
+        {1e-9f, fs(fm(2.0f, s[1]), fm(fm(2.0f, s[2]), ca)),
+         fs(fm(2.0f, s[2]), fm(fm(2.0f, s[1]), ca))},
+        {fs(fm(2.0f, s[0]), fm(fm(2.0f, s[2]), cb)), 1e-9f,
+         fs(fm(2.0f, s[2]), fm(fm(2.0f, s[0]), cb))},
+        {fs(fm(2.0f, s[0]), fm(fm(2.0f, s[1]), cg)),
+         fs(fm(2.0f, s[1]), fm(fm(2.0f, s[0]), cg)), 1e-9f}};
+    float delta[3] = {F[0], F[1], F[2]};
+    tod_lapack::lu_solve<3>(J, delta);
     if (is_fin(delta[0]) && is_fin(delta[1]) && is_fin(delta[2])) {
       s[0] = fs(s[0], delta[0]);
       s[1] = fs(s[1], delta[1]);
@@ -257,7 +214,38 @@ p3p_kernel(const float* __restrict__ bear, const float* __restrict__ pts,
   const float C2 = fs(fa(fa(fs(fs(fa(fa(fs(fs(fs(fs(fa(fm(fm(fm(fm(4.0f, Ar), Ar), cb), cb), fm(fm(2.0f, Ar), Ar)), fm(fm(fm(fm(8.0f, Ar), Br), cb), cb)), fm(fm(4.0f, Ar), Br)), fm(fm(fm(fm(8.0f, Ar), ca), cb), cg)), fm(fm(fm(4.0f, Ar), cg), cg)), fm(fm(fm(fm(4.0f, Br), Br), cb), cb)), fm(fm(2.0f, Br), Br)), fm(fm(fm(4.0f, Br), ca), ca)), fm(fm(fm(fm(8.0f, Br), ca), cb), cg)), fm(fm(4.0f, ca), ca)), fm(fm(4.0f, cg), cg)), 2.0f);
   const float C1 = fs(fa(fa(fs(fs(fa(fa(fa(fm(fm(fm(-4.0f, Ar), Ar), cb), fm(fm(fm(8.0f, Ar), Br), cb)), fm(fm(fm(4.0f, Ar), ca), cg)), fm(fm(fm(fm(8.0f, Ar), cb), cg), cg)), fm(fm(4.0f, Ar), cb)), fm(fm(fm(4.0f, Br), Br), cb)), fm(fm(fm(4.0f, Br), ca), cg)), fm(fm(4.0f, Br), cb)), fm(fm(4.0f, ca), cg));
   const float C0 = fa(fs(fa(fa(fs(fs(fm(Ar, Ar), fm(fm(2.0f, Ar), Br)), fm(fm(fm(4.0f, Ar), cg), cg)), fm(2.0f, Ar)), fm(Br, Br)), fm(2.0f, Br)), 1.0f);
-  const float v = quartic_root(C4, C3, C2, C1, C0, j);
+  // pnp.py quartic_normalized: C3/C4 .. C0/C4 as the compiled reference's
+  // four fusions contract them (each recomputes C4 its own way)
+  const float A2 = fa(Ar, Ar), B2 = fa(Br, Br);
+  const float A4 = fm(Ar, 4.0f), B4 = fm(Br, 4.0f);
+  const float A8 = fm(Ar, 8.0f), B8 = fm(Br, 8.0f), ca4 = fm(ca, 4.0f);
+  const float head = fs(__fmaf_rn(Ar, Ar, -fm(A2, Br)), A2);
+  const float den1 = fa(fa(B2, __fmaf_rn(-fm(B4, ca), ca,
+                                         __fmaf_rn(Br, Br, head))), 1.0f);
+  const float den2 = fa(fa(B2, fs(__fmaf_rn(Br, Br, head),
+                                  fm(fm(B4, ca), ca))), 1.0f);
+  const float den0 = fa(fa(B2, __fmaf_rn(-fm(B4, ca), ca,
+                                         fa(fm(Br, Br), head))), 1.0f);
+  const float tail = -fm(fm(A4, Ar), cb);
+  const float n3 = __fmaf_rn(-ca4, cg, __fmaf_rn(-B4, cb, __fmaf_rn(
+      fm(B4, ca), cg, __fmaf_rn(fm(fm(B8, ca), ca), cb, __fmaf_rn(
+          -fm(B4, Br), cb, __fmaf_rn(A4, cb, __fmaf_rn(
+              fm(A4, ca), cg, __fmaf_rn(fm(A8, Br), cb, tail))))))));
+  const float n2 = fs(__fmaf_rn(fm(cg, 4.0f), cg, __fmaf_rn(ca4, ca, __fmaf_rn(
+      -fm(fm(B8, ca), cb), cg, fs(__fmaf_rn(B2, Br, __fmaf_rn(
+          fm(fm(B4, Br), cb), cb, __fmaf_rn(-fm(A4, cg), cg, __fmaf_rn(
+              -fm(fm(A8, ca), cb), cg, __fmaf_rn(-A4, Br, __fmaf_rn(
+                  -fm(fm(A8, Br), cb), cb, __fmaf_rn(
+                      A2, Ar, fm(fm(fm(A4, Ar), cb), cb)))))))),
+          fm(fm(B4, ca), ca))))), 2.0f);
+  const float n1 = __fmaf_rn(-ca4, cg, __fmaf_rn(B4, cb, __fmaf_rn(
+      fm(B4, ca), cg, __fmaf_rn(-fm(B4, Br), cb, __fmaf_rn(-A4, cb, __fmaf_rn(
+          fm(fm(A8, cb), cg), cg, __fmaf_rn(fm(A4, ca), cg, __fmaf_rn(
+              fm(A8, Br), cb, tail))))))));
+  const float n0 = fa(fs(fa(fm(Br, Br), fa(A2, __fmaf_rn(
+      -fm(A4, cg), cg, __fmaf_rn(Ar, Ar, -fm(A2, Br))))), B2), 1.0f);
+  const float v = quartic_root(C4, C3, C2, C1, C0, fd(n3, den1),
+                               fd(n2, den2), fd(n1, den1), fd(n0, den0), j);
   const float scale = maxnan(maxnan(a2, b2), c2);
   const float gate = fm(1e-4f, scale);
   const float gv = maxc(fs(fa(1.0f, fm(v, v)), fm(fm(2.0f, v), cb)), 1e-12f);
@@ -286,5 +274,53 @@ extern "C" int tod_p3p(const void* bearings, const void* points,
   p3p_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(bearings), static_cast<const float*>(points),
       static_cast<float*>(s_out), static_cast<uint8_t*>(ok_out), n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+namespace {
+
+// lapack_lu.cuh alone, a thread a system: the check that the card's LU
+// gives jnp.linalg.solve's bits (chip_smoke.py phase 3k holds it against
+// tests/data/torch_p3p_fixture.npz); not on the detection path
+template <int N>
+__global__ void __launch_bounds__(kThreads)
+lu_solve_kernel(const float* __restrict__ M, const float* __restrict__ F,
+                float* __restrict__ x, int n) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads
+                    + threadIdx.x;
+  if (i >= n) return;
+  float a[N][N], b[N];
+#pragma unroll
+  for (int r = 0; r < N; ++r) {
+#pragma unroll
+    for (int c = 0; c < N; ++c) a[r][c] = M[(i * N + r) * N + c];
+    b[r] = F[i * N + r];
+  }
+  tod_lapack::lu_solve<N>(a, b);
+#pragma unroll
+  for (int r = 0; r < N; ++r) x[i * N + r] = b[r];
+}
+
+}  // namespace
+
+// x = M^-1 F for n_systems contiguous float32 systems of size n (3 or 6):
+// M (n_systems, n, n) row-major, F and x (n_systems, n). Launches on
+// `stream` and returns cudaGetLastError(); it neither allocates nor
+// synchronises.
+extern "C" int tod_lu_solve(const void* M, const void* F, void* x,
+                            int n_systems, int n, void* stream) {
+  if (n_systems <= 0) return 0;
+  const int blocks = (n_systems + kThreads - 1) / kThreads;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n == 3)
+    lu_solve_kernel<3><<<blocks, kThreads, 0, s>>>(
+        static_cast<const float*>(M), static_cast<const float*>(F),
+        static_cast<float*>(x), n_systems);
+  else if (n == 6)
+    lu_solve_kernel<6><<<blocks, kThreads, 0, s>>>(
+        static_cast<const float*>(M), static_cast<const float*>(F),
+        static_cast<float*>(x), n_systems);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }

@@ -26,8 +26,9 @@ launch a call each), correctly rounded roots,
 divisions by tensors (PyTorch's CUDA division by a Python number
 multiplies by its reciprocal), and P3P through kernel P1 or its plain
 twin. No step inside a round waits for the host: the histogram is a
-``scatter_add_`` into 64 bins, the 3x3 eigenvector is closed-form, the
-solves are explicit LUs (``pnp.lu_solve``). :func:`detect_frame_2d` reads one number set back before the
+``scatter_add_`` into 64 bins, the 3x3 eigenvector is LAPACK's ``ssyevd``
+(``geometry/lapack.py``, the reference's ``eigh`` bit for bit; kernel M2
+on a card), the solves are LAPACK's LU (``pnp.lu_solve``). :func:`detect_frame_2d` reads one number set back before the
 rounds, which objects can be accepted at all.
 """
 
@@ -45,11 +46,12 @@ from tod_tpu_torch import kernels
 from tod_tpu_torch.geometry.adjacency import (ObjectMatches,
                                               count_unique_query_indices)
 from tod_tpu_torch.geometry.detection import cluster_matches
+from tod_tpu_torch.geometry.lapack import smallest_eigenvector_torch
 from tod_tpu_torch.geometry.pnp import gauss_newton_pose, p3p, skew
 from tod_tpu_torch.geometry.ransac import (ObjectDetections, ThreefryNoise,
                                            _rows, consistency_log_weights,
                                            sample_triples)
-from tod_tpu_torch.geometry.transforms import (_det3, cross3, dot3, matmul3,
+from tod_tpu_torch.geometry.transforms import (cross3, dot3, matmul3,
                                                pairwise_sum)
 from tod_tpu_torch.ops import libm
 from tod_tpu_torch.ops.fast import stable_topk
@@ -216,43 +218,12 @@ def truncated_sse(R, T, K, m: ObjectMatches, valid: torch.Tensor,
 
 
 def sym3_smallest_vector_torch(cov: torch.Tensor) -> torch.Tensor:
-    """The plain version of kernel M2. Unit eigenvector of the smallest eigenvalue of symmetric (..., 3, 3)
-    matrices, in closed form (no host wait, unlike ``torch.linalg.eigh`` on
-    a card): the eigenvalue by the trigonometric solution of the
-    characteristic cubic, the vector as the largest cross product of two
-    rows of ``cov - lambda I``. Computed in float64 but the angle, whose
-    ``arccos`` and ``cos`` are the C library's float32 ones
-    (``ops/libm.py``); the sign is arbitrary, as an eigensolver's is."""
-    c = cov.to(torch.float64)
-    k = lambda v: torch.full((), v, dtype=c.dtype, device=c.device)  # noqa
-    eye = torch.eye(3, dtype=c.dtype, device=c.device)
-    q = ((c[..., 0, 0] + c[..., 1, 1]) + c[..., 2, 2]) / k(3.0)
-    off = (c[..., 0, 1] * c[..., 0, 1] + c[..., 0, 2] * c[..., 0, 2]) \
-        + c[..., 1, 2] * c[..., 1, 2]
-    e0, e1, e2 = (c[..., i, i] - q for i in range(3))
-    p2 = ((e0 * e0 + e1 * e1) + e2 * e2) + 2.0 * off
-    p = libm.sqrt_rn(p2 / k(6.0))
-    safe_p = torch.where(p > 0, p, torch.ones_like(p))
-    b = (c - q[..., None, None] * eye) / safe_p[..., None, None]
-    half_det = torch.clamp(_det3(b) / 2.0, -1.0, 1.0).to(torch.float32)
-    phi = libm.acosf(half_det) / torch.full((), 3.0, device=c.device)
-    ang = phi + torch.full((), 2.0 * math.pi / 3.0, dtype=torch.float32,
-                           device=c.device)
-    lam = q + 2.0 * p * libm.cosf(ang).to(torch.float64)   # the smallest
-    a = c - lam[..., None, None] * eye
-    r0, r1, r2 = a[..., 0, :], a[..., 1, :], a[..., 2, :]
-    cands = torch.stack([cross3(r0, r1), cross3(r0, r2), cross3(r1, r2)],
-                        dim=-2)
-    norms = dot3(cands, cands)
-    best = torch.argmax(norms, dim=-1)
-    vec = torch.take_along_dim(cands, best[..., None, None], -2)[..., 0, :]
-    length = libm.sqrt_rn(torch.take_along_dim(norms, best[..., None], -1))
-    # an isotropic or rank-0 matrix: every direction is an eigenvector
-    e0 = torch.zeros_like(vec)
-    e0[..., 0] = 1.0
-    vec = torch.where(length > 0, vec / torch.where(
-        length > 0, length, torch.ones_like(length)), e0)
-    return vec.to(cov.dtype)
+    """The plain version of kernel M2: the unit eigenvector of the smallest
+    eigenvalue of symmetric float32 (..., 3, 3) matrices, as the reference
+    takes it (``jnp.linalg.eigh(cov)[1][:, 0]``) bit for bit and sign for
+    sign: LAPACK's ``ssyevd`` on the symmetrised matrix,
+    ``geometry/lapack.py smallest_eigenvector_torch``."""
+    return smallest_eigenvector_torch(cov)
 
 
 def sym3_smallest_vector(cov: torch.Tensor) -> torch.Tensor:

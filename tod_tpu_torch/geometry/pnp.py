@@ -13,22 +13,27 @@ pixels are x = K @ x_cam (pinhole, no distortion).
 
 One set of bits on every device: the P3P distances are kernel P1
 (``csrc/p3p.cu``) on a card and :func:`p3p_distances_torch` on the CPU,
-the same float operations in the same order (the reference's expressions
-left to right; the side lengths as the compiled reference's FMA chain,
-every later stage unfused; glibc's ``powf`` and ``cosf`` and XLA's
-``arccos`` form from ``ops/libm.py``; a 3x3 LU with partial pivoting,
-:func:`lu_solve`); the Horn fit is ``kabsch(fixed=True)``. The refinement
-sums in fixed orders (``transforms.pairwise_sum``, three-term products as
-``transforms.mat_vec``), solves its 6x6 step with :func:`lu_solve` and
-takes ``sincosf`` from ``ops/libm.py``. The compiled reference also
-contracts multiply-adds in every fusion from the quartic's coefficients
-on (``tools/fit_p3p_order.py`` counts them) and solves through LAPACK;
-the port transcribes neither (ROADMAP queue C): its P3P equals the
-reference's through the sides and cosines and parts at the coefficients,
-agreeing candidate by candidate, not bit for bit
-(``tests/test_torch_pnp.py``). Host waits: none. The
-reference differentiates its residual with ``jax.jacfwd``; the port writes
-the Jacobian out (at ``delta = 0`` both are the same function).
+the same float operations in the same order (glibc's ``powf`` and ``cosf``
+and XLA's ``arccos`` form from ``ops/libm.py``); the Horn fit is
+``kabsch(fixed=True)``. The refinement sums in fixed orders
+(``transforms.pairwise_sum``, three-term products as
+``transforms.mat_vec``) and takes ``sincosf`` from ``ops/libm.py``. Both
+solve through :func:`lu_solve` (``geometry/lapack.py``): LAPACK's
+``sgetrf`` and ``strsm`` as ``jnp.linalg.solve`` runs them on the
+reference host, bit for bit.
+
+Against the compiled reference, P3P holds its bits through the side
+lengths (the reduce's FMA chain), the cosines and the four normalised
+quartic coefficients (:func:`quartic_normalized`: XLA's fusions with
+LLVM's contractions, read off by ``tools/fit_p3p_fusions.py``) and parts
+after them: Ferrari's resolvent, the polishes, the distances' Newton
+steps and the Horn fit contract multiply-adds in fusions the port does
+not transcribe yet (ROADMAP queue C), so candidates agree with the
+reference's within 1 mm, not bit for bit (``tests/test_torch_pnp.py``).
+So does the refinement (``jax.jacfwd``'s tangents and the batched dots
+of ``J^T J``). Host waits: none. The reference differentiates its
+residual with ``jax.jacfwd``; the port writes the Jacobian out (at
+``delta = 0`` both are the same function).
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from tod_tpu_torch import kernels
+from tod_tpu_torch.geometry.lapack import lu_solve
 from tod_tpu_torch.geometry.transforms import (dot3, kabsch, matmul3,
                                                pairwise_sum)
 from tod_tpu_torch.ops import libm
@@ -63,7 +69,8 @@ def _cbrt(x: torch.Tensor) -> torch.Tensor:
                                 torch.full_like(x, 1.0 / 3.0))
 
 
-def solve_quartic(c4, c3, c2, c1, c0, polish_iters: int = 6
+def solve_quartic(c4, c3, c2, c1, c0, polish_iters: int = 6,
+                  normalized: Optional[Tuple[torch.Tensor, ...]] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Real roots of c4 x^4 + c3 x^3 + c2 x^2 + c1 x + c0 (elementwise over
     any batch shape). Returns ``(roots (..., 4), valid (..., 4))``.
@@ -72,14 +79,14 @@ def solve_quartic(c4, c3, c2, c1, c0, polish_iters: int = 6
     cubic's largest real root (Cardano, or its trigonometric form when the
     cubic has three real roots); Newton-polish each root on the original
     quartic. Every operation in the reference's order, rounded on its own
-    (kernel P1 transcribes this function line by line)."""
+    (kernel P1 transcribes this function line by line). ``normalized``,
+    when given, is ``(c3/c4, c2/c4, c1/c4, c0/c4)`` as computed elsewhere
+    (:func:`quartic_normalized`)."""
     def div(x, v):
         return x / _c(v, x)
 
-    a = c3 / c4
-    b = c2 / c4
-    c = c1 / c4
-    d = c0 / c4
+    a, b, c, d = normalized if normalized is not None else (
+        c3 / c4, c2 / c4, c1 / c4, c0 / c4)
     # depressed quartic y^4 + p y^2 + q y + r
     p = b - div(3.0 * a * a, 8.0)
     q = c - div(a * b, 2.0) + div(a * a * a, 8.0)
@@ -145,46 +152,6 @@ def _side(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
         d[..., 1], d[..., 1], d[..., 0] * d[..., 0])))
 
 
-def lu_solve(M: torch.Tensor, F: torch.Tensor) -> torch.Tensor:
-    """``M^-1 F`` for (..., n, n) ``M`` and (..., n) ``F`` by an LU with
-    partial pivoting in LAPACK ``getf2``'s order: per column the largest
-    magnitude pivots (the first on ties), the column below it is scaled by
-    the pivot's reciprocal, the rank-1 update follows; then the back
-    substitution by columns, dividing by the diagonal. Every step an
-    elementwise operation, rounded alike on every device; no host wait. A
-    singular ``M`` gives non-finite entries, as an LU solve does."""
-    n = M.shape[-1]
-    A = torch.cat([M, F[..., None]], -1)                  # (..., n, n + 1)
-    rows = torch.arange(n, device=M.device)
-    for k in range(n - 1):
-        # the first largest magnitude: strict comparisons in row order (a
-        # NaN pivot candidate never wins, a NaN in row k stays)
-        best = torch.abs(A[..., k, k])
-        piv = torch.full_like(best, k, dtype=torch.int64)
-        for i in range(k + 1, n):
-            mag = torch.abs(A[..., i, k])
-            more = mag > best
-            piv = torch.where(more, i, piv)
-            best = torch.where(more, mag, best)
-        perm = torch.where(rows == k, piv[..., None],
-                           torch.where(rows == piv[..., None], k, rows))
-        A = torch.take_along_dim(A, perm[..., None], -2)
-        rcp = 1.0 / A[..., k, k]
-        l = A[..., k + 1:, k] * rcp[..., None]             # (..., n-k-1)
-        A = torch.cat([A[..., :k + 1, :], torch.cat([
-            A[..., k + 1:, :k + 1],
-            A[..., k + 1:, k + 1:] - l[..., None] * A[..., k, None, k + 1:]],
-            -1)], -2)
-    g = A[..., n]
-    xs = [None] * n
-    for j in range(n - 1, -1, -1):
-        xs[j] = g[..., j] / A[..., j, j]
-        if j:
-            g = torch.cat([g[..., :j] - A[..., :j, j] * xs[j][..., None],
-                           g[..., j:]], -1)
-    return torch.stack(xs, -1)
-
-
 def _cosine_law(s: torch.Tensor, ca, cb, cg, a2, b2, c2) -> torch.Tensor:
     """The three cosine-law residuals of distances ``s`` (..., 3)."""
     s1, s2, s3 = s[..., 0], s[..., 1], s[..., 2]
@@ -217,6 +184,34 @@ def quartic_coefficients(Ar, Br, ca, cb, cg) -> Tuple[torch.Tensor, ...]:
     return C4, C3, C2, C1, C0
 
 
+def quartic_normalized(Ar, Br, ca, cb, cg) -> Tuple[torch.Tensor, ...]:
+    """``solve_quartic``'s first line, ``(C3/C4, C2/C4, C1/C4, C0/C4)``, as
+    the compiled reference computes it: four fusions, each recomputing C4
+    with its own contractions (LLVM folds a product with one use into the
+    add or subtract that takes it, after its canonicalisation of negations
+    and operand order; read off by ``tools/fit_p3p_fusions.py``), every
+    multiply-add :func:`fma_f32`, the same on every device."""
+    F = fma_f32
+    A2, B2 = Ar + Ar, Br + Br
+    A4, B4, A8, B8 = Ar * 4, Br * 4, Ar * 8, Br * 8
+    c4 = ca * 4
+    head = F(Ar, Ar, -(A2 * Br)) - A2            # Ar Ar - 2 Ar Br - 2 Ar
+    den1 = (B2 + F(-(B4 * ca), ca, F(Br, Br, head))) + 1
+    den2 = (B2 + (F(Br, Br, head) - B4 * ca * ca)) + 1
+    den0 = (B2 + F(-(B4 * ca), ca, Br * Br + head)) + 1
+    tail = -(A4 * Ar * cb)                       # -4 Ar Ar cb
+    n3 = F(-c4, cg, F(-B4, cb, F(B4 * ca, cg, F(B8 * ca * ca, cb, F(
+        -(B4 * Br), cb, F(A4, cb, F(A4 * ca, cg, F(A8 * Br, cb, tail))))))))
+    n2 = F(cg * 4, cg, F(c4, ca, F(-(B8 * ca * cb), cg, F(B2, Br, F(
+        B4 * Br * cb, cb, F(-(A4 * cg), cg, F(-(A8 * ca * cb), cg, F(
+            -A4, Br, F(-(A8 * Br * cb), cb, F(A2, Ar, A4 * Ar * cb * cb))))
+    ))) - B4 * ca * ca))) - 2
+    n1 = F(-c4, cg, F(B4, cb, F(B4 * ca, cg, F(-(B4 * Br), cb, F(-A4, cb, F(
+        A8 * cb * cg, cg, F(A4 * ca, cg, F(A8 * Br, cb, tail))))))))
+    n0 = ((Br * Br + (A2 + F(-(A4 * cg), cg, F(Ar, Ar, -(A2 * Br))))) - B2) + 1
+    return n3 / den1, n2 / den2, n1 / den1, n0 / den0
+
+
 def p3p_distances_torch(bearings: torch.Tensor, points: torch.Tensor
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The plain version of kernel P1: for samples of ``bearings`` (..., 3,
@@ -242,7 +237,8 @@ def p3p_distances_torch(bearings: torch.Tensor, points: torch.Tensor
     Br = c2 / b2
     C4, C3, C2, C1, C0 = quartic_coefficients(Ar, Br, ca, cb, cg)
 
-    v, _ = solve_quartic(C4, C3, C2, C1, C0)            # (..., 4)
+    v, _ = solve_quartic(C4, C3, C2, C1, C0, normalized=quartic_normalized(
+        Ar, Br, ca, cb, cg))                              # (..., 4)
     ca, cb, cg = ca[..., None], cb[..., None], cg[..., None]
     a2, b2, c2, Br = a2[..., None], b2[..., None], c2[..., None], Br[..., None]
 
@@ -306,9 +302,11 @@ def p3p_distances(bearings: torch.Tensor, points: torch.Tensor
     ok = torch.empty(lead + (8,), dtype=torch.uint8, device=bearings.device)
     n = s.numel() // 24
     if n:
+        # held by name until the launch: a freed copy's memory would take
+        # the next copy
+        bearings, points = bearings.contiguous(), points.contiguous()
         kernels.call("p3p", "tod_p3p",
-                     [bearings.contiguous().data_ptr(),
-                      points.contiguous().data_ptr(), s.data_ptr(),
+                     [bearings.data_ptr(), points.data_ptr(), s.data_ptr(),
                       ok.data_ptr()], [n],
                      torch.cuda.current_stream(bearings.device).cuda_stream)
         p3p_distances.launches += 1
@@ -507,5 +505,6 @@ def gauss_newton_pose_torch(R0: torch.Tensor, T0: torch.Tensor,
 __all__ = ["P3PSolutions", "gauss_newton_pose",
            "gauss_newton_pose_torch", "lu_solve", "p3p", "p3p_distances",
            "p3p_distances_torch", "project", "quartic_coefficients",
+           "quartic_normalized",
            "reprojection_jacobian", "rodrigues", "rotate", "skew",
            "solve_quartic"]

@@ -55,17 +55,20 @@ def fma_f32(a: torch.Tensor, b, c: torch.Tensor) -> torch.Tensor:
     CPU tensor the f64 sum ``s`` of the exact product and ``c`` rounds
     to f32 as the exact sum does unless ``s`` is an f32 half-way point
     (every f32 value and half-way point is an f64 value, and rounding is
-    monotonic): only those elements, and those outside the f32 normal
-    range, take :func:`_fma_f32_odd`; the same bits at half the cost."""
+    monotonic): only those elements, and those in the f32 subnormal range,
+    take :func:`_fma_f32_odd`; the same bits at half the cost. A
+    sum past the f32 range (its f64 at or above 2^128) rounds to an
+    infinity directly, as the FMA does; the round-to-odd form would give
+    NaN there, so a CUDA tensor's sum that overflows f32 is NaN (the paths
+    that use it stay far from 2^128)."""
     if a.device.type != "cpu":
         return _fma_f32_odd(a, b, c)
     b64 = b.to(torch.float64) if isinstance(b, torch.Tensor) else b
     s = a.to(torch.float64) * b64 + c.to(torch.float64)
     bits = s.view(torch.int64)
     exp = (bits >> 52) & 0x7FF
-    # 897..1150: 2^-126 <= |s| < 2^128; an exact zero sum is exact
-    slow = ((bits & _F64_LOW) == _F64_TIE) | (exp > 1150) \
-        | ((exp < 897) & (s != 0))
+    # below 897: |s| < 2^-126, f32's subnormal range; an exact zero is exact
+    slow = ((bits & _F64_LOW) == _F64_TIE) | ((exp < 897) & (s != 0))
     out = s.to(torch.float32)
     if bool(slow.any()):
         at = slow.nonzero(as_tuple=True)

@@ -22,8 +22,13 @@ in one call:
 - ``--what p2``: the refinement alone, ``geometry/pnp.py
   gauss_newton_pose`` (kernel P2 on the card) at ``chip_smoke.P2_SHAPE``
   (a 2D chunk's refinement) and, where the tree's P2 takes it, at
-  ``P2_SCRATCH_SHAPE`` (rows past its shared memory), on seeded poses;
-  CUDA events over ``--frames`` calls each.
+  ``P2_SCRATCH_SHAPE`` (rows past its shared memory), and at
+  ``P2_LARGE_SHAPE`` where the tree's chip_smoke.py has one, on seeded
+  poses; CUDA events over ``--frames`` calls each;
+- ``--what m2``: the model normal alone, ``geometry/detection2d.py
+  sym3_smallest_vector`` (kernel M2 on the card) on phase 3j's 32
+  covariances (this checkout's ``chip_smoke.mirror_cases``, seed 37),
+  ``m2`` around the call and ``m2_device`` queued behind a device sleep.
 
 Prints one JSON line: the medians in ms and each frame's values, with the
 card's name and power limit. Run it from a checkout with its fixtures
@@ -138,6 +143,8 @@ def time_p2(cs, frames: int) -> list:
     rng = np.random.default_rng(29)
     K = torch.tensor([[525.0, 0, 319.5], [0, 525.0, 239.5], [0, 0, 1]])
     cases = {"p2": cs.P2_SHAPE}
+    if hasattr(cs, "P2_LARGE_SHAPE"):
+        cases["p2_large"] = cs.P2_LARGE_SHAPE
     if hasattr(pnp, "GN_SHARED_BYTES"):
         cases["p2_scratch"] = cs.P2_SCRATCH_SHAPE
     calls = {}
@@ -210,11 +217,38 @@ def time_p1(frames: int) -> list:
     return out
 
 
+def time_m2(frames: int) -> list:
+    import torch
+
+    from tod_tpu_torch.geometry import detection2d as td
+
+    own = own_chip_smoke()
+    dev = torch.device("cuda", 0)
+    cov = own.mirror_cases(np.random.default_rng(37),
+                           *own.MIRROR_SHAPES[0])[3].to(dev)
+    out = []
+    for f in range(frames + 2):
+        row = {}
+        for name, queued in (("m2", False), ("m2_device", True)):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            if queued:
+                torch.cuda._sleep(2_000_000)     # ~1 ms: hides the host
+            start.record()
+            td.sym3_smallest_vector(cov)
+            end.record()
+            end.synchronize()
+            row[name] = start.elapsed_time(end)
+        if f >= 2:                                       # after 2 warm
+            out.append(row)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
-    ap.add_argument("--what", choices=("2d", "matcher", "p1", "p2"),
+    ap.add_argument("--what", choices=("2d", "matcher", "p1", "p2", "m2"),
                     default="2d")
     ap.add_argument("--frames", type=int, default=5)
     args = ap.parse_args()
@@ -233,7 +267,8 @@ def main() -> int:
     per_frame = {"2d": lambda: time_2d(cs, root, args.frames),
                  "matcher": lambda: time_matcher(cs, args.frames),
                  "p1": lambda: time_p1(args.frames),
-                 "p2": lambda: time_p2(cs, args.frames)}[args.what]()
+                 "p2": lambda: time_p2(cs, args.frames),
+                 "m2": lambda: time_m2(args.frames)}[args.what]()
     keys = sorted({k for f in per_frame for k in f})
     print(json.dumps({
         "what": args.what, "root": root, "card": card_line(),
