@@ -97,7 +97,16 @@ any failure raises, exits non-zero and prints no ``ok`` line:
             1e-6, T = 0, a NaN pose; isotropic, rank-0 and rank-1
             covariances); timed beside their plain versions on the card
             (the parent's chain of launches) and the CPU, M2 beside
-            torch.linalg.eigh.
+            torch.linalg.eigh. Both run inside R1 on the 2D path.
+3l.         kernel R1 (csrc/consensus.cu: the 2D path's reprojection
+            consensus) against its plain versions bit for bit in every
+            mode (the counts of every pose, the selection with the model
+            normal and the mirrors, the masks and the truncated SSE) at a
+            chunk's 32 objects x 4,096 poses x 1,024 matches, a tile's
+            tail (1,030 matches) and small shapes, with the edge cases
+            (camera z at +-1e-9 and 1e-6, points behind the camera, a NaN
+            pose, invalid matches, an object with none); each mode timed
+            beside its plain version on the card, with its bound.
 4. main     FusedDetector at the bench's operating point on the 100-object
             smoke catalog, frames of tests/data/torch_smoke_fixture.npz
             through prepare_frame -> detect; the compaction stage's
@@ -299,7 +308,9 @@ without depth):
             placement logged for both packages); every object's round 0
             (found, n_unique) against the reference's (equal for the
             accepted objects) and the accepted objects' round-0 triples
-            (logged); one B5 launch a frame and one N1 launch a round; B5
+            (logged); one B5 launch a frame and one N1 launch a round; R1
+            five launches a round and chunk (two in the consensus), M1 and
+            M2 none (they run inside R1); B5
             timed at the graph's shape (radius None) beside its bound; the
             depthless frame timed in turns with the depth frame (median,
             p95), the per-cell split and peak device memory.
@@ -512,6 +523,23 @@ M2_LARTG_OPS = 14
 M2_LAEV2_OPS = 30
 M2_ROTATE_OPS = 18
 MIRROR_SHAPES = ((32, 8), (5, 8))   # a 2D chunk's objects x N_REFINE; a tail
+SOURCE_R1 = "tod_tpu_torch/csrc/consensus.cu"
+# the reference's consensus: `count` over every P3P candidate, `trunc_sse`
+# and the mirror branch with its counts (XLA's fusions of `project`, its
+# reduces over the matches, the mirror's dots and libm calls; not Pallas
+# kernels)
+R1_REPLACES = "tod_tpu/geometry/detection2d.py:116-124,141-145,172-190"
+# float32 operations of R1 a (pose, match) pair, counted from
+# csrc/consensus.cu `reproject` (an FMA two): R X + T 18, the projection's
+# two products, two divisions, two adds and two subtractions 8, fma(dv, dv,
+# du du) 3, the front, |z| and threshold tests 3
+R1_PAIR_OPS = 32
+# (objects, poses, matches): a 2D chunk's consensus (32 objects x 512
+# hypotheses x 8 P3P candidates, 1,024 match slots), the tile's tail, small
+R1_SHAPES = ((32, 4096, 1024), (3, 136, 1030), (4, 48, 40), (2, 8, 1))
+# R1's launches a 2D round and chunk: the consensus's counts and selection,
+# the refinement's two recounts and its SSE
+R1_PER_CHUNK = 5
 # the reference's SIFT descriptor from the patches to the normalisation:
 # XLA's fusions, the libm atan2f call and the tables' dot (not a Pallas
 # kernel)
@@ -1163,8 +1191,8 @@ def wrappers():
     """The kernel wrappers, B1..B5, T1, N1, L1 (the fused keypoint
     orientation), L2, L3 (the fused matcher), L3t (its distance tile), P1,
     L4 (libm's cosf / sincosf / powf, XLA's log), P2 (the Gauss-Newton
-    refinement), L1e (the elementwise atan2f), M1 (the 2D path's mirror)
-    and M2 (its model normal)."""
+    refinement), L1e (the elementwise atan2f), M1 (the 2D path's mirror),
+    M2 (its model normal) and R1 (its reprojection consensus)."""
     from tod_tpu_torch.geometry import detection2d as td
     from tod_tpu_torch.geometry import pnp
     from tod_tpu_torch.ops import hamming as ham
@@ -1182,12 +1210,13 @@ def wrappers():
             sift.sift_descriptors, matching.l2_topk_fused,
             matching.l2_distances, pnp.p3p_distances, libm.libm_f32,
             pnp.gauss_newton_pose, libm.atan2f, td.mirror_poses,
-            td.sym3_smallest_vector)
+            td.sym3_smallest_vector, td.consensus_kernel)
 
 
 # the names of :func:`wrappers`' kernels, in the order of :func:`read_counts`
 COUNTED_KERNELS = [f"B{i + 1}" for i in range(5)] + [
-    "T1", "N1", "L1", "L2", "L3", "L3t", "P1", "L4", "P2", "L1e", "M1", "M2"]
+    "T1", "N1", "L1", "L2", "L3", "L3t", "P1", "L4", "P2", "L1e", "M1", "M2",
+    "R1"]
 N_MATCH_NOISE = 7          # B1..B5, T1 and N1: the counts before L1-L4
 
 
@@ -1198,7 +1227,7 @@ def reset_counts() -> None:
 
 def read_counts():
     """Launches of (B1, B2, B3, B4, B5, T1, N1, L1, L2, L3, L3t, P1, L4,
-    P2, L1e, M1, M2) since :func:`reset_counts`."""
+    P2, L1e, M1, M2, R1) since :func:`reset_counts`."""
     return tuple(fn.launches for fn in wrappers())
 
 
@@ -1216,15 +1245,15 @@ def check_feature_counts(what: str, n_frames: int, counts,
     without SIFT; L3 (the fused L2 matcher) one a frame where ``l3``, else
     none; L4 (XLA's log of the RANSAC weights) the same number of times on
     every frame; never L3's tile (the orders the graph does not take), P1,
-    P2, M1 or M2 (the 2D path's), or L1e (on no path)."""
-    l1, l2, l3_n, l3t, p1, l4, p2, l1e, m1, m2 = counts[N_MATCH_NOISE:]
+    P2, M1, M2 or R1 (the 2D path's), or L1e (on no path)."""
+    l1, l2, l3_n, l3t, p1, l4, p2, l1e, m1, m2, r1 = counts[N_MATCH_NOISE:]
     if l1 < n_frames or l1 % n_frames or (l2 != l1 if sift else l2) or (
             l3_n != n_frames if l3 else l3_n) or l3t or p1 or l4 % n_frames \
-            or p2 or l1e or m1 or m2:
+            or p2 or l1e or m1 or m2 or r1:
         raise AssertionError(f"{what}: launches L1 {l1}, L2 {l2}, L3 {l3_n}, "
                              f"L3t {l3t}, P1 {p1}, L4 {l4}, P2 {p2}, L1e "
-                             f"{l1e}, M1 {m1}, M2 {m2} for {n_frames} "
-                             "frames")
+                             f"{l1e}, M1 {m1}, M2 {m2}, R1 {r1} for "
+                             f"{n_frames} frames")
 
 
 def check_launches(what: str, n_frames: int, counts, full: int,
@@ -2421,6 +2450,183 @@ def check_mirror(dev, card: str) -> tuple:
                        "chunk's mirrors)" if name == "M1" else
                        f"{shape[0]} covariances (a 2D chunk's normals)"))
     return out["M1"], out["M2"]
+
+
+def consensus_cases(rng: np.random.Generator, n_a: int, n_h: int, m: int
+                    ) -> tuple:
+    """Kernel R1's inputs, float32 and bool tensors on the CPU: ``R`` (n_a,
+    n_h, 3, 3) and ``T`` (n_a, n_h, 3) candidate poses near each object's
+    view (a fifth of them anywhere in front), ``K``, model points ``X``
+    (n_a, m, 3), pixels ``xy`` (n_a, m, 2) (the true projections with
+    noise, a quarter junk), ``valid`` (n_a, m) and ``pose_ok`` (n_a,
+    n_h). With the edge cases: pose 0 of object 0 the identity at T = 0,
+    under which points sit at camera z = +-1e-9, 1e-6 and their
+    neighbours, 0 and behind the camera; a NaN pose; invalid matches and,
+    with three objects or more, an object with none."""
+    K = torch.tensor([[525.0, 0, 319.5], [0, 525.0, 239.5], [0, 0, 1]])
+    Kn = K.numpy()
+    ang = rng.uniform(-0.5, 0.5, (n_a, 3))
+    R0 = np.stack([cv_rodrigues(a) for a in ang])
+    T0 = np.concatenate([rng.uniform(-0.1, 0.1, (n_a, 2)),
+                         rng.uniform(0.5, 1.5, (n_a, 1))], -1)
+    X = rng.uniform(-0.12, 0.12, (n_a, m, 3)) * [1, 1, 0.3]
+    cam = np.einsum("aij,amj->ami", R0, X) + T0[:, None]
+    uv = cam @ Kn.T
+    xy = uv[..., :2] / uv[..., 2:3] + rng.normal(0, 2.0, (n_a, m, 2))
+    junk = rng.random((n_a, m)) < 0.25
+    xy[junk] = rng.uniform([0, 0], [640, 480], (int(junk.sum()), 2))
+    dang = rng.normal(0, 0.01, (n_a, n_h, 3))
+    far = rng.random((n_a, n_h)) < 0.2
+    dang[far] = rng.uniform(-3, 3, (int(far.sum()), 3))
+    R = np.stack([np.stack([cv_rodrigues(d) @ R0[a] for d in dang[a]])
+                  for a in range(n_a)])
+    T = T0[:, None] + rng.normal(0, 0.01, (n_a, n_h, 3))
+    R, T, X, xy = (np.asarray(x, np.float32) for x in (R, T, X, xy))
+    R[0, 0], T[0, 0] = np.eye(3), 0.0
+    edges = np.array([1e-9, -1e-9, 1e-6, 0.0, -0.3], np.float32)
+    edges = np.concatenate([edges, np.nextafter(edges[:3], np.float32(1)),
+                            np.nextafter(edges[:3], np.float32(0))])
+    k = min(m, len(edges))
+    X[0, :k, 2] = edges[:k]
+    if n_h > 1:
+        R[0, 1, 0, 0] = np.nan
+    valid = rng.random((n_a, m)) < 0.85
+    if n_a >= 3:
+        valid[2] = False
+    pose_ok = rng.random((n_a, n_h)) < 0.9
+    return (torch.from_numpy(R), torch.from_numpy(T), K,
+            torch.from_numpy(X), torch.from_numpy(xy),
+            torch.from_numpy(valid), torch.from_numpy(pose_ok))
+
+
+def check_r1(dev, card: str) -> dict:
+    """Phase 3l: kernel R1 (the 2D path's reprojection consensus,
+    csrc/consensus.cu) against its plain versions, bit for bit (NaN where
+    NaN), in every mode at ``R1_SHAPES`` with :func:`consensus_cases`'
+    edge cases: the counts of every pose, the selection (the top 8, the
+    model normal, M1's mirrors, the 16 poses' inliers and counts), the
+    masks and the truncated SSE of the 16; one launch a call. The plain
+    versions run on this machine's CPU, at a chunk's shape on the card
+    (the parent's route: 9c holds the card's plain path to the CPU's).
+    Each mode timed on the device and with its host work at a chunk's
+    shape, beside its plain version on the card."""
+    from tod_tpu_torch.geometry import detection2d as td
+    from tod_tpu_torch.geometry.adjacency import ObjectMatches
+
+    def same(got, want, what, shape):
+        got = got.cpu()
+        want = want.cpu()
+        if got.dtype != want.dtype or got.shape != want.shape:
+            raise AssertionError(f"R1 {what} at {shape}: {got.dtype} "
+                                 f"{tuple(got.shape)} against {want.dtype} "
+                                 f"{tuple(want.shape)}")
+        if got.is_floating_point():
+            nan = torch.isnan(want)
+            ok = torch.equal(torch.isnan(got), nan) and torch.equal(
+                got[~nan].view(torch.int32), want[~nan].view(torch.int32))
+        else:
+            ok = torch.equal(got, want)
+        if not ok:
+            raise AssertionError(f"R1 {what} differs from its plain version "
+                                 f"at {shape}")
+
+    rng = np.random.default_rng(41)
+    thr2 = 16.0
+    out = {}
+    for shape in R1_SHAPES:
+        R, T, K, X, xy, valid, pose_ok = consensus_cases(rng, *shape)
+        big = shape == R1_SHAPES[0]
+        on = dev if big else torch.device("cpu")
+        host = [x.to(on) for x in (R, T, K, X, xy, valid, pose_ok)]
+        card_in = [x.to(dev) for x in (R, T, K, X, xy, valid, pose_ok)]
+
+        def matches(x, y, v):
+            return ObjectMatches(query_idx=None, train_pts=x,
+                                 query_pts=None, query_xy=y, valid=v)
+
+        mh = matches(host[3], host[4], host[5])
+        mc = matches(card_in[3], card_in[4], card_in[5])
+        Rh, Th, Kh, Rc, Tc, Kc = (host[0], host[1], host[2], card_in[0],
+                                  card_in[1], card_in[2])
+        want_n = td.consensus_counts_torch(Rh, Th, Kh, mh, host[5], host[6],
+                                           thr2)
+        want_s = td.consensus_select_torch(want_n, Rh, Th, Kh, mh, host[5],
+                                           host[6], thr2)
+        want_m = td.count_inliers(want_s.R, want_s.T, Kh, mh, host[5], thr2)
+        want_e = td.truncated_sse(want_s.R, want_s.T, Kh, mh, host[5], thr2)
+        before = td.consensus_kernel.launches
+        got_n = td.consensus_counts(Rc, Tc, Kc, mc, card_in[5], card_in[6],
+                                    thr2)
+        got_s = td.consensus_select(got_n, Rc, Tc, Kc, mc, card_in[5],
+                                    card_in[6], thr2)
+        s_R, s_T = got_s.R.clone(), got_s.T.clone()
+        got_m, got_c = td.consensus_masks(s_R, s_T, Kc, mc, card_in[5], thr2)
+        got_e = td.consensus_sse(s_R, s_T, Kc, mc, card_in[5], thr2)
+        if td.consensus_kernel.launches != before + 4:
+            raise AssertionError("R1: not one launch a call")
+        same(got_n, want_n, "counts", shape)
+        for name in td.Selection._fields:
+            same(getattr(got_s, name), getattr(want_s, name),
+                 f"selection {name}", shape)
+        same(got_m, want_m, "masks", shape)
+        same(got_c, want_m.sum(-1, dtype=torch.int32), "mask counts", shape)
+        same(got_e, want_e, "SSE", shape)
+        if not big:
+            continue
+        n_a, n_h, m = shape
+        modes = (
+            ("counts", lambda: td.consensus_counts(
+                Rc, Tc, Kc, mc, card_in[5], card_in[6], thr2),
+             lambda: td.consensus_counts_torch(
+                 Rc, Tc, Kc, mc, card_in[5], card_in[6], thr2),
+             n_a * n_h * m, 48 * n_a * n_h + 21 * n_a * m + 5 * n_a * n_h),
+            ("select", lambda: td.consensus_select(
+                got_n, Rc, Tc, Kc, mc, card_in[5], card_in[6], thr2),
+             lambda: td.consensus_select_torch(
+                 got_n, Rc, Tc, Kc, mc, card_in[5], card_in[6], thr2),
+             n_a * 2 * td.N_REFINE * m, 5 * n_a * n_h + 21 * n_a * m
+             + n_a * 2 * td.N_REFINE * (48 + m)),
+            ("masks", lambda: td.consensus_masks(
+                s_R, s_T, Kc, mc, card_in[5], thr2),
+             lambda: td.count_inliers(s_R, s_T, Kc, mc, card_in[5], thr2),
+             n_a * 2 * td.N_REFINE * m, 21 * n_a * m
+             + n_a * 2 * td.N_REFINE * (52 + m)),
+            ("sse", lambda: td.consensus_sse(
+                s_R, s_T, Kc, mc, card_in[5], thr2),
+             lambda: td.truncated_sse(s_R, s_T, Kc, mc, card_in[5], thr2),
+             n_a * 2 * td.N_REFINE * m, 21 * n_a * m
+             + n_a * 2 * td.N_REFINE * 52))
+        for mode, call, plain, pairs, n_bytes in modes:
+            ms = cuda_ms(call, queued=True)
+            host_ms = cuda_ms(call)
+            plain_ms = cuda_ms(plain, runs=3, warmup=1)
+            ops_ms = pairs * R1_PAIR_OPS / F32_OPS_S * 1e3
+            bytes_ms = n_bytes / HBM_BYTES_S * 1e3
+            bound_ms = max(ops_ms, bytes_ms)
+            log(f"kernels: R1 {mode} equal to its plain version bit for bit "
+                f"at {' and '.join(map(str, R1_SHAPES))} with the edge "
+                f"cases; at {shape}: {ms:.4f} ms median of {KERNEL_RUNS} on "
+                f"the device (the call with its host work {host_ms:.4f} ms); "
+                f"the plain version on the card {plain_ms:.3f} ms; bound "
+                f"{bound_ms:.5f} ms by "
+                f"{'operations' if ops_ms >= bytes_ms else 'bytes'} "
+                f"({100 * bound_ms / ms:.1f} %); no library call computes "
+                f"it; {card}")
+            out[mode] = dict(ms=ms, host_ms=host_ms, plain_ms=plain_ms,
+                             bound_ms=bound_ms,
+                             bound_by="operations" if ops_ms >= bytes_ms
+                             else "bytes")
+        del card_in, host, mh, mc
+        torch.cuda.empty_cache()
+    n_a, n_h, m = R1_SHAPES[0]
+    return dict(max_abs_err=0.0, **out["counts"], library_ms=None,
+                plain_on="cuda (count_inliers, the parent's route)",
+                modes_ms={k: v["ms"] for k, v in out.items()},
+                modes_host_ms={k: v["host_ms"] for k, v in out.items()},
+                modes_plain_ms={k: v["plain_ms"] for k, v in out.items()},
+                modes_bound_ms={k: v["bound_ms"] for k, v in out.items()},
+                shape=f"{n_a} objects x {n_h} poses x {m} matches (a 2D "
+                "chunk's consensus; masks and SSE at its 16 refined poses)")
 
 
 def m2_operations(cov: torch.Tensor) -> int:
@@ -4085,17 +4291,19 @@ def a13_phases(dev, card: str, fx, launches: dict) -> dict:
             raise AssertionError(f"a13: launches {list(launches['9a'])}, "
                                  f"expected one B5 a frame and {rounds} N1 "
                                  "(one a round)")
-        l3_n, l3t, p1_n, l4_n, p2_n, l1e_n, m1_n, m2_n = \
+        l3_n, l3t, p1_n, l4_n, p2_n, l1e_n, m1_n, m2_n, r1_n = \
             launches["9a"][N_MATCH_NOISE + 2:]
         if l3_n or l3t or p1_n < n_frames * rounds or l4_n < p1_n \
-                or p2_n != 2 * p1_n or l1e_n or m1_n != p1_n \
-                or m2_n != p1_n:
+                or p2_n != 2 * p1_n or l1e_n or m1_n or m2_n \
+                or r1_n != R1_PER_CHUNK * p1_n:
             raise AssertionError(f"a13: launches {list(launches['9a'])}, "
-                                 "expected P1 at least once a round, L4 "
-                                 "more often, P2 twice a P1, M1 (the "
-                                 "mirror) and M2 (the model normal) once a "
-                                 "P1, no L1e (their atan2f runs inside "
-                                 "them), no L3")
+                                 "expected P1 at least once a round and "
+                                 "chunk, L4 more often, P2 twice a P1, R1 "
+                                 f"{R1_PER_CHUNK} times a P1 (the "
+                                 "consensus's counts and selection, the "
+                                 "refinement's two recounts and SSE), no "
+                                 "M1 or M2 (the mirror and the model normal "
+                                 "run inside R1), no L1e, no L3")
         key = prng.prng_key(int(gg.params["seed"]))
         differ = []
         for f, res in enumerate(results):
@@ -5791,6 +5999,8 @@ def main() -> int:
     m1, m2 = check_mirror(dev, card)
     # ---- 3k. P1's and P2's LU and M2 against the reference's own outputs
     fixture_notes = check_lapack(dev, card)
+    # ---- 3l. R1, the 2D path's reprojection consensus
+    r1 = check_r1(dev, card)
     for entry, name in ((p1, "P1"), (p2, "P2"), (m2, "M2")):
         entry["fixture"] = fixture_notes[name]
     compacted = [stage_features_compact(*frame, cfg) for frame in frames]
@@ -6012,16 +6222,28 @@ def main() -> int:
          "launches": total(13), "design_pr": 20, **p2},
         {"name": "M1 the 2D path's mirror pose: the model normal reflected "
          "about the viewing ray, glibc's atan2f and sincosf, the turn and "
-         "Q R, a thread a pose (replaces XLA's fusions and libm calls: not "
-         "a Pallas kernel)", "route": "cuda", "source": SOURCE_MIRROR,
+         "Q R, a thread a pose; folded into R1's selection, built and held "
+         "on its own here (replaces XLA's fusions and libm calls: not a "
+         "Pallas kernel)", "route": "cuda", "source": SOURCE_MIRROR,
          "replaces": M1_REPLACES, "launches": total(15), "design_pr": 22,
          **m1},
         {"name": "M2 the 2D path's model normal: the smallest eigenvector "
          "of a 3x3 covariance by LAPACK's ssyevd (redesigned; before: the "
-         "characteristic cubic's closed form), a thread a matrix "
+         "characteristic cubic's closed form), a thread a matrix; its "
+         "device code runs inside R1's selection on the 2D path "
          "(replaces jnp.linalg.eigh: not a Pallas kernel)", "route": "cuda",
          "source": SOURCE_MIRROR, "replaces": M2_REPLACES,
-         "launches": total(16), "design_pr": 23, **m2}]}))
+         "launches": total(16), "design_pr": 23, **m2},
+        {"name": "R1 the 2D path's reprojection consensus: the counts of "
+         "every P3P candidate (a block a tile of 128 poses and an object, "
+         "the points staged in shared memory), the selection (the stable "
+         "top 8, the model normal by M2's device code, M1's mirrors, the "
+         "16 poses' inliers; a block an object), the refinement's masks "
+         "and truncated SSE (a warp a pose); timed in counts mode, every "
+         "mode in modes_ms (replaces XLA's fusions of project, its reduces "
+         "over the matches and the mirror's: not a Pallas kernel)",
+         "route": "cuda", "source": SOURCE_R1, "replaces": R1_REPLACES,
+         "launches": total(17), "design_pr": 24, **r1}]}))
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,8 +8,9 @@ tiles and splits); and the threefry noise kernel N1 against its twins on
 the card and the same draws on the CPU; L1 (the host libm's atan2f), L2
 (the fused SIFT descriptor), L3 (the fused L2 matcher and its distance
 tile), P1 (P3P), L4 (glibc's cosf, sincosf, powf; XLA's log), M1 and M2
-(the 2D path's mirror and model normal) against their plain versions, bit
-for bit; and the 2D path on the card against the CPU, bit for bit.
+(the 2D path's mirror and model normal) and R1 (its reprojection
+consensus, every mode) against their plain versions, bit for bit; and the
+2D path on the card against the CPU, bit for bit.
 
 Every test here is marked ``cuda`` and skips without a GPU. The file needs
 neither JAX nor the JAX package, so it also runs on a machine that has
@@ -1389,3 +1390,121 @@ def test_p1_takes_views():
     got = pnp.p3p_distances(bear[::2], pts[::2])
     assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
     assert torch.equal(got[1], want[1])
+
+
+def _r1_inputs(shape, seed, dev):
+    """chip_smoke.py consensus_cases (phase 3l's edge cases) on the CPU and
+    on the card, with ObjectMatches of each."""
+    import chip_smoke
+    from tod_tpu_torch.geometry.adjacency import ObjectMatches
+
+    host = chip_smoke.consensus_cases(np.random.default_rng(seed), *shape)
+    out = []
+    for args in (host, [x.to(dev) for x in host]):
+        R, T, K, X, xy, valid, ok = args
+        out.append((R, T, K, ObjectMatches(
+            query_pts=None, train_pts=X, query_idx=None, query_xy=xy,
+            valid=valid), valid, ok))
+    return out
+
+
+def _same_r1(got, want):
+    got, want = got.cpu(), want.cpu()
+    if got.dtype != want.dtype or got.shape != want.shape:
+        return False
+    if not got.is_floating_point():
+        return torch.equal(got, want)
+    nan = torch.isnan(want)
+    return torch.equal(torch.isnan(got), nan) and torch.equal(
+        got[~nan].view(torch.int32), want[~nan].view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4, 48, 40), (3, 136, 1030), (2, 8, 1),
+                                   (5, 300, 2100), (1, 129, 1024)])
+def test_r1_matches_plain_versions(shape):
+    """R1 (csrc/consensus.cu) against its plain versions on the CPU, bit
+    for bit (NaN where NaN), in every mode: the counts of every pose, the
+    selection (top 8, model normal, mirrors, the 16 poses' inliers and
+    counts), the masks and the truncated SSE; matches past one staged
+    tile of 1,024 (1,030, 2,100) and poses past a block of 128 (136, 300,
+    129); one launch a call."""
+    from tod_tpu_torch.geometry import detection2d as td
+
+    dev = _cuda()
+    (Rh, Th, Kh, mh, vh, okh), (Rc, Tc, Kc, mc, vc, okc) = _r1_inputs(
+        shape, sum(shape), dev)
+    thr2 = 16.0
+    want_n = td.consensus_counts_torch(Rh, Th, Kh, mh, vh, okh, thr2)
+    want_s = td.consensus_select_torch(want_n, Rh, Th, Kh, mh, vh, okh,
+                                       thr2)
+    before = td.consensus_kernel.launches
+    got_n = td.consensus_counts(Rc, Tc, Kc, mc, vc, okc, thr2)
+    assert td.consensus_kernel.launches == before + 1
+    assert _same_r1(got_n, want_n)
+    got_s = td.consensus_select(got_n, Rc, Tc, Kc, mc, vc, okc, thr2)
+    assert td.consensus_kernel.launches == before + 2
+    for name in td.Selection._fields:
+        assert _same_r1(getattr(got_s, name), getattr(want_s, name)), name
+    masks, counts = td.consensus_masks(got_s.R, got_s.T, Kc, mc, vc, thr2)
+    want_m = td.count_inliers(want_s.R, want_s.T, Kh, mh, vh, thr2)
+    assert _same_r1(masks, want_m)
+    assert _same_r1(counts, want_m.sum(-1, dtype=torch.int32))
+    sse = td.consensus_sse(got_s.R, got_s.T, Kc, mc, vc, thr2)
+    assert _same_r1(sse, td.truncated_sse(want_s.R, want_s.T, Kh, mh, vh,
+                                          thr2))
+    assert td.consensus_kernel.launches == before + 4
+
+
+@pytest.mark.cuda
+def test_r1_takes_views_and_refuses_what_it_cannot_take():
+    """Strided poses (the 2D path flattens its P3P candidates) give the
+    contiguous inputs' bits; float64 poses, fewer than 8 poses to select
+    from and int64 counts are refused."""
+    from tod_tpu_torch.geometry import detection2d as td
+
+    dev = _cuda()
+    _, (R, T, K, m, valid, ok) = _r1_inputs((3, 96, 200), 4, dev)
+    thr2 = 16.0
+    got = td.consensus_counts(R[:, ::2], T[:, ::2], K, m, valid, ok[:, ::2],
+                              thr2)
+    want = td.consensus_counts(R[:, ::2].contiguous(),
+                               T[:, ::2].contiguous(), K, m, valid,
+                               ok[:, ::2].contiguous(), thr2)
+    assert torch.equal(got, want)
+    sse = td.consensus_sse(R[:, 1::3], T[:, 1::3], K, m, valid, thr2)
+    assert _same_r1(sse, td.consensus_sse(
+        R[:, 1::3].contiguous(), T[:, 1::3].contiguous(), K, m, valid, thr2))
+    with pytest.raises(ValueError):
+        td.consensus_counts(R.double(), T, K, m, valid, ok, thr2)
+    counts = td.consensus_counts(R, T, K, m, valid, ok, thr2)
+    with pytest.raises(ValueError):
+        td.consensus_select(counts[:, :7], R[:, :7], T[:, :7], K, m, valid,
+                            ok[:, :7], thr2)
+    with pytest.raises(ValueError):
+        td.consensus_select(counts.long(), R, T, K, m, valid, ok, thr2)
+
+
+@pytest.mark.cuda
+def test_r1_launches_on_the_2d_round():
+    """A 2D round on the card launches R1 five times a chunk (the
+    consensus's counts and selection, the refinement's two recounts and
+    its SSE) and M1 and M2 never (they run inside R1)."""
+    from tod_tpu_torch.geometry import detection2d as td
+    from tod_tpu_torch.geometry.detection import cluster_matches
+
+    dev = _cuda()
+    arrays = _scene_2d()
+    cfg = td.Pnp2dConfig(n_hypotheses=256, min_inliers=8, max_instances=1)
+    t = [torch.from_numpy(a).to(dev) for a in arrays]
+    m = cluster_matches(t[0], t[1], t[2], t[3],
+                        torch.zeros((len(t[0]), 3), device=dev), t[4],
+                        torch.arange(2, device=dev), 128)
+    g = ThreefryNoise(prng.prng_key(7), 1, False, dev)(
+        "round0", (2, 3, cfg.n_hypotheses, 128))
+    before = (td.consensus_kernel.launches, td.mirror_poses.launches,
+              td.sym3_smallest_vector.launches)
+    td.ransac_round_2d(g, m, t[5], m.valid, cfg)
+    assert (td.consensus_kernel.launches, td.mirror_poses.launches,
+            td.sym3_smallest_vector.launches) == (before[0] + 5, before[1],
+                                                  before[2])

@@ -14,14 +14,11 @@ Contracts:
   ``jax.random.split``); the sampling graph and its 64-bin histogram given
   the reference's pair geometry and range; the triples given the same
   Gumbel values and log-weights; the top-8 order with ties; the keypoint
-  invalidation; the unique-inlier counts;
+  invalidation; the unique-inlier counts; the model covariance, its
+  normal (``eigh``'s smallest eigenvector, sign too) and the mirrored
+  poses, the mirror the same for both signs of the normal;
 - float: pair geometry within ``DPIX2_ATOL``, ``DTRAIN2_ATOL``,
   ``LOG_R_ATOL`` and ``GEOM_RTOL``; Gumbel values within ``2^-22 + 2 ulp`` (test_torch_prng.py);
-  the model normal of the reference's covariance equal to ``eigh``'s
-  smallest eigenvector bit for bit (sign too), of the port's own
-  covariance up to sign within ``NORMAL_ATOL``, and the mirrored pose the
-  same for both signs;
-  mirrored poses within ``POSE_ATOL``;
 - whole: ``ransac_round_2d`` and ``detect_frame_2d`` give the reference's
   found / accepted flags and unique-inlier counts exactly on this scene,
   poses within ``POSE_ATOL``; the synthetic scene of
@@ -62,7 +59,6 @@ GEOM_RTOL = 1e-5         # the histogram's range
 DPIX2_ATOL = 0.125       # px^2: four ulps of |xy|^2 ~ 4e5
 DTRAIN2_ATOL = 1e-8      # m^2: a few ulps of |X|^2 ~ 0.04
 LOG_R_ATOL = 1e-4        # on pairs > 20 px and > 1 cm apart
-NORMAL_ATOL = 1e-4       # |n . n_ref| within this of 1
 POSE_ATOL = 1e-4         # rotation entries and meters
 GUMBEL_ULP = 2.0 ** -22  # + 2 ulp, test_torch_prng.py's bound
 
@@ -345,10 +341,14 @@ def test_mirror_matches_reference_up_to_the_normal_sign(stores):
     np.testing.assert_array_equal(
         td.sym3_smallest_vector(cov).numpy().view(np.int32),
         n_ref.view(np.int32))
-    # the port's own covariance (fixed pairwise sums) rounds otherwise
+    # the port's own covariance (the mean in the compiled reduce's order,
+    # the product one FMA chain) and normal: the reference's bits
+    np.testing.assert_array_equal(
+        td.model_covariance(got.train_pts, got.valid).numpy().view(np.int32),
+        cov.numpy().view(np.int32))
     n = td.model_normal(got.train_pts, got.valid)
-    dots = np.abs((n.numpy() * n_ref).sum(-1))
-    np.testing.assert_allclose(dots, 1.0, atol=NORMAL_ATOL)
+    np.testing.assert_array_equal(n.numpy().view(np.int32),
+                                  n_ref.view(np.int32))
     rng = np.random.default_rng(1)
     R = np.stack([np.stack([random_pose(rng)[0] for _ in range(4)])
                   for _ in range(3)])
@@ -360,8 +360,10 @@ def test_mirror_matches_reference_up_to_the_normal_sign(stores):
     assert torch.equal(plus[0], minus[0]) and torch.equal(plus[1], minus[1])
     want = jax.jit(jax.vmap(jax.vmap(_ref_mirror, (0, 0, None))))(
         R, T, n_ref)
-    np.testing.assert_allclose(plus[0].numpy(), _np(want[0]),
-                               atol=POSE_ATOL)
+    np.testing.assert_array_equal(plus[0].numpy().view(np.int32),
+                                  _np(want[0]).view(np.int32))
+    np.testing.assert_array_equal(plus[1].numpy().view(np.int32),
+                                  _np(want[1]).view(np.int32))
     # a mirror is a rotation other than the pose itself
     assert np.abs(plus[0].numpy() - R).max() > 1e-2
 

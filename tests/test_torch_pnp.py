@@ -7,11 +7,14 @@ transcribed, XLA's ``arccos`` form, correctly rounded roots, fixed sums
 and LAPACK's LU as the reference host runs it, bit for bit
 (``geometry/lapack.py``). The compiled reference also contracts
 multiply-adds inside its fusions; the port transcribes the contractions
-of the side lengths and of the normalised quartic coefficients only (read
-off by ``tools/fit_p3p_order.py`` and ``tools/fit_p3p_fusions.py``), so
-every later stage here is a float stage, and
-``test_p3p_parts_from_the_reference_at_the_coefficients`` names where the
-bits part, ROADMAP queue C):
+of P3P from the side lengths through Ferrari's solution, the polishes,
+the first distances and their Newton steps (read off by
+``tools/fit_p3p_order.py`` and ``tools/fit_p3p_fusions.py``): the
+distances are the reference's bit for bit, held by
+``test_p3p_roots_are_the_compiled_fusions`` and
+``test_p3p_parts_from_the_reference_at_the_coefficients``, which names
+where the bits part, the Horn fit (ROADMAP queue C); the candidate poses
+and the refinement are float stages here):
 
 - ``solve_quartic`` on seeded coefficient batches with 0, 2 and 4 real
   roots (test_pnp.py's generator): the same validity mask, roots within
@@ -233,18 +236,120 @@ def test_analytic_jacobian_matches_jacfwd(gn_case):
             _reference_residual(torch.zeros(6), *args).numpy(), atol=1e-4)
 
 
-def test_p3p_parts_from_the_reference_at_the_coefficients():
+@pytest.fixture(scope="module")
+def compiled_p3p():
+    """The compiled reference's ``jax.vmap(p3p)`` on 6,000 samples of
+    ``tools/fit_p3p_order.py``'s generator (seed 3; near-quadruple roots
+    among them): XLA's own fusions, called through their dumped object
+    files up to the last polish of the roots
+    (``fit_p3p_fusions.compiled_trace``), and ``(bear, pts, trace,
+    names)``."""
+    import glob
+    import shutil
+
+    import fit_p3p_fusions as fus
+    import fit_p3p_order as fit
+
+    n = 6000
+    tmp = fus.dump(fus.DUMP, n)
+    try:
+        text = open(glob.glob(os.path.join(
+            tmp, "*jit_p3p.cpu_after_optimizations.txt"))[0]).read()
+        names = fus.ferrari_fusions(text)
+        bear, pts = fit.samples(n, seed=3)
+        trace = fus.compiled_trace(text, tmp, bear, pts,
+                                   names["polishes"][-1])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return bear, pts, trace, names
+
+
+def _port_ratios(bear, pts):
+    """The port's side ratios and cosines, and ``quartic_normalized``."""
+    import fit_p3p_order as fit
+
+    sides, _ = fit.reference_stages(bear, pts)
+    a, b, c, ca, cb, cg = (torch.from_numpy(np.array(x)) for x in sides)
+    ratios = ((a * a) / (b * b), (c * c) / (b * b), ca, cb, cg)
+    return ratios, tp.quartic_normalized(*ratios)
+
+
+def _bits(x) -> np.ndarray:
+    x = x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+    return np.where(np.isnan(x), np.float32(np.nan), x).view(np.int32)
+
+
+def test_p3p_roots_are_the_compiled_fusions(compiled_p3p):
+    """Ferrari's four roots (``pnp.ferrari_roots``) and each of the six
+    polishes' ``f / fp`` (``pnp.polish_step``) give the bits of the
+    compiled reference's fusions (their object code, fed the compiled
+    chain's own values), on every sample: the resolvent with XLA's rsqrt
+    (``ops/rsqrtps.py``), the cube roots' contracted arguments, each
+    root's region, each polish's recomputed coefficients."""
+    from tod_tpu_torch.ops.image import fma_f32
+
+    bear, pts, trace, names = compiled_p3p
+    ratios, normalized = _port_ratios(bear, pts)
+    x = tp.ferrari_roots(*normalized)
+    ys = torch.from_numpy(trace[names["roots"]])
+    want = fma_f32(-normalized[0][:, None].expand_as(ys),
+                   torch.full_like(ys, 0.25), ys)        # the roots - a / 4
+    np.testing.assert_array_equal(_bits(x), _bits(want))
+    r = [t[..., None] for t in ratios]
+    for name in names["polishes"]:
+        d = tp.polish_step(x, *r)
+        np.testing.assert_array_equal(_bits(d), _bits(trace[name]),
+                                      err_msg=name)
+        x = x - d
+
+
+def _reference_with_parts():
+    """``jax.vmap`` of a copy of the reference's ``p3p`` that also returns
+    its polished roots, its distances after the Newton steps and its Horn
+    fit's model-point centroid (copies of tod_tpu/geometry/pnp.py:119-222
+    and transforms.py:193-212, the return lines extended): its candidates
+    are the reference's, bit for bit (asserted by the caller)."""
+    import inspect
+
+    from tod_tpu.geometry import transforms as rt
+
+    ns = dict(rt.__dict__)
+    fit_src = inspect.getsource(rt.kabsch)
+    ret = "    return RigidFit(R=R, T=T, ok=ok & enough)"
+    assert fit_src.count(ret) == 1
+    exec(fit_src.replace("def kabsch(", "def kabsch_parts(").replace(
+        ret, ret + ", cq"), ns)
+    ns.update({k: v for k, v in rp.__dict__.items() if k not in ns})
+    src = inspect.getsource(rp.p3p)
+    call = "    fit = kabsch(world, cam, jnp.ones((8, 3), jnp.float32))"
+    ret = ("    return P3PSolutions(R=fit.R, T=fit.T, "
+           "valid=ok & fit.ok)")
+    assert src.count(ret) == 1 and src.count(call) == 1
+    src = src.replace("def p3p(", "def p3p_parts(").replace(
+        call, call.replace("fit = kabsch(", "fit, cq = kabsch_parts(")
+    ).replace(ret, ret + ", v, jnp.stack([s1, s2, s3], -1), cq")
+    exec(src, ns)
+    return jax.jit(jax.vmap(ns["p3p_parts"]))
+
+
+def test_p3p_parts_from_the_reference_at_the_coefficients(compiled_p3p):
     """Where the port's P3P and the compiled reference's part. Not at the
     inputs: the side lengths (the reference's reduce, one FMA chain in its
     object code, which ``pnp._side`` transcribes) and the cosines (its dot,
-    left-to-right sums) are its bits, every one; and no longer at the
-    quartic's normalised coefficients (``C3/C4 .. C0/C4``, four fusions
-    with LLVM's contractions, read off by ``tools/fit_p3p_fusions.py``):
-    ``pnp.quartic_normalized`` gives their bits on 2,000 samples, where the
-    unfused ``pnp.quartic_coefficients`` does not. The bits part after
-    them, at Ferrari's resolvent (ROADMAP queue C): no valid candidate
-    keeps the reference's bits yet. The candidates still agree within 1 mm
-    (``test_p3p_matches_reference``)."""
+    left-to-right sums) are its bits, every one; nor at the quartic's
+    normalised coefficients (``C3/C4 .. C0/C4``, four fusions with LLVM's
+    contractions, read off by ``tools/fit_p3p_fusions.py``), given by
+    ``pnp.quartic_normalized`` where the unfused
+    ``pnp.quartic_coefficients`` does not; nor at the roots
+    (``test_p3p_roots_are_the_compiled_fusions``), nor at the distances
+    after the eight Newton steps (the first distances and the steps'
+    residuals and Jacobian as compiled), the reference's on every sample
+    whose roots a copy of its program (returning them) computes as the
+    program does. The bits part at the Horn fit: the compiled reference
+    folds its unit weights, each centroid a sum times float32(1/3), where
+    the port's ``kabsch`` divides by the weights' sum (ROADMAP queue C);
+    no valid candidate pose keeps the reference's bits yet. The
+    candidates still agree within 1 mm (``test_p3p_matches_reference``)."""
     import fit_p3p_order as fit
 
     rng = np.random.default_rng(0)
@@ -272,6 +377,68 @@ def test_p3p_parts_from_the_reference_at_the_coefficients():
     for g, w in zip(normalized, want_coef):
         np.testing.assert_array_equal(g.numpy().view(np.int32),
                                       w.view(np.int32))
+
+    # the distances after the Newton steps; then the Horn fit's centroid
+    bear, pts, _, _ = compiled_p3p
+    sols, v_ref, s_ref, cq_ref = _reference_with_parts()(bear, pts)
+    plain = jax.jit(jax.vmap(rp.p3p))(bear, pts)
+    for x, y in zip(sols, plain):
+        np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
+    ratios, normalized = _port_ratios(bear, pts)
+    v = tp.ferrari_roots(*normalized)
+    for _ in range(6):
+        v = v - tp.polish_step(v, *[t[..., None] for t in ratios])
+    alike = (_bits(v) == _bits(v_ref)).all(-1)
+    assert alike.mean() > 0.999, alike.mean()
+    s, ok = tp.p3p_distances_torch(torch.from_numpy(bear),
+                                   torch.from_numpy(pts))
+    np.testing.assert_array_equal(_bits(s)[alike], _bits(s_ref)[alike])
+    # the reference's centroid: ((p0 + p1) + p2) * float32(1/3), the
+    # weights folded; the port's: the pairwise sum over the weights' sum
+    p = torch.from_numpy(pts)
+    folded = ((p[:, 0] + p[:, 1]) + p[:, 2]) * torch.full((), 1.0 / 3.0)
+    np.testing.assert_array_equal(
+        _bits(folded[:, None].expand(cq_ref.shape)), _bits(cq_ref))
+    ones = torch.ones(p.shape[:-1] + (1,))
+    cq = tp.pairwise_sum(ones * p, -2) / (tp.pairwise_sum(ones, -2) + 1e-30)
+    assert (_bits(cq)[:, None] != _bits(cq_ref)).any()
+
+
+def _reference_step_parts(R, T, X, uv, w):
+    """The first Gauss-Newton step's residual at ``delta = 0`` and its
+    ``jax.jacfwd`` Jacobian, as the reference's ``step`` computes them
+    (tod_tpu/geometry/pnp.py:240-270, the ``residual`` closure copied)."""
+    def rot_smooth(w3):
+        kx = jnp.array([[0.0, -w3[2], w3[1]], [w3[2], 0.0, -w3[0]],
+                        [-w3[1], w3[0], 0.0]])
+        return jnp.eye(3) + kx + 0.5 * (kx @ kx)
+
+    def residual(delta):
+        Rn = rot_smooth(delta[:3]) @ R
+        uvp, _ = rp.project(Rn, T + delta[3:], K, X)
+        return ((uvp - uv) * w[:, None]).reshape(-1)
+
+    return residual(jnp.zeros(6)), jax.jacfwd(residual)(jnp.zeros(6))
+
+
+def test_refinement_parts_from_the_reference_at_the_residual(gn_case):
+    """Where the port's refinement and the compiled reference's part: at
+    its first operation, the weighted residual at ``delta = 0`` that
+    ``jax.jacfwd``'s program computes beside the tangents, its camera
+    points XLA's batched ``dot`` (most entries are the reference's bits,
+    not all: ROADMAP queue C); the Jacobian
+    columns of the rotation part too, the translation's u and v columns
+    being ``fx / z w`` and ``fy / z w`` alike. Held loosely by
+    ``test_gauss_newton_pose_matches_reference`` (``GN_ATOL``)."""
+    R0, T0, X, uv, w, _ = gn_case
+    r_ref, J_ref = (np.asarray(x) for x in jax.jit(jax.vmap(
+        _reference_step_parts))(R0, T0, X, uv, w))
+    r, J = tp.reprojection_jacobian(*map(torch.from_numpy,
+                                         (R0, T0, K, X, uv, w)))
+    same_r = _bits(r.reshape(5, -1)) == _bits(r_ref)
+    assert 0.5 < same_r.mean() < 1.0, same_r.mean()
+    same_j = _bits(J.reshape(5, -1, 6)) == _bits(J_ref)
+    assert same_j[..., 3:5].all() and not same_j[..., :3].all()
 
 
 @pytest.mark.parametrize("n", [3, 6])

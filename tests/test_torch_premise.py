@@ -7,10 +7,12 @@ test of features, models and detections would fail as a bare bit
 mismatch; this test fails first and names the cause.
 
 It only reads: ``/proc/cpuinfo``, ``/sys/devices/system/cpu/cpu0/cache``
-and the process's CPU affinity.
+and the process's CPU affinity; for the P3P's ``rsqrt`` it compiles a few
+lines of C in a temporary directory and calls this host's ``rsqrtps``.
 """
 
 import os
+import subprocess
 import sys
 from pathlib import Path
 
@@ -159,3 +161,52 @@ def test_lapack_premise_failure_names_its_cause(monkeypatch, found):
         test_host_is_the_lapack_premise()
     assert LAPACK_TOOL in str(failure.value)
     assert str(found) in str(failure.value)
+
+
+# the P3P's rsqrt (ops/rsqrtps.py, kernel P1): XLA emits it as this host's
+# rsqrtps estimate, whose table the port carries as data
+RSQRT_TOOL = "tools/fit_p3p_fusions.py"
+
+
+def read_rsqrtps():
+    """This host's ``rsqrtps`` results for 2^p (1 + m / 1024), p = 0, 1, as
+    (2048,) uint32 (a few lines of C compiled with gcc and called), or
+    None where gcc or AVX is missing."""
+    tools = str(Path(__file__).resolve().parents[1] / "tools")
+    if tools not in sys.path:
+        sys.path.insert(0, tools)
+    import fit_p3p_fusions as fus
+    try:
+        return fus.rsqrtps_table().reshape(-1)
+    except (OSError, subprocess.CalledProcessError):
+        return None
+
+
+def rsqrt_premise_message() -> str:
+    return ("this host's rsqrtps is not the reference host's "
+            "(ops/rsqrtps.py RSQRTPS_TABLE): the reference's P3P takes "
+            "its resolvent's arccos argument through XLA's rsqrt, which "
+            "is this instruction and two Newton steps, so its roots round "
+            f"otherwise. Rerun JAX_PLATFORMS=cpu python {RSQRT_TOOL} "
+            "--oracle on this host and refresh the table.")
+
+
+def test_host_is_the_rsqrt_premise():
+    import numpy as np
+
+    from tod_tpu_torch.ops.rsqrtps import RSQRTPS_TABLE
+
+    found = read_rsqrtps()
+    if found is None or not np.array_equal(found, RSQRTPS_TABLE):
+        pytest.fail(rsqrt_premise_message(), pytrace=False)
+
+
+def test_rsqrt_premise_failure_names_its_cause(monkeypatch):
+    import numpy as np
+
+    module = sys.modules[__name__]
+    monkeypatch.setattr(module, "read_rsqrtps",
+                        lambda: np.zeros(2048, np.uint32))
+    with pytest.raises(pytest.fail.Exception) as failure:
+        test_host_is_the_rsqrt_premise()
+    assert RSQRT_TOOL in str(failure.value)

@@ -12,21 +12,25 @@
 // fit stays in PyTorch (geometry/transforms.py kabsch, fixed order).
 //
 // Rounding: every float operation is an explicit __fadd_rn / __fsub_rn /
-// __fmul_rn / __fdiv_rn / __fsqrt_rn / __fmaf_rn, in the order of the
-// reference's Python expressions (left to right, integer powers as jax
-// expands them, A ** 3 = A * (A * A)). The side lengths are the compiled
-// reference's FMA chain, read off its object code
-// (tools/fit_p3p_order.py), and so are the normalised coefficients
-// C3/C4 .. C0/C4 (four fusions, read off by tools/fit_p3p_fusions.py); the
-// 3x3 Newton solve is LAPACK's, as jnp.linalg.solve runs it on the
-// reference host (lapack_lu.cuh, tools/fit_lapack_order.py). Ferrari's
-// resolvent, the roots' polishes and the Newton steps' residuals and
-// Jacobian are unfused here, though XLA's CPU backend contracts
-// multiply-adds in those fusions too (ROADMAP queue C: P3P parts from the
-// reference at the resolvent). The
-// libm calls are glibc 2.36's FMA builds (libm_f32.cuh). The plain version
-// is tod_tpu_torch/geometry/pnp.py p3p_distances_torch: the CPU path, the
-// same operations in the same order, so both devices give the same bits.
+// __fmul_rn / __fdiv_rn / __fsqrt_rn / __fmaf_rn. The side lengths are the
+// compiled reference's FMA chain, read off its object code
+// (tools/fit_p3p_order.py); the normalised coefficients C3/C4 .. C0/C4
+// (four fusions), Ferrari's solution and the six polishes are its fusions
+// as LLVM contracts them (read off by tools/fit_p3p_fusions.py, which
+// calls XLA's own compiled fusions to check them): divisions by constants
+// products by their float32 reciprocals, the resolvent's arccos argument
+// a product by XLA's rsqrt (the reference host's rsqrtps estimate, a
+// table passed as data, and two Newton steps), each root a region of its
+// own, each polish recomputing the quartic's coefficients; the 3x3 Newton
+// solve is LAPACK's, as jnp.linalg.solve runs it on the reference host
+// (lapack_lu.cuh, tools/fit_lapack_order.py). So are the first distances
+// and the Newton steps' residuals and Jacobian: the distances P1 returns
+// are the reference's (the Horn fit after them, in PyTorch, is not yet:
+// ROADMAP queue C).
+// The libm calls are glibc 2.36's FMA builds (libm_f32.cuh). The plain
+// version is tod_tpu_torch/geometry/pnp.py p3p_distances_torch: the CPU
+// path, the same operations in the same order, so both devices give the
+// same bits.
 //
 // Design: a group of 4 lanes a sample, each lane one root and both its
 // branches (slot = branch * 4 + root). Every lane of a group computes the
@@ -73,67 +77,135 @@ __device__ __forceinline__ float clip11(float x) {
 __device__ __forceinline__ float sign_of(float x) {
   return x > 0.0f ? 1.0f : (x < 0.0f ? -1.0f : x);
 }
-__device__ __forceinline__ float cbrt_ref(float x) {   // sign(x) |x|^(1/3)
-  return fm(sign_of(x), tod_libm::powf_libm(fabsf(x), 1.0f / 3.0f));
-}
 __device__ __forceinline__ bool is_fin(float x) { return isfinite(x); }
 
-// Root j (0-3) of c4 x^4 + ... + c0 by Ferrari's method after its six
-// Newton polishes: the port's solve_quartic restricted to one root (the
-// polishes update each root from itself alone), from the normalised
-// coefficients a = c3 / c4, b, c, d as quartic_normalized computes them.
-__device__ float quartic_root(float c4, float c3, float c2, float c1,
-                              float c0, float a, float b, float c, float d,
-                              int j) {
-  const float p = fs(b, fd(fm(fm(3.0f, a), a), 8.0f));
-  const float q = fa(fs(c, fd(fm(a, b), 2.0f)), fd(fm(fm(a, a), a), 8.0f));
-  const float r = fs(fa(fs(d, fd(fm(a, c), 4.0f)), fd(fm(fm(a, a), b), 16.0f)),
-                     fd(fm(fm(fm(fm(3.0f, a), a), a), a), 256.0f));
-  const float A = p;
-  const float B = fs(fd(fm(p, p), 4.0f), r);
-  const float C = fd(fm(-q, q), 8.0f);
-  const float Q = fd(fs(fm(3.0f, B), fm(A, A)), 9.0f);
-  const float R = fd(fs(fs(fm(fm(9.0f, A), B), fm(27.0f, C)),
-                        fm(2.0f, fm(A, fm(A, A)))), 54.0f);
-  const float Q3 = fm(Q, fm(Q, Q));
-  const float D = fa(Q3, fm(R, R));
-  const float sqrtD = fsq(maxc(D, 0.0f));
-  const float m_pos = fs(fa(cbrt_ref(fa(R, sqrtD)), cbrt_ref(fs(R, sqrtD))),
-                         fd(A, 3.0f));
-  const float theta = tod_libm::acosf_xla(
-      clip11(fd(R, fsq(maxc(-Q3, 1e-30f)))));
-  const float m_neg = fs(fm(fm(2.0f, fsq(maxc(-Q, 0.0f))),
-                            tod_libm::cosf_libm(fd(theta, 3.0f))),
-                         fd(A, 3.0f));
-  float m = D >= 0.0f ? m_pos : m_neg;
-  m = maxc(m, 1e-12f);
-  const float s = fsq(fm(2.0f, m));
-  // roots 0, 1 from t0 = (p / 2 + m) - q / 2s, roots 2, 3 from t1 = ... +
-  const float half = fa(fd(p, 2.0f), m), lean = fd(q, fm(2.0f, s));
-  const float t = j < 2 ? fs(half, lean) : fa(half, lean);
-  const float dd = fs(fm(s, s), fm(4.0f, t));
-  const float sq = fsq(maxc(dd, 0.0f));
-  const float base = j < 2 ? -s : s;
-  float x = fs(fd((j & 1) ? fs(base, sq) : fa(base, sq), 2.0f), fd(a, 4.0f));
-  for (int it = 0; it < 6; ++it) {
-    const float f = fa(fm(fa(fm(fa(fm(fa(fm(c4, x), c3), x), c2), x), c1), x),
-                       c0);
-    const float fp = fa(fm(fa(fm(fa(fm(fm(4.0f, c4), x), fm(3.0f, c3)), x),
-                             fm(2.0f, c2)), x), c1);
-    x = fs(x, fd(f, fabsf(fp) > 1e-12f ? fp : 1.0f));
-  }
-  return x;
+// ops/rsqrtps.py rsqrt_xla: XLA:CPU's rsqrt on the reference host, its
+// rsqrtps estimate (`table`: 2 x 1024 entries by the exponent's parity and
+// the mantissa's top 10 bits, passed as data) with the exponent halved,
+// then two Newton steps as its IR contracts them
+__device__ __forceinline__ float rsqrt_xla(float x,
+                                           const int32_t* __restrict__ table) {
+  const int bits = __float_as_int(x);
+  const int e = ((bits >> 23) & 0xFF) - 127;
+  const int par = e & 1;
+  float y = __int_as_float(__ldg(table + par * 1024 + ((bits >> 13) & 1023))
+                           - ((e - par) / 2) * (1 << 23));
+  for (int k = 0; k < 2; ++k)
+    y = __fmaf_rn(fm(y, -0.5f), __fmaf_rn(fm(x, y), y, -1.0f), y);
+  return x == INFINITY ? 0.0f : y;
+}
+
+// pnp.py ferrari_roots, root j (0-3) of the monic quartic y^4 + a y^3 +
+// b y^2 + c y + d before the polishes, as the compiled reference's
+// fusions round it: divisions by constants products by their float32
+// reciprocals, one-use products fused into the add that takes them, the
+// arccos's argument R * rsqrt(-Q^3), R + sqrtD contracted inside the cube
+// roots and not in their signs, s^2 - 4 t an FMA in each root's region
+__device__ float ferrari_root(float a, float b, float c, float d, int j,
+                              const int32_t* __restrict__ table) {
+  const float a3a = fm(fm(a, 3.0f), a);
+  const float p = __fmaf_rn(-a3a, 0.125f, b);
+  const float pp = fm(p, p);
+  const float q = __fmaf_rn(fm(fm(a, a), a), 0.125f,
+                            __fmaf_rn(-fm(a, b), 0.5f, c));
+  const float r = __fmaf_rn(-fm(fm(a3a, a), a), 0.00390625f,
+                            __fmaf_rn(fm(fm(a, a), b), 0.0625f,
+                                      __fmaf_rn(-fm(a, c), 0.25f, d)));
+  const float B = __fmaf_rn(pp, 0.25f, -r);
+  const float Q = fm(__fmaf_rn(B, 3.0f, -pp), 1.0f / 9.0f);
+  const float Rn = fs(__fmaf_rn(fm(p, 9.0f), B, fm(fm(q, q), 3.375f)),
+                      fm(fm(pp, p), 2.0f));
+  const float R = fm(Rn, 1.0f / 54.0f);
+  const float QQ = fm(Q, Q);
+  const float D = __fmaf_rn(QQ, Q, fm(R, R));
+  const float sqrt_d = fsq(maxnan(D, 0.0f));
+  const float sqrt_mq = fsq(maxnan(-Q, 0.0f));
+  const float theta = tod_libm::acosf_xla(clip11(
+      fm(R, rsqrt_xla(maxnan(-fm(QQ, Q), 1e-30f), table))));
+  const float third = 1.0f / 3.0f;
+  const float cube0 = tod_libm::powf_libm(
+      fabsf(__fmaf_rn(Rn, 1.0f / 54.0f, sqrt_d)), third);
+  const float cube1 = tod_libm::powf_libm(
+      fabsf(__fmaf_rn(Rn, 1.0f / 54.0f, -sqrt_d)), third);
+  const float m_pos = __fmaf_rn(sign_of(fa(sqrt_d, R)), cube0,
+                                fm(sign_of(fs(R, sqrt_d)), cube1));
+  const float m_neg = fm(fm(sqrt_mq, 2.0f),
+                         tod_libm::cosf_libm(fm(theta, third)));
+  const float m = maxc(__fmaf_rn(-p, third, D >= 0.0f ? m_pos : m_neg),
+                       1e-12f);
+  // (y^2 + s y + t0)(y^2 - s y + t1), s = sqrt(2 m); roots 0, 1 from t0
+  const float s = fsq(fm(m, 2.0f));
+  const float q2s = fd(q, fm(s, 2.0f));
+  const float h = __fmaf_rn(p, 0.5f, m);
+  const float t = j < 2 ? fs(h, q2s) : fa(q2s, h);
+  const float sq = fsq(maxnan(__fmaf_rn(s, s, -fm(t, 4.0f)), 0.0f));
+  const float y = j == 0 ? fs(sq, s)
+                : j == 1 ? fs(-s, sq)
+                : j == 2 ? fa(s, sq) : fs(s, sq);
+  return __fmaf_rn(-a, 0.25f, fm(y, 0.5f));
+}
+
+// pnp.py polish_step's coefficients of the quartic in v, from the side
+// ratios and cosines, as the compiled polish fusion recomputes them
+struct Quartic {
+  float C4, C3, C2, C1, C0;
+};
+
+__device__ Quartic polish_quartic(float Ar, float Br, float ca, float cb,
+                                  float cg) {
+  const float A2 = fm(Ar, 2.0f), A4 = fm(Ar, 4.0f), A8 = fm(Ar, 8.0f);
+  const float B2 = fm(Br, 2.0f), B4 = fm(Br, 4.0f), BB = fm(Br, Br);
+  const float head = __fmaf_rn(Ar, Ar, -fm(A2, Br));
+  const float B4ca = fm(B4, ca), B4caca = fm(B4ca, ca);
+  const float A8Brcb = fm(fm(A8, Br), cb);
+  const float c31 = __fmaf_rn(fm(A4, ca), cg,
+                              fs(A8Brcb, fm(fm(A4, Ar), cb)));
+  const float A4cb = fm(A4, cb), B4Brcb = fm(fm(B4, Br), cb);
+  const float B8ca = fm(fm(Br, 8.0f), ca), B4cacg = fm(B4ca, cg);
+  const float B4cb = fm(B4, cb), ca4 = fm(ca, 4.0f), ca4cg = fm(ca4, cg);
+  const float A4cgcg = fm(fm(A4, cg), cg);
+  Quartic k;
+  k.C4 = fa(fa(B2, fs(fa(BB, fs(head, A2)), B4caca)), 1.0f);
+  k.C3 = fs(fs(fa(B4cacg, __fmaf_rn(fm(B8ca, ca), cb,
+                                    fs(fa(A4cb, c31), B4Brcb))),
+               B4cb), ca4cg);
+  float c2 = __fmaf_rn(-A4, Br, __fmaf_rn(-A8Brcb, cb, __fmaf_rn(
+      A2, Ar, fm(fm(fm(A4, Ar), cb), cb))));
+  c2 = __fmaf_rn(B4Brcb, cb,
+                 fs(__fmaf_rn(-fm(fm(A8, ca), cb), cg, c2), A4cgcg));
+  c2 = __fmaf_rn(-fm(B8ca, cb), cg, fs(__fmaf_rn(B2, Br, c2), B4caca));
+  k.C2 = fs(__fmaf_rn(fm(cg, 4.0f), cg, __fmaf_rn(ca4, ca, c2)), 2.0f);
+  k.C1 = fs(fa(B4cb, fa(B4cacg, fs(fs(__fmaf_rn(fm(fm(A8, cb), cg), cg,
+                                                c31), A4cb), B4Brcb))),
+            ca4cg);
+  k.C0 = fa(fs(fa(BB, fa(A2, fs(head, A4cgcg))), B2), 1.0f);
+  return k;
+}
+
+// pnp.py polish_step: f / fp at x by contracted Horner steps, fp taken as
+// 1 where |fp| <= 1e-12
+__device__ __forceinline__ float polish_delta(const Quartic& k, float x) {
+  const float f = __fmaf_rn(__fmaf_rn(__fmaf_rn(__fmaf_rn(
+      k.C4, x, k.C3), x, k.C2), x, k.C1), x, k.C0);
+  const float fp = __fmaf_rn(__fmaf_rn(__fmaf_rn(
+      fm(k.C4, 4.0f), x, fm(k.C3, 3.0f)), x, fm(k.C2, 2.0f)), x, k.C1);
+  return fd(f, fabsf(fp) > 1e-12f ? fp : 1.0f);
+}
+
+// pnp.py _cosine_law: x^2 + y^2 - 2 x y cos - side^2 as the compiled
+// Newton step contracts it, fma(-(2 x y), cos, fma(x, x, y y)) - side^2
+__device__ __forceinline__ float law(float x, float y, float cos,
+                                     float side) {
+  return fs(__fmaf_rn(-fm(fm(x, 2.0f), y), cos, __fmaf_rn(x, x, fm(y, y))),
+            side);
 }
 
 __device__ __forceinline__ void cosine_law(const float s[3], float ca,
                                            float cb, float cg, float a2,
                                            float b2, float c2, float F[3]) {
-  F[0] = fs(fs(fa(fm(s[1], s[1]), fm(s[2], s[2])),
-               fm(fm(fm(2.0f, s[1]), s[2]), ca)), a2);
-  F[1] = fs(fs(fa(fm(s[0], s[0]), fm(s[2], s[2])),
-               fm(fm(fm(2.0f, s[0]), s[2]), cb)), b2);
-  F[2] = fs(fs(fa(fm(s[0], s[0]), fm(s[1], s[1])),
-               fm(fm(fm(2.0f, s[0]), s[1]), cg)), c2);
+  F[0] = law(s[1], s[2], ca, a2);
+  F[1] = law(s[0], s[2], cb, b2);
+  F[2] = law(s[0], s[1], cg, c2);
 }
 
 __device__ __forceinline__ float dot3(const float* u, const float* v) {
@@ -159,13 +231,14 @@ __device__ __forceinline__ void candidate(float v, float s1, float sq, int br,
   for (int it = 0; it < 8; ++it) {
     float F[3];
     cosine_law(s, ca, cb, cg, a2, b2, c2, F);
+    // + 1e-9 I: the off-diagonal entries + 0, as the reference adds it
     float J[3][3] = {
-        {1e-9f, fs(fm(2.0f, s[1]), fm(fm(2.0f, s[2]), ca)),
-         fs(fm(2.0f, s[2]), fm(fm(2.0f, s[1]), ca))},
-        {fs(fm(2.0f, s[0]), fm(fm(2.0f, s[2]), cb)), 1e-9f,
-         fs(fm(2.0f, s[2]), fm(fm(2.0f, s[0]), cb))},
-        {fs(fm(2.0f, s[0]), fm(fm(2.0f, s[1]), cg)),
-         fs(fm(2.0f, s[1]), fm(fm(2.0f, s[0]), cg)), 1e-9f}};
+        {1e-9f, fa(fs(fm(2.0f, s[1]), fm(fm(2.0f, s[2]), ca)), 0.0f),
+         fa(fs(fm(2.0f, s[2]), fm(fm(2.0f, s[1]), ca)), 0.0f)},
+        {fa(fs(fm(2.0f, s[0]), fm(fm(2.0f, s[2]), cb)), 0.0f), 1e-9f,
+         fa(fs(fm(2.0f, s[2]), fm(fm(2.0f, s[0]), cb)), 0.0f)},
+        {fa(fs(fm(2.0f, s[0]), fm(fm(2.0f, s[1]), cg)), 0.0f),
+         fa(fs(fm(2.0f, s[1]), fm(fm(2.0f, s[0]), cg)), 0.0f), 1e-9f}};
     float delta[3] = {F[0], F[1], F[2]};
     tod_lapack::lu_solve<3>(J, delta);
     if (is_fin(delta[0]) && is_fin(delta[1]) && is_fin(delta[2])) {
@@ -188,6 +261,7 @@ __device__ __forceinline__ void candidate(float v, float s1, float sq, int br,
 
 __global__ void __launch_bounds__(kThreads)
 p3p_kernel(const float* __restrict__ bear, const float* __restrict__ pts,
+           const int32_t* __restrict__ rsqrt_table,
            float* __restrict__ s_out, uint8_t* __restrict__ ok_out, int n) {
   const int64_t t = static_cast<int64_t>(blockIdx.x) * kThreads
                     + threadIdx.x;
@@ -209,11 +283,6 @@ p3p_kernel(const float* __restrict__ bear, const float* __restrict__ pts,
   const float a2 = fm(a, a), b2 = fm(b, b), c2 = fm(c, c);
   const float Ar = fd(a2, b2);
   const float Br = fd(c2, b2);
-  const float C4 = fa(fa(fs(fa(fs(fs(fm(Ar, Ar), fm(fm(2.0f, Ar), Br)), fm(2.0f, Ar)), fm(Br, Br)), fm(fm(fm(4.0f, Br), ca), ca)), fm(2.0f, Br)), 1.0f);
-  const float C3 = fs(fs(fa(fa(fs(fa(fa(fa(fm(fm(fm(-4.0f, Ar), Ar), cb), fm(fm(fm(8.0f, Ar), Br), cb)), fm(fm(fm(4.0f, Ar), ca), cg)), fm(fm(4.0f, Ar), cb)), fm(fm(fm(4.0f, Br), Br), cb)), fm(fm(fm(fm(8.0f, Br), ca), ca), cb)), fm(fm(fm(4.0f, Br), ca), cg)), fm(fm(4.0f, Br), cb)), fm(fm(4.0f, ca), cg));
-  const float C2 = fs(fa(fa(fs(fs(fa(fa(fs(fs(fs(fs(fa(fm(fm(fm(fm(4.0f, Ar), Ar), cb), cb), fm(fm(2.0f, Ar), Ar)), fm(fm(fm(fm(8.0f, Ar), Br), cb), cb)), fm(fm(4.0f, Ar), Br)), fm(fm(fm(fm(8.0f, Ar), ca), cb), cg)), fm(fm(fm(4.0f, Ar), cg), cg)), fm(fm(fm(fm(4.0f, Br), Br), cb), cb)), fm(fm(2.0f, Br), Br)), fm(fm(fm(4.0f, Br), ca), ca)), fm(fm(fm(fm(8.0f, Br), ca), cb), cg)), fm(fm(4.0f, ca), ca)), fm(fm(4.0f, cg), cg)), 2.0f);
-  const float C1 = fs(fa(fa(fs(fs(fa(fa(fa(fm(fm(fm(-4.0f, Ar), Ar), cb), fm(fm(fm(8.0f, Ar), Br), cb)), fm(fm(fm(4.0f, Ar), ca), cg)), fm(fm(fm(fm(8.0f, Ar), cb), cg), cg)), fm(fm(4.0f, Ar), cb)), fm(fm(fm(4.0f, Br), Br), cb)), fm(fm(fm(4.0f, Br), ca), cg)), fm(fm(4.0f, Br), cb)), fm(fm(4.0f, ca), cg));
-  const float C0 = fa(fs(fa(fa(fs(fs(fm(Ar, Ar), fm(fm(2.0f, Ar), Br)), fm(fm(fm(4.0f, Ar), cg), cg)), fm(2.0f, Ar)), fm(Br, Br)), fm(2.0f, Br)), 1.0f);
   // pnp.py quartic_normalized: C3/C4 .. C0/C4 as the compiled reference's
   // four fusions contract them (each recomputes C4 its own way)
   const float A2 = fa(Ar, Ar), B2 = fa(Br, Br);
@@ -244,13 +313,20 @@ p3p_kernel(const float* __restrict__ bear, const float* __restrict__ pts,
               fm(A8, Br), cb, tail))))))));
   const float n0 = fa(fs(fa(fm(Br, Br), fa(A2, __fmaf_rn(
       -fm(A4, cg), cg, __fmaf_rn(Ar, Ar, -fm(A2, Br))))), B2), 1.0f);
-  const float v = quartic_root(C4, C3, C2, C1, C0, fd(n3, den1),
-                               fd(n2, den2), fd(n1, den1), fd(n0, den0), j);
+  // Ferrari's root j and its six Newton polishes (pnp.py p3p_distances)
+  float v = ferrari_root(fd(n3, den1), fd(n2, den2), fd(n1, den1),
+                         fd(n0, den0), j, rsqrt_table);
+  const Quartic k = polish_quartic(Ar, Br, ca, cb, cg);
+#pragma unroll 1
+  for (int it = 0; it < 6; ++it) v = fs(v, polish_delta(k, v));
   const float scale = maxnan(maxnan(a2, b2), c2);
   const float gate = fm(1e-4f, scale);
-  const float gv = maxc(fs(fa(1.0f, fm(v, v)), fm(fm(2.0f, v), cb)), 1e-12f);
+  // the first distances as compiled: g = fma(-v, 2 cb, fma(v, v, 1)), the
+  // discriminant cg cg - fma(-Br, g, 1)
+  const float gv = maxc(__fmaf_rn(-v, fm(cb, 2.0f), __fmaf_rn(v, v, 1.0f)),
+                        1e-12f);
   const float s1 = fsq(fd(b2, gv));
-  const float disc = maxc(fs(fm(cg, cg), fs(1.0f, fm(Br, gv))), 0.0f);
+  const float disc = maxc(fs(fm(cg, cg), __fmaf_rn(-Br, gv, 1.0f)), 0.0f);
   const float sq = fsq(disc);
 #pragma unroll 1
   for (int br = 0; br < 2; ++br) {
@@ -263,17 +339,20 @@ p3p_kernel(const float* __restrict__ bear, const float* __restrict__ pts,
 }  // namespace
 
 // For n samples: bearings (n, 3, 3) and points (n, 3, 3) float32 ->
-// distances (n, 8, 3) float32 and validity (n, 8) uint8. Launches on
+// distances (n, 8, 3) float32 and validity (n, 8) uint8; rsqrt_table:
+// ops/rsqrtps.py RSQRTPS_TABLE (2048 int32) on the card. Launches on
 // `stream` and returns cudaGetLastError(); it neither allocates nor
 // synchronises.
 extern "C" int tod_p3p(const void* bearings, const void* points,
-                       void* s_out, void* ok_out, int n, void* stream) {
+                       const void* rsqrt_table, void* s_out, void* ok_out,
+                       int n, void* stream) {
   if (n <= 0) return 0;
   const int64_t threads = static_cast<int64_t>(n) * kLanes;
   const int blocks = static_cast<int>((threads + kThreads - 1) / kThreads);
   p3p_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(bearings), static_cast<const float*>(points),
-      static_cast<float*>(s_out), static_cast<uint8_t*>(ok_out), n);
+      static_cast<const int32_t*>(rsqrt_table), static_cast<float*>(s_out),
+      static_cast<uint8_t*>(ok_out), n);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -18,18 +18,24 @@ from ``split(split(key, n_objects)[o], max_instances)[i]``
 (``ransac.ThreefryNoise`` with ``segmented=False``), all objects' draws of
 a round in one call (one launch of kernel N1 on a card). Every step rounds
 alike on the CPU and the card: sums in fixed orders
-(``transforms.pairwise_sum``, three-term dots left to right), no library
-product or reduction of floats, XLA's ``log`` and the C library's
+(three-term dots left to right, the reference's reduces over the matches
+as ``ops/reduce.py tree_sum``), no
+library product or reduction of floats, XLA's ``log`` and the C library's
 ``cosf``, ``sincosf`` and ``atan2f`` from ``ops/libm.py`` (kernel L4 on a
-card, and inside kernels M1 and M2, the mirror and the model normal, one
-launch a call each), correctly rounded roots,
-divisions by tensors (PyTorch's CUDA division by a Python number
-multiplies by its reciprocal), and P3P through kernel P1 or its plain
-twin. No step inside a round waits for the host: the histogram is a
-``scatter_add_`` into 64 bins, the 3x3 eigenvector is LAPACK's ``ssyevd``
-(``geometry/lapack.py``, the reference's ``eigh`` bit for bit; kernel M2
-on a card), the solves are LAPACK's LU (``pnp.lu_solve``). :func:`detect_frame_2d` reads one number set back before the
-rounds, which objects can be accepted at all.
+card), correctly rounded roots, divisions by tensors (PyTorch's CUDA
+division by a Python number multiplies by its reciprocal), and P3P
+through kernel P1 or its plain twin. The consensus (every candidate's
+inlier count, the top 8, the model normal, the mirrors and their counts)
+and the refinement's recounts and truncated SSE are kernel R1 on a card
+(``csrc/consensus.cu``: two launches a round's consensus, three its
+refinement; M1's and M2's device code inside it) and their plain versions
+on the CPU; the reprojection, the model covariance, the mirror and the
+SSE are the compiled reference's bits. No step inside a round waits for
+the host: the histogram is a ``scatter_add_`` into 64 bins, the 3x3
+eigenvector is LAPACK's ``ssyevd`` (``geometry/lapack.py``, the
+reference's ``eigh`` bit for bit), the solves are LAPACK's LU
+(``pnp.lu_solve``). :func:`detect_frame_2d` reads one number set back
+before the rounds, which objects can be accepted at all.
 """
 
 from __future__ import annotations
@@ -37,7 +43,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import math
-from typing import List, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -51,11 +57,11 @@ from tod_tpu_torch.geometry.pnp import gauss_newton_pose, p3p, skew
 from tod_tpu_torch.geometry.ransac import (ObjectDetections, ThreefryNoise,
                                            _rows, consistency_log_weights,
                                            sample_triples)
-from tod_tpu_torch.geometry.transforms import (cross3, dot3, matmul3,
-                                               pairwise_sum)
+from tod_tpu_torch.geometry.transforms import dot3
 from tod_tpu_torch.ops import libm
 from tod_tpu_torch.ops.fast import stable_topk
 from tod_tpu_torch.ops.image import fma_f32
+from tod_tpu_torch.ops.reduce import tree_sum
 from tod_tpu_torch.utils.profiling import StageTimer
 
 PIXEL_SEP_SQ = 20.0 * 20.0     # same sample-separation rule as the 3D path
@@ -188,7 +194,8 @@ def reprojection_error(R: torch.Tensor, T: torch.Tensor, K: torch.Tensor,
     points under each of its poses: ``R`` (A, H, 3, 3), ``T`` (A, H, 3),
     ``X`` (A, M, 3), ``xy`` (A, M, 2) -> (A, H, M) each. The camera
     coordinates come from :func:`rotate_points`, the rest in place in its
-    output."""
+    output; the squares summed as the compiled reference's reduce over
+    (u, v) contracts them, ``fma(dv, dv, du du)``."""
     x, y, z = rotate_points(R, T, X).unbind(2)
     front = z > 1e-6
     zc = torch.where(torch.abs(z) > 1e-9, z,
@@ -196,7 +203,7 @@ def reprojection_error(R: torch.Tensor, T: torch.Tensor, K: torch.Tensor,
     # (f x / z + c) - observed, as the reference rounds it
     du = x.mul_(K[0, 0]).div_(zc).add_(K[0, 2]).sub_(xy[:, None, :, 0])
     dv = y.mul_(K[1, 1]).div_(zc).add_(K[1, 2]).sub_(xy[:, None, :, 1])
-    return du.square_().add_(dv.square_()), front
+    return fma_f32(dv, dv, du.square_()), front
 
 
 def count_inliers(R, T, K, m: ObjectMatches, valid: torch.Tensor,
@@ -213,8 +220,8 @@ def truncated_sse(R, T, K, m: ObjectMatches, valid: torch.Tensor,
     err2, front = reprojection_error(R, T, K, m.train_pts, m.query_xy)
     cap = torch.full((), 4.0 * thr2, dtype=err2.dtype, device=err2.device)
     err2 = torch.where(front, err2, cap)
-    return pairwise_sum(torch.where(valid[:, None, :],
-                                    torch.minimum(err2, cap), 0.0), -1)
+    return tree_sum(torch.where(valid[:, None, :], torch.minimum(err2, cap),
+                                0.0), -1)
 
 
 def sym3_smallest_vector_torch(cov: torch.Tensor) -> torch.Tensor:
@@ -251,42 +258,83 @@ def sym3_smallest_vector(cov: torch.Tensor) -> torch.Tensor:
 sym3_smallest_vector.launches = 0
 
 
+def model_covariance(train_pts: torch.Tensor, valid: torch.Tensor
+                     ) -> torch.Tensor:
+    """(A, 3, 3) covariance of each object's valid model points as the
+    compiled reference rounds ``((ctr - mean) * valid).T @ (ctr - mean)``:
+    the mean a reduce (``ops/reduce.py tree_sum``) divided by the count,
+    the product XLA's emitted dot loop, one fused multiply-add chain over
+    the matches from +0 (:func:`fma_f32`)."""
+    ctr = torch.where(valid[..., None], train_pts, 0.0)
+    nvalid = torch.clamp_min(valid.sum(-1), 1)
+    mean = tree_sum(ctr, 1) / nvalid[:, None]
+    d = ctr - mean[:, None, :]
+    w = d * valid[..., None]
+    cov = torch.zeros(d.shape[:1] + (3, 3), dtype=d.dtype, device=d.device)
+    for k in range(d.shape[1]):
+        cov = fma_f32(w[:, k, :, None], d[:, k, None, :], cov)
+    return cov
+
+
 def model_normal(train_pts: torch.Tensor, valid: torch.Tensor
                  ) -> torch.Tensor:
     """(A, 3) smallest-variance direction of each object's valid model
-    points (the normal of a planar model), up to sign."""
-    ctr = torch.where(valid[..., None], train_pts, 0.0)
-    nvalid = torch.clamp_min(valid.sum(-1), 1)
-    mean = pairwise_sum(ctr, 1) / nvalid[:, None]
-    d = ctr - mean[:, None, :]
-    cov = pairwise_sum((d * valid[..., None])[..., :, None] * d[..., None, :],
-                       1)
-    return sym3_smallest_vector(cov)
+    points (the normal of a planar model): ``eigh``'s column 0 of
+    :func:`model_covariance`, as the reference takes it, sign too."""
+    return sym3_smallest_vector(model_covariance(train_pts, valid))
+
+
+def _dot3_chain(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """(..., 3) dots as XLA's row-major gemv loop: ``fma(u2, v2, fma(u1,
+    v1, u0 v0))``."""
+    return fma_f32(u[..., 2], v[..., 2],
+                   fma_f32(u[..., 1], v[..., 1], u[..., 0] * v[..., 0]))
+
+
+def _matmul3_chain(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """``A @ B`` for (..., 3, 3) matrices as XLA's emitted batched dot: each
+    entry ``fma(a_i2, b_2j, fma(a_i1, b_1j, a_i0 b_0j))``."""
+    return fma_f32(A[..., :, 2:3], B[..., 2:3, :],
+                   fma_f32(A[..., :, 1:2], B[..., 1:2, :],
+                           A[..., :, 0:1] * B[..., 0:1, :]))
 
 
 def mirror_poses_torch(R: torch.Tensor, T: torch.Tensor,
                        n_model: torch.Tensor
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The plain version of kernel M1. The planar two-fold ambiguity's other branch: the model normal
-    reflected about the viewing ray (IPPE's second solution). ``R`` (A, H,
-    3, 3), ``T`` (A, H, 3), ``n_model`` (A, 3). The result does not depend
-    on the normal's sign. Dots left to right, ``atan2f`` and ``sincosf``
-    from ``ops/libm.py``, ``ax @ ax`` and ``Q @ R`` by
-    ``transforms.matmul3``."""
-    n_c = dot3(R, n_model[:, None, None, :])
-    t_norm = libm.sqrt_rn(dot3(T, T))[..., None]
+    """The plain version of kernel M1. The planar two-fold ambiguity's
+    other branch: the model normal reflected about the viewing ray (IPPE's
+    second solution). ``R`` (A, H, 3, 3), ``T`` (A, H, 3), ``n_model`` (A,
+    3). The result does not depend on the normal's sign.
+
+    Rounded as the compiled reference's fusions (read off their object
+    code, ``tools/fit_mirror_fusions.py``): ``R @ n``, ``ax @ ax`` and ``Q
+    @ R`` fused multiply-add chains (:func:`_dot3_chain`,
+    :func:`_matmul3_chain`), the two norms' squares a chain, the two dots
+    ``n_c . v`` and ``n_c . n_ref`` unfused (``transforms.dot3``: XLA's
+    column-major gemv), ``n_ref``'s x and y ``fma(2 d, v, -n_c)`` and its
+    z unfused (the loop vectoriser's shuffle parts that product from its
+    subtraction), each cross-product entry ``fma(a, b, -(c d))``, ``Q =
+    fma(1 - cos, ax ax, eye + sin ax)``; ``atan2f`` and ``sincosf`` from
+    ``ops/libm.py``."""
+    n_c = _dot3_chain(R, n_model[:, None, None, :])
+    t_norm = libm.sqrt_rn(_dot3_chain(T, T))[..., None]
     v = T / torch.clamp_min(t_norm, 1e-9)
-    n_ref = 2.0 * dot3(n_c, v)[..., None] * v - n_c
-    axis = cross3(n_c, n_ref)
-    s = libm.sqrt_rn(dot3(axis, axis))
+    d2 = (dot3(n_c, v) * 2.0)[..., None]
+    n_ref = torch.cat([fma_f32(d2, v[..., :2], -n_c[..., :2]),
+                       d2 * v[..., 2:] - n_c[..., 2:]], -1)
+    axis = torch.stack([
+        fma_f32(n_c[..., i], n_ref[..., j], -(n_c[..., k] * n_ref[..., l]))
+        for i, j, k, l in ((1, 2, 2, 1), (2, 0, 0, 2), (0, 1, 1, 0))], -1)
+    s = libm.sqrt_rn(_dot3_chain(axis, axis))
     c = torch.clamp(dot3(n_c, n_ref), -1.0, 1.0)
     ax = skew(axis / torch.clamp_min(s, 1e-9)[..., None])
     sin, cos = libm.sincosf(libm.atan2f(s, c))
     eye = torch.eye(3, dtype=R.dtype, device=R.device)
-    Q = eye + sin[..., None, None] * ax \
-        + (1.0 - cos[..., None, None]) * matmul3(ax, ax)
+    Q = fma_f32((1.0 - cos)[..., None, None].expand_as(ax),
+                _matmul3_chain(ax, ax), eye + sin[..., None, None] * ax)
     Q = torch.where((s > 1e-6)[..., None, None], Q, eye)
-    return matmul3(Q, R), T
+    return _matmul3_chain(Q, R), T
 
 
 def mirror_poses(R: torch.Tensor, T: torch.Tensor, n_model: torch.Tensor
@@ -321,6 +369,197 @@ def mirror_poses(R: torch.Tensor, T: torch.Tensor, n_model: torch.Tensor
 
 
 mirror_poses.launches = 0
+
+
+# ---- kernel R1: the reprojection consensus (csrc/consensus.cu) ----------
+
+class Selection(NamedTuple):
+    """A round's seeds and mirrors (:func:`consensus_select`): the stable
+    top ``N_REFINE`` counts ``top_n`` (A, 8) int32 at ``top`` (A, 8)
+    int64, the 8 seeds then their mirrors ``R`` (A, 16, 3, 3) and ``T``
+    (A, 16, 3), their inliers (A, 16, M) and counts (A, 16) int32 (a
+    seed's only where its pose is valid, a mirror's only where its seed
+    counts 3 or more), and the model ``normal`` (A, 3)."""
+
+    top_n: torch.Tensor
+    top: torch.Tensor
+    R: torch.Tensor
+    T: torch.Tensor
+    inliers: torch.Tensor
+    counts: torch.Tensor
+    normal: torch.Tensor
+
+
+def _check_consensus(R, T, K, m: ObjectMatches, valid, what: str) -> str:
+    """The device type of a consensus call, after checking its arguments:
+    float32 poses (A, H, 3, 3) and (A, H, 3), points (A, M, 3), pixels
+    (A, M, 2), bool ``valid`` (A, M), all on one device."""
+    n_a, n_m = valid.shape
+    shapes = (R.dim() == 4 and R.shape[0] == n_a and R.shape[2:] == (3, 3)
+              and T.shape == R.shape[:3] and K.shape == (3, 3)
+              and m.train_pts.shape == (n_a, n_m, 3)
+              and m.query_xy.shape == (n_a, n_m, 2))
+    floats = all(x.dtype == torch.float32
+                 for x in (R, T, K, m.train_pts, m.query_xy))
+    devices = {x.device for x in (R, T, K, m.train_pts, m.query_xy, valid)}
+    if not (shapes and floats and valid.dtype == torch.bool
+            and len(devices) == 1):
+        raise ValueError(f"{what}: R {tuple(R.shape)} {R.dtype}, T "
+                         f"{tuple(T.shape)}, K {tuple(K.shape)}, points "
+                         f"{tuple(m.train_pts.shape)}, pixels "
+                         f"{tuple(m.query_xy.shape)}, valid "
+                         f"{tuple(valid.shape)} {valid.dtype} on "
+                         f"{sorted(map(str, devices))}")
+    kind = R.device.type
+    if kind not in ("cpu", "cuda"):
+        raise ValueError(f"no {what} path for {R.device}")
+    return kind
+
+
+def _float_bits(x: float) -> int:
+    """The bits of ``x`` rounded to float32, as a C int."""
+    return int(np.float32(x).view(np.int32))
+
+
+def consensus_kernel(entry: str, pointers: Sequence[int],
+                     ints: Sequence[int], device: torch.device) -> None:
+    """One launch of kernel R1's C entry ``entry`` (``csrc/consensus.cu``)
+    on ``device``'s current stream, counted in
+    ``consensus_kernel.launches``; a failed build or launch raises."""
+    kernels.call("consensus", entry, pointers, ints,
+                 torch.cuda.current_stream(device).cuda_stream)
+    consensus_kernel.launches += 1
+
+
+consensus_kernel.launches = 0
+
+
+def consensus_counts_torch(R, T, K, m: ObjectMatches, valid: torch.Tensor,
+                           pose_ok: torch.Tensor, thr2: float
+                           ) -> torch.Tensor:
+    """The plain version of R1's counts: (A, H) int32 inliers of each
+    pose (:func:`count_inliers`), 0 where ``pose_ok`` (A, H) is False."""
+    inl = count_inliers(R, T, K, m, valid, thr2) & pose_ok[..., None]
+    return inl.sum(-1, dtype=torch.int32)
+
+
+def consensus_counts(R, T, K, m: ObjectMatches, valid: torch.Tensor,
+                     pose_ok: torch.Tensor, thr2: float) -> torch.Tensor:
+    """:func:`consensus_counts_torch`: kernel R1's counts mode on CUDA
+    tensors (a block a (tile of 128 poses, object), the object's points
+    staged in shared memory, no (A, H, M) tensor), one launch; the plain
+    version on CPU tensors."""
+    if _check_consensus(R, T, K, m, valid, "consensus_counts") == "cpu":
+        return consensus_counts_torch(R, T, K, m, valid, pose_ok, thr2)
+    n_a, n_h = R.shape[:2]
+    args = [x.contiguous() for x in (R, T, m.train_pts, m.query_xy, valid,
+                                     pose_ok.to(torch.bool), K)]
+    counts = torch.empty((n_a, n_h), dtype=torch.int32, device=R.device)
+    if counts.numel():
+        consensus_kernel("tod_consensus_counts",
+                         [x.data_ptr() for x in args] + [counts.data_ptr()],
+                         [n_a, n_h, valid.shape[1], _float_bits(thr2)],
+                         R.device)
+    return counts
+
+
+def consensus_select_torch(counts: torch.Tensor, R, T, K, m: ObjectMatches,
+                           valid: torch.Tensor, pose_ok: torch.Tensor,
+                           thr2: float) -> Selection:
+    """The plain version of R1's selection: :func:`stable_topk`, the model
+    normal (:func:`model_covariance`, then LAPACK's ``ssyevd``), M1's
+    :func:`mirror_poses_torch` of the 8 seeds and :func:`count_inliers`
+    of the 16 poses."""
+    top_n, top = stable_topk(counts, N_REFINE)
+    r_top, t_top = _rows(R, top), _rows(T, top)
+    normal = sym3_smallest_vector_torch(model_covariance(m.train_pts, valid))
+    r_mir, t_mir = mirror_poses_torch(r_top, t_top, normal)
+    r_all, t_all = torch.cat([r_top, r_mir], 1), torch.cat([t_top, t_mir], 1)
+    keep = torch.cat([_rows(pose_ok, top), top_n >= 3], 1)
+    inl = count_inliers(r_all, t_all, K, m, valid, thr2) & keep[..., None]
+    return Selection(top_n, top, r_all, t_all, inl,
+                     inl.sum(-1, dtype=torch.int32), normal)
+
+
+def consensus_select(counts: torch.Tensor, R, T, K, m: ObjectMatches,
+                     valid: torch.Tensor, pose_ok: torch.Tensor,
+                     thr2: float) -> Selection:
+    """:func:`consensus_select_torch` from :func:`consensus_counts`' (A, H)
+    int32 ``counts`` (H >= 8): kernel R1's selection mode on CUDA tensors
+    (a block an object: the top 8, the model normal by M2's device code,
+    M1's mirrors, the 16 poses' inliers), one launch; the plain version
+    on CPU tensors."""
+    if _check_consensus(R, T, K, m, valid, "consensus_select") == "cpu":
+        return consensus_select_torch(counts, R, T, K, m, valid, pose_ok,
+                                      thr2)
+    n_a, n_h = R.shape[:2]
+    n_m = valid.shape[1]
+    if counts.shape != (n_a, n_h) or counts.dtype != torch.int32 \
+            or n_h < N_REFINE:
+        raise ValueError(f"consensus_select: counts {tuple(counts.shape)} "
+                         f"{counts.dtype} for {n_h} poses")
+    args = [x.contiguous() for x in (counts, R, T, m.train_pts, m.query_xy,
+                                     valid, pose_ok.to(torch.bool), K)]
+    dev = R.device
+    top = torch.empty((n_a, N_REFINE), dtype=torch.int64, device=dev)
+    top_n = torch.empty((n_a, N_REFINE), dtype=torch.int32, device=dev)
+    r_all = torch.empty((n_a, 2 * N_REFINE, 3, 3), device=dev)
+    t_all = torch.empty((n_a, 2 * N_REFINE, 3), device=dev)
+    inl = torch.empty((n_a, 2 * N_REFINE, n_m), dtype=torch.bool, device=dev)
+    n_in = torch.empty((n_a, 2 * N_REFINE), dtype=torch.int32, device=dev)
+    normal = torch.empty((n_a, 3), device=dev)
+    outs = (top, top_n, r_all, t_all, inl, n_in, normal)
+    if n_a:
+        consensus_kernel("tod_consensus_select",
+                         [x.data_ptr() for x in args + list(outs)],
+                         [n_a, n_h, n_m, _float_bits(thr2)], dev)
+    return Selection(top_n, top, r_all, t_all, inl, n_in, normal)
+
+
+def _consensus_poses(R, T, K, m: ObjectMatches, valid: torch.Tensor,
+                     thr2: float, want_masks: bool):
+    """Kernel R1's masks-and-SSE mode (a warp a pose): the (A, H, M) inlier
+    masks and (A, H) int32 counts where ``want_masks``, else the (A, H)
+    truncated SSE; one launch."""
+    n_a, n_h = R.shape[:2]
+    n_m = valid.shape[1]
+    args = [x.contiguous() for x in (R, T, m.train_pts, m.query_xy, valid,
+                                     K)]
+    dev = R.device
+    masks = counts = sse = None
+    if want_masks:
+        masks = torch.empty((n_a, n_h, n_m), dtype=torch.bool, device=dev)
+        counts = torch.empty((n_a, n_h), dtype=torch.int32, device=dev)
+    else:
+        sse = torch.empty((n_a, n_h), device=dev)
+    ptrs = [0 if x is None else x.data_ptr() for x in (masks, counts, sse)]
+    if n_a * n_h:
+        consensus_kernel("tod_consensus_masks",
+                         [x.data_ptr() for x in args] + ptrs,
+                         [n_a, n_h, n_m, _float_bits(thr2),
+                          _float_bits(4.0 * thr2)], dev)
+    return (masks, counts) if want_masks else sse
+
+
+def consensus_masks(R, T, K, m: ObjectMatches, valid: torch.Tensor,
+                    thr2: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(count_inliers(...), its (A, H) int32 counts)``: kernel R1's
+    masks mode on CUDA tensors, one launch; the plain version on CPU
+    tensors."""
+    if _check_consensus(R, T, K, m, valid, "consensus_masks") == "cpu":
+        inl = count_inliers(R, T, K, m, valid, thr2)
+        return inl, inl.sum(-1, dtype=torch.int32)
+    return _consensus_poses(R, T, K, m, valid, thr2, True)
+
+
+def consensus_sse(R, T, K, m: ObjectMatches, valid: torch.Tensor,
+                  thr2: float) -> torch.Tensor:
+    """:func:`truncated_sse`: kernel R1's SSE mode on CUDA tensors (a warp
+    a pose, the terms summed in ``tree_sum``'s order), one launch; the
+    plain version on CPU tensors."""
+    if _check_consensus(R, T, K, m, valid, "consensus_sse") == "cpu":
+        return truncated_sse(R, T, K, m, valid, thr2)
+    return _consensus_poses(R, T, K, m, valid, thr2, False)
 
 
 def _stages(timer: Optional[StageTimer], prefix: str):
@@ -364,31 +603,24 @@ def ransac_round_2d(gumbel: torch.Tensor, m: ObjectMatches, K: torch.Tensor,
         keep(p3p_R=sols.R, p3p_T=sols.T, p3p_valid=sols.valid)
 
     with stage("consensus"):
-        # reprojection consensus of every candidate pose, (A, B * 8, M)
+        # the counts of every candidate pose (A, B * 8), then the top
+        # N_REFINE (ties to the lower index, as top_k) and their mirrored
+        # poses with the 16 poses' inliers: kernel R1, two launches on a
+        # card; each refined twice, the winner by truncated SSE among the
+        # valid candidates within 85 % of the best count
         r_c, t_c = sols.R.flatten(1, 2), sols.T.flatten(1, 2)
-        inl = count_inliers(r_c, t_c, K, m, valid, thr2)
-        inl &= (sols.valid & samp_ok[..., None]).flatten(1)[..., None]
-        flat = inl.sum(-1)                               # (A, B * 8)
-
-        # the top N_REFINE by count (ties to the lower index, as top_k) and
-        # their mirrored poses, each refined twice; the winner by truncated
-        # SSE among the valid candidates within 85 % of the best count
-        top_n, top = stable_topk(flat, N_REFINE)
-        keep(counts=flat, top_n=top_n, top=top)
-        r_top, t_top = _rows(r_c, top), _rows(t_c, top)
-        inl_top = _rows(inl, top)
-        del inl
-        seed_ok = top_n >= 3
-        r_mir, t_mir = mirror_poses(r_top, t_top,
-                                    model_normal(m.train_pts, valid))
-        inl_mir = count_inliers(r_mir, t_mir, K, m, valid, thr2) \
-            & seed_ok[..., None]
-        keep(mirror_R=r_mir, mirror_T=t_mir, mirror_inliers=inl_mir)
+        pose_ok = (sols.valid & samp_ok[..., None]).flatten(1)
+        flat = consensus_counts(r_c, t_c, K, m, valid, pose_ok, thr2)
+        sel = consensus_select(flat, r_c, t_c, K, m, valid, pose_ok, thr2)
+        keep(counts=flat, top_n=sel.top_n, top=sel.top,
+             model_normal=sel.normal, mirror_R=sel.R[:, N_REFINE:],
+             mirror_T=sel.T[:, N_REFINE:],
+             mirror_inliers=sel.inliers[:, N_REFINE:])
+        seed_ok = sel.top_n >= 3
     with stage("refinement"):
-        return _refine_and_choose(
-            torch.cat([r_top, r_mir], 1), torch.cat([t_top, t_mir], 1),
-            torch.cat([inl_top, inl_mir], 1),
-            torch.cat([seed_ok, seed_ok], 1), m, K, valid, cfg, keep)
+        return _refine_and_choose(sel.R, sel.T, sel.inliers,
+                                  torch.cat([seed_ok, seed_ok], 1), m, K,
+                                  valid, cfg, keep)
 
 
 def _refine_and_choose(r_all, t_all, inl_all, ok_all, m: ObjectMatches,
@@ -403,15 +635,15 @@ def _refine_and_choose(r_all, t_all, inl_all, ok_all, m: ObjectMatches,
     X, xy = m.train_pts[:, None], m.query_xy[:, None]
     r1, t1 = gauss_newton_pose(r_all, t_all, K, X, xy, inl_all.float(),
                                iters=cfg.refine_iters)
-    inl1 = count_inliers(r1, t1, K, m, valid, thr2)
+    inl1, _ = consensus_masks(r1, t1, K, m, valid, thr2)
     r2, t2 = gauss_newton_pose(r1, t1, K, X, xy, inl1.float(),
                                iters=cfg.refine_iters)
-    inl2 = count_inliers(r2, t2, K, m, valid, thr2)
-    better = inl2.sum(-1) >= inl_all.sum(-1)
+    inl2, n2 = consensus_masks(r2, t2, K, m, valid, thr2)
+    better = n2 >= inl_all.sum(-1, dtype=torch.int32)
     r_ref = torch.where(better[..., None, None], r2, r_all)
     t_ref = torch.where(better[..., None], t2, t_all)
     inl_ref = torch.where(better[..., None], inl2, inl_all) & ok_all[..., None]
-    sse = truncated_sse(r_ref, t_ref, K, m, valid, thr2)
+    sse = consensus_sse(r_ref, t_ref, K, m, valid, thr2)
     keep(refined_R=r_ref, refined_T=t_ref, refined_inliers=inl_ref, sse=sse)
 
     n_ref_in = inl_ref.sum(-1)                           # (A, 2 N_REFINE)
@@ -556,7 +788,10 @@ def detect_frame_2d(noise: ThreefryNoise, obj_idx: torch.Tensor,
 
 
 __all__ = ["LOG_SCALE_GATE", "MIN_TRAIN_SEP", "N_BINS", "N_REFINE",
-           "OBJECT_CHUNK",
+           "OBJECT_CHUNK", "Selection", "consensus_counts",
+           "consensus_counts_torch", "consensus_kernel", "consensus_masks",
+           "consensus_select", "consensus_select_torch", "consensus_sse",
+           "model_covariance",
            "PIXEL_SEP_SQ", "Pnp2dConfig", "bearings", "count_inliers",
            "detect_frame_2d", "detect_object_instances_2d",
            "invalidate_keypoints", "mirror_poses", "mirror_poses_torch",

@@ -23,15 +23,19 @@ solve through :func:`lu_solve` (``geometry/lapack.py``): LAPACK's
 reference host, bit for bit.
 
 Against the compiled reference, P3P holds its bits through the side
-lengths (the reduce's FMA chain), the cosines and the four normalised
-quartic coefficients (:func:`quartic_normalized`: XLA's fusions with
-LLVM's contractions, read off by ``tools/fit_p3p_fusions.py``) and parts
-after them: Ferrari's resolvent, the polishes, the distances' Newton
-steps and the Horn fit contract multiply-adds in fusions the port does
-not transcribe yet (ROADMAP queue C), so candidates agree with the
+lengths (the reduce's FMA chain), the cosines, the four normalised
+quartic coefficients (:func:`quartic_normalized`), Ferrari's solution
+(:func:`ferrari_roots`, XLA's ``rsqrt`` as the reference host's
+``rsqrtps`` and two Newton steps, ``ops/rsqrtps.py``), the six polishes
+of the roots (:func:`polish_step`), the first distances and their eight
+Newton steps (:func:`_cosine_law`): XLA's fusions with LLVM's
+contractions, read off by ``tools/fit_p3p_fusions.py``. The Horn fit
+folds P3P's unit weights and contracts multiply-adds in fusions the port
+does not transcribe yet (ROADMAP queue C), so candidates agree with the
 reference's within 1 mm, not bit for bit (``tests/test_torch_pnp.py``).
-So does the refinement (``jax.jacfwd``'s tangents and the batched dots
-of ``J^T J``). Host waits: none. The reference differentiates its
+So does the refinement (its residual in ``jax.jacfwd``'s program, the
+batched dots of ``J^T J``). Host waits: none. The reference
+differentiates its
 residual with ``jax.jacfwd``; the port writes the Jacobian out (at
 ``delta = 0`` both are the same function).
 """
@@ -49,6 +53,7 @@ from tod_tpu_torch.geometry.transforms import (dot3, kabsch, matmul3,
                                                pairwise_sum)
 from tod_tpu_torch.ops import libm
 from tod_tpu_torch.ops.image import fma_f32
+from tod_tpu_torch.ops.rsqrtps import rsqrt_xla, rsqrtps_table
 
 
 def _c(value: float, like: torch.Tensor) -> torch.Tensor:
@@ -78,8 +83,9 @@ def solve_quartic(c4, c3, c2, c1, c0, polish_iters: int = 6,
     Ferrari: depress with x = y - c3/(4 c4); factor via the resolvent
     cubic's largest real root (Cardano, or its trigonometric form when the
     cubic has three real roots); Newton-polish each root on the original
-    quartic. Every operation in the reference's order, rounded on its own
-    (kernel P1 transcribes this function line by line). ``normalized``,
+    quartic. Every operation in the reference's order, rounded on its own:
+    a general solver (P3P takes :func:`ferrari_roots` and
+    :func:`polish_step`, the compiled reference's rounding). ``normalized``,
     when given, is ``(c3/c4, c2/c4, c1/c4, c0/c4)`` as computed elsewhere
     (:func:`quartic_normalized`)."""
     def div(x, v):
@@ -153,12 +159,14 @@ def _side(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 
 def _cosine_law(s: torch.Tensor, ca, cb, cg, a2, b2, c2) -> torch.Tensor:
-    """The three cosine-law residuals of distances ``s`` (..., 3)."""
+    """The three cosine-law residuals ``x^2 + y^2 - 2 x y cos - side^2``
+    of distances ``s`` (..., 3), as the compiled reference's Newton step
+    contracts them: ``fma(-(2 x y), cos, fma(x, x, y y)) - side^2``."""
     s1, s2, s3 = s[..., 0], s[..., 1], s[..., 2]
     return torch.stack([
-        s2 * s2 + s3 * s3 - 2 * s2 * s3 * ca - a2,
-        s1 * s1 + s3 * s3 - 2 * s1 * s3 * cb - b2,
-        s1 * s1 + s2 * s2 - 2 * s1 * s2 * cg - c2], dim=-1)
+        fma_f32(-((x * 2.0) * y), cos, fma_f32(x, x, y * y)) - side
+        for x, y, cos, side in ((s2, s3, ca, a2), (s1, s3, cb, b2),
+                                (s1, s2, cg, c2))], dim=-1)
 
 
 def quartic_coefficients(Ar, Br, ca, cb, cg) -> Tuple[torch.Tensor, ...]:
@@ -212,6 +220,102 @@ def quartic_normalized(Ar, Br, ca, cb, cg) -> Tuple[torch.Tensor, ...]:
     return n3 / den1, n2 / den2, n1 / den1, n0 / den0
 
 
+def _fma_c(a, value: float, c):
+    """``fma(a, value, c)`` with a float32 constant."""
+    return fma_f32(a, _c(value, a).expand_as(a), c)
+
+
+def ferrari_roots(n3, n2, n1, n0) -> torch.Tensor:
+    """Ferrari's four roots (..., 4) of the monic quartic ``y^4 + n3 y^3 +
+    n2 y^2 + n1 y + n0`` (:func:`quartic_normalized`'s coefficients),
+    before the polishes, as the compiled reference's fusions round them
+    (read off by ``tools/fit_p3p_fusions.py``): divisions by constants are
+    products by their float32 reciprocals, a product with one use fused
+    into the add that takes it, the resolvent's ``arccos`` of ``R /
+    sqrt(-Q^3)`` a product by :func:`rsqrt_xla`, ``R + sqrtD`` contracted
+    in the cube roots' arguments and not in their signs, and each of the
+    four roots a region of its own (``s^2 - 4 t`` an FMA there)."""
+    F = fma_f32
+    a, b, c, d = n3, n2, n1, n0
+    # the depressed quartic y^4 + p y^2 + q y + r
+    a3a = (a * 3.0) * a
+    p = _fma_c(-a3a, 0.125, b)
+    pp = p * p
+    q = _fma_c((a * a) * a, 0.125, _fma_c(-(a * b), 0.5, c))
+    r = _fma_c(-((a3a * a) * a), 0.00390625, _fma_c(
+        (a * a) * b, 0.0625, _fma_c(-(a * c), 0.25, d)))
+    # the resolvent cubic m^3 + p m^2 + B m + C, Cardano's Q, R and D
+    B = _fma_c(pp, 0.25, -r)
+    Q = _fma_c(B, 3.0, -pp) * _c(1.0 / 9.0, p)
+    Rn = F(p * 9.0, B, (q * q) * 3.375) - (pp * p) * 2.0
+    R = Rn * _c(1.0 / 54.0, p)
+    QQ = Q * Q
+    D = F(QQ, Q, R * R)
+    zero = _c(0.0, p)
+    sqrt_d = libm.sqrt_rn(torch.maximum(D, zero))
+    sqrt_mq = libm.sqrt_rn(torch.maximum(-Q, zero))
+    theta = libm.acosf(torch.clamp(R * rsqrt_xla(torch.maximum(
+        -(QQ * Q), _c(1e-30, p))), -1.0, 1.0))
+    third = _c(1.0 / 3.0, p)
+    cube = [libm.powf(torch.abs(_fma_c(Rn, 1.0 / 54.0, sd)),
+                      torch.full_like(p, 1.0 / 3.0))
+            for sd in (sqrt_d, -sqrt_d)]
+    m_pos = F(_sign(sqrt_d + R), cube[0], _sign(R - sqrt_d) * cube[1])
+    m_neg = (sqrt_mq * 2.0) * libm.cosf(theta * third)
+    m = torch.clamp_min(F(-p, third.expand_as(p),
+                          torch.where(D >= 0, m_pos, m_neg)), 1e-12)
+    # (y^2 + s y + t0)(y^2 - s y + t1), s = sqrt(2 m)
+    s = libm.sqrt_rn(m * 2.0)
+    q2s = q / (s * 2.0)
+    h = _fma_c(p, 0.5, m)
+    sq0 = libm.sqrt_rn(torch.maximum(F(s, s, -((h - q2s) * 4.0)), zero))
+    sq1 = libm.sqrt_rn(torch.maximum(F(s, s, -((q2s + h) * 4.0)), zero))
+    half = _c(0.5, p)
+    ys = torch.stack([(sq0 - s) * half, (-s - sq0) * half,
+                      (s + sq1) * half, (s - sq1) * half], dim=-1)
+    return _fma_c(-a[..., None].expand_as(ys), 0.25, ys)
+
+
+def polish_step(x: torch.Tensor, Ar, Br, ca, cb, cg) -> torch.Tensor:
+    """One Newton polish of P3P's quartic roots ``x`` (..., 4): ``f / fp``
+    of the quartic in ``v`` from the side ratios and cosines (..., 1), as
+    the compiled reference's polish fusion recomputes its coefficients
+    and contracts Horner's steps (read off by
+    ``tools/fit_p3p_fusions.py``); ``fp`` taken as 1 where ``|fp| <=
+    1e-12``."""
+    F = fma_f32
+    A2, A4, A8 = Ar * 2.0, Ar * 4.0, Ar * 8.0
+    B2, B4 = Br * 2.0, Br * 4.0
+    BB = Br * Br
+    head = F(Ar, Ar, -(A2 * Br))                 # Ar Ar - 2 Ar Br
+    B4ca = B4 * ca
+    B4caca = B4ca * ca
+    C4 = (B2 + ((BB + (head - A2)) - B4caca)) + 1.0
+    A8Brcb = (A8 * Br) * cb
+    # C3 and C1 share -4 Ar Ar cb + 8 Ar Br cb + 4 Ar ca cg
+    c31 = F(A4 * ca, cg, A8Brcb - (A4 * Ar) * cb)
+    A4cb = A4 * cb
+    B4Brcb = (B4 * Br) * cb
+    B8ca = (Br * 8.0) * ca
+    B4cacg = B4ca * cg
+    B4cb = B4 * cb
+    ca4 = ca * 4.0
+    ca4cg = ca4 * cg
+    C3 = ((B4cacg + F(B8ca * ca, cb, (A4cb + c31) - B4Brcb)) - B4cb) - ca4cg
+    A4cgcg = (A4 * cg) * cg
+    c2 = F(-A4, Br, F(-A8Brcb, cb, F(A2, Ar, ((A4 * Ar) * cb) * cb)))
+    c2 = F(B4Brcb, cb, F(-((A8 * ca) * cb), cg, c2) - A4cgcg)
+    c2 = F(-(B8ca * cb), cg, F(B2, Br, c2) - B4caca)
+    C2 = F(cg * 4.0, cg, F(ca4, ca, c2)) - 2.0
+    C1 = ((B4cb + (B4cacg + ((F((A8 * cb) * cg, cg, c31) - A4cb)
+                             - B4Brcb))) - ca4cg)
+    C0 = (((BB + (A2 + (head - A4cgcg))) - B2) + 1.0)
+    f = F(F(F(F(C4, x, C3), x, C2), x, C1), x, C0)
+    fp = F(F(F(C4 * 4.0, x, C3 * 3.0), x, C2 * 2.0), x, C1)
+    one = _c(1.0, x)
+    return f / torch.where(torch.abs(fp) > 1e-12, fp, one)
+
+
 def p3p_distances_torch(bearings: torch.Tensor, points: torch.Tensor
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The plain version of kernel P1: for samples of ``bearings`` (..., 3,
@@ -235,18 +339,23 @@ def p3p_distances_torch(bearings: torch.Tensor, points: torch.Tensor
     # resultant of the two ratio equations)
     Ar = a2 / b2
     Br = c2 / b2
-    C4, C3, C2, C1, C0 = quartic_coefficients(Ar, Br, ca, cb, cg)
 
-    v, _ = solve_quartic(C4, C3, C2, C1, C0, normalized=quartic_normalized(
-        Ar, Br, ca, cb, cg))                              # (..., 4)
+    # Ferrari's roots and six Newton polishes of them, as compiled
+    v = ferrari_roots(*quartic_normalized(Ar, Br, ca, cb, cg))  # (..., 4)
+    ratios = [x[..., None] for x in (Ar, Br, ca, cb, cg)]
+    for _ in range(6):
+        v = v - polish_step(v, *ratios)
     ca, cb, cg = ca[..., None], cb[..., None], cg[..., None]
     a2, b2, c2, Br = a2[..., None], b2[..., None], c2[..., None], Br[..., None]
 
-    # s1 from side b: s1^2 (1 + v^2 - 2 v cos_b) = b^2
-    g = torch.clamp_min(1.0 + v * v - 2.0 * v * cb, 1e-12)
+    # s1 from side b: s1^2 (1 + v^2 - 2 v cos_b) = b^2, as compiled:
+    # fma(-v, 2 cb, fma(v, v, 1))
+    one = torch.ones_like(v)
+    g = torch.clamp_min(fma_f32(-v, (cb * 2.0).expand_as(v),
+                                fma_f32(v, v, one)), 1e-12)
     s1 = libm.sqrt_rn(b2 / g)
     # u = s2/s1 from side c; both branches are candidates (8 in all)
-    disc = torch.clamp_min(cg * cg - (1.0 - Br * g), 0.0)
+    disc = torch.clamp_min(cg * cg - fma_f32(-Br.expand_as(g), g, one), 0.0)
     sq = libm.sqrt_rn(disc)
     u = torch.cat([cg + sq, cg - sq], dim=-1)           # (..., 8)
     v8 = torch.cat([v, v], dim=-1)
@@ -255,17 +364,19 @@ def p3p_distances_torch(bearings: torch.Tensor, points: torch.Tensor
 
     # Newton on the distances against the cosine-law system
     zero = torch.zeros((), dtype=s.dtype, device=s.device)
+    eye9 = torch.eye(3, dtype=s.dtype, device=s.device) * _c(1e-9, s)
     for _ in range(8):
         s1_, s2_, s3_ = s[..., 0], s[..., 1], s[..., 2]
         F = _cosine_law(s, ca, cb, cg, a2, b2, c2)
-        d_ = torch.full_like(s1_, 1e-9)
+        z = torch.zeros_like(s1_)
+        # + 1e-9 I: the off-diagonal entries + 0, as the reference adds it
         J = torch.stack([
-            torch.stack([d_, 2 * s2_ - 2 * s3_ * ca,
+            torch.stack([z, 2 * s2_ - 2 * s3_ * ca,
                          2 * s3_ - 2 * s2_ * ca], -1),
-            torch.stack([2 * s1_ - 2 * s3_ * cb, d_,
+            torch.stack([2 * s1_ - 2 * s3_ * cb, z,
                          2 * s3_ - 2 * s1_ * cb], -1),
             torch.stack([2 * s1_ - 2 * s2_ * cg,
-                         2 * s2_ - 2 * s1_ * cg, d_], -1)], dim=-2)
+                         2 * s2_ - 2 * s1_ * cg, z], -1)], dim=-2) + eye9
         delta = lu_solve(J, F)
         fin = torch.isfinite(delta).all(-1, keepdim=True)
         s = s - torch.where(fin, delta, zero)
@@ -305,9 +416,10 @@ def p3p_distances(bearings: torch.Tensor, points: torch.Tensor
         # held by name until the launch: a freed copy's memory would take
         # the next copy
         bearings, points = bearings.contiguous(), points.contiguous()
+        table = rsqrtps_table(bearings.device)
         kernels.call("p3p", "tod_p3p",
-                     [bearings.data_ptr(), points.data_ptr(), s.data_ptr(),
-                      ok.data_ptr()], [n],
+                     [bearings.data_ptr(), points.data_ptr(),
+                      table.data_ptr(), s.data_ptr(), ok.data_ptr()], [n],
                      torch.cuda.current_stream(bearings.device).cuda_stream)
         p3p_distances.launches += 1
     return s, ok.bool()

@@ -27,7 +27,7 @@ BUILD = Path(__file__).resolve().parent / "build"
 SOURCES = ("segmented_top1", "segmented_l2_top1",   # csrc/, by file stem
            "hamming_topk", "threefry_gumbel", "libm_f32", "sift_descriptor",
            "l2_distances", "p3p", "gauss_newton", "orientation",
-           "mirror")
+           "mirror", "consensus")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

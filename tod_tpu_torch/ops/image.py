@@ -16,6 +16,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from tod_tpu_torch.ops.reduce import tree_sum
+
 
 def rgb_to_gray(image: torch.Tensor) -> torch.Tensor:
     """BT.601 luma, matching cv::cvtColor RGB2GRAY. Accepts (H,W,3) u8/float,
@@ -141,22 +143,11 @@ def _fma_f32(a: np.ndarray, b, c: np.ndarray) -> np.ndarray:
 
 
 def _tree_sum(x: np.ndarray) -> np.ndarray:
-    """Column sums of x as the reference's compiled reduce sums them: XLA
-    rewrites a reduction of more than 32 rows into a reduce-window of 32-row
-    windows, padded to a multiple of 32 with ``(pad // 2)`` zero rows in
-    front, each window summed in order, and then reduces the window sums
-    the same way."""
-    n = x.shape[0]
-    if n <= 32:
-        total = np.zeros(x.shape[1:], np.float32)
-        for row in x:
-            total = total + row
-        return total
-    padded = -(-n // 32) * 32
-    xp = np.zeros((padded,) + x.shape[1:], np.float32)
-    xp[(padded - n) // 2:(padded - n) // 2 + n] = x
-    return _tree_sum(np.stack([_tree_sum(xp[b:b + 32])
-                               for b in range(0, padded, 32)]))
+    """Column sums of float32 ``x`` as the reference's compiled reduce sums
+    them (:func:`ops.reduce.tree_sum`: 32-row windows, padded in front by
+    half the padding, then the windows' sums the same way)."""
+    return tree_sum(torch.from_numpy(np.ascontiguousarray(x, np.float32)),
+                    0).numpy()
 
 
 def _vector_columns(out_size: int, step: int) -> int:

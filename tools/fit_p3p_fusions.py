@@ -43,13 +43,21 @@ prints every fusion's) and checks:
 2. whether the 2D path's programs (the jitted ``detect_frame_2d`` of the
    scene of ``tests/test_torch_detection2d.py`` and at the shape of
    ``tests/data/torch_a13_fixture.npz``: 100 objects, 512 hypotheses)
-   contract those fusions as the standalone ``vmap(p3p)`` does;
+   contract those fusions, and those of Ferrari's solution, the polishes
+   and the first distances (``STAGE_FUSIONS``), as the standalone
+   ``vmap(p3p)`` does;
 3. how far the model reproduces the whole program (R, T, valid).
 
 With ``--oracle`` the model matches every fusion of ``vmap(p3p)`` through
-Ferrari's solution and the six polishes of the roots; it misses from the
-first distances on (their interleaved concatenate), the Newton step's J
-and F, and the Horn fit's fusions: the next to read.
+Ferrari's solution and the six polishes of the roots and the first
+distance; it misses the other distances (their interleaved concatenate:
+``cg * cg`` is not contracted there), the Newton step's J (unfused) and
+F (``fma(-(2 x y), cos, fma(x, x, y y))``), read instead by trying
+candidates against the compiled fusions, and the Horn fit's fusions. The
+port transcribes P3P through the Newton steps (``geometry/pnp.py``).
+:func:`compiled_trace` runs the entry with every fusion by XLA's own
+object code, which ``tests/test_torch_pnp.py`` holds the port's roots
+to.
 
 ``--oracle`` links each fusion's dumped object file into a shared library
 and calls it (XLA:CPU's kernel call frame) on the model's own inputs:
@@ -990,9 +998,11 @@ class Oracle:
                 count = max(count, c)
         return count
 
-    def __call__(self, name: str, inputs, out_type: str):
+    def __call__(self, name: str, inputs, out_type: str, init=None):
         """The fusion ``name``'s output (logical order) on ``inputs``
-        ((array, HLO type) pairs), or None without an object file."""
+        ((array, HLO type) pairs), or None without an object file. ``init``
+        (an input of the output's type) fills the output buffer first: a
+        fusion that XLA runs in place reads its operand there."""
         if name not in self.fns:
             objs = glob.glob(os.path.join(
                 self.dumpdir, f"*obj-file.{name}_kernel_module.o"))
@@ -1015,6 +1025,8 @@ class Oracle:
                 for a, t in inputs]
         dt, shape, layout = parse_type(out_type)
         out = np.zeros(int(np.prod(shape)), DT[dt])
+        if init is not None:
+            out[:] = to_phys(np.asarray(init), layout).astype(DT[dt])
         arrs.append(out)
         args = (_Arg * len(arrs))(*[_Arg(a.ctypes.data, a.nbytes)
                                     for a in arrs])
@@ -1057,6 +1069,63 @@ def oracle_table(text: str, dumpdir: str, bear, pts):
         it.eval = eval_and_ask.__get__(it)
         it.run(bear, pts)
     return rows
+
+
+class _Stop(Exception):
+    pass
+
+
+def compiled_trace(text: str, dumpdir: str, bear, pts, until: str) -> dict:
+    """The program's entry run op by op on ``bear`` and ``pts``, every f32
+    fusion by XLA's own compiled kernel (its dumped object file; the
+    model only where a fusion has none), up to the fusion ``until``: each
+    fusion's and entry value's output by name (a loop's fusions: the last
+    trip's). No interpreted fusion feeds the result, so it is the compiled
+    reference's arithmetic as far as ``until``."""
+    with tempfile.TemporaryDirectory() as work:
+        oracle = Oracle(dumpdir, work)
+        it = Interp(text, lapack=lapack_call, gemv_dot=dot_mode)
+        plain_eval = Interp.eval
+        out = {}
+
+        def eval_compiled(self, ins, env, args, cname):
+            if ins.op == "fusion" and ins.type.startswith("f32["):
+                types = {i.name: i.type for i in self.comps[cname]}
+                same = [o for o in ins.operands if types[o] == ins.type]
+                got = oracle(ins.name, [(env[o], types[o])
+                                        for o in ins.operands], ins.type,
+                             init=env[same[0]] if same else None)
+                val = got if got is not None else plain_eval(
+                    self, ins, env, args, cname)
+                out[ins.name] = val
+                if ins.name == until:
+                    raise _Stop
+                return val
+            return plain_eval(self, ins, env, args, cname)
+
+        it.eval = eval_compiled.__get__(it)
+        try:
+            it.run(bear, pts)
+        except _Stop:
+            pass
+    return {**it.trace, **out}
+
+
+def ferrari_fusions(text: str) -> dict:
+    """The fusions of the entry that hold Ferrari's roots (the concatenate
+    of the four roots before ``- a / 4``) and the six polishes' ``f / fp``
+    in order, by their roles: ``{"roots": name, "polishes": [names]}``
+    (found by their operands: the polishes' chain starts at the roots)."""
+    ops = {}
+    for m in re.finditer(r"%(\S+) = f32\[(\d+),4\]\{1,0\} fusion\((.*?)\), "
+                         r"kind=kLoop", text):
+        ops[m.group(1)] = re.findall(r"%([\w.\-]+)", m.group(3))
+    polishes = [n for n in ops if n.startswith("select_divide_fusion")]
+    roots = [n for n in ops if n not in polishes]
+    order = sorted(polishes, key=lambda n: sum(o in polishes
+                                               for o in ops[n]))
+    assert len(roots) == 1 and len(order) == 6, (roots, order)
+    return {"roots": roots[0], "polishes": order}
 
 
 # --- the P3P programs -----------------------------------------------------
@@ -1196,6 +1265,29 @@ def canonical(expr: str) -> str:
                   re.sub(r"\s+", " ", expr))
 
 
+# the fusions from Ferrari's resolvent to the first distances (the port's
+# pnp.ferrari_roots, polish_step and first distances), by their names in
+# the standalone vmap(p3p) of jax 0.9.0
+STAGE_FUSIONS = ("maximum_sqrt_fusion", "multiply_add_fusion",
+                 "maximum_sqrt_fusion.1", "sqrt_atan2_fusion",
+                 "broadcast_power_fusion", "abs_power_fusion",
+                 "multiply_sqrt_fusion", "multiply_divide_fusion",
+                 "bitcast_concatenate_fusion.5", "select_divide_fusion.5",
+                 "sqrt_concatenate_fusion", "bitcast_concatenate_fusion.4")
+
+
+def stage_fusions(text: str) -> dict:
+    """{name: (called computation, operand names)} of ``STAGE_FUSIONS``
+    in the standalone program."""
+    out = {}
+    for m in re.finditer(r"%(\S+) = [^\n]* fusion\(([^\n]*?)\), "
+                         r"kind=kLoop, calls=%([\w.\-]+)", text):
+        if m.group(1) in STAGE_FUSIONS:
+            out[m.group(1)] = (m.group(3),
+                               re.findall(r"%([\w.\-]+)", m.group(2)))
+    return out
+
+
 def big_fusions(text: str, min_muls: int = 8):
     """(fusion name, called computation, operands) of every fusion whose
     computation holds at least ``min_muls`` multiplies."""
@@ -1279,10 +1371,16 @@ def main() -> int:
                          for _, comp, ops in big_fusions(t2)}
                 mine = {canonical(it.express(comp, ops))
                         for _, comp, ops in fusions}
+                later = {canonical(it.express(comp, ops))
+                         for comp, ops in stage_fusions(text).values()}
+                found |= {canonical(it2.express(comp, ops))
+                          for _, comp, ops in big_fusions(t2, 0)}
                 print(f"2D path program {os.path.basename(path).split('.cpu_')[0]}: "
-                      f"{len(mine & found)} of the 4 coefficient fusions "
-                      f"contracted as in the standalone vmap(p3p)")
-                ok &= mine <= found
+                      f"{len(mine & found)} of the 4 coefficient fusions and "
+                      f"{len(later & found)} of the {len(later)} fusions of "
+                      f"Ferrari's solution, the polishes and the first "
+                      f"distances contracted as in the standalone vmap(p3p)")
+                ok &= mine <= found and later <= found
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
     # 3. the later stages against partial programs of the same code

@@ -1,5 +1,6 @@
-"""Time, on a card, the 2D-only path, the SIFT graph's matcher, the P3P or
-the 2D refinement kernel of the tree at ``--root`` (default: this
+"""Time, on a card, the 2D-only path, the SIFT graph's matcher, the P3P,
+the 2D refinement, the model normal or the reprojection consensus kernel
+of the tree at ``--root`` (default: this
 checkout), so that a parent commit and its change can be timed in turns
 in one call:
 
@@ -28,7 +29,14 @@ in one call:
 - ``--what m2``: the model normal alone, ``geometry/detection2d.py
   sym3_smallest_vector`` (kernel M2 on the card) on phase 3j's 32
   covariances (this checkout's ``chip_smoke.mirror_cases``, seed 37),
-  ``m2`` around the call and ``m2_device`` queued behind a device sleep.
+  ``m2`` around the call and ``m2_device`` queued behind a device sleep;
+- ``--what r1``: the reprojection consensus alone, kernel R1's modes
+  (``geometry/detection2d.py consensus_counts``, ``consensus_select``,
+  ``consensus_masks``, ``consensus_sse``) on phase 3l's inputs (this
+  checkout's ``chip_smoke.consensus_cases``, seed 41, at a chunk's
+  ``R1_SHAPES[0]``; masks and SSE at the selection's 16 poses), each
+  around the call and queued behind a device sleep (``*_device``), and
+  ``consensus`` the stage's two launches together; a tree with R1 only.
 
 Prints one JSON line: the medians in ms and each frame's values, with the
 card's name and power limit. Run it from a checkout with its fixtures
@@ -244,11 +252,55 @@ def time_m2(frames: int) -> list:
     return out
 
 
+def time_r1(frames: int) -> list:
+    import torch
+
+    from tod_tpu_torch.geometry import detection2d as td
+    from tod_tpu_torch.geometry.adjacency import ObjectMatches
+
+    own = own_chip_smoke()
+    dev = torch.device("cuda", 0)
+    R, T, K, X, xy, valid, ok = (x.to(dev) for x in own.consensus_cases(
+        np.random.default_rng(41), *own.R1_SHAPES[0]))
+    m = ObjectMatches(query_pts=None, train_pts=X, query_idx=None,
+                      query_xy=xy, valid=valid)
+    thr2 = 16.0
+    counts = td.consensus_counts(R, T, K, m, valid, ok, thr2)
+    sel = td.consensus_select(counts, R, T, K, m, valid, ok, thr2)
+    calls = {
+        "counts": lambda: td.consensus_counts(R, T, K, m, valid, ok, thr2),
+        "select": lambda: td.consensus_select(counts, R, T, K, m, valid, ok,
+                                              thr2),
+        "masks": lambda: td.consensus_masks(sel.R, sel.T, K, m, valid, thr2),
+        "sse": lambda: td.consensus_sse(sel.R, sel.T, K, m, valid, thr2),
+        "consensus": lambda: td.consensus_select(
+            td.consensus_counts(R, T, K, m, valid, ok, thr2), R, T, K, m,
+            valid, ok, thr2)}
+    out = []
+    for f in range(frames + 2):
+        row = {}
+        for name, call in calls.items():
+            for key, queued in ((name, False), (f"{name}_device", True)):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                if queued:
+                    torch.cuda._sleep(2_000_000)  # ~1 ms: hides the host
+                start.record()
+                call()
+                end.record()
+                end.synchronize()
+                row[key] = start.elapsed_time(end)
+        if f >= 2:                                       # after 2 warm
+            out.append(row)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
-    ap.add_argument("--what", choices=("2d", "matcher", "p1", "p2", "m2"),
+    ap.add_argument("--what", choices=("2d", "matcher", "p1", "p2", "m2",
+                                       "r1"),
                     default="2d")
     ap.add_argument("--frames", type=int, default=5)
     args = ap.parse_args()
@@ -268,7 +320,8 @@ def main() -> int:
                  "matcher": lambda: time_matcher(cs, args.frames),
                  "p1": lambda: time_p1(args.frames),
                  "p2": lambda: time_p2(cs, args.frames),
-                 "m2": lambda: time_m2(args.frames)}[args.what]()
+                 "m2": lambda: time_m2(args.frames),
+                 "r1": lambda: time_r1(args.frames)}[args.what]()
     keys = sorted({k for f in per_frame for k in f})
     print(json.dumps({
         "what": args.what, "root": root, "card": card_line(),
